@@ -1,0 +1,48 @@
+"""The ``force=`` rule shared by every op with a kernel, and launch helpers.
+
+``force=None`` launches the kernel for a CUDA tensor and runs the plain
+PyTorch version for a CPU tensor; ``"torch"`` always runs the plain version;
+``"kernel"`` launches the kernel and raises on a CPU tensor. There is no
+fallback: a CUDA tensor the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["use_kernel", "require", "stream_of", "ptr"]
+
+_FORCES = (None, "torch", "kernel")
+
+# peak shared memory one block can use on the H100 (sm_90)
+SMEM_LIMIT = 232448
+
+
+def use_kernel(force: str | None, x: torch.Tensor, op: str) -> bool:
+    if force not in _FORCES:
+        raise ValueError(f"{op}: force must be one of {_FORCES}, got {force!r}")
+    if force == "torch":
+        return False
+    if force == "kernel" and not x.is_cuda:
+        raise RuntimeError(f"{op}: force='kernel' needs CUDA tensors, got {x.device}")
+    return x.is_cuda
+
+
+def require(cond: bool, op: str, what: str) -> None:
+    """Raise the wrapper's refusal when a kernel cannot take its inputs."""
+    if not cond:
+        raise ValueError(f"{op}: the CUDA kernel does not take this input: {what}")
+
+
+def ptr(t: torch.Tensor | None, op: str) -> int | None:
+    if t is None:
+        return None
+    require(t.is_contiguous(), op, "a non-contiguous tensor")
+    require(t.data_ptr() % 16 == 0, op, "a tensor not 16-byte aligned")
+    return t.data_ptr()
+
+
+def stream_of(x: torch.Tensor) -> tuple[int, int]:
+    """(device index, current stream handle) for launches on x's device."""
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(dev).cuda_stream
