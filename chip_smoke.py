@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's main path, CFFM-B1 clip inference (4 frames of 480×480 in,
-one refined target-frame mask out), through ``init_segmentor`` and
-``inference_segmentor``, with random weights drawn from a fixed seed.
+Drives the port's two paths with random weights drawn from a fixed seed:
+CFFM-B1 clip inference (4 frames of 480×480 in, one refined target-frame
+mask out) through ``init_segmentor`` and ``inference_segmentor``, then
+CFFM-B1 train steps (2 clips of 4 frames, 480×480, bf16 compute, f32
+parameters, composed blocks) through ``TrainState`` and ``make_train_step``.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the device: name, ``nvidia-smi`` name and power limit, torch and CUDA;
@@ -24,21 +26,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      model under ``force="torch"`` on the card; end-to-end frames/s (one output
      frame per clip, the repo's bench convention), the median of ROUNDS
      rounds of TIMED_CLIPS clips with every round printed, and peak memory;
-  5. one JSON line of kernels, the ``nvidia-smi`` line, and the final
+  5. the train phase: a synthetic uint8 batch (2, 4, 480, 480, 3) with
+     labels in [0, 124), ~5 % ignored (255); the inputs of the train step's
+     kernels captured from one plain forward/backward, and each held
+     against its plain version as in 3 (CE forward and backward at N 8 and
+     N 2, CFM attention forward and backward at 162 windows, depthwise conv
+     with its pre-activation output at the backbone's train shapes); the gradients of one
+     forward/backward with the kernels against the plain path's on the
+     same weights, batch and generator; then, with the counts set to 0,
+     TRAIN_COUNTED train steps, the counts held to 2 / 2 / 2 / 2 / 8 / 0 per
+     step (CE forward, CE backward, CFM attention, its backward, depthwise
+     conv, whole block) and a finite loss; then ms per step, train frames/s
+     (B·T frames per step) over TRAIN_ROUNDS rounds of TRAIN_STEPS steps,
+     every round printed, and peak memory;
+  6. one JSON line of kernels, the ``nvidia-smi`` line, and the final
      ``{"ok": true, "device": {...}}`` line.
 
-``--profile`` adds, for one clip, the device busy time, the number of kernel
-launches and of ``aten::_to_copy`` calls, and a torch.profiler table of device
-time by kernel, written to ``chiprun_out/profile.txt``.
+``--profile`` adds, for one clip and for one train step, the device busy
+time, the number of kernel launches and of ``aten::_to_copy`` calls, and a
+torch.profiler table of device time by kernel, written to
+``chiprun_out/profile.txt`` and ``chiprun_out/profile_train.txt``.
 
 Per-kernel times in the JSON line are per call, averaged over the kernel's
 calls in one clip (each main-path shape weighted by its calls); the per-shape
-times are printed above it.
+times are printed above it. ``bound_ms`` is the least time the card could
+take: the largest of bytes / 3.35 TB/s, tensor ops / 989 TFLOP/s, f32 ops /
+67 TFLOP/s and exponentials / the MUFU rate (16 per SM per clock, 132 SMs at
+1.98 GHz), H100 SXM data-sheet figures at 700 W.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import subprocess
@@ -51,10 +71,15 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, 700 W
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
+MUFU_EXP_PER_S = 16 * 132 * 1.98e9  # ex2 on the special-function units
 CLIPS = 3
 TIMED_CLIPS = 10
 ROUNDS = 3
 SEED = 0
+TRAIN_B, TRAIN_T, TRAIN_HW, NUM_CLASSES = 2, 4, 480, 124
+TRAIN_COUNTED = 2
+TRAIN_STEPS = 3
+TRAIN_ROUNDS = 3
 
 
 def _smi() -> str:
@@ -80,11 +105,13 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
 
 
-def _bound_ms(nbytes: float, tensor_ops: float, f32_ops: float) -> tuple[float, str]:
-    """The tensor cores and the f32 units run at the same time, so each sets
-    its own floor; the bound is the largest of the three."""
+def _bound_ms(nbytes: float, tensor_ops: float, f32_ops: float,
+              exps: float = 0.0) -> tuple[float, str]:
+    """The tensor cores, the f32 units and the special-function units (exp)
+    run at the same time, so each sets its own floor; the bound is the
+    largest of the four."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(tensor_ops / BF16_TENSOR_FLOPS, f32_ops / F32_FLOPS)
+    t_ops = max(tensor_ops / BF16_TENSOR_FLOPS, f32_ops / F32_FLOPS, exps / MUFU_EXP_PER_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -196,26 +223,35 @@ KERNELS = {
 }
 
 
-@torch.inference_mode()
-def check_kernels(ops, caught) -> dict:
+def _compare_one(got, want, rel_tol):
+    """[(label, max |got − want|, tolerance)] for one tensor held to rel_tol of
+    its largest value (train-step gradients are small: no absolute floor)."""
+    if not torch.isfinite(got.float()).all():
+        return [("out", float("inf"), 0.0)]
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    return [("out", err, rel_tol * max(scale, 1e-30))]
+
+
+@torch.no_grad()
+def check_kernels(ops, caught, kernels: dict) -> dict:
     results = {}
-    for name, spec in KERNELS.items():
+    for name, spec in kernels.items():
         per_shape = []
         for args in caught[name]:
             case = spec["case"](ops, args)
             got = case["call"]("kernel")
             want = case["call"]("torch")
             torch.cuda.synchronize()
-            if not torch.isfinite(got.float()).all():
-                raise RuntimeError(f"{name}: non-finite kernel output at {case['shape']}")
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            tol = spec["rel_tol"] * max(scale, 1e-3)
-            print(f"[kernel] {name} {case['shape']}: max_abs_err={err:.3e} "
-                  f"rel={err / max(scale, 1e-30):.3e} tol={tol:.3e}", flush=True)
-            if err > tol:
-                raise RuntimeError(f"{name}: kernel disagrees with its plain version "
-                                   f"({err} > {tol}) at {case['shape']}")
+            compare = case.get("compare") or (lambda g, w: _compare_one(g, w, spec["rel_tol"]))
+            checks = compare(got, want)
+            for label, err, tol in checks:
+                print(f"[kernel] {name} {case['shape']} {label}: max_abs_err={err:.3e} "
+                      f"tol={tol:.3e} ({err / tol if tol else float('inf'):.3f} of it)",
+                      flush=True)
+                if not err <= tol:
+                    raise RuntimeError(f"{name}: kernel disagrees with its plain version "
+                                       f"({label}: {err} > {tol}) at {case['shape']}")
             for step, s_err, s_tol in case["steps"]() if "steps" in case else ():
                 print(f"[kernel] {name} {case['shape']} step {step}: max_abs_err={s_err:.3e} "
                       f"tol={s_tol:.3e}", flush=True)
@@ -228,8 +264,9 @@ def check_kernels(ops, caught) -> dict:
             bound_ms, bound_by = case["bound"]
             print(f"[kernel] {name} {case['shape']}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={lib_ms} bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
-            per_shape.append(dict(shape=case["shape"], err=err, ms=ms, plain_ms=plain_ms,
-                                  library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by))
+            per_shape.append(dict(shape=case["shape"], err=max(c[1] for c in checks), ms=ms,
+                                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by))
         n = len(per_shape)
         mean = lambda k: sum(p[k] for p in per_shape) / n
         lib = None if per_shape[0]["library_ms"] is None else mean("library_ms")
@@ -238,6 +275,327 @@ def check_kernels(ops, caught) -> dict:
                              plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
                              bound_by=by, library_ms=lib)
     return results
+
+
+# ---- the train step's kernels: inputs captured from one plain step --------
+
+
+def _ce_case(ops, args):
+    logits, labels, s, img_w, count_acc = args
+    c = logits.shape[-1]
+    n_valid = int(((labels >= 0) & (labels < c)).sum())
+    exps = n_valid * c
+    # per class of a valid pixel: two lerps (6), max, subtract, sum (3)
+    bound = _bound_ms(_nbytes(logits, labels), 0, exps * 9, exps)
+    lab = labels.long()
+    f = torch.nn.functional
+
+    def library():
+        # two calls: F.interpolate and F.cross_entropy (sum, ignore_index 255)
+        up = f.interpolate(logits.permute(0, 3, 1, 2).float(), size=tuple(labels.shape[1:]),
+                           mode="bilinear", align_corners=False)
+        return f.cross_entropy(up, lab, reduction="sum", ignore_index=255)
+
+    def compare(got, want):
+        # wsum: f32 sums of ~10^6 NLLs in other orders, the lerp rounded as
+        # F.interpolate rounds it: 1e-4 relative. corr: a pixel whose two
+        # largest logits are within rounding may count either way: 1e-4 of
+        # the valid pixels
+        return [("wsum", abs(got[0].item() - want[0].item()), 1e-4 * abs(want[0].item())),
+                ("corr", abs(got[1].item() - want[1].item()), 1e-4 * n_valid)]
+
+    return dict(call=lambda force: ops.ce_upsampled_loss(logits, labels, s, img_w, count_acc,
+                                                         force=force),
+                bound=bound, library=library, compare=compare,
+                shape=f"logits{tuple(logits.shape)} s={s}")
+
+
+def _ce_bwd_case(ops, args):
+    logits, labels, g, s, img_w = args
+    c = logits.shape[-1]
+    exps = int(((labels >= 0) & (labels < c)).sum()) * c
+    # per class of a valid pixel: lerps, softmax, the weighted adjoint (~16)
+    bound = _bound_ms(_nbytes(logits, labels) + logits.numel() * 2, 0, exps * 16, exps)
+    f = torch.nn.functional
+    x = logits.detach().clone().requires_grad_(True)
+    lab = labels.long()
+    with torch.enable_grad():
+        up = f.interpolate(x.permute(0, 3, 1, 2).float(), size=tuple(labels.shape[1:]),
+                           mode="bilinear", align_corners=False)
+        loss = f.cross_entropy(up, lab, reduction="sum", ignore_index=255)
+    gw = (g * img_w).float()
+    library = lambda: torch.autograd.grad(loss, x, gw, retain_graph=True)
+    return dict(call=lambda force: ops.ce_upsampled_loss_bwd(logits, labels, g, s, img_w,
+                                                             force=force),
+                bound=bound, library=library, shape=f"logits{tuple(logits.shape)} s={s}")
+
+
+def _cfm_bwd_case(ops, args):
+    q, k, v, bias, mask, g, nh = args
+    nw, area, c = q.shape
+    n, hd = k.shape[1], c // nh
+    pairs = nw * nh * area * n
+    out_bytes = _nbytes(q, k, v) + nh * area * n * 4
+    # five products (S, dP, dV, dq, dK), one exp per score, ~12 f32 ops per score
+    bound = _bound_ms(_nbytes(q, k, v, g, bias, mask) + out_bytes, 5 * 2 * pairs * hd,
+                      12 * pairs, pairs)
+    heads = lambda t: t.reshape(nw, -1, nh, hd).transpose(1, 2).detach().clone()
+    qh, kh, vh, gh = heads(q), heads(k), heads(v), heads(g)
+    am = (bias[None] + mask[:, None, None, :]).to(q.dtype)
+    leaves = [t.requires_grad_(True) for t in (qh, kh, vh, am)]
+    library = None
+    try:
+        with torch.enable_grad():
+            out = torch.nn.functional.scaled_dot_product_attention(*leaves[:3],
+                                                                   attn_mask=leaves[3])
+            torch.autograd.grad(out, leaves, gh, retain_graph=True)
+        library = lambda: torch.autograd.grad(out, leaves, gh, retain_graph=True)
+    except RuntimeError as e:  # the yardstick only; the port never calls SDPA
+        print(f"[kernel] cfm_attention_bwd: no library time: SDPA backward with a "
+              f"grad-carrying attn_mask failed: {str(e).splitlines()[0]}", flush=True)
+
+    def compare(got, want):
+        # dq, dK, dV: bf16 ds and p rounded at the same points from f32 sums
+        # in other orders, one ulp that may carry through one product: 2^-6
+        # of each output's largest value; dbias: f32 sums over windows, 2^-10
+        out = []
+        for label, a, b, rel in zip(("dq", "dk", "dv", "dbias"), got, want,
+                                    (2.0 ** -6,) * 3 + (2.0 ** -10,)):
+            out += [(label, e, t) for _, e, t in _compare_one(a, b, rel)]
+        return out
+
+    return dict(call=lambda force: ops.cfm_attention_bwd(q, k, v, bias, mask, g, nh, force=force),
+                bound=bound, library=library, compare=compare,
+                shape=f"q{tuple(q.shape)} N={n} nh={nh}")
+
+
+def _dwconv_train_case(ops, args):
+    case = _dwconv_case(ops, args)
+    x, k, b = args
+
+    def z_check():
+        # the pre-activation output the backward keeps: one bf16 rounding of
+        # f32 sums taken in the same order, FMA contraction aside: one ulp
+        z = torch.empty_like(x)
+        ops.dwconv.dwconv3x3_launch(x, k, b, True, z=z)
+        want = ops.dwconv._preact(x, k, b).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        return [("z", *_compare_one(z, want, 2.0 ** -7)[0][1:])]
+
+    case["steps"] = z_check
+    return case
+
+
+TRAIN_KERNELS = {
+    "ce_upsampled_loss": dict(
+        sources=["vss_cffm_tpu_torch/csrc/ce_upsampled.cu"],
+        replaces="vss_cffm_tpu/ops/ce_upsampled.py:377",  # _fwd_loss_kernel, called at :448
+        case=_ce_case),
+    "ce_upsampled_loss_bwd": dict(
+        sources=["vss_cffm_tpu_torch/csrc/ce_upsampled.cu"],
+        replaces="vss_cffm_tpu/ops/ce_upsampled.py:764",  # _bwd_loss_kernel5, called at :883
+        # bf16 dlogits, one rounding of f32 sums in other orders: one ulp
+        rel_tol=2.0 ** -7, case=_ce_bwd_case),
+    "cfm_attention_bwd": dict(
+        sources=["vss_cffm_tpu_torch/csrc/attention_bwd.cu"],
+        replaces="vss_cffm_tpu/ops/cfm_attention.py:120",  # _bwd_kernel_rc, called at :204
+        case=_cfm_bwd_case),
+    # the forward kernels of the inference path, held again at the train
+    # shapes (the decoder's 162 windows at B·T = 8; the depthwise conv with
+    # its z output); their rows of the kernels line stay the inference
+    # path's (KERNELS), with the tolerances stated there
+    "cfm_attention": dict(rel_tol=2.0 ** -6, case=_cfm_case),
+    "dwconv3x3": dict(rel_tol=2.0 ** -7, case=_dwconv_train_case),
+}
+
+
+def _capture_train_inputs(model, x, labels, force_loss):
+    """One plain forward/backward of the train step; the arguments of each
+    kernel op at its call sites are recorded (copies): the CE and its
+    backward, the CFM attention forward (first decoder block) and backward
+    (both decoder blocks), and the depthwise conv of the first block of each
+    stage."""
+    from vss_cffm_tpu_torch.models import losses, set_force
+
+    # the modules (the package's names cfm_attention etc. are the ops)
+    ce_upsampled = importlib.import_module("vss_cffm_tpu_torch.ops.ce_upsampled")
+    cfm_attention = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")
+
+    caught = {name: [] for name in TRAIN_KERNELS}
+    copy = lambda a: a.detach().clone() if isinstance(a, torch.Tensor) else a
+
+    def recorder(name, fn, nargs, extra=()):
+        def wrapped(*a, **kw):
+            caught[name].append(tuple(copy(t) for t in a[:nargs])
+                                + tuple(kw.get(k, d) for k, d in extra))
+            return fn(*a, **kw)
+        return wrapped
+
+    patches = [(losses, "ce_upsampled_loss", recorder(
+                   "ce_upsampled_loss", losses.ce_upsampled_loss, 4, (("count_acc", True),))),
+               (ce_upsampled, "ce_upsampled_loss_bwd", recorder(
+                   "ce_upsampled_loss_bwd", ce_upsampled.ce_upsampled_loss_bwd, 5)),
+               (cfm_attention, "cfm_attention_bwd", recorder(
+                   "cfm_attention_bwd", cfm_attention.cfm_attention_bwd, 7))]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    hooks = [getattr(model.backbone, f"block{s}")[0].mlp.register_forward_pre_hook(
+        lambda mod, a: caught["dwconv3x3"].append(tuple(copy(t) for t in mod.dwconv_args(a[0]))))
+        for s in range(1, 5)]
+
+    def attention_inputs(mod, a):
+        q, ks, vs, bias, mask, nh = mod.attention_inputs(*a)
+        caught["cfm_attention"].append((copy(q), [copy(k) for k in ks], [copy(v) for v in vs],
+                                        copy(bias), copy(mask), nh))
+
+    hooks.append(model.decode_head.decoder_focal.blocks[0].attn.register_forward_pre_hook(
+        attention_inputs))
+    set_force(model, "torch")
+    try:
+        for mod, attr, fn in patches:
+            setattr(mod, attr, fn)
+        model.zero_grad(set_to_none=True)
+        out = model(x, train=True, generator=torch.Generator("cuda").manual_seed(SEED))
+        force_loss(out, labels, force="torch")["loss_seg"].backward()
+        torch.cuda.synchronize()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+        for hk in hooks:
+            hk.remove()
+        set_force(model, None)
+        model.zero_grad(set_to_none=True)
+    return caught
+
+
+def _grad_agreement(model, x, labels, loss_of) -> None:
+    """One forward/backward with the kernels and one on the plain path, same
+    weights, batch and generator seed; the loss, each parameter's gradient
+    (cosine) and the global norm are held, the worst parameter printed."""
+    from vss_cffm_tpu_torch.models import set_force
+
+    runs = {}
+    for force in (None, "torch"):
+        set_force(model, force)
+        model.zero_grad(set_to_none=True)
+        out = model(x, train=True, generator=torch.Generator("cuda").manual_seed(SEED))
+        loss = loss_of(out, labels, force=force)["loss_seg"]
+        loss.backward()
+        runs[force] = (loss.item(), {n: p.grad.float().clone()
+                                     for n, p in model.named_parameters()})
+    set_force(model, None)
+    model.zero_grad(set_to_none=True)
+    (lk, gk), (lp, gp) = runs[None], runs["torch"]
+    norms = {n: g.norm().item() for n, g in gp.items()}
+    top = max(norms.values())
+    cos = {n: torch.nn.functional.cosine_similarity(gk[n].reshape(-1), gp[n].reshape(-1),
+                                                    dim=0).item()
+           for n in gp if norms[n] >= 1e-3 * top}
+    worst = min(cos, key=cos.get)
+    flat_k = torch.cat([g.reshape(-1) for g in gk.values()])
+    flat_p = torch.cat([g.reshape(-1) for g in gp.values()])
+    nk, np_ = flat_k.norm().item(), flat_p.norm().item()
+    total = torch.nn.functional.cosine_similarity(flat_k, flat_p, dim=0).item()
+    print(f"[train] kernel vs plain path, one forward/backward: loss {lk:.6f} vs {lp:.6f} "
+          f"(rel {abs(lk - lp) / abs(lp):.3e}); grad norm {nk:.6f} vs {np_:.6f} "
+          f"(rel {abs(nk - np_) / np_:.3e}); cosine of all gradients {total:.6f}; worst of "
+          f"{len(cos)} parameters with norm >= 1e-3 of the largest: {worst} cosine "
+          f"{cos[worst]:.6f}; {len(gp) - len(cos)} smaller ones not held", flush=True)
+    # bf16 activations through 8 blocks, the head and 2 decoder blocks, with
+    # roundings at other points on the two paths: the loss and the gradient
+    # norm within 1 %, every non-negligible gradient pointing the same way
+    if not (abs(lk - lp) <= 1e-2 * abs(lp) and abs(nk - np_) <= 1e-2 * np_
+            and total >= 0.999 and cos[worst] >= 0.99):
+        raise RuntimeError("kernel-path gradients disagree with the plain path's")
+
+
+def train_phase(apis, ops, opts, root, kind, smi) -> tuple[dict, dict]:
+    """The train step: kernel checks at its inputs, gradient agreement, the
+    counted steps and the timed rounds. Returns (kernel stats, launch counts
+    over TRAIN_COUNTED steps)."""
+    from vss_cffm_tpu_torch.config import OptimConfig
+    from vss_cffm_tpu_torch.models.losses import clip_ce_loss
+    from vss_cffm_tpu_torch.train import TrainState, device_normalize, make_train_step
+
+    bundle = apis.init_segmentor("b1", device="cuda", dtype=torch.bfloat16, seed=SEED)
+    model = bundle.model.train()
+    rng = np.random.RandomState(SEED + 1)
+    shape = (TRAIN_B, TRAIN_T, TRAIN_HW, TRAIN_HW)
+    imgs = torch.from_numpy(rng.randint(0, 256, (*shape, 3), dtype=np.uint8)).cuda()
+    labels = rng.randint(0, NUM_CLASSES, shape).astype(np.uint8)
+    labels[rng.rand(*shape) < 0.05] = 255
+    batch = {"imgs": imgs, "labels": torch.from_numpy(labels).cuda()}
+    x = device_normalize(imgs, torch.bfloat16)
+
+    caught = _capture_train_inputs(model, x, batch["labels"], clip_ce_loss)
+    stats = check_kernels(ops, caught, TRAIN_KERNELS)
+    _grad_agreement(model, x, batch["labels"], clip_ce_loss)
+
+    state = TrainState.create(model, OptimConfig())
+    step = make_train_step(model, state.optimizer, state.scheduler)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    step(batch, gen)                                     # warm-up (cuDNN, allocator)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    metrics = [step(batch, gen) for _ in range(TRAIN_COUNTED)]
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    print(f"[train] launches over {TRAIN_COUNTED} steps: {counts}", flush=True)
+    per_step = {"ce_upsampled_loss": 2, "ce_upsampled_loss_bwd": 2, "cfm_attention": 2,
+                "cfm_attention_bwd": 2, "dwconv3x3": 8, "mit_block_fused": 0}
+    for name, n in per_step.items():
+        if counts[name] != n * TRAIN_COUNTED:
+            raise RuntimeError(f"train step: {name} launched {counts[name]} times, expected "
+                               f"{n} x {TRAIN_COUNTED}")
+    for m in metrics:
+        vals = {k: v.item() for k, v in m.items()}
+        print(f"[train] step metrics: {vals}", flush=True)
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"non-finite train metrics {vals}")
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(TRAIN_ROUNDS):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3 / TRAIN_STEPS)
+    med = float(np.median(step_ms))
+    frames = TRAIN_B * TRAIN_T
+    print(f"[train] CFFM-B1 480x480 B={TRAIN_B} clip-{TRAIN_T} bf16 train step: {med:.3f} ms, "
+          f"median of {TRAIN_ROUNDS} rounds of {TRAIN_STEPS} steps "
+          f"({', '.join(f'{t:.3f}' for t in step_ms)}); {1e3 * frames / med:.3f} train "
+          f"frames/s; peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+          flush=True)
+    if opts.profile:
+        _profile(lambda: step(batch, gen), "one train step", "profile_train.txt", root, kind,
+                 smi)
+    return stats, counts
+
+
+def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # device events only, as the table's own "Self CUDA time total" sums them
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    n_launch = sum(e.count for e in events if e.key in ("cudaLaunchKernel",
+                                                         "cuLaunchKernelEx",
+                                                         "cuLaunchKernel"))
+    n_copy = sum(e.count for e in events if e.key == "aten::_to_copy")
+    print(f"[profile] {what}: device busy {busy:.3f} ms, {n_launch} kernel launches, "
+          f"{n_copy} aten::_to_copy calls (dtype or device copies)", flush=True)
+    table = events.table(sort_by="cuda_time_total", row_limit=120)
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(root, "chiprun_out", fname), "w") as fh:
+        fh.write(f"{kind} | {smi}\n{table}\n")
+    print("\n".join(table.splitlines()[:25]), flush=True)
 
 
 def main() -> int:
@@ -283,7 +641,7 @@ def main() -> int:
     # ---- 3. kernels at the main path's inputs --------------------------------
     x0, _ = apis._prepare_clip(bundle, clips[0])
     caught = _capture_main_path_inputs(model, x0.to(torch.float32))
-    kernel_stats = check_kernels(ops, caught)
+    kernel_stats = check_kernels(ops, caught, KERNELS)
 
     # ---- 4. the main path ----------------------------------------------------
     cfg = bundle.config.backbone_config
@@ -349,40 +707,33 @@ def main() -> int:
           f"{os.getloadavg()[0]:.2f}, {torch.get_num_threads()} torch threads", flush=True)
 
     if opts.profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        _profile(lambda: apis.inference_segmentor(bundle, clips[1]), "one clip", "profile.txt",
+                 root, kind, smi)
+    del bundle, model, caught
+    torch.cuda.empty_cache()
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            apis.inference_segmentor(bundle, clips[1])
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        # device events only, as the table's own "Self CUDA time total" sums them
-        busy = sum(e.self_device_time_total for e in events
-                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
-        n_launch = sum(e.count for e in events if e.key in ("cudaLaunchKernel",
-                                                             "cuLaunchKernelEx",
-                                                             "cuLaunchKernel"))
-        n_copy = sum(e.count for e in events if e.key == "aten::_to_copy")
-        print(f"[profile] one clip: device busy {busy:.3f} ms, {n_launch} kernel launches, "
-              f"{n_copy} aten::_to_copy calls (dtype or device copies)", flush=True)
-        table = events.table(sort_by="cuda_time_total", row_limit=40)
-        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(root, "chiprun_out", "profile.txt"), "w") as fh:
-            fh.write(f"{kind} | {smi}\n{table}\n")
-        print("\n".join(table.splitlines()[:25]), flush=True)
+    # ---- 5. the train step -----------------------------------------------------
+    train_stats, train_counts = train_phase(apis, ops, opts, root, kind, smi)
 
-    # ---- 5. result lines -----------------------------------------------------
+    # ---- 6. result lines -----------------------------------------------------
+    # launches: each kernel's count on its own path (the inference clips for
+    # the inference kernels, the counted train steps for the train ones);
+    # launches_by_path gives both
     kernels = []
-    for name, spec in KERNELS.items():
-        st = kernel_stats[name]
+    rows = [(n, spec, kernel_stats[n], counts[n], "inference") for n, spec in KERNELS.items()]
+    rows += [(n, spec, train_stats[n], train_counts[n], "train")
+             for n, spec in TRAIN_KERNELS.items() if "sources" in spec]
+    for name, spec, st, n_launch, path in rows:
         kernels.append({"name": name, "route": "cuda", "source": spec["sources"][0],
                         "sources": spec["sources"],
-                        "replaces": spec["replaces"], "launches": counts[name],
+                        "replaces": spec["replaces"], "launches": n_launch, "path": path,
+                        "launches_by_path": {"inference": counts[name],
+                                             "train": train_counts[name]},
                         "max_abs_err": st["max_abs_err"], "ms": st["ms"],
                         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                         "bound_by": st["bound_by"], "library_ms": st["library_ms"]})
     print(f"[done] {time.perf_counter() - t0:.1f} s; kernels checked: "
-          f"{', '.join(KERNELS)}", flush=True)
+          f"{', '.join(k['name'] for k in kernels)}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -112,8 +112,11 @@ def test_device_rule():
 _IMPORT_CHECK = r"""
 import ast, importlib, importlib.util, pkgutil, sys
 import vss_cffm_tpu_torch as pkg
+walked = []
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+    walked.append(m.name)
+print("WALKED", " ".join(walked))
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)  # defines only; its main runs under __main__
@@ -137,3 +140,7 @@ def test_port_and_chip_smoke_import_no_jax():
                        capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
+    walked = r.stdout.split("WALKED", 1)[1].split()
+    for name in ("models.losses", "train.optim", "train.state", "train.step",
+                 "ops.ce_upsampled"):
+        assert f"vss_cffm_tpu_torch.{name}" in walked, name

@@ -1,6 +1,7 @@
 """PyTorch port, on the card: each CUDA kernel against its plain version at
 shapes beyond the main path's (odd maps, ragged row tiles, grouped K/V,
-several head counts), in bf16.
+several head counts, ragged window tiles, ignored labels), in bf16, and a
+train step whose gradients go through the kernels.
 
 Marked ``cuda`` and skipped where no CUDA device is present. On a machine
 with one, from the repository root::
@@ -127,6 +128,126 @@ def test_launch_counts_on_the_card(dev):
     ops.dwconv3x3(x, k, b, force="torch")
     assert ops.launches()["dwconv3x3"] == 0
     ops.dwconv3x3(x, k, b)
-    assert ops.launches() == {"mit_block_fused": 0, "cfm_attention": 0, "dwconv3x3": 1}
+    assert ops.launches() == {**{n: 0 for n in ops.KERNEL_OPS}, "dwconv3x3": 1}
     with pytest.raises(ValueError, match="does not take"):
         ops.dwconv3x3(_rand(rng, 1, 5, 5, 6, dev=dev), k[..., :6], b[:6])  # C % 8 != 0
+
+
+def _labels(rng, n, hh, ww, c, dtype, dev):
+    lab = rng.randint(0, c, (n, hh, ww))
+    lab[rng.rand(n, hh, ww) < 0.1] = 255
+    lab[rng.rand(n, hh, ww) < 0.02] = c  # out of range: ignored too
+    return torch.from_numpy(lab.astype(np.int32)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("n,h,w,c,s,ldt", [
+    (2, 8, 12, 19, 4, torch.uint8), (1, 7, 9, 124, 4, torch.int32),
+    (3, 6, 5, 40, 2, torch.uint8), (1, 30, 61, 124, 4, torch.uint8),
+])
+def test_ce_upsampled_kernels_match_plain(dev, n, h, w, c, s, ldt):
+    """Forward: the loss sum to 1e-4 relative (f32 sums in other orders, and
+    the lerp rounded differently from F.interpolate's); the correct count
+    within 1e-3 of the pixels (near-ties may fall either way). Backward: bf16
+    dlogits, one bf16 rounding of f32 sums taken in other orders: 2^-7 of the
+    largest."""
+    rng = np.random.RandomState(4)
+    x = _rand(rng, n, h, w, c, scale=2.0, dev=dev)
+    lab = _labels(rng, n, h * s, w * s, c, ldt, dev)
+    img_w = 0.5 / lab.numel()
+    got = ops.ce_upsampled_loss(x, lab, s, img_w, force="kernel")
+    want = ops.ce_upsampled_loss(x, lab, s, img_w, force="torch")
+    torch.cuda.synchronize()
+    assert abs(got[0].item() - want[0].item()) <= 1e-4 * abs(want[0].item())
+    assert abs(got[1].item() - want[1].item()) <= max(1.0, 1e-3 * lab.numel())
+    g = torch.tensor(1.7, device=dev)
+    gk = ops.ce_upsampled_loss_bwd(x, lab, g, s, img_w, force="kernel")
+    gp = ops.ce_upsampled_loss_bwd(x, lab, g, s, img_w, force="torch")
+    _close(gk, gp, 2.0 ** -7)
+
+
+@pytest.mark.parametrize("nw,nh,hd,gsizes", [
+    (10, 2, 32, [49, 20, 9]),
+    (11, 8, 32, [49, 132, 25, 49, 25, 9]),   # the B1 decoder's groups
+    (3, 2, 64, [49, 71]),
+])
+def test_cfm_attention_bwd_kernel_matches_plain(dev, nw, nh, hd, gsizes):
+    """dq, dK, dV (bf16) each to 2^-6 of its own largest value: ds and p are
+    rounded to bf16 at the same points from f32 sums in other orders, so a
+    rounding may flip by one ulp and carry through one product. dbias (f32,
+    summed over windows) to 2^-10 of its largest."""
+    rng = np.random.RandomState(5)
+    c = nh * hd
+    n = sum(gsizes)
+    q = _rand(rng, nw, 49, c, dev=dev)
+    k = _rand(rng, nw, n, c, dev=dev)
+    v = _rand(rng, nw, n, c, dev=dev)
+    g = _rand(rng, nw, 49, c, dev=dev)
+    bias = _rand(rng, nh, 49, n, dtype=torch.float32, dev=dev)
+    mask = torch.from_numpy(np.where(rng.rand(nw, n) < 0.2, -100.0, 0.0)
+                            .astype(np.float32)).to(dev)
+    got = ops.cfm_attention_bwd(q, k, v, bias, mask, g, nh, force="kernel")
+    want = ops.cfm_attention_bwd(q, k, v, bias, mask, g, nh, force="torch")
+    for a, b, rel in zip(got, want, (2.0 ** -6,) * 3 + (2.0 ** -10,)):
+        _close(a, b, rel)
+
+
+def test_dwconv_kernel_writes_the_preactivation(dev):
+    """Under grad the kernel also writes z = taps + bias (bf16), the plain
+    backward's residual: within one bf16 ulp of the plain z."""
+    rng = np.random.RandomState(6)
+    x = _rand(rng, 2, 9, 7, 32, dev=dev)
+    k = _rand(rng, 3, 3, 1, 32, scale=0.3, dtype=torch.float32, dev=dev)
+    b = _rand(rng, 32, scale=0.1, dtype=torch.float32, dev=dev)
+    z = torch.empty_like(x)
+    ops.dwconv.dwconv3x3_launch(x, k, b, True, z=z)
+    _close(z, ops.dwconv._preact(x, k, b).to(torch.bfloat16), 2.0 ** -7)
+    xg = x.clone().requires_grad_(True)
+    ops.dwconv3x3(xg, k, b, gelu=True, force="kernel").float().square().sum().backward()
+    xp = x.clone().requires_grad_(True)
+    ops.dwconv3x3(xp, k, b, gelu=True, force="torch").float().square().sum().backward()
+    _close(xg.grad, xp.grad, 2.0 ** -5)
+
+
+def test_train_step_gradients_through_the_kernels(dev):
+    """A B0 train step at 64² on the card, bf16: the gradients of parameters
+    behind each kernel op (depthwise taps, CFM bias tables, q/kv of the
+    decoder, the class convs behind the CE) exist and are not zero, and the
+    kernel path's gradients point where the plain path's do (cosine ≥ 0.99
+    over all parameters; bf16 roundings at other points)."""
+    from vss_cffm_tpu_torch import config as pcfg
+    from vss_cffm_tpu_torch.models import CFFMSegmentor, set_force
+    from vss_cffm_tpu_torch.train.step import device_normalize
+
+    cfg = pcfg.build_model_config("b0", num_classes=11)
+    model = CFFMSegmentor(cfg, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(dev).train()
+    rng = np.random.RandomState(7)
+    imgs = device_normalize(torch.from_numpy(
+        rng.randint(0, 256, (1, 4, 64, 64, 3)).astype(np.uint8)).to(dev), torch.bfloat16)
+    lab = _labels(rng, 4, 64, 64, 11, torch.uint8, dev).reshape(1, 4, 64, 64)
+    from vss_cffm_tpu_torch.models.losses import clip_ce_loss
+
+    grads = {}
+    for force in (None, "torch"):
+        set_force(model, force)
+        model.zero_grad(set_to_none=True)
+        ops.reset_launches()
+        out = model(imgs, train=True, generator=torch.Generator(dev).manual_seed(1))
+        clip_ce_loss(out, lab, force=force)["loss_seg"].backward()
+        grads[force] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+        if force is None:
+            counts = ops.launches()
+            assert counts["mit_block_fused"] == 0
+            for name in ("dwconv3x3", "cfm_attention", "cfm_attention_bwd",
+                         "ce_upsampled_loss", "ce_upsampled_loss_bwd"):
+                assert counts[name] > 0, (name, counts)
+    set_force(model, None)
+    for name in ("backbone.block1.0.mlp.dwconv.dwconv.weight",
+                 "decode_head.decoder_focal.blocks.0.attn.relative_position_bias_table",
+                 "decode_head.decoder_focal.blocks.0.attn.qkv.weight",
+                 "decode_head.linear_pred.weight", "decode_head.linear_pred2.weight"):
+        assert grads[None][name].abs().max() > 0, name
+    a = torch.cat([g.reshape(-1) for g in grads[None].values()])
+    b = torch.cat([g.reshape(-1) for g in grads["torch"].values()])
+    assert torch.nn.functional.cosine_similarity(a, b, dim=0) >= 0.99

@@ -162,4 +162,4 @@ def test_force_rule_on_cpu(rng):
     p = _block_inputs(rng, (1, 4, 4, 16), 32, 4)
     with pytest.raises(RuntimeError, match="force='kernel' needs CUDA"):
         ops.mit_block_fused(*[_t(a) for a in p.values()], num_heads=1, force="kernel")
-    assert ops.launches() == {"mit_block_fused": 0, "cfm_attention": 0, "dwconv3x3": 0}
+    assert ops.launches() == {n: 0 for n in ops.KERNEL_OPS}

@@ -7,11 +7,13 @@ takes its plain PyTorch version.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from vss_cffm_tpu.models.segmentor import CFFMSegmentor as JaxSegmentor
@@ -75,3 +77,71 @@ def jax_and_port(variant="b0", hw=(112, 112), depth=1, num_classes=7, seed=0,
 
 def to_np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().float().numpy()
+
+
+# ---- training ----------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def train_patches(variant: str = "b0"):
+    """The train tests' settings on both sides: stochastic depth 0 (the MiT
+    variant's ``drop_path_rate``), and on the JAX side the fused CE kernels
+    in the loss, run in interpret mode (``losses._FORCE_FUSED``,
+    ``ce_upsampled._INTERPRET``)."""
+    from vss_cffm_tpu.models import losses as jax_losses
+    from vss_cffm_tpu.models import mit as jax_mit
+    from vss_cffm_tpu.ops import ce_upsampled as jax_ce
+
+    name = f"mit_{variant}"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(jax_mit.MIT_VARIANTS, name,
+                   dataclasses.replace(jax_mit.MIT_VARIANTS[name], drop_path_rate=0.0))
+        mp.setitem(pcfg.MIT_VARIANTS, name,
+                   dataclasses.replace(pcfg.MIT_VARIANTS[name], drop_path_rate=0.0))
+        mp.setattr(jax_losses, "_FORCE_FUSED", True)
+        mp.setattr(jax_ce, "_INTERPRET", True)
+        yield
+
+
+def train_configs(variant: str = "b0", num_classes: int = 7, depth: int = 1):
+    """(JAX config, port config) of the train tests: composed blocks at every
+    stage (``train_block_impl=None``), head dropout 0. Use inside
+    ``train_patches``."""
+    jcfg = jax_config(variant, num_classes, depth)
+    jcfg = dataclasses.replace(jcfg, train_block_impl=None,
+                               head=dataclasses.replace(jcfg.head, dropout_ratio=0.0))
+    pc = port_config(jcfg)
+    return jcfg, dataclasses.replace(pc, head=dataclasses.replace(pc.head, dropout_ratio=0.0))
+
+
+def train_batch(b: int, hw: tuple[int, int], num_classes: int, seed: int = 0):
+    """uint8 BGR clips (B, 4, H, W, 3) and uint8 labels (B, 4, H, W) with ~5 %
+    ignored (255) and ~1 % out of range (= num_classes)."""
+    rng = np.random.RandomState(seed)
+    imgs = rng.randint(0, 256, (b, 4, *hw, 3)).astype(np.uint8)
+    labels = rng.randint(0, num_classes, (b, 4, *hw)).astype(np.uint8)
+    labels[rng.rand(*labels.shape) < 0.05] = 255
+    labels[rng.rand(*labels.shape) < 0.01] = num_classes
+    return imgs, labels
+
+
+def to_jax_tree(model, values: dict, jcfg):
+    """The JAX variables tree of ``values`` (port parameter name → tensor, e.g.
+    gradients), the model's buffers filling the rest: every transform of
+    ``convert_segmentor`` is a transpose or a reshape, so it maps gradients
+    as it maps weights."""
+    from vss_cffm_tpu.utils.torch_convert import convert_segmentor
+
+    sd = {k: to_np(v) for k, v in model.state_dict().items()}
+    sd.update({k: to_np(v) for k, v in values.items()})
+    return convert_segmentor(sd, jcfg)
+
+
+def flat(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out

@@ -2,8 +2,9 @@
 
 Plain dataclasses mirroring the JAX package's model configs (MiT variants,
 the CFFM focal decoder, the CFFM clip head and the segmentor), restricted to
-the fields that clip inference reads. Nothing here imports a framework, so
-the configs can be built, compared and overridden anywhere.
+the fields that clip inference and the train step read, plus the loss and
+optimizer configs. Nothing here imports a framework, so the configs can be
+built, compared and overridden anywhere.
 
 ``apply_overrides`` takes dotted ``key=value`` pairs like the JAX package's
 CLI overrides, with one deliberate difference: a value for a tuple field must
@@ -21,6 +22,8 @@ __all__ = [
     "MIT_VARIANTS",
     "CFFMDecoderConfig",
     "CFFMHeadConfig",
+    "LossConfig",
+    "OptimConfig",
     "TestConfig",
     "SegmentorConfig",
     "build_model_config",
@@ -71,7 +74,26 @@ class CFFMDecoderConfig:
     focal_kernel_clips: tuple[int, ...] = (7, 5, 3)
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
+    # dropout of the attention output and MLP, attention dropout, stochastic
+    # depth: 0 in every CFFM config; only drop_path is ported (> 0 for the
+    # other two raises)
+    drop: float = 0.0
+    attn_drop: float = 0.0
+    drop_path: float = 0.0
     norm_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """The reference head's ``loss_decode`` / ``sampler`` surface. The port
+    serves ``type="ce"`` without class weights or OHEM; the rest raises."""
+
+    type: str = "ce"  # 'ce' | 'lovasz'
+    loss_weight: float = 1.0
+    class_weight: tuple[float, ...] | None = None
+    use_ohem: bool = False
+    ohem_thresh: float = 0.7
+    ohem_min_kept: int = 100000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +102,27 @@ class CFFMHeadConfig:
     embed_dim: int = 256
     num_classes: int = 124
     num_clips: int = 4
+    dropout_ratio: float = 0.1  # Dropout2d before linear_pred and linear_pred2
     decoder: CFFMDecoderConfig = dataclasses.field(
         default_factory=lambda: CFFMDecoderConfig(dim=256, depth=2))
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """The reference recipe (``cffm.b1.480x480.vspw2.160k.py``): AdamW with
+    head lr×10 and backbone-norm wd 0, poly lr with linear warmup."""
+
+    lr: float = 6e-5
+    betas: tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 0.01
+    max_iters: int = 160_000
+    power: float = 1.0
+    min_lr: float = 0.0
+    warmup_iters: int = 1500
+    warmup_ratio: float = 1e-6
+    head_lr_mult: float = 10.0
+    grad_clip: float | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +140,19 @@ class SegmentorConfig:
     head: CFFMHeadConfig = dataclasses.field(default_factory=CFFMHeadConfig)
     # whole-block kernel at stages 2 and 3, composed blocks at stages 1 and 4
     block_impl: str | tuple | None = (None, "fused", "fused", None)
+    # training block form: None = the composed block at every stage (the
+    # only form served so far); the whole-block train pair ("full") and the
+    # block-FFN pair ("ffn") are ROADMAP Queue B items 7-9
+    train_block_impl: str | tuple | None = None
     test_cfg: TestConfig = dataclasses.field(default_factory=TestConfig)
+
+    def __post_init__(self):
+        impls = (self.train_block_impl if isinstance(self.train_block_impl, tuple)
+                 else (self.train_block_impl,))
+        if any(i is not None for i in impls):
+            raise NotImplementedError(
+                f"train_block_impl={self.train_block_impl!r}: only None (composed blocks) is "
+                "ported; the 'full' and 'ffn' train kernels are ROADMAP Queue B items 7-9")
 
     @property
     def backbone_config(self) -> MiTConfig:

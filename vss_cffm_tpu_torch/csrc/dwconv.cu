@@ -3,7 +3,8 @@
 // Replaces the TPU kernel vss_cffm_tpu/ops/dwconv.py:_dwconv3x3_pallas
 // (_kernel): the MixFFN's depthwise conv of the composed MiT blocks, and the
 // depthwise step inside the whole-block path (ops/stage_block.py), where its
-// input is the f32 hidden map.
+// input is the f32 hidden map. In training it also writes the
+// pre-activation z (bf16), the residual of the port's plain backward.
 //
 // Bound on the H100: memory. Each output reads 9 neighbouring input pixels
 // but only one pass over x is needed from device memory; the work is 9 FMAs
@@ -21,7 +22,8 @@ namespace {
 template <typename T>
 __global__ void dwconv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
                                  const float* __restrict__ bias,
-                                 __nv_bfloat16* __restrict__ out, int B, int H, int W,
+                                 __nv_bfloat16* __restrict__ out,
+                                 __nv_bfloat16* __restrict__ z, int B, int H, int W,
                                  int C, int gelu) {
   const int c8 = C / 8;
   const long long total = (long long)B * H * W * c8;
@@ -56,9 +58,11 @@ __global__ void dwconv3x3_kernel(const T* __restrict__ x, const float* __restric
   float b[8];
   vss::load8(bias + c0, b);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    float z = acc[k] + b[k];
-    acc[k] = gelu ? vss::gelu_erf(z) : z;
+  for (int k = 0; k < 8; ++k) acc[k] += b[k];
+  if (z != nullptr) vss::store8(z + pix * C + c0, acc);
+  if (gelu) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = vss::gelu_erf(acc[k]);
   }
   vss::store8(out + pix * C + c0, acc);
 }
@@ -67,9 +71,10 @@ __global__ void dwconv3x3_kernel(const T* __restrict__ x, const float* __restric
 
 // x (B,H,W,C) bf16 or f32 (x_is_f32), w (9,C) f32 taps in (di,dj) row-major
 // order, bias (C,) f32, out (B,H,W,C) bf16. C % 8 == 0, all pointers
-// 16-byte aligned (checked by the Python wrapper).
+// 16-byte aligned (checked by the Python wrapper). z (B,H,W,C) bf16 receives
+// the pre-activation, or is null.
 VSS_EXPORT int dwconv3x3_nhwc(const void* x, const void* w, const void* bias, void* out,
-                              int B, int H, int W, int C, int x_is_f32, int gelu,
+                              void* z, int B, int H, int W, int C, int x_is_f32, int gelu,
                               int device, void* stream) {
   cudaSetDevice(device);
   const long long total = (long long)B * H * W * (C / 8);
@@ -80,10 +85,12 @@ VSS_EXPORT int dwconv3x3_nhwc(const void* x, const void* w, const void* bias, vo
   if (x_is_f32)
     dwconv3x3_kernel<float><<<blocks, threads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), B, H, W, C, gelu);
+        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out),
+        static_cast<__nv_bfloat16*>(z), B, H, W, C, gelu);
   else
     dwconv3x3_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), B, H, W, C, gelu);
+        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out),
+        static_cast<__nv_bfloat16*>(z), B, H, W, C, gelu);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,9 @@ its own 49 tokens, 132 neighbours reached by four diagonal circular rolls,
 pooled windows of the target frame and pooled windows of each reference
 frame (coarser with temporal distance), with four families of learned
 relative-position biases and additive −100 padding masks. Residual and MLP
-update the last frame only.
+update the last frame only. ``forward(x, train=True, generator=g)`` adds the
+config's stochastic depth; dropout and attention dropout are 0 in every
+CFFM config and are not ported (a rate > 0 raises).
 
 The roll / unfold / mask geometry is a set of static numpy index tables per
 (H, W) (``build_geometry``, a copy of the JAX package's); the attention itself
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 
 from ..config import CFFMDecoderConfig
 from ..ops import cfm_attention, resize_bilinear
-from .mit import derived, layer_norm, linear
+from .mit import derived, drop_path, layer_norm, linear
 
 __all__ = ["CFFMDecoder", "CFFMBlock", "CFFMWindowAttention", "build_geometry",
            "CFFMGeometry"]
@@ -421,9 +423,11 @@ class CFFMBlock(nn.Module):
             _PoolLinear(ws // fl) for fl in cfg.focal_l_clips)
         self.compute_dtype = torch.float32
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.cfg
         dt = self.compute_dtype
+        rate = cfg.drop_path if train else 0.0
         b, t, h0, w0, c = x.shape
         if t != len(cfg.focal_l_clips) + 1:
             raise ValueError(f"clip length {t}: expected {len(cfg.focal_l_clips) + 1}")
@@ -455,8 +459,8 @@ class CFFMBlock(nn.Module):
         ws = cfg.window_size
         out = win.reshape(b, geom.n_wh, geom.n_ww, ws, ws, c)
         out = out.permute(0, 1, 3, 2, 4, 5).reshape(b, geom.hp, geom.wp, c)[:, :h0, :w0]
-        last = x[:, -1] + out
-        last = last + self.mlp(layer_norm(last, self.norm2, dt), dt)
+        last = x[:, -1] + drop_path(out, rate, generator)
+        last = last + drop_path(self.mlp(layer_norm(last, self.norm2, dt), dt), rate, generator)
         return torch.cat([x[:, :-1], last[:, None].to(x.dtype)], dim=1)
 
 
@@ -482,10 +486,14 @@ class CFFMDecoder(nn.Module):
 
     def __init__(self, cfg: CFFMDecoderConfig):
         super().__init__()
+        if cfg.drop > 0.0 or cfg.attn_drop > 0.0:
+            raise NotImplementedError("CFFM decoder dropout (drop / attn_drop > 0) is not "
+                                      "ported: it is 0 in every CFFM config")
         self.cfg = cfg
         self.blocks = nn.ModuleList(CFFMBlock(cfg) for _ in range(cfg.depth))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, train, generator)
         return x

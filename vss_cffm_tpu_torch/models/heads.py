@@ -1,4 +1,4 @@
-"""CFFM clip head at inference (``cffm`` mode), channels-last.
+"""CFFM clip head (``cffm`` mode), channels-last.
 
 Port of ``vss_cffm_tpu/models/heads.py:CFFMHead``: per-frame SegFormer MLP
 decode (4 levels projected, upsampled to 1/4, fused by a 1×1 conv + BN in
@@ -12,6 +12,13 @@ The per-frame decode uses the merged form of the JAX package: the level
 embedding and its slice of the 1×1 fuse conv are both linear and commute
 with the bilinear resize, so each level is one matmul at its own resolution
 and the (B·T, h, w, 4f) concat never exists.
+
+In training (``forward(..., train=True, generator=g)``) the head returns
+(B, T+1, h, w, classes): the per-frame logits of all T frames and the
+refined last frame. The fuse BatchNorm then normalises with the f32 batch
+statistics of the merged sum and updates its running statistics the flax
+way, Dropout2d (whole channels per sample) precedes ``linear_pred`` and
+``linear_pred2``.
 """
 
 from __future__ import annotations
@@ -23,9 +30,23 @@ import torch.nn.functional as F
 from ..config import CFFMHeadConfig
 from ..ops import resize_bilinear
 from .cffm_transformer import CFFMDecoder
-from .mit import derived
+from .mit import derived, keep_mask
 
-__all__ = ["CFFMHead"]
+__all__ = ["CFFMHead", "dropout2d"]
+
+BN_MOMENTUM = 0.9  # flax BatchNorm: running = 0.9·running + 0.1·batch
+
+
+def dropout2d(x: torch.Tensor, rate: float, generator: torch.Generator | None
+              ) -> torch.Tensor:
+    """torch ``Dropout2d`` on channels-last x (N, h, w, C): each (sample,
+    channel) is zeroed with probability ``rate``, the rest divided by the
+    keep probability."""
+    if rate == 0.0:
+        return x
+    n, c = x.shape[0], x.shape[-1]
+    keep = keep_mask(n * c, rate, generator, x.device).reshape(n, 1, 1, c)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class _MLPEmbed(nn.Module):
@@ -62,8 +83,10 @@ class CFFMHead(nn.Module):
         self.linear_pred2 = nn.Conv2d(2 * f, cfg.num_classes, 1)
         self.compute_dtype = torch.float32
 
-    def decode(self, feats: list[torch.Tensor]) -> torch.Tensor:
-        """Per-frame fused 1/4 features (N, h, w, f) from the 4 backbone maps."""
+    def decode(self, feats: list[torch.Tensor], train: bool = False) -> torch.Tensor:
+        """Per-frame fused 1/4 features (N, h, w, f) from the 4 backbone maps;
+        ``train`` normalises with batch statistics and updates the running
+        ones."""
         dt = self.compute_dtype
         f = self.cfg.embed_dim
         c1 = feats[0]
@@ -84,27 +107,49 @@ class CFFMHead(nn.Module):
                 y = resize_bilinear(y, size)
             acc = y if acc is None else acc + y
         bn = self.linear_fuse.bn
-        z = ((acc.float() - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
-             * bn.weight + bn.bias)
+        a = acc.float()
+        if train:
+            mean = a.mean(dim=(0, 1, 2))
+            var = (a - mean).square().mean(dim=(0, 1, 2))
+            with torch.no_grad():
+                # flax's rule with the biased batch variance, where
+                # nn.BatchNorm2d would use the unbiased one
+                bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+                bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        z = (a - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
         return torch.relu(z).to(dt)
 
-    def forward_fused(self, _c: torch.Tensor, batch_size: int, num_clips: int) -> torch.Tensor:
-        """Eval logits from per-frame fused features (B·T, h, w, f): the refined
-        target-frame logits (B, h, w, classes), or, when the clip length is not
-        ``num_clips``, the plain per-frame logits of the last frame."""
+    def forward_fused(self, _c: torch.Tensor, batch_size: int, num_clips: int,
+                      train: bool = False, generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
+        """Logits from per-frame fused features (B·T, h, w, f). Eval: the
+        refined target-frame logits (B, h, w, classes), or, when the clip
+        length is not ``num_clips``, the plain per-frame logits of the last
+        frame. Train: (B, T+1, h, w, classes), every frame's plain logits and
+        the refined last frame."""
         cfg = self.cfg
         dt = self.compute_dtype
+        rate = cfg.dropout_ratio if train else 0.0
         h, w = _c.shape[1:3]
-        if num_clips != cfg.num_clips:
-            x = _conv1x1(_c, self.linear_pred, dt)
-            return x.reshape(batch_size, num_clips, h, w, cfg.num_classes)[:, -1]
+        if train or num_clips != cfg.num_clips:
+            x = _conv1x1(dropout2d(_c, rate, generator), self.linear_pred, dt)
+            x = x.reshape(batch_size, num_clips, h, w, cfg.num_classes)
+            if not train:
+                return x[:, -1]
         _c8 = resize_bilinear(_c.to(dt), (h // 2, w // 2))
         _c_further = _c8.reshape(batch_size, num_clips, h // 2, w // 2, cfg.embed_dim)
-        _c2 = self.decoder_focal(_c_further)
+        _c2 = self.decoder_focal(_c_further, train, generator)
         fused_last = torch.cat([_c_further[:, -1], _c2[:, -1]], dim=-1)
-        x2 = _conv1x1(fused_last, self.linear_pred2, dt)
-        return resize_bilinear(x2, (h, w))
+        x2 = _conv1x1(dropout2d(fused_last, rate, generator), self.linear_pred2, dt)
+        x2 = resize_bilinear(x2, (h, w))
+        if not train:
+            return x2
+        return torch.cat([x, x2[:, None]], dim=1)
 
-    def forward(self, feats: list[torch.Tensor], batch_size: int,
-                num_clips: int) -> torch.Tensor:
-        return self.forward_fused(self.decode(feats), batch_size, num_clips)
+    def forward(self, feats: list[torch.Tensor], batch_size: int, num_clips: int,
+                train: bool = False, generator: torch.Generator | None = None
+                ) -> torch.Tensor:
+        return self.forward_fused(self.decode(feats, train), batch_size, num_clips, train,
+                                  generator)

@@ -9,10 +9,15 @@ Parameters keep the reference PyTorch names (``block1.0.attn.q.weight``,
 computes in ``compute_dtype`` (bf16 on the main path) with f32 LayerNorm
 statistics and softmax, like the JAX modules' ``dtype`` plan.
 
-Per stage, ``MiTConfig.block_impl`` picks the block form: "fused" runs LN1
-and the spatial-reduced K/V here and the rest of the block through
-``ops.mit_block_fused``; None runs the composed block, whose depthwise conv
-goes through ``ops.dwconv3x3``. Both forms share one parameter tree.
+Per stage, ``MiTConfig.block_impl`` picks the block form at inference:
+"fused" runs LN1 and the spatial-reduced K/V here and the rest of the block
+through ``ops.mit_block_fused``; None runs the composed block, whose
+depthwise conv goes through ``ops.dwconv3x3``. Both forms share one
+parameter tree. A block in ``train()`` mode always runs composed, as the
+JAX block takes its fused form only when deterministic; ``forward(x,
+train=True, generator=g)`` adds stochastic depth (timm ``DropPath``, the
+linear schedule over all blocks) drawn from g. Dropout inside SRA and the
+MixFFN is 0 in every MiT variant and is not ported: a rate > 0 raises.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from ..ops import dwconv3x3, mit_block_fused
 from ..ops.cfm_attention import scale_in
 
 __all__ = ["MiT", "MiTBlock", "OverlapPatchEmbed", "SRAttention", "MixFFN",
-           "linear", "layer_norm", "conv2d_nhwc", "derived"]
+           "linear", "layer_norm", "conv2d_nhwc", "derived", "drop_path", "keep_mask"]
 
 
 def derived(owner: nn.Module, key: Any, params: Sequence[torch.Tensor],
@@ -49,6 +54,28 @@ def derived(owner: nn.Module, key: Any, params: Sequence[torch.Tensor],
     value = make()
     cache[key] = (stamp, value)
     return value
+
+
+def keep_mask(n: int, rate: float, generator: torch.Generator | None,
+              device: torch.device) -> torch.Tensor:
+    """(n,) bool: each entry kept with probability 1 − rate, drawn on the
+    generator's device from ``generator`` (required)."""
+    if generator is None:
+        raise ValueError(f"a random rate of {rate} needs an explicit torch.Generator")
+    u = torch.rand((n,), generator=generator, device=generator.device)
+    return (u < 1.0 - rate).to(device)
+
+
+def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None
+              ) -> torch.Tensor:
+    """Per-sample stochastic depth (timm ``DropPath``): each sample along
+    dim 0 is zeroed with probability ``rate``, the rest divided by the keep
+    probability."""
+    if rate == 0.0:
+        return x
+    keep = keep_mask(x.shape[0], rate, generator, x.device)
+    return torch.where(keep.reshape(-1, *([1] * (x.dim() - 1))), x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _cast(mod: nn.Module, name: str, dt: torch.dtype) -> torch.Tensor | None:
@@ -165,8 +192,9 @@ class MiTBlock(nn.Module):
     """Pre-norm block: x + SRA(LN1(x)), then + MixFFN(LN2(x))."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int, mlp_ratio: int,
-                 qkv_bias: bool, norm_eps: float, fused: bool):
+                 qkv_bias: bool, norm_eps: float, fused: bool, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=norm_eps)
         self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
@@ -191,13 +219,15 @@ class MiTBlock(nn.Module):
                 wt(m.fc2), m.fc2.bias)
         return args, dict(num_heads=a.num_heads, eps=self.norm1.eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         dt = self.compute_dtype
-        if self.fused:
+        if self.fused and not self.training:
             args, kw = self.fused_args(x)
             return mit_block_fused(*args, **kw, force=self.force)
-        x = x + self.attn(layer_norm(x, self.norm1, dt))
-        return x + self.mlp(layer_norm(x, self.norm2, dt))
+        rate = self.drop_path_rate if train else 0.0
+        x = x + drop_path(self.attn(layer_norm(x, self.norm1, dt)), rate, generator)
+        return x + drop_path(self.mlp(layer_norm(x, self.norm2, dt)), rate, generator)
 
 
 class MiT(nn.Module):
@@ -206,6 +236,11 @@ class MiT(nn.Module):
     def __init__(self, cfg: MiTConfig):
         super().__init__()
         self.cfg = cfg
+        if cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0:
+            raise NotImplementedError("MiT dropout (drop_rate / attn_drop_rate > 0) is not "
+                                      "ported: it is 0 in every MiT variant")
+        total = sum(cfg.depths)
+        dpr = [cfg.drop_path_rate * i / max(total - 1, 1) for i in range(total)]
         in_ch = 3
         for s in range(4):
             impl = cfg.block_impl[s] if isinstance(cfg.block_impl, tuple) else cfg.block_impl
@@ -214,20 +249,23 @@ class MiT(nn.Module):
             dim = cfg.embed_dims[s]
             setattr(self, f"patch_embed{s + 1}", OverlapPatchEmbed(
                 in_ch, dim, cfg.patch_sizes[s], cfg.patch_strides[s]))
+            first = sum(cfg.depths[:s])
             setattr(self, f"block{s + 1}", nn.ModuleList(
                 MiTBlock(dim, cfg.num_heads[s], cfg.sr_ratios[s], cfg.mlp_ratios[s],
-                         cfg.qkv_bias, cfg.norm_eps, fused=impl == "fused")
-                for _ in range(cfg.depths[s])))
+                         cfg.qkv_bias, cfg.norm_eps, fused=impl == "fused",
+                         drop_path_rate=dpr[first + i])
+                for i in range(cfg.depths[s])))
             setattr(self, f"norm{s + 1}", nn.LayerNorm(dim, eps=cfg.norm_eps))
             in_ch = dim
         self.compute_dtype = torch.float32
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> list[torch.Tensor]:
         outs = []
         for s in range(1, 5):
             x = getattr(self, f"patch_embed{s}")(x)
             for blk in getattr(self, f"block{s}"):
-                x = blk(x)
+                x = blk(x, train, generator)
             x = layer_norm(x, getattr(self, f"norm{s}"), self.compute_dtype)
             outs.append(x)
         return outs

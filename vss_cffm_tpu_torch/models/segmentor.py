@@ -1,12 +1,14 @@
 """CFFM clip segmentor: MiT backbone + CFFM clip head.
 
-Port of ``vss_cffm_tpu/models/segmentor.py:CFFMSegmentor`` for inference.
-The (B, T) clip is flattened into a (B·T) frame batch through the backbone
-and the per-frame decode, and the CFFM head refines the last frame.
+Port of ``vss_cffm_tpu/models/segmentor.py:CFFMSegmentor``. The (B, T) clip
+is flattened into a (B·T) frame batch through the backbone and the per-frame
+decode, and the CFFM head refines the last frame; in training it returns
+every frame's logits and the refined last frame.
 
 ``CFFMSegmentor(config, dtype, force)``: parameters are f32; ``dtype`` is
 the compute dtype of every module; ``force`` is handed to every op with a
-kernel (see ``set_force``). ``init_weights(generator)`` draws random
+kernel (see ``set_force``; the train step hands the model's ``force`` to the
+loss). ``init_weights(generator)`` draws random
 weights with the reference's initialisers from an explicit generator.
 """
 
@@ -49,6 +51,7 @@ class CFFMSegmentor(nn.Module):
         self.config = config
         self.backbone = MiT(config.backbone_config)
         self.decode_head = CFFMHead(config.head)
+        self.force: str | None = None
         set_compute_dtype(self, dtype)
         set_force(self, force)
 
@@ -91,11 +94,17 @@ class CFFMSegmentor(nn.Module):
                           *m.relative_position_bias_table_to_windows_clips):
                     _trunc_normal(p, 0.02, g)
 
-    def forward(self, imgs: torch.Tensor) -> torch.Tensor:
-        """imgs (B, T, H, W, 3) normalised → refined target logits (B, H/4, W/4, K)."""
+    def forward(self, imgs: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """imgs (B, T, H, W, 3) normalised → refined target logits
+        (B, H/4, W/4, K); with ``train`` (the model in ``train()`` mode),
+        (B, T+1, H/4, W/4, K) with dropout and stochastic depth drawn from
+        ``generator``."""
+        if train and not self.training:
+            raise ValueError("forward(train=True) needs the model in train() mode")
         b, t, h, w, c = imgs.shape
-        feats = self.backbone(imgs.reshape(b * t, h, w, c))
-        return self.decode_head(feats, b, t)
+        feats = self.backbone(imgs.reshape(b * t, h, w, c), train, generator)
+        return self.decode_head(feats, b, t, train, generator)
 
     def frame_features(self, frames: torch.Tensor) -> torch.Tensor:
         """Per-frame fused 1/4 features (N, H/4, W/4, embed_dim) — the

@@ -1,14 +1,19 @@
 """Ops of the port. Each op with a CUDA kernel takes ``force=None|'torch'|'kernel'``
 and carries its launch count as ``<op>.launches``."""
 
-from .cfm_attention import cfm_attention, cfm_attention_torch
-from .dwconv import dwconv3x3, dwconv3x3_torch
+from .ce_upsampled import (ce_upsampled_loss, ce_upsampled_loss_bwd,
+                           ce_upsampled_loss_bwd_torch, ce_upsampled_loss_torch)
+from .cfm_attention import (cfm_attention, cfm_attention_bwd, cfm_attention_bwd_torch,
+                            cfm_attention_torch)
+from .dwconv import dwconv3x3, dwconv3x3_bwd_torch, dwconv3x3_torch
 from .resize import resize_bilinear, resize_nearest
 from .stage_block import mit_block_fused, mit_block_step_errors, mit_block_torch
 
 __all__ = [
-    "cfm_attention", "cfm_attention_torch",
-    "dwconv3x3", "dwconv3x3_torch",
+    "cfm_attention", "cfm_attention_torch", "cfm_attention_bwd", "cfm_attention_bwd_torch",
+    "dwconv3x3", "dwconv3x3_torch", "dwconv3x3_bwd_torch",
+    "ce_upsampled_loss", "ce_upsampled_loss_torch", "ce_upsampled_loss_bwd",
+    "ce_upsampled_loss_bwd_torch",
     "mit_block_fused", "mit_block_torch", "mit_block_step_errors",
     "resize_bilinear", "resize_nearest",
     "KERNEL_OPS", "reset_launches", "launches",
@@ -16,7 +21,9 @@ __all__ = [
 
 # the ops whose wrappers launch a CUDA kernel of this package
 KERNEL_OPS = {"mit_block_fused": mit_block_fused, "cfm_attention": cfm_attention,
-              "dwconv3x3": dwconv3x3}
+              "dwconv3x3": dwconv3x3, "cfm_attention_bwd": cfm_attention_bwd,
+              "ce_upsampled_loss": ce_upsampled_loss,
+              "ce_upsampled_loss_bwd": ce_upsampled_loss_bwd}
 
 
 def reset_launches() -> None:

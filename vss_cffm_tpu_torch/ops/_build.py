@@ -29,7 +29,7 @@ __all__ = ["library", "build_all", "check", "SOURCES", "BUILD_DIR"]
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("dwconv", "attention", "block_gemm")
+SOURCES = ("dwconv", "attention", "block_gemm", "attention_bwd", "ce_upsampled")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -39,7 +39,7 @@ _lock = threading.Lock()
 # argument kinds of each C entry point: "p" pointer / stream, "i" int, "f" float
 _SIGNATURES = {
     "dwconv": {
-        "dwconv3x3_nhwc": "ppppiiiiiiip",
+        "dwconv3x3_nhwc": "pppppiiiiiiip",
     },
     "attention": {
         "attention_fwd": "ppppppiiiiiiffiip",
@@ -47,6 +47,14 @@ _SIGNATURES = {
     },
     "block_gemm": {
         "gemm_ln_bias_res": "pppppppiiiiiiifip",
+    },
+    "attention_bwd": {
+        "attention_bwd": "ppppppppppiiiiiifiip",
+        "attention_bwd_smem_bytes": "iii",
+    },
+    "ce_upsampled": {
+        "ce_fwd_loss": "pppiiiiiifiip",
+        "ce_bwd_loss": "ppppiiiiiifip",
     },
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

@@ -1,4 +1,4 @@
-"""CFM window attention forward.
+"""CFM window attention, forward and backward.
 
 ``cfm_attention(q, ks, vs, bias, mask, nh, force=None)`` keeps the JAX
 signature: window-major q (nW, 49, nh·hd), lists of K/V source groups
@@ -13,7 +13,22 @@ q·scale rounded in q's dtype, f32 scores from the rounded inputs, + bias +
 mask in f32, f32 softmax, probabilities rounded to q's dtype, f32 P·V, one
 cast to q's dtype.
 
-``attention_launch`` launches the same kernel without counting; the
+The op is differentiable: a ``torch.autograd.Function`` over the packed
+(q, K, V, bias, mask) holds the forward kernel and the backward kernel
+(``csrc/attention_bwd.cu``), which replaces the TPU kernel
+``_cfm_attention_bwd_pallas_rc`` (``_bwd_kernel_rc``): the softmax is
+recomputed, then dq, dK, dV and dbias (summed over windows) come out. The
+concat of the K/V groups stays outside the Function, so autograd splits dK
+and dV back into groups; the mask gets no gradient; dbias flows through the
+bias gather to the relative-position tables. ``cfm_attention_bwd`` is the
+backward's own op (force rule and launch count), ``cfm_attention_bwd_torch``
+its plain version with ``_bwd_kernel_rc``'s arithmetic: qs = q·scale
+rounded to q's dtype, f32 scores + bias + mask and f32 softmax p, dP from g
+and V, ds = p∘(dP − Σ dP∘p) in f32, ds rounded to q's dtype for dq and dK,
+p rounded for dV, dbias = Σ over windows of the f32 ds, dq = (dq_h rounded
+to q's dtype)·scale, rounded again.
+
+``attention_launch`` launches the forward kernel without counting; the
 whole-block path (``ops/stage_block.py``) uses it for its attention step.
 """
 
@@ -26,7 +41,12 @@ import torch
 from . import _build
 from ._dispatch import SMEM_LIMIT, ptr, require, stream_of, use_kernel
 
-__all__ = ["cfm_attention", "cfm_attention_torch", "attention_launch", "scale_in"]
+__all__ = ["cfm_attention", "cfm_attention_torch", "cfm_attention_bwd",
+           "cfm_attention_bwd_torch", "attention_launch", "scale_in"]
+
+# windows per backward block are chosen so that about this many blocks
+# per SM share the heads' work (dbias partials: one per block)
+_BWD_BLOCKS_PER_SM = 2
 
 
 def scale_in(dtype: torch.dtype, value: float) -> float:
@@ -100,20 +120,121 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def cfm_attention(q: torch.Tensor, ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
-                  bias: torch.Tensor, mask: torch.Tensor, nh: int,
-                  force: str | None = None) -> torch.Tensor:
-    """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'."""
-    if not use_kernel(force, q, "cfm_attention"):
-        return cfm_attention_torch(q, ks, vs, bias, mask, nh)
-    k = torch.cat(list(ks), dim=1).contiguous()
-    v = torch.cat(list(vs), dim=1).contiguous()
-    hd = q.shape[-1] // nh
-    q_scale = scale_in(q.dtype, hd ** -0.5)
-    out = attention_launch(q.contiguous(), k, v, bias.float().contiguous(),
-                           mask.float().contiguous(), nh, q_scale, 1.0, "cfm_attention")
-    cfm_attention.launches += 1
+def _heads(t: torch.Tensor, nh: int) -> torch.Tensor:
+    """(G, L, nh·hd) → (G, nh, L, hd)."""
+    g, l, c = t.shape
+    return t.reshape(g, l, nh, c // nh).transpose(1, 2)
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    g, nh, l, hd = t.shape
+    return t.transpose(1, 2).reshape(g, l, nh * hd)
+
+
+def cfm_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bias: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
+                            nh: int) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, dbias) of the packed attention for the output cotangent g."""
+    dt = q.dtype
+    sc = scale_in(dt, (q.shape[-1] // nh) ** -0.5)
+    qh = _heads(q * sc, nh).float()
+    kh, vh, gh = _heads(k, nh).float(), _heads(v, nh).float(), _heads(g.to(dt), nh).float()
+    s = qh @ kh.transpose(-1, -2) + bias.float()[None]
+    s = s + mask.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    dp = gh @ vh.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dsb = ds.to(dt).float()
+    dq_h = (dsb @ kh).to(dt)
+    dk = (dsb.transpose(-1, -2) @ qh).to(dt)
+    dv = (p.to(dt).float().transpose(-1, -2) @ gh).to(dt)
+    return (_merge(dq_h * sc).to(dt), _merge(dk).to(k.dtype), _merge(dv).to(v.dtype),
+            ds.sum(dim=0))
+
+
+def _bwd_launch(q, k, v, bias, mask, g, nh: int) -> tuple[torch.Tensor, ...]:
+    op = "cfm_attention_bwd"
+    require(q.is_cuda, op, "a CPU tensor")
+    for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
+        require(t.dtype == torch.bfloat16 and t.dim() == 3, op,
+                f"{name} {t.dtype} {tuple(t.shape)} (bf16, 3-d)")
+    n_w, lq, c = q.shape
+    n = k.shape[1]
+    require(tuple(k.shape) == (n_w, n, c) and k.shape == v.shape and g.shape == q.shape, op,
+            f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, g {tuple(g.shape)}")
+    require(c % nh == 0 and c // nh in (32, 64), op, f"C={c} over {nh} heads (head dim 32 or 64)")
+    hd = c // nh
+    require(bias.dtype == torch.float32 and tuple(bias.shape) == (nh, lq, n), op,
+            f"bias {bias.dtype} {tuple(bias.shape)}")
+    require(mask.dtype == torch.float32 and tuple(mask.shape) == (n_w, n), op,
+            f"mask {mask.dtype} {tuple(mask.shape)}")
+    require(lq <= 64, op, f"{lq} query rows (at most 64)")
+    lib = _build.library("attention_bwd")
+    require(0 < lib.attention_bwd_smem_bytes(n, hd, lq) <= SMEM_LIMIT, op,
+            f"{n} keys and {lq} queries at head dim {hd} exceed {SMEM_LIMIT} bytes of "
+            "shared memory")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    tiles = max(1, min(n_w, _BWD_BLOCKS_PER_SM * sms // nh))
+    tw = -(-n_w // tiles)
+    tiles = -(-n_w // tw)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    partial = torch.empty((tiles, nh, lq, n), device=q.device, dtype=torch.float32)
+    dev, stream = stream_of(q)
+    rc = lib.attention_bwd(ptr(q, op), ptr(k, op), ptr(v, op), ptr(bias, op), ptr(mask, op),
+                           ptr(g, op), ptr(dq, op), ptr(dk, op), ptr(dv, op), ptr(partial, op),
+                           n_w, lq, n, nh, hd, c, scale_in(q.dtype, hd ** -0.5), tw, dev,
+                           stream)
+    _build.check(rc, op)
+    return dq, dk, dv, partial.sum(dim=0)
+
+
+def cfm_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                      mask: torch.Tensor, g: torch.Tensor, nh: int,
+                      force: str | None = None) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, dbias) of the packed attention. force: None (kernel on
+    CUDA, plain on CPU) | 'torch' | 'kernel'."""
+    if not use_kernel(force, q, "cfm_attention_bwd"):
+        return cfm_attention_bwd_torch(q, k, v, bias, mask, g, nh)
+    out = _bwd_launch(q, k, v, bias, mask, g.contiguous(), nh)
+    cfm_attention_bwd.launches += 1
     return out
 
 
+class _CFMAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, nh, force, kernel):
+        if kernel:
+            hd = q.shape[-1] // nh
+            out = attention_launch(q, k, v, bias, mask, nh, scale_in(q.dtype, hd ** -0.5),
+                                   1.0, "cfm_attention")
+            cfm_attention.launches += 1
+        else:
+            out = cfm_attention_torch(q, [k], [v], bias, mask, nh)
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.args = (nh, force)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, mask = ctx.saved_tensors
+        nh, force = ctx.args
+        dq, dk, dv, dbias = cfm_attention_bwd(q, k, v, bias, mask, g, nh, force=force)
+        return dq, dk, dv, dbias.to(bias.dtype), None, None, None, None
+
+
+def cfm_attention(q: torch.Tensor, ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
+                  bias: torch.Tensor, mask: torch.Tensor, nh: int,
+                  force: str | None = None) -> torch.Tensor:
+    """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'; the
+    backward follows the same rule (``cfm_attention_bwd``)."""
+    kernel = use_kernel(force, q, "cfm_attention")
+    k = torch.cat(list(ks), dim=1)
+    v = torch.cat(list(vs), dim=1)
+    if kernel:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        bias, mask = bias.float().contiguous(), mask.float().contiguous()
+    return _CFMAttention.apply(q, k, v, bias, mask, nh, force, kernel)
+
+
 cfm_attention.launches = 0
+cfm_attention_bwd.launches = 0

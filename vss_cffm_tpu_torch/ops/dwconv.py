@@ -6,6 +6,14 @@ kernel (3, 3, 1, C) in the JAX package's layout. Its CUDA kernel
 ``vss_cffm_tpu/ops/dwconv.py:_dwconv3x3_pallas``; ``dwconv3x3_torch`` is the
 plain version with the same arithmetic: taps accumulated in f32, f32 bias,
 exact erf GELU, one cast to x's dtype.
+
+The op is differentiable: a ``torch.autograd.Function`` whose forward is the
+kernel (which then also writes the pre-activation z in x's dtype, the
+residual ``vss_cffm_tpu/ops/dwconv.py:_shifts_cvjp_fwd`` keeps) and whose
+backward is ``dwconv3x3_bwd_torch``, plain PyTorch with ``_shifts_cvjp_bwd``'s
+math: gz = g·GELU′(z) in f32, rounded once to x's dtype; dx the correlation
+of gz with the flipped taps; dk and dbias f32 reductions. The JAX backward
+is XLA, not a TPU kernel; a CUDA backward is open work.
 """
 
 from __future__ import annotations
@@ -16,11 +24,11 @@ import torch.nn.functional as F
 from . import _build
 from ._dispatch import ptr, require, stream_of, use_kernel
 
-__all__ = ["dwconv3x3", "dwconv3x3_torch", "dwconv3x3_launch"]
+__all__ = ["dwconv3x3", "dwconv3x3_torch", "dwconv3x3_bwd_torch", "dwconv3x3_launch"]
 
 
-def dwconv3x3_torch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                    gelu: bool = False) -> torch.Tensor:
+def _preact(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """f32 taps + bias."""
     b, h, w, c = x.shape
     k = kernel.reshape(3, 3, c).float()
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
@@ -29,15 +37,49 @@ def dwconv3x3_torch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         for dj in range(3):
             term = xp[:, di:di + h, dj:dj + w, :] * k[di, dj]
             acc = term if acc is None else acc + term
-    acc = acc + bias.float()
-    if gelu:
-        acc = F.gelu(acc)
-    return acc.to(x.dtype)
+    return acc + bias.float()
+
+
+def dwconv3x3_torch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                    gelu: bool = False) -> torch.Tensor:
+    acc = _preact(x, kernel, bias)
+    return (F.gelu(acc) if gelu else acc).to(x.dtype)
+
+
+def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
+    """d/dz of the exact-erf GELU: Φ(z) + z·φ(z)."""
+    phi = torch.exp(-0.5 * z * z) * 0.3989422804014327
+    return 0.5 * (1.0 + torch.erf(z * 0.7071067811865476)) + z * phi
+
+
+def dwconv3x3_bwd_torch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                        z: torch.Tensor | None, g: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dkernel, dbias) for the cotangent g; z is the saved pre-activation
+    (None without GELU)."""
+    b, h, w, c = x.shape
+    k = kernel.reshape(3, 3, c).float()
+    gz_f = g.float()
+    if z is not None:
+        gz_f = gz_f * _gelu_grad(z.float())
+    gp = F.pad(gz_f.to(x.dtype), (0, 0, 1, 1, 1, 1)).float()
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1)).float()
+    dx = None
+    taps = []
+    for di in range(3):
+        for dj in range(3):
+            term = gp[:, 2 - di:2 - di + h, 2 - dj:2 - dj + w, :] * k[di, dj]
+            dx = term if dx is None else dx + term
+            taps.append((xp[:, di:di + h, dj:dj + w, :] * gz_f).sum(dim=(0, 1, 2)))
+    dk = torch.stack(taps).reshape(kernel.shape).to(kernel.dtype)
+    return dx.to(x.dtype), dk, gz_f.sum(dim=(0, 1, 2)).to(bias.dtype)
 
 
 def dwconv3x3_launch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                     gelu: bool, op: str = "dwconv3x3") -> torch.Tensor:
-    """Launch the CUDA kernel: x bf16 or f32 (B, H, W, C) → bf16. No count."""
+                     gelu: bool, op: str = "dwconv3x3", z: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """Launch the CUDA kernel: x bf16 or f32 (B, H, W, C) → bf16; also writes
+    the pre-activation into z (bf16, x's shape) when given. No count."""
     require(x.is_cuda, op, "a CPU tensor")
     require(x.dim() == 4, op, f"x of shape {tuple(x.shape)}")
     require(x.dtype in (torch.bfloat16, torch.float32), op, f"x of dtype {x.dtype}")
@@ -47,24 +89,47 @@ def dwconv3x3_launch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     require(tuple(bias.shape) == (c,), op, f"bias of shape {tuple(bias.shape)}")
     wk = kernel.reshape(9, c).to(device=x.device, dtype=torch.float32).contiguous()
     bb = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    if z is not None:
+        require(z.dtype == torch.bfloat16 and z.shape == x.shape, op,
+                f"z {z.dtype} {tuple(z.shape)}")
     out = torch.empty(x.shape, device=x.device, dtype=torch.bfloat16)
     dev, stream = stream_of(x)
     rc = _build.library("dwconv").dwconv3x3_nhwc(
-        ptr(x, op), ptr(wk, op), ptr(bb, op), ptr(out, op), b, h, w, c,
+        ptr(x, op), ptr(wk, op), ptr(bb, op), ptr(out, op), ptr(z, op), b, h, w, c,
         int(x.dtype == torch.float32), int(gelu), dev, stream)
     _build.check(rc, op)
     return out
 
 
+class _DWConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel, bias, gelu, kernel_path):
+        keep_z = gelu and any(ctx.needs_input_grad[:3])
+        if kernel_path:
+            z = torch.empty(x.shape, device=x.device, dtype=torch.bfloat16) if keep_z else None
+            out = dwconv3x3_launch(x.contiguous(), kernel, bias, gelu, z=z)
+            dwconv3x3.launches += 1
+        else:
+            acc = _preact(x, kernel, bias)
+            z = acc.to(x.dtype) if keep_z else None
+            out = (F.gelu(acc) if gelu else acc).to(x.dtype)
+        ctx.save_for_backward(x, kernel, bias, z)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel, bias, z = ctx.saved_tensors
+        dx, dk, db = dwconv3x3_bwd_torch(x, kernel, bias, z, g)
+        return dx, dk, db, None, None
+
+
 def dwconv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
               gelu: bool = False, force: str | None = None) -> torch.Tensor:
     """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'."""
-    if not use_kernel(force, x, "dwconv3x3"):
-        return dwconv3x3_torch(x, kernel, bias, gelu)
-    require(x.dtype == torch.bfloat16, "dwconv3x3", f"x of dtype {x.dtype} (bf16 only)")
-    out = dwconv3x3_launch(x, kernel, bias, gelu)
-    dwconv3x3.launches += 1
-    return out
+    kernel_path = use_kernel(force, x, "dwconv3x3")
+    if kernel_path:
+        require(x.dtype == torch.bfloat16, "dwconv3x3", f"x of dtype {x.dtype} (bf16 only)")
+    return _DWConv3x3.apply(x, kernel, bias, gelu, kernel_path)
 
 
 dwconv3x3.launches = 0

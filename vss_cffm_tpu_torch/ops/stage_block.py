@@ -214,8 +214,16 @@ def mit_block_step_errors(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b
 def mit_block_fused(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw,
                     w2, b2, num_heads: int = 1, eps: float = 1e-6,
                     force: str | None = None) -> torch.Tensor:
-    """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'."""
+    """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'.
+
+    Inference only: the block has no backward yet (the train pair is ROADMAP
+    Queue B items 7-8), so it raises rather than cut a gradient when autograd
+    records and an input requires grad."""
     args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
+                                       for a in args):
+        raise RuntimeError("mit_block_fused has no backward: train with the composed block "
+                           "(MiTBlock in train() mode), or run it under torch.no_grad()")
     if not use_kernel(force, x, "mit_block_fused"):
         return mit_block_torch(*args, num_heads=num_heads, eps=eps)
     out = _run(_block_steps(*args, num_heads=num_heads, eps=eps, kernel=True))["out"]

@@ -1,0 +1,15 @@
+"""Training of the port: paramwise AdamW with poly lr, train state, train step."""
+
+from .optim import OptimConfig, build_optimizer, paramwise_multipliers, poly_schedule
+from .state import TrainState
+from .step import device_normalize, make_train_step
+
+__all__ = [
+    "OptimConfig",
+    "build_optimizer",
+    "paramwise_multipliers",
+    "poly_schedule",
+    "TrainState",
+    "device_normalize",
+    "make_train_step",
+]
