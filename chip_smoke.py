@@ -5,7 +5,10 @@ Drives the port's two paths with random weights drawn from a fixed seed:
 CFFM-B1 clip inference (4 frames of 480×480 in, one refined target-frame
 mask out) through ``init_segmentor`` and ``inference_segmentor``, then
 CFFM-B1 train steps (2 clips of 4 frames, 480×480, bf16 compute, f32
-parameters, composed blocks) through ``TrainState`` and ``make_train_step``.
+parameters) through ``TrainState`` and ``make_train_step``, in the three
+block forms of training: the default ``train_block_impl=("full", "full",
+"full", None)`` (the whole-block train pair at stages 1-3), "ffn" (the
+block-FFN pair) and None (composed blocks).
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the device: name, ``nvidia-smi`` name and power limit, torch and CUDA;
@@ -26,30 +29,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      model under ``force="torch"`` on the card; end-to-end frames/s (one output
      frame per clip, the repo's bench convention), the median of ROUNDS
      rounds of TIMED_CLIPS clips with every round printed, and peak memory;
-  5. the train phase: a synthetic uint8 batch (2, 4, 480, 480, 3) with
-     labels in [0, 124), ~5 % ignored (255); the inputs of the train step's
-     kernels captured from one plain forward/backward, and each held
-     against its plain version as in 3 (CE forward and backward at N 8 and
-     N 2, CFM attention forward and backward at 162 windows, depthwise conv
-     with its pre-activation output at the backbone's train shapes); the gradients of one
-     forward/backward with the kernels against the plain path's on the
-     same weights, batch and generator; then, with the counts set to 0,
-     TRAIN_COUNTED train steps, the counts held to 2 / 2 / 2 / 2 / 8 / 0 per
-     step (CE forward, CE backward, CFM attention, its backward, depthwise
-     conv, whole block) and a finite loss; then ms per step, train frames/s
-     (B·T frames per step) over TRAIN_ROUNDS rounds of TRAIN_STEPS steps,
-     every round printed, and peak memory;
+  5. the train phase, once per block form (``TRAIN_FORMS``): a synthetic
+     uint8 batch (2, 4, 480, 480, 3) with labels in [0, 124), ~5 % ignored
+     (255); the inputs of the form's kernels captured from one plain
+     forward/backward (with the output cotangent of each block pair), and
+     each held against its plain version as in 3: in the default form the
+     CE forward and backward at N 8 and N 2, the CFM attention forward and
+     backward at 162 windows, the depthwise conv at stage 4 and the
+     whole-block train pair at stages 1-3, forward (its six launches step by
+     step) and backward (its fifteen launches step by step, then its 17
+     outputs each at its own scale); in "ffn" the block-FFN pair likewise;
+     composed, the depthwise conv with its pre-activation output at the
+     four stages; the gradients of one forward/backward with the kernels
+     against the plain path's on the same weights, batch and generator;
+     then, with the counts set to 0, TRAIN_COUNTED train steps, the counts
+     held to the form's launches per step and a finite loss; then ms per
+     step, train frames/s (B·T frames per step) over the form's rounds of
+     TRAIN_STEPS steps, every round printed, and peak memory;
   6. one JSON line of kernels, the ``nvidia-smi`` line, and the final
      ``{"ok": true, "device": {...}}`` line.
 
-``--profile`` adds, for one clip and for one train step, the device busy
-time, the number of kernel launches and of ``aten::_to_copy`` calls, and a
-torch.profiler table of device time by kernel, written to
-``chiprun_out/profile.txt`` and ``chiprun_out/profile_train.txt``.
+``--profile`` adds, for one clip and for one train step of each form, the
+device busy time, the number of kernel launches and of ``aten::_to_copy``
+calls, and a torch.profiler table of device time by kernel, written to
+``chiprun_out/profile.txt`` and ``chiprun_out/profile_train{,_ffn,_composed}.txt``.
 
 Per-kernel times in the JSON line are per call, averaged over the kernel's
-calls in one clip (each main-path shape weighted by its calls); the per-shape
-times are printed above it. ``bound_ms`` is the least time the card could
+shapes on its path (``ms``: the wrapper call between CUDA events, host
+included; with ``--profile``, ``device_ms``: the device time of its launches
+from torch.profiler); the per-shape times are printed above it. ``bound_ms`` is the least time the card could
 take: the largest of bytes / 3.35 TB/s, tensor ops / 989 TFLOP/s, f32 ops /
 67 TFLOP/s and exponentials / the MUFU rate (16 per SM per clock, 132 SMs at
 1.98 GHz), H100 SXM data-sheet figures at 700 W.
@@ -80,6 +88,10 @@ TRAIN_B, TRAIN_T, TRAIN_HW, NUM_CLASSES = 2, 4, 480, 124
 TRAIN_COUNTED = 2
 TRAIN_STEPS = 3
 TRAIN_ROUNDS = 3
+# bf16 roundings at the same points from f32 sums in other orders, carried
+# through a block pair's chain of launches: 2^-5 of each output's largest
+# value (the launches themselves are held one by one, at their own scales)
+PAIR_REL = 2.0 ** -5
 
 
 def _smi() -> str:
@@ -99,6 +111,22 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int = 5) -> float:
+    """Device time of one call of fn: the CUDA kernels of ``iters`` calls as
+    torch.profiler traces them, over iters (``--profile`` only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3 / iters
 
 
 def _nbytes(*ts) -> int:
@@ -234,7 +262,7 @@ def _compare_one(got, want, rel_tol):
 
 
 @torch.no_grad()
-def check_kernels(ops, caught, kernels: dict) -> dict:
+def check_kernels(ops, caught, kernels: dict, profile: bool = False) -> dict:
     results = {}
     for name, spec in kernels.items():
         per_shape = []
@@ -261,19 +289,22 @@ def check_kernels(ops, caught, kernels: dict) -> dict:
             ms = _time_ms(lambda: case["call"]("kernel"))
             plain_ms = _time_ms(lambda: case["call"]("torch"))
             lib_ms = _time_ms(case["library"]) if case["library"] is not None else None
+            dev_ms = _device_ms(lambda: case["call"]("kernel")) if profile else None
             bound_ms, bound_by = case["bound"]
             print(f"[kernel] {name} {case['shape']}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={lib_ms} bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+                  f"library_ms={lib_ms} bound_ms={bound_ms:.4f} ({bound_by}) "
+                  f"device_ms={dev_ms}", flush=True)
             per_shape.append(dict(shape=case["shape"], err=max(c[1] for c in checks), ms=ms,
                                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by))
+                                  bound_by=bound_by, device_ms=dev_ms))
         n = len(per_shape)
         mean = lambda k: sum(p[k] for p in per_shape) / n
         lib = None if per_shape[0]["library_ms"] is None else mean("library_ms")
         by = max(per_shape, key=lambda p: p["bound_ms"])["bound_by"]
         results[name] = dict(max_abs_err=max(p["err"] for p in per_shape), ms=mean("ms"),
                              plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
-                             bound_by=by, library_ms=lib)
+                             bound_by=by, library_ms=lib,
+                             device_ms=mean("device_ms") if profile else None)
     return results
 
 
@@ -386,6 +417,107 @@ def _dwconv_train_case(ops, args):
     return case
 
 
+def _held_outputs(labels, got, want, rel):
+    """[(label, err, tol)] of each output of a tuple, at rel of its own largest."""
+    return [(label, e, t) for label, a, b in zip(labels, got, want)
+            for _, e, t in _compare_one(a, b, rel)]
+
+
+def _block_train_case(ops, rec):
+    """Row 6: the whole-block train forward at a captured block's inputs."""
+    args, kw, _ = rec
+    x, k, w1 = args[0], args[5], args[11]
+    b, h, w, c = x.shape
+    m, s, ch, nh = b * h * w, k.shape[1], w1.shape[1], kw["num_heads"]
+    # q, scores, P·V, proj, fc1, fc2; one exp per score; depthwise + GELU,
+    # LayerNorms, softmax and residuals on the f32 units
+    bound = _bound_ms(_nbytes(*args) + x.numel() * 2, 2 * m * (2 * c * c + 2 * s * c + 2 * c * ch),
+                      m * ch * 24 + m * c * 20 + m * s * nh * 5, m * s * nh)
+
+    def call(force):
+        with torch.no_grad():
+            return ops.mit_block_train(*args, **kw, force=force)
+
+    # out is bf16 at the residual's scale, which dominates it at the step's
+    # weights: the whole output is a sanity check (2^-5 of its largest
+    # value), the six launches are held one by one at their own scales
+    return dict(call=call, bound=bound, library=None,
+                compare=lambda got, want: _compare_one(got, want, PAIR_REL),
+                steps=lambda: ops.mit_block_step_errors(*args[:17], **kw, s_attn=args[17],
+                                                        s_ffn=args[18], op="mit_block_train"),
+                shape=f"x{tuple(x.shape)} S={s} nh={nh} Ch={ch}")
+
+
+def _block_train_bwd_case(ops, rec):
+    """Row 7: the whole-block train backward at a captured block's inputs and
+    output cotangent, from the forward's kept activations (as in the step)."""
+    args, kw, go = rec
+    ins, s_attn, s_ffn = args[:16], args[17], args[18]
+    x, k, w1 = args[0], args[5], args[11]
+    b, h, w, c = x.shape
+    m, s, ch, nh = b * h * w, k.shape[1], w1.shape[1], kw["num_heads"]
+    sb = ops.stage_block
+    acts = {force: sb._run(sb._block_steps(*ins, None, **kw, kernel=force == "kernel",
+                                           s_attn=s_attn, s_ffn=s_ffn), names=sb._ACTS)
+            for force in ("kernel", "torch")}
+    grad_bytes = sum(t.numel() * 4 for t in ins[1:]) + _nbytes(k, args[6])
+    # the TPU kernel's products, its recompute from x included: q and the
+    # scores twice, P·V twice, proj, fc1; d_a, d_ln2, d_ctx, d_p, d_q, d_ln1;
+    # dW2, dW1, dWproj, dWq, dKᵀ, dV. Exps: the softmax twice, GELU′ once.
+    bound = _bound_ms(_nbytes(*ins, go) + x.numel() * 2 + grad_bytes,
+                      2 * m * (7 * c * c + 8 * s * c + 5 * c * ch),
+                      m * ch * 64 + m * c * 40 + m * s * nh * 10, 2 * m * s * nh + m * ch)
+    return dict(call=lambda force: ops.mit_block_train_bwd(*ins, s_attn, s_ffn, go, **kw,
+                                                           force=force, acts=acts[force]),
+                bound=bound, library=None,
+                compare=lambda g, w_: _held_outputs(sb.GRADS, g, w_, PAIR_REL),
+                steps=lambda: sb.mit_block_train_bwd_step_errors(*ins, s_attn, s_ffn, go, **kw),
+                shape=f"x{tuple(x.shape)} S={s} nh={nh} Ch={ch}")
+
+
+def _ffn_train_case(ops, rec):
+    """Row 10: the block-FFN train forward at a captured block's inputs."""
+    args, eps, _ = rec
+    x, w1 = args[0], args[3]
+    b, h, w, c = x.shape
+    m, ch = b * h * w, w1.shape[1]
+    bound = _bound_ms(_nbytes(*args) + x.numel() * 2, 2 * m * 2 * c * ch,
+                      m * ch * 24 + m * c * 20)
+
+    def call(force):
+        with torch.no_grad():
+            return ops.block_ffn_train(*args, eps, force=force)
+
+    # a sanity check of the whole output, as for row 6; the launches are held
+    # one by one
+    return dict(call=call, bound=bound, library=None,
+                compare=lambda got, want: _compare_one(got, want, PAIR_REL),
+                steps=lambda: ops.mixffn.block_ffn_train_step_errors(*args, eps),
+                shape=f"x{tuple(x.shape)} Ch={ch}")
+
+
+def _ffn_train_bwd_case(ops, rec):
+    """Row 11: the block-FFN train backward, from the forward's kept hid and a."""
+    args, eps, go = rec
+    ins, scale = args[:8], args[9]
+    x, w1 = args[0], args[3]
+    b, h, w, c = x.shape
+    m, ch = b * h * w, w1.shape[1]
+    mx = ops.mixffn
+    acts = {force: mx._forward(*args, eps, force == "kernel", "block_ffn_train",
+                               names=mx._ACTS) for force in ("kernel", "torch")}
+    grad_bytes = sum(t.numel() * 4 for t in ins[1:])
+    # the TPU kernel's products: fc1 (recompute), d_a, d_ln, dW2, dW1; GELU′ exps
+    bound = _bound_ms(_nbytes(*ins, go) + x.numel() * 2 + grad_bytes, 2 * m * 5 * c * ch,
+                      m * ch * 64 + m * c * 40, m * ch)
+    return dict(call=lambda force: mx.block_ffn_train_bwd(*ins, scale, go, eps, force=force,
+                                                          acts=acts[force]),
+                bound=bound, library=None,
+                compare=lambda g, w_: _held_outputs(mx.FFN_GRADS, g, w_, PAIR_REL),
+                steps=lambda: mx.block_ffn_train_bwd_step_errors(*ins, scale, go, eps),
+                shape=f"x{tuple(x.shape)} Ch={ch}")
+
+
 TRAIN_KERNELS = {
     "ce_upsampled_loss": dict(
         sources=["vss_cffm_tpu_torch/csrc/ce_upsampled.cu"],
@@ -400,28 +532,79 @@ TRAIN_KERNELS = {
         sources=["vss_cffm_tpu_torch/csrc/attention_bwd.cu"],
         replaces="vss_cffm_tpu/ops/cfm_attention.py:120",  # _bwd_kernel_rc, called at :204
         case=_cfm_bwd_case),
+    "mit_block_train": dict(
+        # the six forward launches of the block, with the branch scales
+        sources=["vss_cffm_tpu_torch/csrc/block_gemm.cu", "vss_cffm_tpu_torch/csrc/attention.cu",
+                 "vss_cffm_tpu_torch/csrc/dwconv.cu"],
+        replaces="vss_cffm_tpu/ops/stage_block.py:321",  # _train_fwd_kernel, called at :672
+        case=_block_train_case),
+    "mit_block_train_bwd": dict(
+        # fifteen launches: input-gradient GEMMs, depthwise / LayerNorm passes,
+        # the attention backward, the row-reduction GEMMs
+        sources=["vss_cffm_tpu_torch/csrc/sra_attention_bwd.cu",
+                 "vss_cffm_tpu_torch/csrc/block_bwd.cu", "vss_cffm_tpu_torch/csrc/gemm_tn.cu",
+                 "vss_cffm_tpu_torch/csrc/block_gemm.cu"],
+        replaces="vss_cffm_tpu/ops/stage_block.py:369",  # _train_bwd_kernel, called at :732
+        case=_block_train_bwd_case),
     # the forward kernels of the inference path, held again at the train
     # shapes (the decoder's 162 windows at B·T = 8; the depthwise conv with
-    # its z output); their rows of the kernels line stay the inference
-    # path's (KERNELS), with the tolerances stated there
+    # its z output at stage 4); their rows of the kernels line stay the
+    # inference path's (KERNELS), with the tolerances stated there
     "cfm_attention": dict(rel_tol=2.0 ** -6, case=_cfm_case),
     "dwconv3x3": dict(rel_tol=2.0 ** -7, case=_dwconv_train_case),
 }
 
+FFN_KERNELS = {
+    "block_ffn_train": dict(
+        # launches 4-6 of the block's forward: fc1 with LN2, dwconv, fc2
+        sources=["vss_cffm_tpu_torch/csrc/block_gemm.cu", "vss_cffm_tpu_torch/csrc/dwconv.cu"],
+        # _kernel_ln with the branch scale, called by _block_ffn_fwd_scaled at :467
+        replaces="vss_cffm_tpu/ops/mixffn.py:106",
+        case=_ffn_train_case),
+    "block_ffn_train_bwd": dict(
+        # seven launches: the FFN half of the block's backward
+        sources=["vss_cffm_tpu_torch/csrc/block_bwd.cu", "vss_cffm_tpu_torch/csrc/gemm_tn.cu",
+                 "vss_cffm_tpu_torch/csrc/block_gemm.cu"],
+        replaces="vss_cffm_tpu/ops/mixffn.py:313",  # _bwd_kernel_ln, called at :517
+        case=_ffn_train_bwd_case),
+}
 
-def _capture_train_inputs(model, x, labels, force_loss):
+# the block forms of training: train_block_impl, the kernels held at the
+# form's inputs, launches per step, timed rounds
+_SHARED = {"ce_upsampled_loss": 2, "ce_upsampled_loss_bwd": 2, "cfm_attention": 2,
+           "cfm_attention_bwd": 2, "mit_block_fused": 0}
+TRAIN_FORMS = {
+    "train": dict(impl=("full", "full", "full", None), kernels=TRAIN_KERNELS,
+                  per_step={**_SHARED, "mit_block_train": 6, "mit_block_train_bwd": 6,
+                            "dwconv3x3": 2, "block_ffn_train": 0, "block_ffn_train_bwd": 0},
+                  rounds=TRAIN_ROUNDS),
+    "train_ffn": dict(impl=("ffn", "ffn", "ffn", None), kernels=FFN_KERNELS,
+                      per_step={**_SHARED, "block_ffn_train": 6, "block_ffn_train_bwd": 6,
+                                "dwconv3x3": 2, "mit_block_train": 0, "mit_block_train_bwd": 0},
+                      rounds=1),
+    "train_composed": dict(impl=None, kernels={"dwconv3x3": TRAIN_KERNELS["dwconv3x3"]},
+                           per_step={**_SHARED, "dwconv3x3": 8, "mit_block_train": 0,
+                                     "mit_block_train_bwd": 0, "block_ffn_train": 0,
+                                     "block_ffn_train_bwd": 0},
+                           rounds=1),
+}
+
+
+def _capture_train_inputs(model, x, labels, force_loss, kernels: dict):
     """One plain forward/backward of the train step; the arguments of each
-    kernel op at its call sites are recorded (copies): the CE and its
-    backward, the CFM attention forward (first decoder block) and backward
-    (both decoder blocks), and the depthwise conv of the first block of each
-    stage."""
+    kernel op in ``kernels`` at its call sites are recorded (copies): the CE
+    and its backward, the CFM attention forward (first decoder block) and
+    backward (both decoder blocks), the depthwise conv of each composed FFN
+    (first block of the stage), and the block pairs of the first block of
+    stages 1-3 with their output cotangents."""
     from vss_cffm_tpu_torch.models import losses, set_force
 
     # the modules (the package's names cfm_attention etc. are the ops)
     ce_upsampled = importlib.import_module("vss_cffm_tpu_torch.ops.ce_upsampled")
     cfm_attention = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")
+    mit = importlib.import_module("vss_cffm_tpu_torch.models.mit")
 
-    caught = {name: [] for name in TRAIN_KERNELS}
+    caught = {name: [] for name in kernels}
     copy = lambda a: a.detach().clone() if isinstance(a, torch.Tensor) else a
 
     def recorder(name, fn, nargs, extra=()):
@@ -431,24 +614,45 @@ def _capture_train_inputs(model, x, labels, force_loss):
             return fn(*a, **kw)
         return wrapped
 
+    def pair_recorder(names, fn, split):
+        """Record (inputs, the rest, output cotangent) of a block pair."""
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            rec = [tuple(copy(t) for t in a[:split]),
+                   {k: v for k, v in kw.items() if k != "force"} or a[split], None]
+            out.register_hook(lambda g: rec.__setitem__(2, g.detach().clone()))
+            for n in names:
+                caught[n].append(rec)
+            return out
+        return wrapped
+
     patches = [(losses, "ce_upsampled_loss", recorder(
                    "ce_upsampled_loss", losses.ce_upsampled_loss, 4, (("count_acc", True),))),
                (ce_upsampled, "ce_upsampled_loss_bwd", recorder(
                    "ce_upsampled_loss_bwd", ce_upsampled.ce_upsampled_loss_bwd, 5)),
                (cfm_attention, "cfm_attention_bwd", recorder(
-                   "cfm_attention_bwd", cfm_attention.cfm_attention_bwd, 7))]
+                   "cfm_attention_bwd", cfm_attention.cfm_attention_bwd, 7)),
+               (mit, "mit_block_train", pair_recorder(
+                   ("mit_block_train", "mit_block_train_bwd"), mit.mit_block_train, 19)),
+               (mit, "block_ffn_train", pair_recorder(
+                   ("block_ffn_train", "block_ffn_train_bwd"), mit.block_ffn_train, 10))]
+    patches = [pt for pt in patches if pt[1] in caught]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
-    hooks = [getattr(model.backbone, f"block{s}")[0].mlp.register_forward_pre_hook(
-        lambda mod, a: caught["dwconv3x3"].append(tuple(copy(t) for t in mod.dwconv_args(a[0]))))
-        for s in range(1, 5)]
+    hooks = []
+    if "dwconv3x3" in caught:
+        hooks = [getattr(model.backbone, f"block{s}")[0].mlp.register_forward_pre_hook(
+            lambda mod, a: caught["dwconv3x3"].append(tuple(copy(t)
+                                                            for t in mod.dwconv_args(a[0]))))
+            for s in range(1, 5)]
 
     def attention_inputs(mod, a):
         q, ks, vs, bias, mask, nh = mod.attention_inputs(*a)
         caught["cfm_attention"].append((copy(q), [copy(k) for k in ks], [copy(v) for v in vs],
                                         copy(bias), copy(mask), nh))
 
-    hooks.append(model.decode_head.decoder_focal.blocks[0].attn.register_forward_pre_hook(
-        attention_inputs))
+    if "cfm_attention" in caught:
+        hooks.append(model.decode_head.decoder_focal.blocks[0].attn.register_forward_pre_hook(
+            attention_inputs))
     set_force(model, "torch")
     try:
         for mod, attr, fn in patches:
@@ -464,10 +668,17 @@ def _capture_train_inputs(model, x, labels, force_loss):
             hk.remove()
         set_force(model, None)
         model.zero_grad(set_to_none=True)
+    # the block pairs: the first block of each of stages 1-3 (B1: 2 blocks a stage)
+    depths = model.config.backbone_config.depths
+    firsts = [sum(depths[:s]) for s in range(3)]
+    for name in ("mit_block_train", "mit_block_train_bwd", "block_ffn_train",
+                 "block_ffn_train_bwd"):
+        if name in caught:
+            caught[name] = [caught[name][i] for i in firsts]
     return caught
 
 
-def _grad_agreement(model, x, labels, loss_of) -> None:
+def _grad_agreement(model, x, labels, loss_of, form: str) -> None:
     """One forward/backward with the kernels and one on the plain path, same
     weights, batch and generator seed; the loss, each parameter's gradient
     (cosine) and the global norm are held, the worst parameter printed."""
@@ -495,7 +706,7 @@ def _grad_agreement(model, x, labels, loss_of) -> None:
     flat_p = torch.cat([g.reshape(-1) for g in gp.values()])
     nk, np_ = flat_k.norm().item(), flat_p.norm().item()
     total = torch.nn.functional.cosine_similarity(flat_k, flat_p, dim=0).item()
-    print(f"[train] kernel vs plain path, one forward/backward: loss {lk:.6f} vs {lp:.6f} "
+    print(f"[{form}] kernel vs plain path, one forward/backward: loss {lk:.6f} vs {lp:.6f} "
           f"(rel {abs(lk - lp) / abs(lp):.3e}); grad norm {nk:.6f} vs {np_:.6f} "
           f"(rel {abs(nk - np_) / np_:.3e}); cosine of all gradients {total:.6f}; worst of "
           f"{len(cos)} parameters with norm >= 1e-3 of the largest: {worst} cosine "
@@ -508,15 +719,20 @@ def _grad_agreement(model, x, labels, loss_of) -> None:
         raise RuntimeError("kernel-path gradients disagree with the plain path's")
 
 
-def train_phase(apis, ops, opts, root, kind, smi) -> tuple[dict, dict]:
-    """The train step: kernel checks at its inputs, gradient agreement, the
-    counted steps and the timed rounds. Returns (kernel stats, launch counts
-    over TRAIN_COUNTED steps)."""
-    from vss_cffm_tpu_torch.config import OptimConfig
+def train_phase(apis, ops, opts, root, kind, smi, form: str) -> tuple[dict, dict]:
+    """One block form of the train step (``TRAIN_FORMS``): kernel checks at its
+    inputs, gradient agreement, the counted steps and the timed rounds.
+    Returns (kernel stats, launch counts over TRAIN_COUNTED steps)."""
+    import dataclasses
+
+    from vss_cffm_tpu_torch.config import OptimConfig, build_model_config
     from vss_cffm_tpu_torch.models.losses import clip_ce_loss
     from vss_cffm_tpu_torch.train import TrainState, device_normalize, make_train_step
 
-    bundle = apis.init_segmentor("b1", device="cuda", dtype=torch.bfloat16, seed=SEED)
+    spec = TRAIN_FORMS[form]
+    cfg = dataclasses.replace(build_model_config("b1"), train_block_impl=spec["impl"])
+    print(f"[{form}] train_block_impl={cfg.train_block_impl}", flush=True)
+    bundle = apis.init_segmentor(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
     model = bundle.model.train()
     rng = np.random.RandomState(SEED + 1)
     shape = (TRAIN_B, TRAIN_T, TRAIN_HW, TRAIN_HW)
@@ -526,9 +742,10 @@ def train_phase(apis, ops, opts, root, kind, smi) -> tuple[dict, dict]:
     batch = {"imgs": imgs, "labels": torch.from_numpy(labels).cuda()}
     x = device_normalize(imgs, torch.bfloat16)
 
-    caught = _capture_train_inputs(model, x, batch["labels"], clip_ce_loss)
-    stats = check_kernels(ops, caught, TRAIN_KERNELS)
-    _grad_agreement(model, x, batch["labels"], clip_ce_loss)
+    caught = _capture_train_inputs(model, x, batch["labels"], clip_ce_loss, spec["kernels"])
+    stats = check_kernels(ops, caught, spec["kernels"], opts.profile)
+    del caught
+    _grad_agreement(model, x, batch["labels"], clip_ce_loss, form)
 
     state = TrainState.create(model, OptimConfig())
     step = make_train_step(model, state.optimizer, state.scheduler)
@@ -539,22 +756,20 @@ def train_phase(apis, ops, opts, root, kind, smi) -> tuple[dict, dict]:
     metrics = [step(batch, gen) for _ in range(TRAIN_COUNTED)]
     torch.cuda.synchronize()
     counts = ops.launches()
-    print(f"[train] launches over {TRAIN_COUNTED} steps: {counts}", flush=True)
-    per_step = {"ce_upsampled_loss": 2, "ce_upsampled_loss_bwd": 2, "cfm_attention": 2,
-                "cfm_attention_bwd": 2, "dwconv3x3": 8, "mit_block_fused": 0}
-    for name, n in per_step.items():
+    print(f"[{form}] launches over {TRAIN_COUNTED} steps: {counts}", flush=True)
+    for name, n in spec["per_step"].items():
         if counts[name] != n * TRAIN_COUNTED:
-            raise RuntimeError(f"train step: {name} launched {counts[name]} times, expected "
+            raise RuntimeError(f"{form} step: {name} launched {counts[name]} times, expected "
                                f"{n} x {TRAIN_COUNTED}")
     for m in metrics:
         vals = {k: v.item() for k, v in m.items()}
-        print(f"[train] step metrics: {vals}", flush=True)
+        print(f"[{form}] step metrics: {vals}", flush=True)
         if not all(np.isfinite(v) for v in vals.values()):
             raise RuntimeError(f"non-finite train metrics {vals}")
 
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
-    for _ in range(TRAIN_ROUNDS):
+    for _ in range(spec["rounds"]):
         torch.cuda.synchronize()
         ts = time.perf_counter()
         for _ in range(TRAIN_STEPS):
@@ -563,14 +778,16 @@ def train_phase(apis, ops, opts, root, kind, smi) -> tuple[dict, dict]:
         step_ms.append((time.perf_counter() - ts) * 1e3 / TRAIN_STEPS)
     med = float(np.median(step_ms))
     frames = TRAIN_B * TRAIN_T
-    print(f"[train] CFFM-B1 480x480 B={TRAIN_B} clip-{TRAIN_T} bf16 train step: {med:.3f} ms, "
-          f"median of {TRAIN_ROUNDS} rounds of {TRAIN_STEPS} steps "
-          f"({', '.join(f'{t:.3f}' for t in step_ms)}); {1e3 * frames / med:.3f} train "
-          f"frames/s; peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
-          flush=True)
+    print(f"[{form}] CFFM-B1 480x480 B={TRAIN_B} clip-{TRAIN_T} bf16 train step "
+          f"(train_block_impl={spec['impl']}): {med:.3f} ms, median of {spec['rounds']} "
+          f"round(s) of {TRAIN_STEPS} steps ({', '.join(f'{t:.3f}' for t in step_ms)}); "
+          f"{1e3 * frames / med:.3f} train frames/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
     if opts.profile:
-        _profile(lambda: step(batch, gen), "one train step", "profile_train.txt", root, kind,
-                 smi)
+        fname = "profile_" + ("train" if form == "train" else form) + ".txt"
+        _profile(lambda: step(batch, gen), f"one train step ({form})", fname, root, kind, smi)
+    del bundle, model, state, step
+    torch.cuda.empty_cache()
     return stats, counts
 
 
@@ -641,7 +858,7 @@ def main() -> int:
     # ---- 3. kernels at the main path's inputs --------------------------------
     x0, _ = apis._prepare_clip(bundle, clips[0])
     caught = _capture_main_path_inputs(model, x0.to(torch.float32))
-    kernel_stats = check_kernels(ops, caught, KERNELS)
+    kernel_stats = check_kernels(ops, caught, KERNELS, opts.profile)
 
     # ---- 4. the main path ----------------------------------------------------
     cfg = bundle.config.backbone_config
@@ -712,26 +929,30 @@ def main() -> int:
     del bundle, model, caught
     torch.cuda.empty_cache()
 
-    # ---- 5. the train step -----------------------------------------------------
-    train_stats, train_counts = train_phase(apis, ops, opts, root, kind, smi)
+    # ---- 5. the train step, in each block form ------------------------------
+    train_stats, train_counts = {}, {}
+    for form in TRAIN_FORMS:
+        train_stats[form], train_counts[form] = train_phase(apis, ops, opts, root, kind, smi, form)
 
     # ---- 6. result lines -----------------------------------------------------
     # launches: each kernel's count on its own path (the inference clips for
-    # the inference kernels, the counted train steps for the train ones);
-    # launches_by_path gives both
+    # the inference kernels, the counted steps of the default train form for
+    # the train ones, of the "ffn" form for the block-FFN pair);
+    # launches_by_path gives every path's
     kernels = []
-    rows = [(n, spec, kernel_stats[n], counts[n], "inference") for n, spec in KERNELS.items()]
-    rows += [(n, spec, train_stats[n], train_counts[n], "train")
-             for n, spec in TRAIN_KERNELS.items() if "sources" in spec]
-    for name, spec, st, n_launch, path in rows:
+    rows = [(n, spec, kernel_stats[n], "inference") for n, spec in KERNELS.items()]
+    rows += [(n, spec, train_stats[form][n], form) for form in TRAIN_FORMS
+             for n, spec in TRAIN_FORMS[form]["kernels"].items() if "sources" in spec]
+    for name, spec, st, path in rows:
+        by_path = {"inference": counts[name], **{f: c[name] for f, c in train_counts.items()}}
         kernels.append({"name": name, "route": "cuda", "source": spec["sources"][0],
                         "sources": spec["sources"],
-                        "replaces": spec["replaces"], "launches": n_launch, "path": path,
-                        "launches_by_path": {"inference": counts[name],
-                                             "train": train_counts[name]},
+                        "replaces": spec["replaces"], "launches": by_path[path], "path": path,
+                        "launches_by_path": by_path,
                         "max_abs_err": st["max_abs_err"], "ms": st["ms"],
                         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-                        "bound_by": st["bound_by"], "library_ms": st["library_ms"]})
+                        "bound_by": st["bound_by"], "library_ms": st["library_ms"],
+                        "device_ms": st["device_ms"]})
     print(f"[done] {time.perf_counter() - t0:.1f} s; kernels checked: "
           f"{', '.join(k['name'] for k in kernels)}", flush=True)
     print(json.dumps({"kernels": kernels}))

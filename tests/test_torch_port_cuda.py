@@ -1,7 +1,8 @@
 """PyTorch port, on the card: each CUDA kernel against its plain version at
 shapes beyond the main path's (odd maps, ragged row tiles, grouped K/V,
-several head counts, ragged window tiles, ignored labels), in bf16, and a
-train step whose gradients go through the kernels.
+several head counts, ragged window tiles, ignored labels, B0 widths, zero
+branch scales), in bf16, and train steps in each block form whose gradients
+go through the kernels.
 
 Marked ``cuda`` and skipped where no CUDA device is present. On a machine
 with one, from the repository root::
@@ -118,6 +119,83 @@ def test_mit_block_kernel_matches_plain(dev, shape, ch, s, nh):
         assert err <= tol, (name, err, tol)
 
 
+def _block_train_inputs(rng, shape, ch, s, dev):
+    """bf16 x, K, V and go, f32 parameters scaled so that both branches are
+    O(1) next to x, branch scales with a dropped branch in frame 0."""
+    b, h, w, c = shape
+    f = lambda *sh, sc: _rand(rng, *sh, scale=sc, dtype=torch.float32, dev=dev)
+    ins = (_rand(rng, *shape, scale=0.3, dev=dev), 1.0 + f(c, sc=0.1), f(c, sc=0.1),
+           f(c, c, sc=c ** -0.5), f(c, sc=0.1), _rand(rng, b, s, c, dev=dev),
+           _rand(rng, b, s, c, dev=dev), f(c, c, sc=c ** -0.5), f(c, sc=0.1),
+           1.0 + f(c, sc=0.1), f(c, sc=0.1), f(c, ch, sc=c ** -0.5), f(ch, sc=0.1),
+           f(3, 3, 1, ch, sc=1 / 3), f(ch, sc=0.1), f(ch, c, sc=ch ** -0.5), f(c, sc=0.1))
+    s_attn = torch.tensor(([0.0] + [1 / 0.9] * b)[:b], device=dev)
+    s_ffn = torch.tensor(([1 / 0.9, 0.0] + [1.0] * b)[:b], device=dev)
+    go = _rand(rng, *shape, dev=dev)
+    return ins, s_attn, s_ffn, go
+
+
+# bf16 roundings at the same points from f32 sums in other orders, carried
+# through the chain of launches: 2^-5 of each output's largest value
+WHOLE_REL = 2.0 ** -5
+
+TRAIN_BLOCK_SHAPES = [
+    ((2, 9, 11, 32), 128, 12, 1),    # B0 stage 1 widths, odd H and W
+    ((1, 8, 8, 64), 256, 16, 2),     # B0 stage 2: two heads of 32
+    ((2, 7, 5, 160), 640, 20, 5),    # B0 stage 3: five heads of 32, ragged W
+    ((1, 17, 9, 128), 512, 15, 2),   # heads of 64, more queries than one tile
+]
+
+
+@pytest.mark.parametrize("shape,ch,s,nh", TRAIN_BLOCK_SHAPES)
+def test_mit_block_train_kernels_match_plain(dev, shape, ch, s, nh):
+    """The whole-block train pair: every forward and backward launch against
+    its plain step, fed the plain path's inputs, at its own tolerance
+    (``mit_block_step_errors`` with the branch scales,
+    ``mit_block_train_bwd_step_errors``); then the forward (held as out − x)
+    and all 17 outputs of the backward, each at its own scale."""
+    rng = np.random.RandomState(8)
+    ins, s_attn, s_ffn, go = _block_train_inputs(rng, shape, ch, s, dev)
+    sb = ops.stage_block
+    for name, err, tol in (
+            sb.mit_block_step_errors(*ins, num_heads=nh, s_attn=s_attn, s_ffn=s_ffn,
+                                     op="mit_block_train")
+            + sb.mit_block_train_bwd_step_errors(*ins[:16], s_attn, s_ffn, go, num_heads=nh)):
+        assert err <= tol, (name, err, tol)
+    got = ops.mit_block_train(*ins, s_attn, s_ffn, num_heads=nh, force="kernel")
+    want = ops.mit_block_train(*ins, s_attn, s_ffn, num_heads=nh, force="torch")
+    x = ins[0].float()
+    _close(got.float() - x, want.float() - x, WHOLE_REL)
+    gk = ops.mit_block_train_bwd(*ins[:16], s_attn, s_ffn, go, nh, force="kernel")
+    gp = ops.mit_block_train_bwd(*ins[:16], s_attn, s_ffn, go, nh, force="torch")
+    for name, a, b in zip(ops.stage_block.GRADS, gk, gp):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= WHOLE_REL * b.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("shape,ch", [((2, 9, 11, 32), 128), ((1, 7, 13, 160), 640),
+                                      ((2, 6, 6, 320), 1280)])
+def test_block_ffn_train_kernels_match_plain(dev, shape, ch):
+    """The FFN-half pair: each launch against its plain step
+    (``block_ffn_train_step_errors``), then the forward and its 9 gradients
+    at their own scales."""
+    rng = np.random.RandomState(9)
+    ins, _, s_ffn, go = _block_train_inputs(rng, shape, ch, 4, dev)
+    x, ffn = ins[0], ins[9:]
+    for name, err, tol in (ops.mixffn.block_ffn_train_step_errors(x, *ffn, s_ffn)
+                           + ops.mixffn.block_ffn_train_bwd_step_errors(x, *ffn[:7], s_ffn, go)):
+        assert err <= tol, (name, err, tol)
+    got = ops.block_ffn_train(x, *ffn, s_ffn, force="kernel")
+    want = ops.block_ffn_train(x, *ffn, s_ffn, force="torch")
+    _close(got.float() - x.float(), want.float() - x.float(), WHOLE_REL)
+    gk = ops.block_ffn_train_bwd(x, *ffn[:7], s_ffn, go, force="kernel")
+    gp = ops.block_ffn_train_bwd(x, *ffn[:7], s_ffn, go, force="torch")
+    for name, a, b in zip(ops.mixffn.FFN_GRADS, gk, gp):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= WHOLE_REL * b.float().abs().max().item(), (name, err)
+
+
 def test_launch_counts_on_the_card(dev):
     """On CUDA tensors force=None launches (and counts), 'torch' does not."""
     rng = np.random.RandomState(3)
@@ -208,17 +286,33 @@ def test_dwconv_kernel_writes_the_preactivation(dev):
     _close(xg.grad, xp.grad, 2.0 ** -5)
 
 
-def test_train_step_gradients_through_the_kernels(dev):
-    """A B0 train step at 64² on the card, bf16: the gradients of parameters
-    behind each kernel op (depthwise taps, CFM bias tables, q/kv of the
-    decoder, the class convs behind the CE) exist and are not zero, and the
-    kernel path's gradients point where the plain path's do (cosine ≥ 0.99
-    over all parameters; bf16 roundings at other points)."""
+# per block form, launches of one forward/backward of B0 (2 blocks a stage,
+# stage 4 composed)
+TRAIN_FORMS = {
+    ("full", "full", "full", None): {"mit_block_train": 6, "mit_block_train_bwd": 6,
+                                     "block_ffn_train": 0, "dwconv3x3": 2},
+    ("ffn", "ffn", "ffn", None): {"block_ffn_train": 6, "block_ffn_train_bwd": 6,
+                                  "mit_block_train": 0, "dwconv3x3": 2},
+    None: {"mit_block_train": 0, "block_ffn_train": 0, "dwconv3x3": 8},
+}
+
+
+@pytest.mark.parametrize("form", list(TRAIN_FORMS), ids=["full", "ffn", "composed"])
+def test_train_step_gradients_through_the_kernels(dev, form):
+    """A B0 train step at 64² on the card, bf16, in each block form: the
+    gradients of parameters behind each kernel op (depthwise taps, CFM bias
+    tables, q/kv of the decoder, the class convs behind the CE, the sr conv
+    behind dK/dV) exist and are not zero, and the kernel path's gradients
+    point where the plain path's do (cosine ≥ 0.99 over all parameters; bf16
+    roundings at other points)."""
+    import dataclasses
+
     from vss_cffm_tpu_torch import config as pcfg
     from vss_cffm_tpu_torch.models import CFFMSegmentor, set_force
     from vss_cffm_tpu_torch.train.step import device_normalize
 
-    cfg = pcfg.build_model_config("b0", num_classes=11)
+    cfg = dataclasses.replace(pcfg.build_model_config("b0", num_classes=11),
+                              train_block_impl=form)
     model = CFFMSegmentor(cfg, dtype=torch.bfloat16)
     model.init_weights(torch.Generator().manual_seed(0))
     model.to(dev).train()
@@ -242,8 +336,11 @@ def test_train_step_gradients_through_the_kernels(dev):
             for name in ("dwconv3x3", "cfm_attention", "cfm_attention_bwd",
                          "ce_upsampled_loss", "ce_upsampled_loss_bwd"):
                 assert counts[name] > 0, (name, counts)
+            for name, n in TRAIN_FORMS[form].items():
+                assert counts[name] == n, (form, name, counts)
     set_force(model, None)
     for name in ("backbone.block1.0.mlp.dwconv.dwconv.weight",
+                 "backbone.block1.0.attn.sr.weight", "backbone.block3.1.mlp.fc1.weight",
                  "decode_head.decoder_focal.blocks.0.attn.relative_position_bias_table",
                  "decode_head.decoder_focal.blocks.0.attn.qkv.weight",
                  "decode_head.linear_pred.weight", "decode_head.linear_pred2.weight"):

@@ -1,12 +1,15 @@
 """PyTorch port, the train step as a whole on the CPU, against the JAX package
 at CFFM-B0 112² (decoder map 14×14, logits 28×28, so the JAX CE backward
 kernel has its even row chunk), clips of 4 frames, 7 classes, f32, drop
-rates 0 on both sides, composed blocks at every stage, and the JAX CE
-kernels in interpret mode in its loss (``torch_port_common.train_patches``):
+rates 0 on both sides, and the JAX CE kernels in interpret mode in its loss
+(``torch_port_common.train_patches``):
 
 - train-mode logits (B, T+1, h, w, C), ``loss_seg``, ``acc_seg``, every
   parameter's gradient and the BatchNorm running statistics after the
-  forward, from one forward/backward on each side;
+  forward, from one forward/backward on each side, in two block forms:
+  composed blocks at every stage, and the JAX default (the whole-block
+  train pair at stages 1-3, on the JAX side its Pallas kernels in interpret
+  mode, "full-interpret");
 - the optimizer: every parameter's (lr multiplier, decayed) and three AdamW
   steps through the warmup against optax;
 - one whole ``make_train_step`` against the JAX ``make_train_step``.
@@ -41,8 +44,12 @@ CLASSES = 7
 B = 2
 
 
-def _models(seed: int = 0):
-    jcfg, pc = train_configs("b0", CLASSES, depth=1)
+# the block forms of the forward/backward parity, as the JAX config names them
+FORMS = {"composed": None, "full": ("full-interpret",) * 3 + (None,)}
+
+
+def _models(seed: int = 0, train_block_impl=None):
+    jcfg, pc = train_configs("b0", CLASSES, depth=1, train_block_impl=train_block_impl)
     jm = JaxSegmentor(jcfg)
     variables = perturbed_variables(jm, np.zeros((1, 4, *HW, 3), np.float32), seed)
     pm = CFFMSegmentor(pc)
@@ -50,12 +57,14 @@ def _models(seed: int = 0):
     return jcfg, jm, variables, pm.train()
 
 
-@pytest.fixture(scope="module")
-def forward_backward():
+@pytest.fixture(scope="module", params=list(FORMS))
+def forward_backward(request):
     """One train forward + loss + backward on each side, same weights and
-    batch."""
+    batch, in each block form of ``FORMS``."""
     with train_patches("b0"):
-        jcfg, jm, variables, pm = _models()
+        jcfg, jm, variables, pm = _models(train_block_impl=FORMS[request.param])
+        assert pm.config.backbone_config.train_block_impl == (
+            None if request.param == "composed" else ("full", "full", "full", None))
         imgs_u8, labels = train_batch(B, HW, CLASSES)
         imgs = np.array(jax_device_normalize(jnp.asarray(imgs_u8)))
         jloss = jax_make_clip_loss(JaxLossConfig())

@@ -271,10 +271,18 @@ def test_fused_block_refuses_grad_and_train_mode_runs_composed(rng):
 
 
 def test_unsupported_train_settings_raise():
-    with pytest.raises(NotImplementedError, match="Queue B items 7-9"):
-        pcfg.SegmentorConfig(train_block_impl=("full", "full", "full", None))
-    with pytest.raises(NotImplementedError, match="Queue B items 7-9"):
-        pcfg.apply_overrides(pcfg.build_model_config("b1"), ["train_block_impl=ffn"])
+    """The train block forms are None, "full" and "ffn" per stage, as the JAX
+    package's (without its interpret modes); anything else raises. The JAX
+    default is the port's, and the override parser takes per-stage forms."""
+    assert pcfg.build_model_config("b1").train_block_impl == ("full", "full", "full", None)
+    cfg = pcfg.apply_overrides(pcfg.build_model_config("b1"),
+                               ["train_block_impl=ffn,ffn,full,"])
+    assert cfg.train_block_impl == ("ffn", "ffn", "full", None)
+    assert cfg.backbone_config.train_block_impl == ("ffn", "ffn", "full", None)
+    with pytest.raises(ValueError, match="train_block_impl"):
+        pcfg.SegmentorConfig(train_block_impl=("full", "fused", "full", None))
+    with pytest.raises(ValueError, match="train_block_impl"):
+        pcfg.apply_overrides(pcfg.build_model_config("b1"), ["train_block_impl=full-interpret"])
     with pytest.raises(NotImplementedError, match="Lovász"):
         make_clip_loss(pcfg.LossConfig(type="lovasz"))
     with pytest.raises(NotImplementedError, match="OHEM"):

@@ -34,7 +34,9 @@ def jax_config(variant: str = "b0", num_classes: int = 7, depth: int = 1,
 
 
 def port_config(jcfg, block_impl=(None, "fused", "fused", None)) -> pcfg.SegmentorConfig:
-    """The port's config with the same fields as a JAX ``SegmentorConfig``."""
+    """The port's config with the same fields as a JAX ``SegmentorConfig``; its
+    ``train_block_impl`` is the JAX one, the interpret modes mapped to the
+    port's forms ("full-interpret" → "full", "ffn-interpret" → "ffn")."""
     d = jcfg.head.decoder
     dec = pcfg.CFFMDecoderConfig(
         dim=d.dim, depth=d.depth, num_heads=d.num_heads, window_size=d.window_size,
@@ -44,7 +46,11 @@ def port_config(jcfg, block_impl=(None, "fused", "fused", None)) -> pcfg.Segment
     h = jcfg.head
     head = pcfg.CFFMHeadConfig(in_channels=tuple(h.in_channels), embed_dim=h.embed_dim,
                                num_classes=h.num_classes, num_clips=h.num_clips, decoder=dec)
-    return pcfg.SegmentorConfig(backbone=jcfg.backbone, head=head, block_impl=block_impl)
+    tbi = jcfg.train_block_impl
+    form = lambda i: i.removesuffix("-interpret") if isinstance(i, str) else i
+    tbi = tuple(map(form, tbi)) if isinstance(tbi, tuple) else form(tbi)
+    return pcfg.SegmentorConfig(backbone=jcfg.backbone, head=head, block_impl=block_impl,
+                                train_block_impl=tbi)
 
 
 def perturbed_variables(model, sample, seed: int = 0, scale: float = 0.02):
@@ -103,12 +109,14 @@ def train_patches(variant: str = "b0"):
         yield
 
 
-def train_configs(variant: str = "b0", num_classes: int = 7, depth: int = 1):
-    """(JAX config, port config) of the train tests: composed blocks at every
-    stage (``train_block_impl=None``), head dropout 0. Use inside
-    ``train_patches``."""
+def train_configs(variant: str = "b0", num_classes: int = 7, depth: int = 1,
+                  train_block_impl=None):
+    """(JAX config, port config) of the train tests: the JAX block form
+    ``train_block_impl`` (default None, composed blocks at every stage; the
+    port takes the same form, without "-interpret"), head dropout 0. Use
+    inside ``train_patches``."""
     jcfg = jax_config(variant, num_classes, depth)
-    jcfg = dataclasses.replace(jcfg, train_block_impl=None,
+    jcfg = dataclasses.replace(jcfg, train_block_impl=train_block_impl,
                                head=dataclasses.replace(jcfg.head, dropout_ratio=0.0))
     pc = port_config(jcfg)
     return jcfg, dataclasses.replace(pc, head=dataclasses.replace(pc.head, dropout_ratio=0.0))

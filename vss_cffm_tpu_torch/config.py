@@ -49,6 +49,10 @@ class MiTConfig:
     # goes through ops.dwconv3x3); "fused" = the whole block through
     # ops.stage_block.mit_block_fused. A single string applies to all stages.
     block_impl: str | tuple | None = None
+    # per-stage block form in training: None = composed block; "full" = the
+    # whole block through ops.stage_block.mit_block_train; "ffn" = composed
+    # attention half, then ops.mixffn.block_ffn_train for x + s·FFN(LN2 x)
+    train_block_impl: str | tuple | None = None
 
 
 MIT_VARIANTS: dict[str, MiTConfig] = {
@@ -134,30 +138,34 @@ class TestConfig:
     stride: tuple[int, int] = (320, 320)
 
 
+TRAIN_BLOCK_IMPLS = (None, "full", "ffn")
+
+
 @dataclasses.dataclass(frozen=True)
 class SegmentorConfig:
     backbone: str = "mit_b1"
     head: CFFMHeadConfig = dataclasses.field(default_factory=CFFMHeadConfig)
     # whole-block kernel at stages 2 and 3, composed blocks at stages 1 and 4
     block_impl: str | tuple | None = (None, "fused", "fused", None)
-    # training block form: None = the composed block at every stage (the
-    # only form served so far); the whole-block train pair ("full") and the
-    # block-FFN pair ("ffn") are ROADMAP Queue B items 7-9
-    train_block_impl: str | tuple | None = None
+    # training block form, as the JAX package's default: the whole-block
+    # train pair ("full") at stages 1-3, the composed block (None) at stage 4;
+    # "ffn" runs the attention half composed and the FFN half as one pair
+    train_block_impl: str | tuple | None = ("full", "full", "full", None)
     test_cfg: TestConfig = dataclasses.field(default_factory=TestConfig)
 
     def __post_init__(self):
         impls = (self.train_block_impl if isinstance(self.train_block_impl, tuple)
                  else (self.train_block_impl,))
-        if any(i is not None for i in impls):
-            raise NotImplementedError(
-                f"train_block_impl={self.train_block_impl!r}: only None (composed blocks) is "
-                "ported; the 'full' and 'ffn' train kernels are ROADMAP Queue B items 7-9")
+        bad = [i for i in impls if i not in TRAIN_BLOCK_IMPLS]
+        if bad:
+            raise ValueError(f"train_block_impl={self.train_block_impl!r}: each stage must be "
+                             f"one of {TRAIN_BLOCK_IMPLS}, got {bad[0]!r}")
 
     @property
     def backbone_config(self) -> MiTConfig:
         return dataclasses.replace(MIT_VARIANTS[self.backbone],
-                                   block_impl=self.block_impl)
+                                   block_impl=self.block_impl,
+                                   train_block_impl=self.train_block_impl)
 
 
 def build_model_config(variant: str = "b1", num_classes: int = 124,

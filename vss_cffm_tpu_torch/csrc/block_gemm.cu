@@ -1,6 +1,9 @@
 // Tile GEMM with a fused LayerNorm prologue and a bias / residual epilogue:
 //
-//     out = [LN(A) | A] · W + bias [+ res]        (W row-major (K, N), bf16)
+//     out = s_o[f] · ([LN(A) | bf16(s_a[f] · A) | A] · W [+ bias]) [+ res]
+//
+// (W row-major (K, N), bf16; s_a and s_o optional per-frame scales, frame
+// f = row / rows_per_frame.)
 //
 // Part of the port of the TPU kernel vss_cffm_tpu/ops/stage_block.py:
 // mit_block_fused (_kernel), which computes a whole MiT block per (frame,
@@ -10,6 +13,14 @@
 // launches: this GEMM serves q = LN1(x)·Wq + bq, y = x + ctx·Wproj + bproj,
 // hid = LN2(y)·W1 + b1 and out = y + a·W2 + b2; attention.cu serves the
 // softmax(q·(s·K)ᵀ)·V step and dwconv.cu the depthwise conv + GELU.
+// The train pair of the block (vss_cffm_tpu/ops/stage_block.py:
+// _mit_block_train_fwd / _train_bwd_kernel, and the FFN-half pair of
+// vss_cffm_tpu/ops/mixffn.py) adds the stochastic-depth branch scales: s_o
+// scales the branch before the residual (y = x + s_attn·(ctx·Wproj + bproj),
+// out = y + s_ffn·(a·W2 + b2)), and s_a the backward's input cotangent
+// (d_a = bf16(go·s_ffn)·W2ᵀ). The backward's other input-gradient products
+// (d_ln2 = d_hid·W1ᵀ, d_ctx = d_attn·Wprojᵀ, d_ln1 = d_q·Wqᵀ) run here on a
+// transposed copy of the weight, without bias.
 //
 // Bound on the H100: tensor-core operations at the MiT block's shapes
 // (M = frames·H·W rows, K and N = 128..1280), the bytes are a few MB per
@@ -40,8 +51,9 @@ template <typename TA>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(
     const TA* __restrict__ A, const float* __restrict__ gamma, const float* __restrict__ beta,
     const __nv_bfloat16* __restrict__ W, const float* __restrict__ bias,
-    const void* __restrict__ res, void* __restrict__ out, int M, int N, int K, int ln,
-    int res_kind, int out_f32, float eps) {
+    const void* __restrict__ res, const float* __restrict__ a_scale,
+    const float* __restrict__ o_scale, void* __restrict__ out, int M, int N, int K, int ln,
+    int res_kind, int out_f32, int rows_per_frame, float eps) {
   __shared__ __align__(128) __nv_bfloat16 As[BM * LDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[BK * LDB];
   __shared__ __align__(128) float Cs[BM * LDC];
@@ -135,6 +147,10 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(
 #pragma unroll
         for (int i = 0; i < 8; ++i)
           fa[u][i] = (fa[u][i] - mu[r]) * rs[r] * gs[gk + i] + bs[gk + i];
+      } else if (a_scale != nullptr && m0 + r < M) {
+        const float sc = a_scale[(m0 + r) / rows_per_frame];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) fa[u][i] = fa[u][i] * sc;
       }
       vss::store8(As + r * LDA + kc, fa[u]);
     }
@@ -182,9 +198,19 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(
     const int gn = n0 + nc;
     if (gm >= M || gn >= N) continue;
     float f[8], b[8];
-    vss::load8(bias + gn, b);
+    if (bias != nullptr) {
+      vss::load8(bias + gn, b);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) b[i] = 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) f[i] = Cs[r * LDC + nc + i] + b[i];
+    if (o_scale != nullptr) {
+      const float sc = o_scale[gm / rows_per_frame];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) f[i] = f[i] * sc;
+    }
     const long long off = gm * N + gn;
     if (res_kind) {
       float rv[8];
@@ -206,16 +232,21 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(
 
 // A (M, K) bf16 or f32 (a_f32); gamma/beta (K,) f32, read when ln != 0
 // (then K <= 2048);
-// W (K, N) bf16 row-major; bias (N,) f32; res (M, N): none (res_kind 0),
-// bf16 (1) or f32 (2); out (M, N) bf16 or f32 (out_f32). K % 8 == 0 and
-// N % 8 == 0, pointers 16-byte aligned (checked by the Python wrapper).
+// W (K, N) bf16 row-major; bias (N,) f32 or null; res (M, N): none
+// (res_kind 0), bf16 (1) or f32 (2); a_scale / o_scale (ceil(M /
+// rows_per_frame),) f32 or null (a_scale is not read when ln != 0); out
+// (M, N) bf16 or f32 (out_f32). K % 8 == 0 and N % 8 == 0, pointers 16-byte
+// aligned (checked by the Python wrapper).
 VSS_EXPORT int gemm_ln_bias_res(const void* A, const void* gamma, const void* beta,
-                                const void* W, const void* bias, const void* res, void* out,
-                                int M, int N, int K, int a_f32, int ln, int res_kind,
-                                int out_f32, float eps, int device, void* stream) {
+                                const void* W, const void* bias, const void* res,
+                                const void* a_scale, const void* o_scale, void* out, int M,
+                                int N, int K, int a_f32, int ln, int res_kind, int out_f32,
+                                int rows_per_frame, float eps, int device, void* stream) {
   cudaSetDevice(device);
   if (M == 0 || N == 0) return 0;
-  if (ln && K > KMAX_LN) return (int)cudaErrorInvalidValue;
+  if ((ln && K > KMAX_LN) || rows_per_frame < 1) return (int)cudaErrorInvalidValue;
+  const float* sa = static_cast<const float*>(a_scale);
+  const float* so = static_cast<const float*>(o_scale);
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
@@ -224,10 +255,11 @@ VSS_EXPORT int gemm_ln_bias_res(const void* A, const void* gamma, const void* be
   const float* bi = static_cast<const float*>(bias);
   if (a_f32)
     gemm_kernel<float><<<grid, THREADS, 0, s>>>(static_cast<const float*>(A), g, b, w, bi, res,
-                                            out, M, N, K, ln, res_kind, out_f32, eps);
+                                            sa, so, out, M, N, K, ln, res_kind, out_f32,
+                                            rows_per_frame, eps);
   else
     gemm_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(static_cast<const __nv_bfloat16*>(A), g,
-                                                    b, w, bi, res, out, M, N, K, ln, res_kind,
-                                                    out_f32, eps);
+                                                    b, w, bi, res, sa, so, out, M, N, K, ln,
+                                                    res_kind, out_f32, rows_per_frame, eps);
   return (int)cudaGetLastError();
 }

@@ -12,12 +12,20 @@ statistics and softmax, like the JAX modules' ``dtype`` plan.
 Per stage, ``MiTConfig.block_impl`` picks the block form at inference:
 "fused" runs LN1 and the spatial-reduced K/V here and the rest of the block
 through ``ops.mit_block_fused``; None runs the composed block, whose
-depthwise conv goes through ``ops.dwconv3x3``. Both forms share one
-parameter tree. A block in ``train()`` mode always runs composed, as the
-JAX block takes its fused form only when deterministic; ``forward(x,
-train=True, generator=g)`` adds stochastic depth (timm ``DropPath``, the
-linear schedule over all blocks) drawn from g. Dropout inside SRA and the
-MixFFN is 0 in every MiT variant and is not ported: a rate > 0 raises.
+depthwise conv goes through ``ops.dwconv3x3``. A block in ``train()`` mode
+never takes the inference form, as the JAX block takes it only when
+deterministic. ``forward(x, train=True, generator=g)`` adds stochastic depth
+(timm ``DropPath``, the linear schedule over all blocks) drawn from g, and
+``MiTConfig.train_block_impl`` picks the training form per stage: "full"
+runs LN1 and K/V here (autograd) and the rest of the block through the
+differentiable pair ``ops.mit_block_train``; "ffn" runs the attention half
+composed and ``x + s·FFN(LN2 x)`` through ``ops.block_ffn_train``; None runs
+the composed block. The pairs take the drop-path draws as per-frame branch
+scales, drawn in the composed block's order (attention, then FFN), so one
+generator seed gives every form the same masks; a geometry the pair's gate
+refuses runs composed. Every form shares one parameter tree. Dropout inside
+SRA and the MixFFN is 0 in every MiT variant and is not ported: a rate > 0
+raises.
 """
 
 from __future__ import annotations
@@ -28,12 +36,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..config import MiTConfig
-from ..ops import dwconv3x3, mit_block_fused
+from ..config import TRAIN_BLOCK_IMPLS, MiTConfig
+from ..ops import (block_ffn_train, block_ffn_train_fits, dwconv3x3, mit_block_fused,
+                   mit_block_train, mit_block_train_fits)
 from ..ops.cfm_attention import scale_in
 
 __all__ = ["MiT", "MiTBlock", "OverlapPatchEmbed", "SRAttention", "MixFFN",
-           "linear", "layer_norm", "conv2d_nhwc", "derived", "drop_path", "keep_mask"]
+           "linear", "layer_norm", "conv2d_nhwc", "derived", "drop_path", "keep_mask",
+           "branch_scale"]
 
 
 def derived(owner: nn.Module, key: Any, params: Sequence[torch.Tensor],
@@ -64,6 +74,15 @@ def keep_mask(n: int, rate: float, generator: torch.Generator | None,
         raise ValueError(f"a random rate of {rate} needs an explicit torch.Generator")
     u = torch.rand((n,), generator=generator, device=generator.device)
     return (u < 1.0 - rate).to(device)
+
+
+def branch_scale(n: int, rate: float, generator: torch.Generator | None,
+                 device: torch.device) -> torch.Tensor:
+    """(n,) f32 per-sample stochastic-depth scales: keep / (1 − rate), the
+    draw ``drop_path`` makes (none when rate is 0: ones)."""
+    if rate == 0.0:
+        return torch.ones((n,), dtype=torch.float32, device=device)
+    return keep_mask(n, rate, generator, device).float() / (1.0 - rate)
 
 
 def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None
@@ -192,9 +211,14 @@ class MiTBlock(nn.Module):
     """Pre-norm block: x + SRA(LN1(x)), then + MixFFN(LN2(x))."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int, mlp_ratio: int,
-                 qkv_bias: bool, norm_eps: float, fused: bool, drop_path_rate: float = 0.0):
+                 qkv_bias: bool, norm_eps: float, fused: bool, drop_path_rate: float = 0.0,
+                 train_impl: str | None = None):
         super().__init__()
+        if train_impl not in TRAIN_BLOCK_IMPLS:
+            raise ValueError(f"train_block_impl {train_impl!r}: expected one of "
+                             f"{TRAIN_BLOCK_IMPLS}")
         self.drop_path_rate = drop_path_rate
+        self.train_impl = train_impl
         self.norm1 = nn.LayerNorm(dim, eps=norm_eps)
         self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
@@ -219,6 +243,32 @@ class MiTBlock(nn.Module):
                 wt(m.fc2), m.fc2.bias)
         return args, dict(num_heads=a.num_heads, eps=self.norm1.eps)
 
+    def train_args(self, x: torch.Tensor) -> tuple[tuple, dict]:
+        """Arguments of ``mit_block_train`` (without the branch scales) for
+        input x: LN1 and the spatial-reduced K/V computed here with autograd,
+        as the JAX block does; the f32 parameters in the JAX layout (views),
+        so that the pair's f32 gradients reach them unrounded."""
+        dt = self.compute_dtype
+        a, m = self.attn, self.mlp
+        k, v = a.kv_only(layer_norm(x, self.norm1, dt))
+        bq = a.q.bias if a.q.bias is not None else torch.zeros_like(a.proj.bias)
+        args = (x.to(dt), self.norm1.weight, self.norm1.bias, a.q.weight.t(), bq, k, v,
+                a.proj.weight.t(), a.proj.bias, *self.ffn_params())
+        return args, dict(num_heads=a.num_heads, eps=self.norm1.eps)
+
+    def ffn_params(self) -> tuple:
+        """(γ2, β2, W1, b1, kdw, bdw, W2, b2) of ``block_ffn_train``: f32, JAX layout."""
+        m = self.mlp
+        return (self.norm2.weight, self.norm2.bias, m.fc1.weight.t(), m.fc1.bias,
+                m.dwconv.kernel(), m.dwconv.dwconv.bias, m.fc2.weight.t(), m.fc2.bias)
+
+    def _pair_fits(self, x: torch.Tensor) -> bool:
+        _, h, w, c = x.shape
+        sr = self.attn.sr_ratio
+        n_kv = (h // sr) * (w // sr) if sr > 1 else h * w
+        return mit_block_train_fits(h, w, c, self.mlp.fc1.out_features, self.attn.num_heads,
+                                    n_kv)
+
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         dt = self.compute_dtype
@@ -226,7 +276,18 @@ class MiTBlock(nn.Module):
             args, kw = self.fused_args(x)
             return mit_block_fused(*args, **kw, force=self.force)
         rate = self.drop_path_rate if train else 0.0
+        if train and self.train_impl == "full" and self._pair_fits(x):
+            args, kw = self.train_args(x)
+            s_attn = branch_scale(x.shape[0], rate, generator, x.device)
+            s_ffn = branch_scale(x.shape[0], rate, generator, x.device)
+            return mit_block_train(*args, s_attn, s_ffn, **kw, force=self.force)
         x = x + drop_path(self.attn(layer_norm(x, self.norm1, dt)), rate, generator)
+        _, h, w, c = x.shape
+        if (train and self.train_impl == "ffn"
+                and block_ffn_train_fits(h, w, c, self.mlp.fc1.out_features)):
+            s_ffn = branch_scale(x.shape[0], rate, generator, x.device)
+            return block_ffn_train(x.to(dt), *self.ffn_params(), s_ffn, self.norm2.eps,
+                                   force=self.force)
         return x + drop_path(self.mlp(layer_norm(x, self.norm2, dt)), rate, generator)
 
 
@@ -242,8 +303,9 @@ class MiT(nn.Module):
         total = sum(cfg.depths)
         dpr = [cfg.drop_path_rate * i / max(total - 1, 1) for i in range(total)]
         in_ch = 3
+        per_stage = lambda v, s: v[s] if isinstance(v, tuple) else v
         for s in range(4):
-            impl = cfg.block_impl[s] if isinstance(cfg.block_impl, tuple) else cfg.block_impl
+            impl = per_stage(cfg.block_impl, s)
             if impl not in (None, "fused"):
                 raise ValueError(f"block_impl {impl!r}: expected None or 'fused'")
             dim = cfg.embed_dims[s]
@@ -253,7 +315,8 @@ class MiT(nn.Module):
             setattr(self, f"block{s + 1}", nn.ModuleList(
                 MiTBlock(dim, cfg.num_heads[s], cfg.sr_ratios[s], cfg.mlp_ratios[s],
                          cfg.qkv_bias, cfg.norm_eps, fused=impl == "fused",
-                         drop_path_rate=dpr[first + i])
+                         drop_path_rate=dpr[first + i],
+                         train_impl=per_stage(cfg.train_block_impl, s))
                 for i in range(cfg.depths[s])))
             setattr(self, f"norm{s + 1}", nn.LayerNorm(dim, eps=cfg.norm_eps))
             in_ch = dim

@@ -6,8 +6,12 @@ from .ce_upsampled import (ce_upsampled_loss, ce_upsampled_loss_bwd,
 from .cfm_attention import (cfm_attention, cfm_attention_bwd, cfm_attention_bwd_torch,
                             cfm_attention_torch)
 from .dwconv import dwconv3x3, dwconv3x3_bwd_torch, dwconv3x3_torch
+from .mixffn import (block_ffn_train, block_ffn_train_bwd, block_ffn_train_bwd_torch,
+                     block_ffn_train_fits, block_ffn_train_torch)
 from .resize import resize_bilinear, resize_nearest
-from .stage_block import mit_block_fused, mit_block_step_errors, mit_block_torch
+from .stage_block import (mit_block_fused, mit_block_step_errors, mit_block_torch,
+                          mit_block_train, mit_block_train_bwd, mit_block_train_bwd_torch,
+                          mit_block_train_fits, mit_block_train_torch)
 
 __all__ = [
     "cfm_attention", "cfm_attention_torch", "cfm_attention_bwd", "cfm_attention_bwd_torch",
@@ -15,6 +19,10 @@ __all__ = [
     "ce_upsampled_loss", "ce_upsampled_loss_torch", "ce_upsampled_loss_bwd",
     "ce_upsampled_loss_bwd_torch",
     "mit_block_fused", "mit_block_torch", "mit_block_step_errors",
+    "mit_block_train", "mit_block_train_torch", "mit_block_train_bwd",
+    "mit_block_train_bwd_torch", "mit_block_train_fits",
+    "block_ffn_train", "block_ffn_train_torch", "block_ffn_train_bwd",
+    "block_ffn_train_bwd_torch", "block_ffn_train_fits",
     "resize_bilinear", "resize_nearest",
     "KERNEL_OPS", "reset_launches", "launches",
 ]
@@ -23,7 +31,9 @@ __all__ = [
 KERNEL_OPS = {"mit_block_fused": mit_block_fused, "cfm_attention": cfm_attention,
               "dwconv3x3": dwconv3x3, "cfm_attention_bwd": cfm_attention_bwd,
               "ce_upsampled_loss": ce_upsampled_loss,
-              "ce_upsampled_loss_bwd": ce_upsampled_loss_bwd}
+              "ce_upsampled_loss_bwd": ce_upsampled_loss_bwd,
+              "mit_block_train": mit_block_train, "mit_block_train_bwd": mit_block_train_bwd,
+              "block_ffn_train": block_ffn_train, "block_ffn_train_bwd": block_ffn_train_bwd}
 
 
 def reset_launches() -> None:

@@ -29,14 +29,16 @@ __all__ = ["library", "build_all", "check", "SOURCES", "BUILD_DIR"]
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("dwconv", "attention", "block_gemm", "attention_bwd", "ce_upsampled")
+SOURCES = ("dwconv", "attention", "block_gemm", "attention_bwd", "ce_upsampled", "gemm_tn",
+           "block_bwd", "sra_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
-# argument kinds of each C entry point: "p" pointer / stream, "i" int, "f" float
+# argument kinds of each C entry point: "p" pointer / stream, "i" int, "l" 64-bit
+# int, "f" float
 _SIGNATURES = {
     "dwconv": {
         "dwconv3x3_nhwc": "pppppiiiiiiip",
@@ -46,7 +48,7 @@ _SIGNATURES = {
         "attention_smem_bytes": "iiiiii",
     },
     "block_gemm": {
-        "gemm_ln_bias_res": "pppppppiiiiiiifip",
+        "gemm_ln_bias_res": "pppppppppiiiiiiiifip",
     },
     "attention_bwd": {
         "attention_bwd": "ppppppppppiiiiiifiip",
@@ -56,8 +58,19 @@ _SIGNATURES = {
         "ce_fwd_loss": "pppiiiiiifiip",
         "ce_bwd_loss": "ppppiiiiiifip",
     },
+    "gemm_tn": {
+        "gemm_tn": "ppppiiilllllliiiiip",
+    },
+    "block_bwd": {
+        "dgelu_dz": "ppppppiiiiiip",
+        "dwconv_t": "ppppiiiiiip",
+        "ln_bwd": "pppppppppppiiiiiiifip",
+    },
+    "sra_attention_bwd": {
+        "sra_attention_bwd": "ppppppppiiiiiifip",
+    },
 }
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong, "f": ctypes.c_float}
 
 
 def _nvcc() -> str:

@@ -1,47 +1,85 @@
-"""Whole MiT block at inference: LN1 → q → SRA attention → proj + x → LN2 →
-fc1 → 3×3 depthwise + GELU → fc2 + y.
+"""Whole MiT block: inference (``mit_block_fused``) and the differentiable
+train pair (``mit_block_train``, forward and backward).
 
-``mit_block_fused(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1,
-kdw, bdw, w2, b2, num_heads, eps, force=None)`` keeps the JAX signature:
-x (B, H, W, C); k / v (B, S, C), the spatial-reduced keys and values per
-frame, computed outside (the scale is folded into K here); dense kernels in
-the JAX layout (in, out); kdw (3, 3, 1, Ch).
+Both keep the JAX signature: x (B, H, W, C); k / v (B, S, C), the
+spatial-reduced keys and values per frame, computed outside (the scale is
+folded into K here); dense kernels in the JAX layout (in, out); kdw
+(3, 3, 1, Ch). The train pair adds the per-frame stochastic-depth branch
+scales s_attn and s_ffn (B,):
 
-It replaces the TPU kernel ``vss_cffm_tpu/ops/stage_block.py:
-mit_block_fused`` (``_kernel``), which kept the whole block in VMEM per
-(frame, row tile). On the H100 the block's stage-3 working set does not fit
-one block's 227 KB of shared memory, so the CUDA path is a sequence of six
-hand-written launches, with no library kernel inside:
+    y = x + s_attn·(attn(LN1 x)·Wproj + bproj);  out = y + s_ffn·FFN(LN2 y)
 
-  1. ``block_gemm``  q   = bf16(LN1(x)·Wq + bq)          LN1 fused in the prologue
-  2. ``attention``   ctx = bf16(softmax(q·(s·K)ᵀ)·V)      scores stay in shared memory
-  3. ``block_gemm``  y   = f32(x + ctx·Wproj + bproj)
-  4. ``block_gemm``  hid = f32(LN2(y)·W1 + b1)            LN2 fused in the prologue
-  5. ``dwconv``      a   = bf16(GELU(dw3×3(hid) + bdw))   zero padding outside the image
-  6. ``block_gemm``  out = bf16(y + a·W2 + b2)
+**Forward** (inference: the TPU kernel ``vss_cffm_tpu/ops/stage_block.py:
+mit_block_fused`` (``_kernel``); training: ``_mit_block_train_fwd``
+(``_train_fwd_kernel``)). The TPU kernels keep the whole block in VMEM per
+(frame, row tile); the stage-3 working set does not fit one H100 block's
+227 KB of shared memory, so the CUDA path is six hand-written launches:
 
-q, ctx, y, hid and a go through device memory where the TPU kernel kept
-them in VMEM (their bytes are recorded in PERF.md). Fusing the block back
-into fewer launches is later work.
+  1. ``block_gemm``  q   = bf16(LN1(x)·Wq + bq)              LN1 in the prologue
+  2. ``attention``   ctx = bf16(softmax(q·(s·K)ᵀ)·V)          scores stay in shared memory
+  3. ``block_gemm``  y   = f32(x + s_attn·(ctx·Wproj + bproj)) per-frame scale in the epilogue
+  4. ``block_gemm``  hid = f32(LN2(y)·W1 + b1)                LN2 in the prologue
+  5. ``dwconv``      a   = bf16(GELU(dw3×3(hid) + bdw))       zero padding outside the image
+  6. ``block_gemm``  out = bf16(y + s_ffn·(a·W2 + b2))
 
-``mit_block_torch`` is the plain version, the same dtype plan as the JAX
-``mit_block_xla``: f32 LayerNorm statistics and residual chain, inputs of
-every product rounded to x's dtype, f32 accumulation, y and the hidden map
-kept in f32. Both paths run the same six steps (``_block_steps``), so
-``mit_block_step_errors`` can hold each launch on its own against its plain
-step, at a tolerance relative to that step's own output.
+At inference the scales are absent (1). In training the pair keeps q, ctx,
+y, hid and a for the backward, where the TPU kernel recomputes them from x
+because VMEM is small; the rounding points are the same either way.
+
+**Backward** (``_mit_block_train_bwd`` (``_train_bwd_kernel``)): dx, dK,
+dV and the 14 parameter gradients, as fifteen launches of four sources:
+
+  1. ``block_gemm``   d_a   = bf16(go·s_ffn)·W2ᵀ               (f32; scaled-A prologue)
+  2. ``block_bwd``    d_z   = d_a·GELU′(z), z = dw3×3(hid) + bdw recomputed in f32;
+                      partials of the 9 depthwise taps Σ hid·d_z and of Σ d_z
+  3. ``block_bwd``    d_hid = dw3×3ᵀ(d_z) → bf16, partial Σ d_hid (db1, f32)
+  4. ``block_gemm``   d_ln2 = d_hid_b·W1ᵀ                      (f32)
+  5. ``block_bwd``    LN2 backward: d_y = go + LN2ᵀ(d_ln2) (f32), ln2 (bf16),
+                      d_attn_b = bf16(d_y·s_attn); partials dg2, dbe2, dbproj
+                      = Σ d_y·s_attn, db2 = Σ go·s_ffn
+  6. ``block_gemm``   d_ctx = bf16(d_attn_b·Wprojᵀ)
+  7. ``sra_attention_bwd``  p and d_s = bf16(p∘(d_p − Σ d_p∘p)) recomputed from
+                      q, K, V per 64-query tile (bf16, written for 12-15), d_q
+                      → bf16, partial Σ d_q (dbq, f32)
+  8. ``block_gemm``   d_ln1 = d_q_b·Wqᵀ                       (f32)
+  9. ``block_bwd``    LN1 backward: dx = d_y + LN1ᵀ(d_ln1) (x's dtype), ln1
+                      (bf16); partials dg1, dbe1
+  10-15. ``gemm_tn``  dW2 = aᵀ·go_s, dW1 = ln2ᵀ·d_hid_b, dWproj = ctxᵀ·d_attn_b,
+                      dWq = ln1ᵀ·d_q_b, dK = scale·d_sᵀ·q and dV = p_bᵀ·d_ctx_b
+                      per frame and head: sums over the rows, split over
+                      blocks, partials reduced in a fixed order.
+
+No atomics: every reduction over rows writes per-block partials that one
+``torch.sum`` reduces, so results repeat exactly. The rounding points are
+``_train_bwd_kernel``'s: bf16 at ln1, q, p, ctx, ln2, a, go_s, d_hid_b,
+d_ctx_b, d_s and d_q_b; f32 elsewhere (z, GELU′, the LN statistics, the
+bias, γ and β sums). dK is the gradient of the scaled K, times the scale.
+
+The plain versions (``mit_block_train_torch``, ``mit_block_train_bwd_torch``)
+run the same steps in PyTorch with those rounding points, so that
+``mit_block_step_errors`` (with the branch scales) and
+``mit_block_train_bwd_step_errors`` hold each launch on its own against its
+plain step, at a tolerance relative to that step's own output.
+``ops/mixffn.py`` (``block_ffn_train``) reuses launches 4-6 of the forward
+and 1-5, 10, 11 of the backward.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
-from ._dispatch import ptr, require, stream_of, use_kernel
+from ._dispatch import SMEM_LIMIT, ptr, require, stream_of, use_kernel
 from .cfm_attention import attention_launch, scale_in
-from .dwconv import dwconv3x3_launch, dwconv3x3_torch
+from .dwconv import _gelu_grad, _preact, dwconv3x3_launch, dwconv3x3_torch
 
-__all__ = ["mit_block_fused", "mit_block_torch", "mit_block_step_errors"]
+__all__ = ["mit_block_fused", "mit_block_torch", "mit_block_step_errors",
+           "mit_block_train", "mit_block_train_bwd", "mit_block_train_torch",
+           "mit_block_train_bwd_torch", "mit_block_train_fits", "mit_block_train_bwd_step_errors"]
+
+_F32 = torch.float32
+_BF16 = torch.bfloat16
 
 
 def _ln_f32(xf: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -56,37 +94,58 @@ def _mm(a: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return a.to(dt).float() @ w.to(dt).float()
 
 
-def _gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, out_dtype: torch.dtype,
-          ln: tuple[torch.Tensor, torch.Tensor, float] | None = None,
-          res: torch.Tensor | None = None, op: str = "mit_block_fused") -> torch.Tensor:
-    """out (M, N) = [LN(a) | a] · w + bias [+ res] on the block_gemm kernel."""
+def _frame_rows(s: torch.Tensor, rows: int) -> torch.Tensor:
+    """(B,) per-frame scales → (B·rows, 1) f32, one per row of a frame."""
+    return s.float().repeat_interleave(rows).reshape(-1, 1)
+
+
+def _scales(s: torch.Tensor | None, b: int, dev: torch.device, op: str) -> torch.Tensor | None:
+    if s is None:
+        return None
+    require(tuple(s.shape) == (b,), op, f"branch scale of shape {tuple(s.shape)}, expected ({b},)")
+    return s.to(device=dev, dtype=_F32).contiguous()
+
+
+def _gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, *,
+          out_dtype: torch.dtype, ln: tuple[torch.Tensor, torch.Tensor, float] | None = None,
+          res: torch.Tensor | None = None, a_scale: torch.Tensor | None = None,
+          o_scale: torch.Tensor | None = None, rows_per_frame: int = 1,
+          op: str = "mit_block_fused") -> torch.Tensor:
+    """out (M, N) = [LN(a) | bf16(a·a_scale) | a] · w [+ bias], times o_scale,
+    [+ res], on the block_gemm kernel. The scales are per frame (B,), frame
+    = row // rows_per_frame."""
     m, kdim = a.shape
     n = w.shape[1]
     require(kdim % 8 == 0 and n % 8 == 0, op, f"GEMM K={kdim}, N={n} not multiples of 8")
     require(tuple(w.shape) == (kdim, n), op, f"weight {tuple(w.shape)} for K={kdim}")
+    require(a.dtype in (_BF16, _F32), op, f"GEMM input of dtype {a.dtype}")
     dev = a.device
-    wb = w.to(device=dev, dtype=torch.bfloat16).contiguous()
-    bb = bias.to(device=dev, dtype=torch.float32).contiguous()
+    wb = w.to(device=dev, dtype=_BF16).contiguous()
+    bb = None if bias is None else bias.to(device=dev, dtype=_F32).contiguous()
     g = bt = None
     eps = 0.0
     if ln is not None:
         require(kdim <= 2048, op, f"LayerNorm over {kdim} > 2048 channels")
-        g = ln[0].to(device=dev, dtype=torch.float32).contiguous()
-        bt = ln[1].to(device=dev, dtype=torch.float32).contiguous()
+        g = ln[0].to(device=dev, dtype=_F32).contiguous()
+        bt = ln[1].to(device=dev, dtype=_F32).contiguous()
         eps = ln[2]
     res_kind = 0
     if res is not None:
         require(tuple(res.shape) == (m, n), op, f"residual {tuple(res.shape)}")
-        res_kind = {torch.bfloat16: 1, torch.float32: 2}[res.dtype]
+        res_kind = {_BF16: 1, _F32: 2}[res.dtype]
+    nb = -(-m // rows_per_frame)
+    sa, so = _scales(a_scale, nb, dev, op), _scales(o_scale, nb, dev, op)
     out = torch.empty((m, n), device=dev, dtype=out_dtype)
     devi, stream = stream_of(a)
     rc = _build.library("block_gemm").gemm_ln_bias_res(
         ptr(a, op), ptr(g, op), ptr(bt, op), ptr(wb, op), ptr(bb, op), ptr(res, op),
-        ptr(out, op), m, n, kdim, int(a.dtype == torch.float32), int(ln is not None),
-        res_kind, int(out_dtype == torch.float32), eps, devi, stream)
+        ptr(sa, op), ptr(so, op), ptr(out, op), m, n, kdim, int(a.dtype == _F32),
+        int(ln is not None), res_kind, int(out_dtype == _F32), rows_per_frame, eps, devi, stream)
     _build.check(rc, op)
     return out
 
+
+# ---- the forward: six steps ------------------------------------------------
 
 # The block's six steps, in order, with the steps whose outputs each reads
 # (every step also reads the block's own inputs). Activations are (M, ·)
@@ -95,18 +154,51 @@ STEPS = (("q", ()), ("ctx", ("q",)), ("y", ("ctx",)), ("hid", ("y",)), ("a", ("h
          ("out", ("a", "y")))
 
 
-def _block_steps(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2,
-                 num_heads: int, eps: float, kernel: bool) -> dict:
-    """The step functions of one block: the plain ones, or (kernel=True) the
-    hand-written launches, which check their inputs first."""
-    dt = x.dtype
-    b, h, w, c = x.shape
-    nh, dh = num_heads, c // num_heads
+def _ffn_fwd_steps(g2, be2, w1, b1, kdw, bdw, w2, b2, s_ffn, eps: float, shape, dt,
+                   kernel: bool, op: str) -> dict:
+    """Steps hid, a, out of the block (also the FFN-half pair's forward):
+    y is the FFN's input and residual, (M, C) f32 or in x's dtype."""
+    b, h, w, _ = shape
     ch = w1.shape[1]
     m = b * h * w
     if not kernel:
+        sf = None if s_ffn is None else _frame_rows(s_ffn, h * w)
+
+        def out_torch(a, y):
+            br = _mm(a, w2, dt) + b2.float()
+            return ((br if sf is None else sf * br) + y.float()).to(dt)
+
+        return {
+            "hid": lambda y: _mm(_ln_f32(y.float(), g2.float(), be2.float(), eps).to(dt), w1, dt)
+            + b1.float(),
+            "a": lambda hid: dwconv3x3_torch(hid.reshape(b, h, w, ch), kdw, bdw,
+                                             gelu=True).to(dt).reshape(m, ch),
+            "out": out_torch,
+        }
+    return {
+        "hid": lambda y: _gemm(y, w1, b1, out_dtype=_F32, ln=(g2, be2, eps), op=op),
+        "a": lambda hid: dwconv3x3_launch(hid.view(b, h, w, ch), kdw, bdw, gelu=True,
+                                          op=op).view(m, ch),
+        "out": lambda a, y: _gemm(a, w2, b2, out_dtype=_BF16, res=y, o_scale=s_ffn,
+                                  rows_per_frame=h * w, op=op),
+    }
+
+
+def _block_steps(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2,
+                 num_heads: int, eps: float, kernel: bool, s_attn=None, s_ffn=None,
+                 op: str = "mit_block_fused") -> dict:
+    """The step functions of one block: the plain ones, or (kernel=True) the
+    hand-written launches, which check their inputs first. Without branch
+    scales this is the inference block."""
+    dt = x.dtype
+    b, h, w, c = x.shape
+    nh, dh = num_heads, c // num_heads
+    m = b * h * w
+    ffn = (g2, be2, w1, b1, kdw, bdw, w2, b2, s_ffn, eps, x.shape, dt, kernel, op)
+    if not kernel:
         xf = x.float().reshape(m, c)
         ns = k.shape[1]
+        sa = None if s_attn is None else _frame_rows(s_attn, h * w)
 
         def ctx_torch(q):
             qh = q.reshape(b, h * w, nh, dh).transpose(1, 2).float()      # (b, nh, hw, dh)
@@ -117,43 +209,40 @@ def _block_steps(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, b
             ctx = (p.float() @ vh.transpose(1, 2).float()).to(dt)          # (b, nh, hw, dh)
             return ctx.transpose(1, 2).reshape(m, c)
 
+        def y_torch(ctx):
+            br = _mm(ctx, wproj, dt) + bproj.float()
+            return xf + (br if sa is None else sa * br)
+
         return {
             "q": lambda: (_mm(_ln_f32(xf, g1.float(), be1.float(), eps).to(dt), wq, dt)
                           + bq.float()).to(dt),
             "ctx": ctx_torch,
-            "y": lambda ctx: xf + (_mm(ctx, wproj, dt) + bproj.float()),
-            "hid": lambda y: _mm(_ln_f32(y, g2.float(), be2.float(), eps).to(dt), w1, dt)
-            + b1.float(),
-            "a": lambda hid: dwconv3x3_torch(hid.reshape(b, h, w, ch), kdw, bdw,
-                                             gelu=True).to(dt).reshape(m, ch),
-            "out": lambda a, y: ((_mm(a, w2, dt) + b2.float()) + y).to(dt),
+            "y": y_torch,
+            **_ffn_fwd_steps(*ffn),
         }
-    op = "mit_block_fused"
-    require(x.dim() == 4 and x.dtype == torch.bfloat16, op,
-            f"x {x.dtype} {tuple(x.shape)} (bf16 NHWC only)")
+    require(x.dim() == 4 and x.dtype == _BF16, op, f"x {x.dtype} {tuple(x.shape)} (bf16 NHWC only)")
     require(c % num_heads == 0, op, f"C={c} not divisible by {num_heads} heads")
     require(k.dim() == 3 and k.shape[0] == b and k.shape[2] == c and k.shape == v.shape, op,
             f"k {tuple(k.shape)} / v {tuple(v.shape)}")
     xf = x.contiguous().view(m, c)
-    kb = k.to(torch.bfloat16).contiguous()
-    vb = v.to(torch.bfloat16).contiguous()
-    k_scale = scale_in(torch.bfloat16, dh ** -0.5)
+    kb = k.to(_BF16).contiguous()
+    vb = v.to(_BF16).contiguous()
+    k_scale = scale_in(_BF16, dh ** -0.5)
     return {
-        "q": lambda: _gemm(xf, wq, bq, out_dtype=torch.bfloat16, ln=(g1, be1, eps)),
+        "q": lambda: _gemm(xf, wq, bq, out_dtype=_BF16, ln=(g1, be1, eps), op=op),
         "ctx": lambda q: attention_launch(q.view(b, h * w, c), kb, vb, None, None, nh, 1.0,
                                           k_scale, op).view(m, c),
-        "y": lambda ctx: _gemm(ctx, wproj, bproj, out_dtype=torch.float32, res=xf),
-        "hid": lambda y: _gemm(y, w1, b1, out_dtype=torch.float32, ln=(g2, be2, eps)),
-        "a": lambda hid: dwconv3x3_launch(hid.view(b, h, w, ch), kdw, bdw, gelu=True,
-                                          op=op).view(m, ch),
-        "out": lambda a, y: _gemm(a, w2, b2, out_dtype=torch.bfloat16, res=y),
+        "y": lambda ctx: _gemm(ctx, wproj, bproj, out_dtype=_F32, res=xf, o_scale=s_attn,
+                               rows_per_frame=h * w, op=op),
+        **_ffn_fwd_steps(*ffn),
     }
 
 
-def _run(steps: dict) -> dict:
-    t = {}
+def _run(steps: dict, t: dict | None = None, names=None) -> dict:
+    t = dict(t or {})
     for name, reads in STEPS:
-        t[name] = steps[name](*(t[r] for r in reads))
+        if names is None or name in names:
+            t[name] = steps[name](*(t[r] for r in reads))
     return t
 
 
@@ -179,13 +268,27 @@ STEP_TOLERANCE = {"q": 2.0 ** -6, "ctx": 2.0 ** -6, "proj (y - x)": 2.0 ** -10,
                   "fc2 (out - y)": 2.0 ** -6, "fc2 + y (out)": 2.0 ** -6}
 
 
+def _held(name: str, got: torch.Tensor, want: torch.Tensor, rel: float, op: str) -> tuple:
+    """(name, max |got − want|, rel · max |want|): no absolute floor."""
+    require(got.dtype == want.dtype and got.shape == want.shape, op,
+            f"step {name}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
+    if not torch.isfinite(got.float()).all():
+        err = float("inf")
+    scale = want.float().abs().max().item() if want.numel() else 0.0
+    return (name, err, rel * max(scale, 1e-30))
+
+
 def mit_block_step_errors(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw,
-                          w2, b2, num_heads: int = 1, eps: float = 1e-6) -> list:
-    """[(check, max |kernel - plain|, tolerance), ...] for each step of the
-    kernel path, run on CUDA tensors against the plain steps (no count)."""
+                          w2, b2, num_heads: int = 1, eps: float = 1e-6, s_attn=None,
+                          s_ffn=None, op: str = "mit_block_fused") -> list:
+    """[(check, max |kernel - plain|, tolerance), ...] for each forward step of
+    the kernel path, run on CUDA tensors against the plain steps (no count);
+    with branch scales, the train forward's steps."""
     args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
-    plain = _block_steps(*args, num_heads=num_heads, eps=eps, kernel=False)
-    kern = _block_steps(*args, num_heads=num_heads, eps=eps, kernel=True)
+    kw = dict(num_heads=num_heads, eps=eps, s_attn=s_attn, s_ffn=s_ffn, op=op)
+    plain = _block_steps(*args, kernel=False, **kw)
+    kern = _block_steps(*args, kernel=True, **kw)
     ref = _run(plain)
     xf = x.float().reshape(ref["y"].shape)
     zero = torch.zeros_like(ref["y"])
@@ -198,17 +301,8 @@ def mit_block_step_errors(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b
         "fc2 (out - y)": (kern["out"](ref["a"], zero), plain["out"](ref["a"], zero)),
         "fc2 + y (out)": (kern["out"](ref["a"], ref["y"]), ref["out"]),
     }
-    out = []
-    for name, (got, want) in pairs.items():
-        require(got.dtype == want.dtype and got.shape == want.shape, "mit_block_fused",
-                f"step {name}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
-                f"{tuple(want.shape)}")
-        err = (got.float() - want.float()).abs().max().item()
-        if not torch.isfinite(got.float()).all():
-            err = float("inf")
-        scale = want.float().abs().max().item()
-        out.append((name, err, STEP_TOLERANCE[name] * max(scale, 1e-30)))
-    return out
+    return [_held(name, got, want, STEP_TOLERANCE[name], op)
+            for name, (got, want) in pairs.items()]
 
 
 def mit_block_fused(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw,
@@ -216,13 +310,12 @@ def mit_block_fused(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw
                     force: str | None = None) -> torch.Tensor:
     """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'.
 
-    Inference only: the block has no backward yet (the train pair is ROADMAP
-    Queue B items 7-8), so it raises rather than cut a gradient when autograd
-    records and an input requires grad."""
+    Inference only: it raises rather than cut a gradient when autograd
+    records and an input requires grad; training takes ``mit_block_train``."""
     args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
     if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
                                        for a in args):
-        raise RuntimeError("mit_block_fused has no backward: train with the composed block "
+        raise RuntimeError("mit_block_fused has no backward: train with mit_block_train "
                            "(MiTBlock in train() mode), or run it under torch.no_grad()")
     if not use_kernel(force, x, "mit_block_fused"):
         return mit_block_torch(*args, num_heads=num_heads, eps=eps)
@@ -232,3 +325,548 @@ def mit_block_fused(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw
 
 
 mit_block_fused.launches = 0
+
+
+# ---- the backward's launches, each with its plain version --------------------
+#
+# Every function below takes ``kernel``: False runs the plain PyTorch version
+# (any device, any float dtype dt), True the hand-written launch (CUDA, bf16
+# activations). Reductions over rows come back as their final sums.
+
+# blocks per SM that the row-split reductions aim for
+_BLOCKS_PER_SM = 4
+
+
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def lin_bwd(a: torch.Tensor, w_t: torch.Tensor, dt: torch.dtype, *, kernel: bool,
+            a_scale: torch.Tensor | None = None, rows_per_frame: int = 1,
+            out_dtype: torch.dtype = _F32, op: str) -> torch.Tensor:
+    """a (M, K) · w_t (K, N) with a (times its per-frame scale) and w_t
+    rounded to dt, f32 accumulation, out in f32 or rounded to dt."""
+    if kernel:
+        return _gemm(a, w_t, None, out_dtype=out_dtype, a_scale=a_scale,
+                     rows_per_frame=rows_per_frame, op=op)
+    ar = a.float() if a_scale is None else a.float() * _frame_rows(a_scale, rows_per_frame)
+    out = _mm(ar.to(dt), w_t, dt)
+    return out if out_dtype == _F32 else out.to(dt)
+
+
+def gemm_tn(a: torch.Tensor, b: torch.Tensor, *, kernel: bool, b_scale: torch.Tensor | None = None,
+            rows_per_frame: int = 1, dt: torch.dtype, op: str) -> torch.Tensor:
+    """Σ over rows of aᵀ·b: a (G1, G2, M, K1), b (G1, G2, M, N) (views with a
+    unit last stride), b times its per-frame scale rounded to dt →
+    (G1, G2, K1, N) f32."""
+    g1, g2, m, k1 = a.shape
+    n = b.shape[3]
+    if not kernel:
+        bf = b.float()
+        if b_scale is not None:
+            bf = bf * _frame_rows(b_scale, rows_per_frame)
+        return a.to(dt).float().transpose(-1, -2) @ bf.to(dt).float()
+    require(a.dtype == _BF16 and b.dtype == _BF16, op, f"gemm_tn inputs {a.dtype}, {b.dtype}")
+    require(k1 % 8 == 0 and n % 8 == 0, op, f"gemm_tn K1={k1}, N={n} not multiples of 8")
+    require(tuple(b.shape[:3]) == (g1, g2, m), op, f"gemm_tn a {tuple(a.shape)}, b {tuple(b.shape)}")
+    for name, t in (("a", a), ("b", b)):
+        require(t.stride(3) == 1 and all(st % 8 == 0 for st in t.stride()[:3]), op,
+                f"gemm_tn {name} strides {t.stride()}")
+        require(t.data_ptr() % 16 == 0, op, f"gemm_tn {name} not 16-byte aligned")
+    sb = None if b_scale is None else _scales(b_scale, -(-m // rows_per_frame), a.device, op)
+    tiles = g1 * g2 * -(-k1 // 64) * -(-n // 64)
+    splits = max(1, min(-(-_BLOCKS_PER_SM * _sms(a) // tiles), -(-m // 256)))
+    rps = -(-m // splits)
+    splits = -(-m // rps)
+    partial = torch.empty((splits, g1, g2, k1, n), device=a.device, dtype=_F32)
+    dev, stream = stream_of(a)
+    rc = _build.library("gemm_tn").gemm_tn(
+        a.data_ptr(), b.data_ptr(), ptr(sb, op), ptr(partial, op), m, k1, n, a.stride(2),
+        b.stride(2), a.stride(0), a.stride(1), b.stride(0), b.stride(1), g1, g2, rps,
+        rows_per_frame, dev, stream)
+    _build.check(rc, op)
+    return partial.sum(dim=0)
+
+
+def _row_chunks(t: torch.Tensor, rows: int, cols_blocks: int = 1) -> tuple[int, int]:
+    """(rows per block, blocks) for a row-split reduction over ``rows``."""
+    want = max(1, -(-_BLOCKS_PER_SM * _sms(t) // cols_blocks))
+    per = max(8, -(-rows // want))
+    return per, -(-rows // per)
+
+
+def dgelu_dz(d_a: torch.Tensor, hid: torch.Tensor, kdw: torch.Tensor, bdw: torch.Tensor, *,
+             kernel: bool, op: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """d_z = d_a·GELU′(z), z = dw3×3(hid) + bdw in f32 (hid, d_a f32 (B, H, W, Ch));
+    dkdw (3, 3, 1, Ch) = Σ hid(shifted)·d_z per tap, dbdw = Σ d_z."""
+    b, h, w, ch = hid.shape
+    if not kernel:
+        z = _preact(hid, kdw, bdw)
+        d_z = d_a.float() * _gelu_grad(z)
+        hp = F.pad(hid.float(), (0, 0, 1, 1, 1, 1))
+        taps = [(hp[:, di:di + h, dj:dj + w, :] * d_z).sum(dim=(0, 1, 2))
+                for di in range(3) for dj in range(3)]
+        return d_z, torch.stack(taps).reshape(3, 3, 1, ch), d_z.sum(dim=(0, 1, 2))
+    require(hid.dtype == _F32 and d_a.dtype == _F32 and ch % 8 == 0, op,
+            f"d_a {d_a.dtype} / hid {hid.dtype}, Ch={ch}")
+    wk = kdw.reshape(9, ch).to(device=hid.device, dtype=_F32).contiguous()
+    bb = bdw.to(device=hid.device, dtype=_F32).contiguous()
+    gy = -(-ch // 256)
+    per, nchunks = _row_chunks(hid, b * h * w, gy)
+    d_z = torch.empty_like(d_a)
+    partial = torch.empty((nchunks, 10, ch), device=hid.device, dtype=_F32)
+    dev, stream = stream_of(hid)
+    rc = _build.library("block_bwd").dgelu_dz(
+        ptr(d_a, op), ptr(hid, op), ptr(wk, op), ptr(bb, op), ptr(d_z, op), ptr(partial, op),
+        b, h, w, ch, per, dev, stream)
+    _build.check(rc, op)
+    sums = partial.sum(dim=0)
+    return d_z, sums[:9].reshape(3, 3, 1, ch), sums[9]
+
+
+def dwconv_t(d_z: torch.Tensor, kdw: torch.Tensor, dt: torch.dtype, *, kernel: bool,
+             op: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """d_hid = the transposed 3×3 depthwise conv of d_z (f32 (B, H, W, Ch)),
+    zero outside the image → (d_hid rounded to dt, db1 = Σ d_hid in f32)."""
+    b, h, w, ch = d_z.shape
+    if not kernel:
+        k = kdw.reshape(3, 3, ch).float()
+        gp = F.pad(d_z.float(), (0, 0, 1, 1, 1, 1))
+        d_hid = None
+        for dj in range(3):
+            for di in range(3):
+                term = gp[:, 2 - di:2 - di + h, 2 - dj:2 - dj + w, :] * k[di, dj]
+                d_hid = term if d_hid is None else d_hid + term
+        return d_hid.to(dt), d_hid.sum(dim=(0, 1, 2))
+    require(d_z.dtype == _F32 and ch % 8 == 0, op, f"d_z {d_z.dtype}, Ch={ch}")
+    wk = kdw.reshape(9, ch).to(device=d_z.device, dtype=_F32).contiguous()
+    per, nchunks = _row_chunks(d_z, b * h * w, -(-ch // 256))
+    d_hid = torch.empty(d_z.shape, device=d_z.device, dtype=_BF16)
+    partial = torch.empty((nchunks, ch), device=d_z.device, dtype=_F32)
+    dev, stream = stream_of(d_z)
+    rc = _build.library("block_bwd").dwconv_t(
+        ptr(d_z, op), ptr(wk, op), ptr(d_hid, op), ptr(partial, op), b, h, w, ch, per, dev,
+        stream)
+    _build.check(rc, op)
+    return d_hid, partial.sum(dim=0)
+
+
+def ln_bwd(dl: torch.Tensor, xin: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+           eps: float, res: torch.Tensor, dx_dtype: torch.dtype, dt: torch.dtype, *,
+           kernel: bool, s_out: torch.Tensor | None = None,
+           s_res: torch.Tensor | None = None, rows_per_frame: int = 1, op: str) -> dict:
+    """Backward of a LayerNorm (f32 statistics of xin over C) plus a residual,
+    per row of (M, C):
+
+      dx    = res + rsig·(dly − mean(dly) − x̂·mean(dly·x̂)),  dly = dl·γ  (dx_dtype)
+      ln    = bf16-or-dt(x̂·γ + β)          (the LN output the forward rounded)
+      dx_s  = dx·s_out rounded to dt        (with s_out: the attention branch's d_attn_b)
+      dg    = Σ dl·x̂,  dbe = Σ dl,  sdx = Σ dx·s_out,  sres = Σ res·s_res (f32)
+    """
+    m, c = dl.shape
+    if not kernel:
+        xf = xin.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        rsig = torch.rsqrt(var + eps)
+        xhat = (xf - mu) * rsig
+        dly = dl * gamma.float()
+        dxl = rsig * (dly - dly.mean(dim=-1, keepdim=True)
+                      - xhat * (dly * xhat).mean(dim=-1, keepdim=True))
+        dx = res.float() + dxl
+        out = {"dx": dx.to(dx_dtype), "ln": (xhat * gamma.float() + beta.float()).to(dt),
+               "dg": (dl * xhat).sum(dim=0), "dbe": dl.sum(dim=0)}
+        if s_out is not None:
+            dxs = dx * _frame_rows(s_out, rows_per_frame)
+            out.update(dx_s=dxs.to(dt), sdx=dxs.sum(dim=0))
+        if s_res is not None:
+            out["sres"] = (res.float() * _frame_rows(s_res, rows_per_frame)).sum(dim=0)
+        return out
+    require(dl.dtype == _F32 and c % 8 == 0 and c <= 512, op,
+            f"LayerNorm backward over {c} channels of {dl.dtype} (f32, C % 8 == 0, C <= 512)")
+    require(xin.dtype in (_BF16, _F32) and res.dtype in (_BF16, _F32), op,
+            f"LayerNorm backward input {xin.dtype} / residual {res.dtype}")
+    dev = dl.device
+    nb = -(-m // rows_per_frame)
+    so, sr = _scales(s_out, nb, dev, op), _scales(s_res, nb, dev, op)
+    g = gamma.to(device=dev, dtype=_F32).contiguous()
+    bt = beta.to(device=dev, dtype=_F32).contiguous()
+    per, nblocks = _row_chunks(dl, m)
+    dx = torch.empty((m, c), device=dev, dtype=dx_dtype)
+    ln = torch.empty((m, c), device=dev, dtype=_BF16)
+    dxs = torch.empty((m, c), device=dev, dtype=_BF16) if s_out is not None else None
+    partial = torch.empty((nblocks, 4, c), device=dev, dtype=_F32)
+    devi, stream = stream_of(dl)
+    rc = _build.library("block_bwd").ln_bwd(
+        ptr(dl, op), ptr(xin, op), ptr(g, op), ptr(bt, op), ptr(res, op), ptr(so, op),
+        ptr(sr, op), ptr(dx, op), ptr(ln, op), ptr(dxs, op), ptr(partial, op), m, c,
+        int(xin.dtype == _F32), int(res.dtype == _F32), int(dx_dtype == _F32), rows_per_frame,
+        per, eps, devi, stream)
+    _build.check(rc, op)
+    sums = partial.sum(dim=0)
+    out = {"dx": dx, "ln": ln, "dg": sums[0], "dbe": sums[1]}
+    if s_out is not None:
+        out.update(dx_s=dxs, sdx=sums[2])
+    if s_res is not None:
+        out["sres"] = sums[3]
+    return out
+
+
+def round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def sra_attention_bwd_smem(s: int, dh: int) -> int:
+    """Shared memory of one block of ``csrc/sra_attention_bwd.cu`` (its
+    ``Smem``): K and V (Sp, dh) bf16, q and d_ctx (64, dh) bf16, the f32 and
+    bf16 (64, Sp) score tiles, four 16×16 f32 scratch tiles and four (64,)
+    f32 column sums."""
+    sp = round16(s)
+    return sp * dh * 2 * 2 + 64 * dh * 2 * 2 + 64 * sp * (4 + 2) + 4 * 256 * 4 + 4 * 64 * 4
+
+
+def sra_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_ctx: torch.Tensor,
+                      shape, nh: int, dt: torch.dtype, *, kernel: bool, op: str) -> dict:
+    """The attention backward of the block per (frame, head): q and d_ctx
+    (M, C) in dt, k / v (B, S, C). p = softmax(q·(s·K)ᵀ) recomputed in f32,
+    d_p = d_ctx·Vᵀ, d_s = p∘(d_p − Σ d_p∘p), d_q = bf16(d_s)·(s·K) →
+    {p_b, d_s (B, nh, HW, Sp) in dt, zero past S; d_q in dt (M, C);
+    dbq (C,) = Σ d_q in f32}."""
+    b, h, w, c = shape
+    hw, s = h * w, k.shape[1]
+    dh = c // nh
+    sp = round16(s)
+    ksc = scale_in(dt, dh ** -0.5)
+    if not kernel:
+        heads = lambda t, n: t.reshape(b, n, nh, dh).transpose(1, 2)
+        qh = heads(q.to(dt), hw).float()
+        kh = heads((k.to(dt) * ksc).to(dt), s).float()
+        vh = heads(v.to(dt), s).float()
+        gh = heads(d_ctx.to(dt), hw).float()
+        p = torch.softmax(qh @ kh.transpose(-1, -2), dim=-1)          # (b, nh, hw, S)
+        dp = gh @ vh.transpose(-1, -2)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        ds_b = ds.to(dt)
+        dq = ds_b.float() @ kh                                          # (b, nh, hw, dh)
+        pad = lambda t: F.pad(t, (0, sp - s))
+        return {"p_b": pad(p.to(dt)), "d_s": pad(ds_b),
+                "d_q": dq.transpose(1, 2).reshape(b * hw, c).to(dt),
+                "dbq": dq.sum(dim=(0, 2)).reshape(c)}
+    require(dh in (32, 64), op, f"head dim {dh} (32 or 64)")
+    require(0 < sra_attention_bwd_smem(s, dh) <= SMEM_LIMIT, op,
+            f"{s} keys at head dim {dh} exceed {SMEM_LIMIT} bytes of shared memory")
+    for name, t in (("q", q), ("d_ctx", d_ctx)):
+        require(t.dtype == _BF16 and tuple(t.shape) == (b * hw, c), op,
+                f"{name} {t.dtype} {tuple(t.shape)}")
+    require(tuple(k.shape) == (b, s, c) and k.shape == v.shape, op,
+            f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+    kb, vb = k.to(_BF16).contiguous(), v.to(_BF16).contiguous()
+    ntq = -(-hw // 64)
+    p_b = torch.empty((b, nh, hw, sp), device=q.device, dtype=_BF16)
+    d_s = torch.empty_like(p_b)
+    d_q = torch.empty_like(q)
+    partial = torch.empty((b, ntq, nh, dh), device=q.device, dtype=_F32)
+    dev, stream = stream_of(q)
+    rc = _build.library("sra_attention_bwd").sra_attention_bwd(
+        ptr(q, op), ptr(kb, op), ptr(vb, op), ptr(d_ctx, op), ptr(p_b, op), ptr(d_s, op),
+        ptr(d_q, op), ptr(partial, op), b, hw, s, nh, dh, c, ksc, dev, stream)
+    _build.check(rc, op)
+    return {"p_b": p_b, "d_s": d_s, "d_q": d_q, "dbq": partial.sum(dim=(0, 1)).reshape(c)}
+
+
+# ---- the backward as a table of steps ------------------------------------------
+#
+# Each step reads tensors of the table ``t`` (the inputs, the forward's kept
+# activations and earlier steps' outputs) and returns new ones. The FFN half
+# (steps d_a … ln2_bwd, dW2, dW1) is shared with ``ops/mixffn.py``.
+
+def ffn_bwd_steps(p: dict, kernel: bool, full: bool, op: str) -> list:
+    """[(name, fn(t) -> dict)] of the FFN half's backward. p: the block's
+    parameters and geometry; ``full`` continues into the attention half (d_y
+    in f32, d_attn_b), else dx is the half's input gradient in x's dtype."""
+    b, h, w, c = p["shape"]
+    dt, hw = p["dt"], h * w
+    ch = p["w1"].shape[1]
+    m = b * hw
+
+    def d_a(t):
+        return {"d_a": lin_bwd(t["go"], p["w2"].t(), dt, kernel=kernel, a_scale=p["s_ffn"],
+                               rows_per_frame=hw, op=op)}
+
+    def d_z(t):
+        dz, dk, dbdw = dgelu_dz(t["d_a"].view(b, h, w, ch), t["hid"].view(b, h, w, ch),
+                                p["kdw"], p["bdw"], kernel=kernel, op=op)
+        return {"d_z": dz.reshape(m, ch), "dkdw": dk, "dbdw": dbdw}
+
+    def d_hid(t):
+        dhb, db1 = dwconv_t(t["d_z"].view(b, h, w, ch), p["kdw"], dt, kernel=kernel, op=op)
+        return {"d_hid": dhb.reshape(m, ch), "db1": db1}
+
+    def d_ln2(t):
+        return {"d_ln2": lin_bwd(t["d_hid"], p["w1"].t(), dt, kernel=kernel, op=op)}
+
+    def ln2_bwd(t):
+        o = ln_bwd(t["d_ln2"], t["y"], p["g2"], p["be2"], p["eps"], t["go"],
+                   _F32 if full else dt, dt, kernel=kernel,
+                   s_out=p["s_attn"] if full else None, s_res=p["s_ffn"],
+                   rows_per_frame=hw, op=op)
+        out = {"ln2": o["ln"], "dg2": o["dg"], "dbe2": o["dbe"], "db2": o["sres"]}
+        if full:
+            out.update(d_y=o["dx"], d_attn=o["dx_s"], dbproj=o["sdx"])
+        else:
+            out["dx"] = o["dx"]
+        return out
+
+    def dw2(t):
+        return {"dw2": gemm_tn(t["a"][None, None], t["go"][None, None], kernel=kernel,
+                               b_scale=p["s_ffn"], rows_per_frame=hw, dt=dt, op=op)[0, 0]}
+
+    def dw1(t):
+        return {"dw1": gemm_tn(t["ln2"][None, None], t["d_hid"][None, None], kernel=kernel,
+                               dt=dt, op=op)[0, 0]}
+
+    return [("d_a", d_a), ("d_z", d_z), ("d_hid", d_hid), ("d_ln2", d_ln2),
+            ("ln2_bwd", ln2_bwd), ("dW2", dw2), ("dW1", dw1)]
+
+
+def _attn_bwd_steps(p: dict, kernel: bool, op: str) -> list:
+    b, h, w, c = p["shape"]
+    dt, nh, hw = p["dt"], p["num_heads"], h * w
+    dh = c // nh
+    s = p["k"].shape[1]
+
+    def per_head(x2d):
+        """(M, C) → (B, nh, HW, dh) head slices (a view)."""
+        return x2d.view(b, hw, nh, dh).permute(0, 2, 1, 3)
+
+    def d_ctx(t):
+        return {"d_ctx": lin_bwd(t["d_attn"], p["wproj"].t(), dt, kernel=kernel, out_dtype=dt,
+                                 op=op)}
+
+    def attn_bwd(t):
+        return sra_attention_bwd(t["q"], p["k"], p["v"], t["d_ctx"], p["shape"], nh, dt,
+                                 kernel=kernel, op=op)
+
+    def d_ln1(t):
+        return {"d_ln1": lin_bwd(t["d_q"], p["wq"].t(), dt, kernel=kernel, op=op)}
+
+    def ln1_bwd(t):
+        o = ln_bwd(t["d_ln1"], t["x"], p["g1"], p["be1"], p["eps"], t["d_y"], dt, dt,
+                   kernel=kernel, op=op)
+        return {"dx": o["dx"], "ln1": o["ln"], "dg1": o["dg"], "dbe1": o["dbe"]}
+
+    def dwproj(t):
+        return {"dwproj": gemm_tn(t["ctx"][None, None], t["d_attn"][None, None], kernel=kernel,
+                                  dt=dt, op=op)[0, 0]}
+
+    def dwq(t):
+        return {"dwq": gemm_tn(t["ln1"][None, None], t["d_q"][None, None], kernel=kernel, dt=dt,
+                               op=op)[0, 0]}
+
+    def dk(t):
+        # the gradient of the scaled K (the TPU kernel's dKᵀ), times the scale
+        g = gemm_tn(t["d_s"], per_head(t["q"]), kernel=kernel, dt=dt, op=op)
+        g = g[:, :, :s] * (dh ** -0.5)
+        return {"dk": g.permute(0, 2, 1, 3).reshape(b, s, c)}
+
+    def dv(t):
+        g = gemm_tn(t["p_b"], per_head(t["d_ctx"]), kernel=kernel, dt=dt, op=op)
+        return {"dv": g[:, :, :s].permute(0, 2, 1, 3).reshape(b, s, c)}
+
+    return [("d_ctx", d_ctx), ("attn_bwd", attn_bwd), ("d_ln1", d_ln1), ("ln1_bwd", ln1_bwd),
+            ("dWproj", dwproj), ("dWq", dwq), ("dK", dk), ("dV", dv)]
+
+
+def _train_bwd_steps(p: dict, kernel: bool, op: str) -> list:
+    return ffn_bwd_steps(p, kernel, True, op) + _attn_bwd_steps(p, kernel, op)
+
+
+# the backward's outputs in the JAX order, as the table names them
+GRADS = ("dx", "dg1", "dbe1", "dwq", "dbq", "dk", "dv", "dwproj", "dbproj", "dg2", "dbe2",
+         "dw1", "db1", "dkdw", "dbdw", "dw2", "db2")
+_INPUTS = ("x", "g1", "be1", "wq", "bq", "k", "v", "wproj", "bproj", "g2", "be2", "w1", "b1",
+           "kdw", "bdw", "w2")
+_ACTS = ("q", "ctx", "y", "hid", "a")
+
+
+def bwd_table(x: torch.Tensor, go: torch.Tensor, acts: dict, names=_ACTS) -> dict:
+    """The backward's starting table: x and go as (M, C) rows, and the
+    forward's activations ``names``."""
+    c = x.shape[-1]
+    t = {"x": x.reshape(-1, c), "go": go.reshape(-1, c)}
+    t.update({n: acts[n] for n in names})
+    return t
+
+
+def run_steps(steps: list, t: dict) -> dict:
+    t = dict(t)
+    for _, fn in steps:
+        t.update(fn(t))
+    return t
+
+
+def _train_bwd(args: tuple, s_attn, s_ffn, go, num_heads: int, eps: float, kernel: bool,
+               acts: dict | None, op: str) -> tuple:
+    x = args[0]
+    if acts is None:  # recompute the forward's activations, as the TPU kernel does
+        acts = _run(_block_steps(*args, None, num_heads=num_heads, eps=eps, kernel=kernel,
+                                 s_attn=s_attn, s_ffn=s_ffn, op=op), names=_ACTS)
+    p = dict(zip(_INPUTS, args), shape=tuple(x.shape), dt=x.dtype, num_heads=num_heads,
+             eps=eps, s_attn=s_attn, s_ffn=s_ffn)
+    t = run_steps(_train_bwd_steps(p, kernel, op), bwd_table(x, go, acts))
+    t["dx"] = t["dx"].reshape(x.shape)
+    return tuple(t[n] for n in GRADS)
+
+
+def mit_block_train_torch(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw,
+                          w2, b2, s_attn, s_ffn, num_heads: int = 1,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """The plain forward of the train pair, ``mit_block_train_xla``'s math."""
+    args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
+    t = _run(_block_steps(*args, num_heads=num_heads, eps=eps, kernel=False, s_attn=s_attn,
+                          s_ffn=s_ffn))
+    return t["out"].reshape(x.shape)
+
+
+def mit_block_train_bwd_torch(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw,
+                              bdw, w2, s_attn, s_ffn, go, num_heads: int = 1,
+                              eps: float = 1e-6) -> tuple:
+    """The plain backward, written out with ``_train_bwd_kernel``'s rounding
+    points (not autograd of the forward): the forward recomputed from x, then
+    the backward's steps. Returns ``GRADS``: dx in x's dtype, the rest f32."""
+    args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2)
+    return _train_bwd(args, s_attn, s_ffn, go, num_heads, eps, False, None,
+                      "mit_block_train_bwd")
+
+
+def mit_block_train_bwd(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2,
+                        s_attn, s_ffn, go, num_heads: int = 1, eps: float = 1e-6,
+                        force: str | None = None, acts: dict | None = None) -> tuple:
+    """``GRADS`` of the block for the output cotangent go: dx in x's dtype, the
+    rest f32. force: None (kernels on CUDA, plain on CPU) | 'torch' |
+    'kernel'. ``acts``: the forward's kept activations (q, ctx, y, hid, a as
+    (M, ·) rows), recomputed from x when None."""
+    op = "mit_block_train_bwd"
+    kernel = use_kernel(force, x, op)
+    if kernel:
+        require(go.dtype == _BF16 and go.shape == x.shape, op,
+                f"go {go.dtype} {tuple(go.shape)} against x {tuple(x.shape)}")
+        go = go.contiguous()
+    args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2)
+    out = _train_bwd(args, s_attn, s_ffn, go, num_heads, eps, kernel, acts, op)
+    if kernel:
+        mit_block_train_bwd.launches += 1
+    return out
+
+
+class _MitBlockTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2,
+                s_attn, s_ffn, num_heads, eps, force, kernel):
+        ins = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
+        t = _run(_block_steps(*ins, num_heads=num_heads, eps=eps, kernel=kernel,
+                              s_attn=s_attn, s_ffn=s_ffn, op="mit_block_train"))
+        if kernel:
+            mit_block_train.launches += 1
+        ctx.save_for_backward(*ins[:-1], s_attn, s_ffn, *(t[n] for n in _ACTS))
+        ctx.args = (num_heads, eps, force, [a.dtype for a in ins])
+        return t["out"].reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, go):
+        saved = ctx.saved_tensors
+        num_heads, eps, force, dtypes = ctx.args
+        args, (s_attn, s_ffn), acts = saved[:16], saved[16:18], saved[18:]
+        grads = mit_block_train_bwd(*args, s_attn, s_ffn, go, num_heads, eps, force=force,
+                                    acts=dict(zip(_ACTS, acts)))
+        return (*(g.to(d) for g, d in zip(grads, dtypes)), None, None, None, None, None, None)
+
+
+def mit_block_train(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2,
+                    s_attn, s_ffn, num_heads: int = 1, eps: float = 1e-6,
+                    force: str | None = None) -> torch.Tensor:
+    """Differentiable whole MiT block, ``y = x + s_attn·attn(LN1 x); out = y +
+    s_ffn·FFN(LN2 y)``, with the JAX signature (``force`` in place of
+    ``interpret``). k / v are the spatial-reduced keys and values, computed
+    outside so that their producer chain backpropagates through autograd; the
+    backward returns their cotangents. s_attn / s_ffn (B,) are per-frame
+    branch scales and get no gradient. Every gradient is cast to its own
+    input's dtype. force: None (kernels on CUDA, plain on CPU) | 'torch' |
+    'kernel'; the backward follows it (``mit_block_train_bwd``)."""
+    kernel = use_kernel(force, x, "mit_block_train")
+    return _MitBlockTrain.apply(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw,
+                                bdw, w2, b2, s_attn, s_ffn, num_heads, eps, force, kernel)
+
+
+mit_block_train.launches = 0
+mit_block_train_bwd.launches = 0
+
+
+def attention_fwd_smem(n: int, dh: int) -> int:
+    """Shared memory of one 1-warp block of ``csrc/attention.cu`` without bias
+    or mask (its ``Smem``): q rows, K and V, f32 scores and bf16 P."""
+    np_ = round16(n)
+    return 16 * dh * 2 + np_ * dh * 2 * 2 + 16 * max(np_, dh) * 4 + 16 * np_ * 2
+
+
+def mit_block_train_fits(h: int, w: int, c: int, ch: int, nh: int, n_kv: int) -> bool:
+    """Whether the train pair's launches take an (h, w, c) block with hidden
+    width ch, nh heads and n_kv keys, forward and backward: head dim 32 or
+    64, widths multiples of 8, C <= 512 (the LayerNorm backward's rows), the
+    attention forward and backward within one block's shared memory. The
+    MiT block runs composed otherwise, on every device alike."""
+    if nh < 1 or c % nh or n_kv < 1 or h < 1 or w < 1:
+        return False
+    dh = c // nh
+    return (dh in (32, 64) and c % 8 == 0 and ch % 8 == 0 and c <= 512
+            and attention_fwd_smem(n_kv, dh) <= SMEM_LIMIT
+            and sra_attention_bwd_smem(n_kv, dh) <= SMEM_LIMIT)
+
+
+# Per-step checks of the backward on the card, as STEP_TOLERANCE for the
+# forward: each launch fed the plain path's inputs, each output held to a
+# fraction of its own largest value. f32 outputs computed from the same
+# inputs in another order (the input-gradient products, the depthwise and
+# LayerNorm passes, every sum over rows): 2^-10. bf16 outputs rounded once
+# from such sums (d_hid, d_attn, d_ctx, ln1, ln2, p_b, dx): one ulp, 2^-7.
+# d_s = p∘(d_p − r) rounds after a difference that may cancel, and d_q and
+# Σ d_q follow a product with it: 2^-6.
+BWD_STEP_TOLERANCE = {
+    "d_a": 2.0 ** -10, "d_z": 2.0 ** -10, "dkdw": 2.0 ** -10, "dbdw": 2.0 ** -10,
+    "d_hid": 2.0 ** -7, "db1": 2.0 ** -10, "d_ln2": 2.0 ** -10, "ln2": 2.0 ** -7,
+    "dg2": 2.0 ** -10, "dbe2": 2.0 ** -10, "db2": 2.0 ** -10, "d_y": 2.0 ** -10,
+    "d_attn": 2.0 ** -7, "dbproj": 2.0 ** -10, "dx": 2.0 ** -7, "dw2": 2.0 ** -10,
+    "dw1": 2.0 ** -10, "d_ctx": 2.0 ** -7, "p_b": 2.0 ** -7, "d_s": 2.0 ** -6,
+    "d_q": 2.0 ** -6, "dbq": 2.0 ** -6, "d_ln1": 2.0 ** -10, "ln1": 2.0 ** -7,
+    "dg1": 2.0 ** -10, "dbe1": 2.0 ** -10, "dwproj": 2.0 ** -10, "dwq": 2.0 ** -10,
+    "dk": 2.0 ** -10, "dv": 2.0 ** -10,
+}
+
+
+def bwd_step_errors(steps_of, p: dict, t: dict, op: str) -> list:
+    """[(check, max |kernel − plain|, tolerance)] of each backward launch, fed
+    the plain steps' outputs, against its plain step (on CUDA tensors)."""
+    ref = dict(t)
+    out = []
+    for (name, plain), (_, kern) in zip(steps_of(p, False, op), steps_of(p, True, op)):
+        want = plain(ref)
+        got = kern(ref)
+        out += [_held(f"{name}: {key}", got[key], w, BWD_STEP_TOLERANCE[key], op)
+                for key, w in want.items()]
+        ref.update(want)
+    return out
+
+
+def mit_block_train_bwd_step_errors(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1,
+                                    kdw, bdw, w2, s_attn, s_ffn, go, num_heads: int = 1,
+                                    eps: float = 1e-6) -> list:
+    """[(check, max |kernel − plain|, tolerance)] of the backward's fifteen
+    launches, each fed the plain path's inputs (CUDA tensors, no count)."""
+    op = "mit_block_train_bwd"
+    ins = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2)
+    acts = _run(_block_steps(*ins, None, num_heads=num_heads, eps=eps, kernel=False,
+                             s_attn=s_attn, s_ffn=s_ffn, op=op), names=_ACTS)
+    p = dict(zip(_INPUTS, ins), shape=tuple(x.shape), dt=x.dtype, num_heads=num_heads, eps=eps,
+             s_attn=s_attn, s_ffn=s_ffn)
+    return bwd_step_errors(_train_bwd_steps, p, bwd_table(x.contiguous(), go.contiguous(), acts),
+                           op)
