@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's two paths with random weights drawn from a fixed seed:
+Drives the port's paths with random weights drawn from a fixed seed:
 CFFM-B1 clip inference (4 frames of 480×480 in, one refined target-frame
-mask out) through ``init_segmentor`` and ``inference_segmentor``, then
-CFFM-B1 train steps (2 clips of 4 frames, 480×480, bf16 compute, f32
-parameters) through ``TrainState`` and ``make_train_step``, in the three
-block forms of training: the default ``train_block_impl=("full", "full",
-"full", None)`` (the whole-block train pair at stages 1-3), "ffn" (the
-block-FFN pair) and None (composed blocks).
+mask out) through ``init_segmentor`` and ``inference_segmentor``, by
+default and with ``dwconv_impl="fused"`` (the FFN half of the stage-1 and
+stage-4 blocks through ``block_ffn_fused``), then CFFM-B1 train steps (2
+clips of 4 frames, 480×480, bf16 compute, f32 parameters) through
+``TrainState`` and ``make_train_step``, in the three block forms of
+training: the default ``train_block_impl=("full", "full", "full", None)``
+(the whole-block train pair at stages 1-3), "ffn" (the block-FFN pair) and
+None (composed blocks), and in a fourth form, "ohem": the default blocks
+with the head's loss configured for OHEM and class weights (the per-pixel CE
+pair ``ce_upsampled_nll``).
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the device: name, ``nvidia-smi`` name and power limit, torch and CUDA;
@@ -26,9 +30,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   4. the main path: launch counts set to 0, CLIPS synthetic uint8 clips through
      ``inference_segmentor``, counts read and held to 4 / 2 / 4 per clip
      (whole block / CFM attention / depthwise conv); logits against the same
-     model under ``force="torch"`` on the card; end-to-end frames/s (one output
-     frame per clip, the repo's bench convention), the median of ROUNDS
-     rounds of TIMED_CLIPS clips with every round printed, and peak memory;
+     model under ``force="torch"`` on the card;
+  4b. the fused-FFN path (a second bundle, ``dwconv_impl="fused"``, the same
+     weights): the inputs of ``block_ffn_fused`` (its three launches one by
+     one, then its whole output) and of ``mixffn_fused`` (LN2 of the same
+     blocks) captured at stages 1 and 4 from one plain forward and held
+     against their plain versions; CLIPS clips with the counts held to
+     4 / 4 / 2 / 0 per clip (whole block / fused FFN / CFM attention /
+     depthwise conv), the logits against ``force="torch"``; then
+     ``mixffn_fused``'s own path, ``MixFFN.forward`` in eval mode at the
+     stage-1 and stage-4 inputs (the segmentor never calls it: the block
+     takes ``block_ffn_fused`` first), its launches counted there; then
+     end-to-end frames/s of both paths, ROUNDS rounds of TIMED_CLIPS clips
+     each, alternating (default, fused, fused, default, ...), every round
+     printed, the median of each, and peak memory;
   5. the train phase, once per block form (``TRAIN_FORMS``): a synthetic
      uint8 batch (2, 4, 480, 480, 3) with labels in [0, 124), ~5 % ignored
      (255); the inputs of the form's kernels captured from one plain
@@ -40,7 +55,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      step) and backward (its fifteen launches step by step, then its 17
      outputs each at its own scale); in "ffn" the block-FFN pair likewise;
      composed, the depthwise conv with its pre-activation output at the
-     four stages; the gradients of one forward/backward with the kernels
+     four stages; in "ohem" the per-pixel CE pair at N 8 and N 2 (nll, lse,
+     pred and dlogits) and the share of valid pixels that OHEM kept (near 1
+     at thresh 0.7 with random weights: the CPU tests are where the mask
+     bites); the gradients of one forward/backward with the kernels
      against the plain path's on the same weights, batch and generator;
      then, with the counts set to 0, TRAIN_COUNTED train steps, the counts
      held to the form's launches per step and a finite loss; then ms per
@@ -49,10 +67,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   6. one JSON line of kernels, the ``nvidia-smi`` line, and the final
      ``{"ok": true, "device": {...}}`` line.
 
-``--profile`` adds, for one clip and for one train step of each form, the
-device busy time, the number of kernel launches and of ``aten::_to_copy``
-calls, and a torch.profiler table of device time by kernel, written to
-``chiprun_out/profile.txt`` and ``chiprun_out/profile_train{,_ffn,_composed}.txt``.
+``--profile`` adds, for one clip of each inference path and for one train
+step of each form, the device busy time, the number of kernel launches and
+of ``aten::_to_copy`` calls, and a torch.profiler table of device time by
+kernel, written to ``chiprun_out/profile{,_ffn}.txt`` and
+``chiprun_out/profile_train{,_ffn,_composed,_ohem}.txt``.
 
 Per-kernel times in the JSON line are per call, averaged over the kernel's
 shapes on its path (``ms``: the wrapper call between CUDA events, host
@@ -66,6 +85,7 @@ take: the largest of bytes / 3.35 TB/s, tensor ops / 989 TFLOP/s, f32 ops /
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import os
@@ -251,6 +271,86 @@ KERNELS = {
 }
 
 
+def _ffn_fused_case(ops, rec):
+    """Row 8: x + FFN(LN2 x) at a captured block's inputs."""
+    args, eps = rec
+    x, w1 = args[0], args[3]
+    b, h, w, c = x.shape
+    m, ch = b * h * w, w1.shape[1]
+    # fc1, fc2 on the tensor cores; depthwise + GELU, LayerNorm and residual
+    bound = _bound_ms(_nbytes(*args) + x.numel() * 2, 2 * m * 2 * c * ch,
+                      m * ch * 24 + m * c * 20)
+    # out is bf16 at the residual's scale: the whole output is a sanity check
+    # (2^-5 of its largest value), the three launches are held one by one
+    return dict(call=lambda force: ops.block_ffn_fused(*args, eps, force=force), bound=bound,
+                library=None, compare=lambda got, want: _compare_one(got, want, PAIR_REL),
+                steps=lambda: ops.mixffn.block_ffn_train_step_errors(*args, None, eps),
+                shape=f"x{tuple(x.shape)} Ch={ch}")
+
+
+def _mixffn_case(ops, args):
+    """Row 9: fc1 → depthwise → GELU → fc2 at LN2 of a captured block's input."""
+    x, w1 = args[0], args[1]
+    b, h, w, c = x.shape
+    m, ch = b * h * w, w1.shape[1]
+    bound = _bound_ms(_nbytes(*args) + x.numel() * 2, 2 * m * 2 * c * ch, m * ch * 24)
+    return dict(call=lambda force: ops.mixffn_fused(*args, force=force), bound=bound,
+                library=None, shape=f"x{tuple(x.shape)} Ch={ch}")
+
+
+FFN_INFER_KERNELS = {
+    "block_ffn_fused": dict(
+        # launches 4-6 of the block without the branch scale: fc1 with LN2, dwconv, fc2
+        sources=["vss_cffm_tpu_torch/csrc/block_gemm.cu", "vss_cffm_tpu_torch/csrc/dwconv.cu"],
+        # block_ffn_fused, whose pallas_call (:179) runs _kernel_ln (:106) without a scale
+        replaces="vss_cffm_tpu/ops/mixffn.py:165",
+        case=_ffn_fused_case),
+    "mixffn_fused": dict(
+        # the same launches without the LayerNorm prologue and the residual
+        sources=["vss_cffm_tpu_torch/csrc/block_gemm.cu", "vss_cffm_tpu_torch/csrc/dwconv.cu"],
+        replaces="vss_cffm_tpu/ops/mixffn.py:62",  # _kernel, called by mixffn_fused at :234
+        # no residual: bf16 a and out rounded at the same points from f32 sums
+        # in other orders, one ulp carried through fc2: 2^-6 of the largest
+        rel_tol=2.0 ** -6, case=_mixffn_case),
+}
+
+
+def _capture_ffn_inputs(model, clip):
+    """One plain forward of the fused-FFN model; ``block_ffn_fused``'s
+    arguments at the first block of stages 1 and 4, and the MixFFN input
+    there (LN2 of the same x, in the compute dtype) with the MixFFN module."""
+    from vss_cffm_tpu_torch.models import set_force
+    from vss_cffm_tpu_torch.models.mit import layer_norm
+
+    mit = importlib.import_module("vss_cffm_tpu_torch.models.mit")
+    calls = []
+    fn = mit.block_ffn_fused
+
+    def recorder(*a, **kw):
+        calls.append((tuple(t.detach().clone() for t in a[:9]), a[9]))
+        return fn(*a, **kw)
+
+    set_force(model, "torch")
+    try:
+        mit.block_ffn_fused = recorder
+        with torch.inference_mode():
+            model(clip)
+    finally:
+        mit.block_ffn_fused = fn
+        set_force(model, None)
+    depths = model.config.backbone_config.depths
+    firsts = [0, depths[0]]                      # stage 1 and stage 4, first block each
+    bb = model.backbone
+    mlps = [getattr(bb, f"block{s}")[0] for s in (1, 4)]
+    caught = {"block_ffn_fused": [calls[i] for i in firsts], "mixffn_fused": [], "mlp": []}
+    with torch.inference_mode():
+        for blk, (args, _) in zip(mlps, caught["block_ffn_fused"]):
+            ln = layer_norm(args[0], blk.norm2, blk.compute_dtype)
+            caught["mixffn_fused"].append((ln, *blk.mlp.fused_params()))
+            caught["mlp"].append((blk.mlp, ln))
+    return caught
+
+
 def _compare_one(got, want, rel_tol):
     """[(label, max |got − want|, tolerance)] for one tensor held to rel_tol of
     its largest value (train-step gradients are small: no absolute floor)."""
@@ -358,6 +458,61 @@ def _ce_bwd_case(ops, args):
     library = lambda: torch.autograd.grad(loss, x, gw, retain_graph=True)
     return dict(call=lambda force: ops.ce_upsampled_loss_bwd(logits, labels, g, s, img_w,
                                                              force=force),
+                bound=bound, library=library, shape=f"logits{tuple(logits.shape)} s={s}")
+
+
+def _ce_nll_case(ops, args):
+    """Row 12: the per-pixel maps nll, pred, lse at a captured branch."""
+    logits, labels, s = args
+    n, h, w, c = logits.shape
+    pixels = labels.numel()
+    # every pixel: C exps, two lerps, max, subtract, sum and the argmax (~10
+    # per class); nll, pred and lse written, 12 B a pixel
+    bound = _bound_ms(_nbytes(logits, labels) + 12 * pixels, 0, pixels * c * 10, pixels * c)
+    f = torch.nn.functional
+    lab = labels.long()
+
+    def library():
+        up = f.interpolate(logits.permute(0, 3, 1, 2).float(), size=tuple(labels.shape[1:]),
+                           mode="bilinear", align_corners=False)
+        return f.cross_entropy(up, lab, reduction="none", ignore_index=255)
+
+    def compare(got, want):
+        # nll and lse: f32 from the same bf16 inputs, the lerp rounded as
+        # F.interpolate rounds it and sums in other orders: 1e-5 of the
+        # largest; pred: a pixel whose two largest upsampled logits lie
+        # within that rounding may pick either (ties of equal bf16 inputs are
+        # exact on both sides): agreement on >= 99.99 % of the pixels
+        out = [(label, *_compare_one(a, b, 1e-5)[0][1:])
+               for label, a, b in (("nll", got[0], want[0]), ("lse", got[2], want[2]))]
+        disagree = (got[1] != want[1]).float().mean().item()
+        return out + [("pred (share of pixels disagreeing)", disagree, 1e-4)]
+
+    return dict(call=lambda force: ops.ce_upsampled_nll(logits, labels, s, force=force),
+                bound=bound, library=library, compare=compare,
+                shape=f"logits{tuple(logits.shape)} s={s}")
+
+
+def _ce_nll_bwd_case(ops, args):
+    """Row 13: dlogits for a captured per-pixel cotangent, from the plain lse."""
+    logits, labels, lse, g, s = args
+    c = logits.shape[-1]
+    live = int((g != 0).sum())
+    # the pixels whose cotangent is not 0: C exps, lerps, the weighted
+    # adjoint (~16 per class); logits, labels, lse, g read, dlogits written
+    bound = _bound_ms(_nbytes(logits, labels, lse, g) + logits.numel() * 2, 0, live * c * 16,
+                      live * c)
+    f = torch.nn.functional
+    x = logits.detach().clone().requires_grad_(True)
+    lab = labels.long()
+    with torch.enable_grad():
+        up = f.interpolate(x.permute(0, 3, 1, 2).float(), size=tuple(labels.shape[1:]),
+                           mode="bilinear", align_corners=False)
+        nll = f.cross_entropy(up, lab, reduction="none", ignore_index=255)
+    gf = g.float()
+    library = lambda: torch.autograd.grad(nll, x, gf, retain_graph=True)
+    return dict(call=lambda force: ops.ce_upsampled_nll_bwd(logits, labels, lse, g, s,
+                                                            force=force),
                 bound=bound, library=library, shape=f"logits{tuple(logits.shape)} s={s}")
 
 
@@ -569,10 +724,29 @@ FFN_KERNELS = {
         case=_ffn_train_bwd_case),
 }
 
+OHEM_KERNELS = {
+    "ce_upsampled_nll": dict(
+        sources=["vss_cffm_tpu_torch/csrc/ce_upsampled.cu"],
+        replaces="vss_cffm_tpu/ops/ce_upsampled.py:106",  # _fwd_kernel, called at :171
+        case=_ce_nll_case),
+    "ce_upsampled_nll_bwd": dict(
+        sources=["vss_cffm_tpu_torch/csrc/ce_upsampled.cu"],
+        replaces="vss_cffm_tpu/ops/ce_upsampled.py:192",  # _bwd_kernel, called at :337
+        # bf16 dlogits, one rounding of f32 sums in other orders: one ulp
+        rel_tol=2.0 ** -7, case=_ce_nll_bwd_case),
+}
+
+# the "ohem" form's loss: OHEM at the reference sampler's defaults and class
+# weights in [0.5, 1.5] drawn from SEED
+OHEM_LOSS = dict(use_ohem=True, ohem_thresh=0.7, ohem_min_kept=100000,
+                 class_weight=tuple(float(v) for v in
+                                    np.random.RandomState(SEED).uniform(0.5, 1.5, NUM_CLASSES)))
+
 # the block forms of training: train_block_impl, the kernels held at the
-# form's inputs, launches per step, timed rounds
+# form's inputs, launches per step, timed rounds (and the head's loss)
 _SHARED = {"ce_upsampled_loss": 2, "ce_upsampled_loss_bwd": 2, "cfm_attention": 2,
-           "cfm_attention_bwd": 2, "mit_block_fused": 0}
+           "cfm_attention_bwd": 2, "mit_block_fused": 0, "ce_upsampled_nll": 0,
+           "ce_upsampled_nll_bwd": 0, "block_ffn_fused": 0, "mixffn_fused": 0}
 TRAIN_FORMS = {
     "train": dict(impl=("full", "full", "full", None), kernels=TRAIN_KERNELS,
                   per_step={**_SHARED, "mit_block_train": 6, "mit_block_train_bwd": 6,
@@ -587,14 +761,20 @@ TRAIN_FORMS = {
                                      "mit_block_train_bwd": 0, "block_ffn_train": 0,
                                      "block_ffn_train_bwd": 0},
                            rounds=1),
+    "train_ohem": dict(impl=("full", "full", "full", None), kernels=OHEM_KERNELS, loss=OHEM_LOSS,
+                       per_step={**_SHARED, "ce_upsampled_loss": 0, "ce_upsampled_loss_bwd": 0,
+                                 "ce_upsampled_nll": 2, "ce_upsampled_nll_bwd": 2,
+                                 "mit_block_train": 6, "mit_block_train_bwd": 6, "dwconv3x3": 2,
+                                 "block_ffn_train": 0, "block_ffn_train_bwd": 0},
+                       rounds=1),
 }
 
 
 def _capture_train_inputs(model, x, labels, force_loss, kernels: dict):
     """One plain forward/backward of the train step; the arguments of each
     kernel op in ``kernels`` at its call sites are recorded (copies): the CE
-    and its backward, the CFM attention forward (first decoder block) and
-    backward (both decoder blocks), the depthwise conv of each composed FFN
+    pair in use and its backward, the CFM attention forward (first decoder
+    block) and backward (both decoder blocks), the depthwise conv of each composed FFN
     (first block of the stage), and the block pairs of the first block of
     stages 1-3 with their output cotangents."""
     from vss_cffm_tpu_torch.models import losses, set_force
@@ -630,6 +810,10 @@ def _capture_train_inputs(model, x, labels, force_loss, kernels: dict):
                    "ce_upsampled_loss", losses.ce_upsampled_loss, 4, (("count_acc", True),))),
                (ce_upsampled, "ce_upsampled_loss_bwd", recorder(
                    "ce_upsampled_loss_bwd", ce_upsampled.ce_upsampled_loss_bwd, 5)),
+               (losses, "ce_upsampled_nll", recorder(
+                   "ce_upsampled_nll", losses.ce_upsampled_nll, 3)),
+               (ce_upsampled, "ce_upsampled_nll_bwd", recorder(
+                   "ce_upsampled_nll_bwd", ce_upsampled.ce_upsampled_nll_bwd, 5)),
                (cfm_attention, "cfm_attention_bwd", recorder(
                    "cfm_attention_bwd", cfm_attention.cfm_attention_bwd, 7)),
                (mit, "mit_block_train", pair_recorder(
@@ -723,15 +907,16 @@ def train_phase(apis, ops, opts, root, kind, smi, form: str) -> tuple[dict, dict
     """One block form of the train step (``TRAIN_FORMS``): kernel checks at its
     inputs, gradient agreement, the counted steps and the timed rounds.
     Returns (kernel stats, launch counts over TRAIN_COUNTED steps)."""
-    import dataclasses
-
-    from vss_cffm_tpu_torch.config import OptimConfig, build_model_config
-    from vss_cffm_tpu_torch.models.losses import clip_ce_loss
+    from vss_cffm_tpu_torch.config import LossConfig, OptimConfig, build_model_config
+    from vss_cffm_tpu_torch.models import losses
     from vss_cffm_tpu_torch.train import TrainState, device_normalize, make_train_step
 
     spec = TRAIN_FORMS[form]
-    cfg = dataclasses.replace(build_model_config("b1"), train_block_impl=spec["impl"])
-    print(f"[{form}] train_block_impl={cfg.train_block_impl}", flush=True)
+    cfg = build_model_config("b1")
+    cfg = dataclasses.replace(cfg, train_block_impl=spec["impl"], head=dataclasses.replace(
+        cfg.head, loss=LossConfig(**spec.get("loss", {}))))
+    loss_of = losses.make_clip_loss(cfg.head.loss)
+    print(f"[{form}] train_block_impl={cfg.train_block_impl} loss={cfg.head.loss}", flush=True)
     bundle = apis.init_segmentor(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
     model = bundle.model.train()
     rng = np.random.RandomState(SEED + 1)
@@ -742,10 +927,21 @@ def train_phase(apis, ops, opts, root, kind, smi, form: str) -> tuple[dict, dict
     batch = {"imgs": imgs, "labels": torch.from_numpy(labels).cuda()}
     x = device_normalize(imgs, torch.bfloat16)
 
-    caught = _capture_train_inputs(model, x, batch["labels"], clip_ce_loss, spec["kernels"])
+    caught = _capture_train_inputs(model, x, batch["labels"], loss_of, spec["kernels"])
     stats = check_kernels(ops, caught, spec["kernels"], opts.profile)
+    for logits, labels, s in caught.get("ce_upsampled_nll", ()):
+        # the share of valid pixels the form's OHEM mask keeps, per branch
+        with torch.no_grad():
+            nll = ops.ce_upsampled_nll(logits, labels, s, force="torch")[0]
+        valid = (labels.long() >= 0) & (labels.long() < NUM_CLASSES)
+        kept = losses._ohem_from_gt_prob(torch.exp(-nll), valid, OHEM_LOSS["ohem_thresh"],
+                                         OHEM_LOSS["ohem_min_kept"], logits.shape[0])
+        print(f"[{form}] OHEM kept {kept.sum().item() / valid.sum().item():.6f} of the "
+              f"{int(valid.sum())} valid pixels of the N={logits.shape[0]} branch (thresh "
+              f"{OHEM_LOSS['ohem_thresh']}, min_kept {OHEM_LOSS['ohem_min_kept']}; near 1 with "
+              f"random weights; the CPU tests hold a mask that bites)", flush=True)
     del caught
-    _grad_agreement(model, x, batch["labels"], clip_ce_loss, form)
+    _grad_agreement(model, x, batch["labels"], loss_of, form)
 
     state = TrainState.create(model, OptimConfig())
     step = make_train_step(model, state.optimizer, state.scheduler)
@@ -806,13 +1002,22 @@ def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> None:
                                                          "cuLaunchKernelEx",
                                                          "cuLaunchKernel"))
     n_copy = sum(e.count for e in events if e.key == "aten::_to_copy")
-    print(f"[profile] {what}: device busy {busy:.3f} ms, {n_launch} kernel launches, "
-          f"{n_copy} aten::_to_copy calls (dtype or device copies)", flush=True)
+    line = (f"[profile] {what}: device busy {busy:.3f} ms, {n_launch} kernel launches, "
+            f"{n_copy} aten::_to_copy calls (dtype or device copies)")
+    print(line, flush=True)
     table = events.table(sort_by="cuda_time_total", row_limit=120)
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", fname), "w") as fh:
-        fh.write(f"{kind} | {smi}\n{table}\n")
+        fh.write(f"{kind} | {smi}\n{line}\n{table}\n")
     print("\n".join(table.splitlines()[:25]), flush=True)
+
+
+def _check_masks(masks, num_classes: int) -> None:
+    for m in masks:
+        if tuple(m.shape) != (480, 480) or m.dtype != torch.int64:
+            raise RuntimeError(f"mask of shape {tuple(m.shape)} {m.dtype}")
+        if int(m.min()) < 0 or int(m.max()) >= num_classes:
+            raise RuntimeError("mask class out of range")
 
 
 def main() -> int:
@@ -879,11 +1084,7 @@ def main() -> int:
     for name, n in per_clip.items():
         if counts[name] != n * CLIPS:
             raise RuntimeError(f"{name}: {counts[name]} launches, expected {n} x {CLIPS}")
-    for m in masks:
-        if tuple(m.shape) != (480, 480) or m.dtype != torch.int64:
-            raise RuntimeError(f"mask of shape {tuple(m.shape)} {m.dtype}")
-        if int(m.min()) < 0 or int(m.max()) >= bundle.config.head.num_classes:
-            raise RuntimeError("mask class out of range")
+    _check_masks(masks, bundle.config.head.num_classes)
 
     logits, _ = apis.clip_logits(bundle, clips[0])
     set_force(model, "torch")
@@ -903,30 +1104,85 @@ def main() -> int:
         raise RuntimeError(f"main-path logits disagree with the plain path: {err} > "
                            f"{0.05 * scale}")
 
-    # ROUNDS rounds of TIMED_CLIPS clips, each round timed on the host clock
-    # up to a synchronize: the loop is host-bound, so the spread between
-    # rounds is printed along with the median
+    # ---- 4b. the fused-FFN path, same weights --------------------------------
+    cfg_f = dataclasses.replace(bundle.config, dwconv_impl="fused")
+    bundle_f = apis.init_segmentor(cfg_f, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    print(f"[ffn] dwconv_impl={cfg_f.dwconv_impl} block_impl={cfg_f.block_impl}", flush=True)
+    caught_f = _capture_ffn_inputs(bundle_f.model, x0.to(torch.float32))
+    kernel_stats.update(check_kernels(ops, caught_f, FFN_INFER_KERNELS, opts.profile))
+    plan_f = {"mit_block_fused": 4, "block_ffn_fused": 4, "cfm_attention": 2, "dwconv3x3": 0,
+              "mixffn_fused": 0}
+    apis.inference_segmentor(bundle_f, clips[0])        # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    masks_f = [apis.inference_segmentor(bundle_f, c) for c in clips]
+    torch.cuda.synchronize()
+    counts_f = ops.launches()
+    print(f"[ffn] launches over {CLIPS} clips: {counts_f}", flush=True)
+    for name, n in plan_f.items():
+        if counts_f[name] != n * CLIPS:
+            raise RuntimeError(f"fused-FFN path: {name} launched {counts_f[name]} times, "
+                               f"expected {n} x {CLIPS}")
+    _check_masks(masks_f, bundle_f.config.head.num_classes)
+    logits_f, _ = apis.clip_logits(bundle_f, clips[0])
+    set_force(bundle_f.model, "torch")
+    ref_f, _ = apis.clip_logits(bundle_f, clips[0])
+    set_force(bundle_f.model, None)
+    if not torch.isfinite(logits_f.float()).all():
+        raise RuntimeError("non-finite logits on the fused-FFN path")
+    err_f = (logits_f.float() - ref_f.float()).abs().max().item()
+    scale_f = ref_f.float().abs().max().item()
+    print(f"[ffn] logits {tuple(logits_f.shape)} kernel vs plain on the card: "
+          f"max_abs_err={err_f:.3e} max|ref|={scale_f:.3e}; mask agreement with the default "
+          f"path {(masks_f[0] == masks[0]).float().mean().item():.5f}", flush=True)
+    if err_f > 0.05 * scale_f:
+        raise RuntimeError(f"fused-FFN logits disagree with the plain path: {err_f} > "
+                           f"{0.05 * scale_f}")
+    # mixffn_fused's own path: MixFFN in eval mode, as a module, at the stage-1
+    # and stage-4 inputs (the segmentor reaches block_ffn_fused first)
+    ops.reset_launches()
+    with torch.inference_mode():
+        outs = [mlp(ln) for mlp, ln in caught_f["mlp"]]
+    torch.cuda.synchronize()
+    counts_mix = ops.launches()
+    print(f"[mixffn] MixFFN.forward (eval, dwconv_impl='fused') at stages 1 and 4: launches "
+          f"{counts_mix}", flush=True)
+    if counts_mix["mixffn_fused"] != 2 or sum(counts_mix.values()) != 2:
+        raise RuntimeError(f"MixFFN path: launches {counts_mix}, expected mixffn_fused 2")
+    if not all(torch.isfinite(o.float()).all() for o in outs):
+        raise RuntimeError("non-finite MixFFN output")
+
+    # frames/s of both paths: ROUNDS rounds of TIMED_CLIPS clips each, timed
+    # on the host clock up to a synchronize, in alternating order (default,
+    # fused, fused, default, ...): the loop is host-bound, so every round is
+    # printed along with the medians
     torch.cuda.reset_peak_memory_stats()
-    rates = []
-    for _ in range(ROUNDS):
-        torch.cuda.synchronize()
-        ts = time.perf_counter()
-        for i in range(TIMED_CLIPS):
-            apis.inference_segmentor(bundle, clips[i % CLIPS])
-        torch.cuda.synchronize()
-        rates.append(TIMED_CLIPS / (time.perf_counter() - ts))
-    fps = float(np.median(rates))
+    paths = {"default": bundle, "fused FFN": bundle_f}
+    rates = {name: [] for name in paths}
+    for r in range(ROUNDS):
+        for name in (list(paths) if r % 2 == 0 else list(paths)[::-1]):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            for i in range(TIMED_CLIPS):
+                apis.inference_segmentor(paths[name], clips[i % CLIPS])
+            torch.cuda.synchronize()
+            rates[name].append(TIMED_CLIPS / (time.perf_counter() - ts))
     peak = torch.cuda.max_memory_allocated() / 2**20
-    print(f"[main] CFFM-B1 480x480 clip-4 bf16: {fps:.3f} frames/s, median of {ROUNDS} rounds "
-          f"of {TIMED_CLIPS} clips ({', '.join(f'{x:.3f}' for x in rates)}); "
-          f"{1e3 / fps:.3f} ms per clip, {4 * fps:.3f} input frames/s; peak memory "
-          f"{peak:.1f} MiB; host: {os.cpu_count()} cores, load average "
-          f"{os.getloadavg()[0]:.2f}, {torch.get_num_threads()} torch threads", flush=True)
+    for name, rs in rates.items():
+        fps = float(np.median(rs))
+        print(f"[main] CFFM-B1 480x480 clip-4 bf16, {name}: {fps:.3f} frames/s, median of "
+              f"{ROUNDS} rounds of {TIMED_CLIPS} clips ({', '.join(f'{x:.3f}' for x in rs)}); "
+              f"{1e3 / fps:.3f} ms per clip, {4 * fps:.3f} input frames/s", flush=True)
+    print(f"[main] peak memory of both paths {peak:.1f} MiB; host: {os.cpu_count()} cores, "
+          f"load average {os.getloadavg()[0]:.2f}, {torch.get_num_threads()} torch threads",
+          flush=True)
 
     if opts.profile:
         _profile(lambda: apis.inference_segmentor(bundle, clips[1]), "one clip", "profile.txt",
                  root, kind, smi)
-    del bundle, model, caught
+        _profile(lambda: apis.inference_segmentor(bundle_f, clips[1]), "one clip, fused FFN",
+                 "profile_ffn.txt", root, kind, smi)
+    del bundle, bundle_f, model, caught, caught_f, outs
     torch.cuda.empty_cache()
 
     # ---- 5. the train step, in each block form ------------------------------
@@ -936,15 +1192,20 @@ def main() -> int:
 
     # ---- 6. result lines -----------------------------------------------------
     # launches: each kernel's count on its own path (the inference clips for
-    # the inference kernels, the counted steps of the default train form for
-    # the train ones, of the "ffn" form for the block-FFN pair);
-    # launches_by_path gives every path's
+    # the inference kernels, the fused-FFN clips for block_ffn_fused, the
+    # MixFFN module for mixffn_fused, the counted steps of the default train
+    # form for the train ones, of the "ffn" form for the block-FFN pair, of
+    # the "ohem" form for the per-pixel CE pair); launches_by_path gives
+    # every path's
     kernels = []
     rows = [(n, spec, kernel_stats[n], "inference") for n, spec in KERNELS.items()]
+    rows += [(n, spec, kernel_stats[n], "inference_ffn" if n == "block_ffn_fused" else "mixffn")
+             for n, spec in FFN_INFER_KERNELS.items()]
     rows += [(n, spec, train_stats[form][n], form) for form in TRAIN_FORMS
              for n, spec in TRAIN_FORMS[form]["kernels"].items() if "sources" in spec]
     for name, spec, st, path in rows:
-        by_path = {"inference": counts[name], **{f: c[name] for f, c in train_counts.items()}}
+        by_path = {"inference": counts[name], "inference_ffn": counts_f[name],
+                   "mixffn": counts_mix[name], **{f: c[name] for f, c in train_counts.items()}}
         kernels.append({"name": name, "route": "cuda", "source": spec["sources"][0],
                         "sources": spec["sources"],
                         "replaces": spec["replaces"], "launches": by_path[path], "path": path,

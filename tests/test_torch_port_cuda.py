@@ -1,8 +1,9 @@
 """PyTorch port, on the card: each CUDA kernel against its plain version at
 shapes beyond the main path's (odd maps, ragged row tiles, grouped K/V,
 several head counts, ragged window tiles, ignored labels, B0 widths, zero
-branch scales), in bf16, and train steps in each block form whose gradients
-go through the kernels.
+branch scales, C = 7 and 124 classes), in bf16; train steps in each block
+form, and with OHEM and class weights, whose gradients go through the
+kernels; B0 clip inference with the fused FFN.
 
 Marked ``cuda`` and skipped where no CUDA device is present. On a machine
 with one, from the repository root::
@@ -348,3 +349,129 @@ def test_train_step_gradients_through_the_kernels(dev, form):
     a = torch.cat([g.reshape(-1) for g in grads[None].values()])
     b = torch.cat([g.reshape(-1) for g in grads["torch"].values()])
     assert torch.nn.functional.cosine_similarity(a, b, dim=0) >= 0.99
+
+
+FFN_SHAPES = [((2, 9, 11, 32), 128), ((1, 7, 13, 160), 640), ((2, 4, 4, 256), 1024),
+              ((1, 30, 30, 64), 256)]
+
+
+@pytest.mark.parametrize("shape,ch", FFN_SHAPES)
+def test_inference_ffn_kernels_match_plain(dev, shape, ch):
+    """``block_ffn_fused``: its three launches against their plain steps
+    (``block_ffn_train_step_errors`` without a scale), then the whole output
+    held as out − x; ``mixffn_fused`` whole, 2^-6 of its largest value (bf16
+    a and out rounded at the same points, one ulp carried through fc2)."""
+    rng = np.random.RandomState(10)
+    ins, _, _, _ = _block_train_inputs(rng, shape, ch, 4, dev)
+    x, ffn = ins[0], ins[9:]
+    for name, err, tol in ops.mixffn.block_ffn_train_step_errors(x, *ffn, None):
+        assert err <= tol, (name, err, tol)
+    got = ops.block_ffn_fused(x, *ffn, force="kernel")
+    want = ops.block_ffn_fused(x, *ffn, force="torch")
+    _close(got.float() - x.float(), want.float() - x.float(), WHOLE_REL)
+    mix = (ffn[2], ffn[3], ffn[4], ffn[5], ffn[6], ffn[7])
+    _close(ops.mixffn_fused(x, *mix, force="kernel"), ops.mixffn_fused(x, *mix, force="torch"),
+           2.0 ** -6)
+
+
+@pytest.mark.parametrize("n,h,w,c,s,ldt", [
+    (2, 8, 12, 7, 4, torch.uint8), (1, 7, 9, 124, 4, torch.int32),
+    (3, 6, 5, 40, 2, torch.uint8), (1, 30, 61, 124, 4, torch.uint8),
+])
+def test_ce_nll_kernels_match_plain(dev, n, h, w, c, s, ldt):
+    """The per-pixel pair: nll and lse to 1e-5 of their largest value (f32
+    from the same bf16 inputs, the lerp rounded as F.interpolate rounds it),
+    pred on ≥ 99.9 % of the pixels (near-ties may pick either; ignored and
+    out-of-range labels pick class 0 on both sides); dlogits for a per-pixel
+    cotangent with zeros on the ignored pixels and on a share of the rest, 2^-7
+    of the largest (one bf16 rounding of f32 sums in other orders)."""
+    rng = np.random.RandomState(11)
+    x = _rand(rng, n, h, w, c, scale=2.0, dev=dev)
+    lab = _labels(rng, n, h * s, w * s, c, ldt, dev)
+    got = ops.ce_upsampled_nll(x, lab, s, force="kernel")
+    want = ops.ce_upsampled_nll(x, lab, s, force="torch")
+    torch.cuda.synchronize()
+    for i in (0, 2):
+        _close(got[i], want[i], 1e-5)
+    assert got[1].dtype == want[1].dtype == torch.int32
+    assert (got[1] == want[1]).float().mean().item() >= 0.999
+    keep = ((lab.long() < c) & torch.from_numpy(rng.rand(*lab.shape) < 0.7).to(dev)).float()
+    g = _rand(rng, *lab.shape, dtype=torch.float32, dev=dev) * keep
+    gk = ops.ce_upsampled_nll_bwd(x, lab, want[2], g, s, force="kernel")
+    gp = ops.ce_upsampled_nll_bwd(x, lab, want[2], g, s, force="torch")
+    _close(gk, gp, 2.0 ** -7)
+
+
+def _b0_model(dev, **cfg_fields):
+    import dataclasses
+
+    from vss_cffm_tpu_torch import config as pcfg
+    from vss_cffm_tpu_torch.models import CFFMSegmentor
+
+    cfg = dataclasses.replace(pcfg.build_model_config("b0", num_classes=11), **cfg_fields)
+    model = CFFMSegmentor(cfg, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(0))
+    return model.to(dev)
+
+
+def test_fused_ffn_clip_on_the_card(dev):
+    """B0 clip inference with ``dwconv_impl="fused"``: the FFN halves of
+    stages 1 and 4 through ``block_ffn_fused`` (4 launches), no depthwise
+    conv launch, the logits within 5 % of the largest plain logit."""
+    from vss_cffm_tpu_torch.models import set_force
+    from vss_cffm_tpu_torch.train.step import device_normalize
+
+    model = _b0_model(dev, dwconv_impl="fused").eval()
+    rng = np.random.RandomState(12)
+    clip = device_normalize(torch.from_numpy(
+        rng.randint(0, 256, (1, 4, 64, 96, 3)).astype(np.uint8)).to(dev), torch.bfloat16)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = model(clip)
+        counts = ops.launches()
+        set_force(model, "torch")
+        want = model(clip)
+    assert counts["block_ffn_fused"] == 4 and counts["mit_block_fused"] == 4, counts
+    assert counts["dwconv3x3"] == 0 and counts["mixffn_fused"] == 0, counts
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 0.05 * want.float().abs().max().item(), err
+
+
+def test_ohem_train_step_goes_through_the_per_pixel_kernels(dev):
+    """A B0 train step at 64² with OHEM and class weights: two
+    ``ce_upsampled_nll`` launches and two of its backward, none of the fully
+    reduced pair; the loss and the gradients against the plain path (loss
+    1e-2 relative, cosine of all gradients ≥ 0.99). OHEM at its defaults
+    keeps every valid pixel of a fresh model (a threshold inside the
+    near-uniform probabilities would let bf16 roundings move pixels across
+    it); the CPU tests hold a mask that bites."""
+    from vss_cffm_tpu_torch import config as pcfg
+    from vss_cffm_tpu_torch.models import set_force
+    from vss_cffm_tpu_torch.models.losses import make_clip_loss
+    from vss_cffm_tpu_torch.train.step import device_normalize
+
+    cw = tuple(np.random.RandomState(13).uniform(0.5, 1.5, 11))
+    loss_cfg = pcfg.LossConfig(use_ohem=True, class_weight=cw)
+    model = _b0_model(dev).train()
+    loss_of = make_clip_loss(loss_cfg)
+    rng = np.random.RandomState(14)
+    imgs = device_normalize(torch.from_numpy(
+        rng.randint(0, 256, (1, 4, 64, 64, 3)).astype(np.uint8)).to(dev), torch.bfloat16)
+    lab = _labels(rng, 4, 64, 64, 11, torch.uint8, dev).reshape(1, 4, 64, 64)
+    runs = {}
+    for force in (None, "torch"):
+        set_force(model, force)
+        model.zero_grad(set_to_none=True)
+        ops.reset_launches()
+        out = model(imgs, train=True, generator=torch.Generator(dev).manual_seed(1))
+        loss = loss_of(out, lab, force=force)["loss_seg"]
+        loss.backward()
+        runs[force] = (loss.item(), ops.launches(),
+                       torch.cat([p.grad.float().reshape(-1) for p in model.parameters()]))
+    set_force(model, None)
+    counts = runs[None][1]
+    assert counts["ce_upsampled_nll"] == 2 and counts["ce_upsampled_nll_bwd"] == 2, counts
+    assert counts["ce_upsampled_loss"] == 0 and counts["ce_upsampled_loss_bwd"] == 0, counts
+    assert np.isfinite(runs[None][0])
+    assert abs(runs[None][0] - runs["torch"][0]) <= 1e-2 * abs(runs["torch"][0])
+    assert torch.nn.functional.cosine_similarity(runs[None][2], runs["torch"][2], dim=0) >= 0.99

@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -26,7 +27,8 @@ def pair():
 def test_mit_matches_flax(pair):
     jm, var, pm, clip = pair
     x = clip.reshape(-1, *clip.shape[2:])
-    want = jm.apply(var, jnp.asarray(x), method=lambda m, x: m.backbone(x, deterministic=True))
+    want = jax.jit(lambda v, x: jm.apply(v, x, method=lambda m, x: m.backbone(x, True)))(
+        var, jnp.asarray(x))
     with torch.no_grad():
         got = pm.backbone(torch.from_numpy(x))
     assert len(got) == len(want) == 4
@@ -39,8 +41,9 @@ def test_mit_matches_flax(pair):
 def test_cffm_decoder_matches_flax(pair, hw):
     jm, var, pm, _ = pair
     x = np.random.RandomState(1).randn(1, 4, *hw, 256).astype(np.float32)
-    want = jm.apply(var, jnp.asarray(x),
-                    method=lambda m, x: m.decode_head.decoder_focal(x, deterministic=True))
+    want = jax.jit(lambda v, x: jm.apply(
+        v, x, method=lambda m, x: m.decode_head.decoder_focal(x, deterministic=True)))(
+        var, jnp.asarray(x))
     with torch.no_grad():
         got = pm.decode_head.decoder_focal(torch.from_numpy(x))
     np.testing.assert_allclose(to_np(got), np.asarray(want), **TOL)
@@ -53,8 +56,8 @@ def test_cffm_head_matches_flax(pair, t):
     rng = np.random.RandomState(2)
     shapes = [(t, 28, 28, 32), (t, 14, 14, 64), (t, 7, 7, 160), (t, 4, 4, 256)]
     feats = [rng.randn(*s).astype(np.float32) for s in shapes]
-    want = jm.apply(var, [jnp.asarray(f) for f in feats],
-                    method=lambda m, f: m.decode_head(f, 1, t, False))
+    head = lambda m, f: m.decode_head(f, 1, t, False)
+    want = jax.jit(lambda v, f: jm.apply(v, f, method=head))(var, [jnp.asarray(f) for f in feats])
     with torch.no_grad():
         got = pm.decode_head([torch.from_numpy(f) for f in feats], 1, t)
     assert tuple(got.shape) == want.shape == (1, 28, 28, 7)

@@ -27,7 +27,7 @@ def pair_14x14():
 
 
 def _check_logits(jm, var, pm, clip):
-    want = np.asarray(jm.apply(var, jnp.asarray(clip), False))
+    want = np.asarray(jax.jit(lambda v, x: jm.apply(v, x, False))(var, jnp.asarray(clip)))
     with torch.no_grad():
         got = pm(torch.from_numpy(clip))
     h, w = clip.shape[2:4]

@@ -12,10 +12,14 @@ rates 0 on both sides, and the JAX CE kernels in interpret mode in its loss
   mode, "full-interpret");
 - the optimizer: every parameter's (lr multiplier, decayed) and three AdamW
   steps through the warmup against optax;
-- one whole ``make_train_step`` against the JAX ``make_train_step``.
+- one whole ``make_train_step`` against the JAX ``make_train_step``, with
+  the default CE and with a head configured for OHEM and class weights (the
+  port's per-pixel CE route, the JAX composed CE).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +29,7 @@ import torch
 
 from torch_port_common import (flat, perturbed_variables, to_jax_tree, to_np, train_batch,
                                train_configs, train_patches)
+from vss_cffm_tpu.models import losses as jax_losses
 from vss_cffm_tpu.models.losses import LossConfig as JaxLossConfig
 from vss_cffm_tpu.models.losses import make_clip_loss as jax_make_clip_loss
 from vss_cffm_tpu.models.segmentor import CFFMSegmentor as JaxSegmentor
@@ -48,10 +53,16 @@ B = 2
 FORMS = {"composed": None, "full": ("full-interpret",) * 3 + (None,)}
 
 
-def _models(seed: int = 0, train_block_impl=None):
-    jcfg, pc = train_configs("b0", CLASSES, depth=1, train_block_impl=train_block_impl)
+def _models(seed: int = 0, train_block_impl=None, loss: dict | None = None):
+    jcfg, pc = train_configs("b0", CLASSES, depth=1, train_block_impl=train_block_impl,
+                             loss=loss)
     jm = JaxSegmentor(jcfg)
-    variables = perturbed_variables(jm, np.zeros((1, 4, *HW, 3), np.float32), seed)
+    # the block forms and the loss leave the parameter tree as it is: one init
+    # model (and one compiled init) serves every case
+    twin = dataclasses.replace(jcfg, train_block_impl=None,
+                               head=dataclasses.replace(jcfg.head, loss=JaxLossConfig()))
+    variables = perturbed_variables(JaxSegmentor(twin), np.zeros((1, 4, *HW, 3), np.float32),
+                                    seed)
     pm = CFFMSegmentor(pc)
     pm.load_state_dict(state_dict_from_jax(variables, jcfg), strict=True)
     return jcfg, jm, variables, pm.train()
@@ -223,16 +234,38 @@ def test_grad_clip_of_optim_config_matches_optax():
 
 def test_one_train_step_matches_jax():
     """``make_train_step`` against the JAX ``make_train_step`` from the same
-    weights and uint8 batch, lr 1e-4 past the warmup. loss, acc and the
-    gradient norm as in the forward/backward tests. The updated parameters:
-    Adam's first step is ≈ lr·sign(g) per element, so an element whose
-    gradient is within rounding of 0 may step the other way; 99.9 % of the
-    elements are held to 1e-3 of the step size lr·mult, every element to
-    2·lr·mult plus its decay."""
+    weights and uint8 batch, lr 1e-4 past the warmup (``_one_step_matches_jax``)."""
+    _one_step_matches_jax()
+
+
+def test_one_train_step_with_ohem_and_class_weights_matches_jax():
+    """The same with the head's loss configured for OHEM and class weights:
+    the port's step takes its per-pixel CE route (``ce_upsampled_nll``), the
+    JAX step its composed one (CE on the upsampled logits), which
+    ``tests/test_torch_port_loss_pixel.py`` holds to the JAX per-pixel route,
+    whose interpreted Pallas pair would add ~10 s of compile here. OHEM at
+    its defaults keeps every valid pixel here (the near-uniform
+    probabilities of a fresh model lie below 0.7); that file holds a mask
+    that bites. The batch's out-of-range labels become 255, which both sides
+    ignore (the JAX per-pixel route would count them as class 0; the port's
+    rule is pinned in that file)."""
+    cw = tuple(np.random.RandomState(7).uniform(0.5, 1.5, CLASSES))
+    _one_step_matches_jax(dict(use_ohem=True, class_weight=cw))
+
+
+def _one_step_matches_jax(loss: dict | None = None):
+    """loss, acc and the gradient norm as in the forward/backward tests. The
+    updated parameters: Adam's first step is ≈ lr·sign(g) per element, so an
+    element whose gradient is within rounding of 0 may step the other way;
+    99.9 % of the elements are held to 1e-3 of the step size lr·mult, every
+    element to 2·lr·mult plus its decay."""
     ocfg = dict(lr=1e-4, warmup_iters=0, max_iters=1000)
-    with train_patches("b0"):
-        jcfg, jm, variables, pm = _models(seed=1)
+    with train_patches("b0"), pytest.MonkeyPatch.context() as mp:
+        jcfg, jm, variables, pm = _models(seed=1, loss=loss)
         imgs, labels = train_batch(B, HW, CLASSES, seed=2)
+        if loss is not None:
+            labels[labels == CLASSES] = 255
+            mp.setattr(jax_losses, "_FORCE_FUSED", False)
         jtx = jax_optim.build_optimizer(variables["params"], jax_optim.OptimConfig(**ocfg))
         jstate = JaxTrainState.create(variables, jtx)
         jstep = jax_make_train_step(jm, jtx, donate=False)

@@ -273,7 +273,11 @@ def test_fused_block_refuses_grad_and_train_mode_runs_composed(rng):
 def test_unsupported_train_settings_raise():
     """The train block forms are None, "full" and "ffn" per stage, as the JAX
     package's (without its interpret modes); anything else raises. The JAX
-    default is the port's, and the override parser takes per-stage forms."""
+    default is the port's, and the override parser takes per-stage forms.
+    ``dwconv_impl`` takes None and "fused"; the JAX package's TPU and
+    interpret names raise. Every loss the JAX ``make_clip_loss`` serves is
+    built; an unknown loss type, a class weight of the wrong length and an
+    ``ignore_index`` inside [0, C) raise."""
     assert pcfg.build_model_config("b1").train_block_impl == ("full", "full", "full", None)
     cfg = pcfg.apply_overrides(pcfg.build_model_config("b1"),
                                ["train_block_impl=ffn,ffn,full,"])
@@ -283,12 +287,23 @@ def test_unsupported_train_settings_raise():
         pcfg.SegmentorConfig(train_block_impl=("full", "fused", "full", None))
     with pytest.raises(ValueError, match="train_block_impl"):
         pcfg.apply_overrides(pcfg.build_model_config("b1"), ["train_block_impl=full-interpret"])
-    with pytest.raises(NotImplementedError, match="Lovász"):
-        make_clip_loss(pcfg.LossConfig(type="lovasz"))
-    with pytest.raises(NotImplementedError, match="OHEM"):
-        make_clip_loss(pcfg.LossConfig(use_ohem=True))
-    with pytest.raises(NotImplementedError, match="OHEM"):
-        make_clip_loss(pcfg.LossConfig(class_weight=(1.0, 2.0)))
+    assert pcfg.apply_overrides(pcfg.build_model_config("b1"),
+                                ["dwconv_impl=fused"]).backbone_config.dwconv_impl == "fused"
+    for name in ("fused-interpret", "xla", "shifts", "shifts-cvjp", "pallas", "interpret"):
+        with pytest.raises(ValueError, match="dwconv_impl"):
+            pcfg.apply_overrides(pcfg.build_model_config("b1"), [f"dwconv_impl={name}"])
+        with pytest.raises(ValueError, match="dwconv_impl"):
+            pcfg.MiTConfig(dwconv_impl=name)
+    logits = torch.zeros(1, 5, 2, 2, 7)
+    labels = torch.zeros(1, 4, 8, 8, dtype=torch.uint8)
+    for cfg in (pcfg.LossConfig(type="lovasz"), pcfg.LossConfig(use_ohem=True),
+                pcfg.LossConfig(class_weight=(1.0,) * 7)):
+        out = make_clip_loss(cfg)(logits, labels)
+        assert set(out) == {"loss_seg", "acc_seg"} and torch.isfinite(out["loss_seg"])
+    with pytest.raises(ValueError, match="unknown loss type"):
+        make_clip_loss(pcfg.LossConfig(type="dice"))
+    with pytest.raises(ValueError, match="class_weight"):
+        make_clip_loss(pcfg.LossConfig(class_weight=(1.0, 2.0)))(logits, labels)
     with pytest.raises(ValueError, match="ignore_index 3 is a class"):
         clip_ce_loss(torch.zeros(1, 5, 2, 2, 7), torch.zeros(1, 4, 8, 8, dtype=torch.uint8),
                      ignore_index=3)
@@ -301,21 +316,25 @@ def test_unsupported_train_settings_raise():
         model(torch.zeros(1, 4, 64, 64, 3), train=True)
 
 
-def test_train_step_builds_its_loss_from_the_head_config():
+def test_train_step_builds_its_loss_from_the_head_config(monkeypatch):
     """``make_train_step`` reads ``model.config.head.loss`` by default, as the
-    JAX step does: a head configured for OHEM or Lovász refuses to train
-    rather than train with plain CE."""
+    JAX step does: a head configured for OHEM with class weights or for
+    Lovász trains with that loss, an explicit ``LossConfig`` overrides it."""
     from vss_cffm_tpu_torch.train import build_optimizer, make_train_step
+    from vss_cffm_tpu_torch.train import step as step_mod
 
+    built = []
+    monkeypatch.setattr(step_mod, "make_clip_loss",
+                        lambda c, ignore_index: built.append(c) or make_clip_loss(c, ignore_index))
     cfg = pcfg.build_model_config("b0", num_classes=7)
-    for loss, match in ((pcfg.LossConfig(use_ohem=True), "OHEM"),
-                        (pcfg.LossConfig(type="lovasz"), "Lovász")):
+    for loss in (pcfg.LossConfig(use_ohem=True, class_weight=(0.5,) * 7),
+                 pcfg.LossConfig(type="lovasz")):
         model = CFFMSegmentor(dataclasses.replace(
             cfg, head=dataclasses.replace(cfg.head, loss=loss))).train()
         opt, sched = build_optimizer(model, pcfg.OptimConfig())
-        with pytest.raises(NotImplementedError, match=match):
-            make_train_step(model, opt, sched)
+        make_train_step(model, opt, sched)
         make_train_step(model, opt, sched, pcfg.LossConfig())   # an explicit CE config
+        assert built[-2:] == [loss, pcfg.LossConfig()]
 
 
 def test_force_rule_of_the_new_ops_on_cpu(rng):

@@ -24,19 +24,21 @@ from vss_cffm_tpu_torch.utils import state_dict_from_jax
 
 
 def jax_config(variant: str = "b0", num_classes: int = 7, depth: int = 1,
-               block_impl=(None, "fused", "fused", None)):
+               block_impl=(None, "fused", "fused", None), dwconv_impl=None):
     """The JAX package's CFFM config at a test size. On the CPU its "fused"
-    stages run composed; "fused-interpret" runs the Pallas kernel."""
+    stages run composed; "fused-interpret" runs the Pallas kernel (also as
+    ``dwconv_impl``)."""
     cfg = jax_build_model_config(variant, num_classes=num_classes)
     dec = dataclasses.replace(cfg.head.decoder, depth=depth)
     return dataclasses.replace(cfg, head=dataclasses.replace(cfg.head, decoder=dec),
-                               block_impl=block_impl)
+                               block_impl=block_impl, dwconv_impl=dwconv_impl)
 
 
 def port_config(jcfg, block_impl=(None, "fused", "fused", None)) -> pcfg.SegmentorConfig:
     """The port's config with the same fields as a JAX ``SegmentorConfig``; its
-    ``train_block_impl`` is the JAX one, the interpret modes mapped to the
-    port's forms ("full-interpret" → "full", "ffn-interpret" → "ffn")."""
+    ``train_block_impl`` and ``dwconv_impl`` are the JAX ones, the interpret
+    modes mapped to the port's forms ("full-interpret" → "full",
+    "ffn-interpret" → "ffn", "fused-interpret" → "fused")."""
     d = jcfg.head.decoder
     dec = pcfg.CFFMDecoderConfig(
         dim=d.dim, depth=d.depth, num_heads=d.num_heads, window_size=d.window_size,
@@ -50,13 +52,25 @@ def port_config(jcfg, block_impl=(None, "fused", "fused", None)) -> pcfg.Segment
     form = lambda i: i.removesuffix("-interpret") if isinstance(i, str) else i
     tbi = tuple(map(form, tbi)) if isinstance(tbi, tuple) else form(tbi)
     return pcfg.SegmentorConfig(backbone=jcfg.backbone, head=head, block_impl=block_impl,
-                                train_block_impl=tbi)
+                                train_block_impl=tbi, dwconv_impl=form(jcfg.dwconv_impl))
+
+
+# jitted JAX inits by (model, its backbone config, input shape and dtype):
+# the first eager init of B0 at 112² takes ~50 s on the CPU, a jitted one
+# ~13 s, and a compiled one runs again in well under a second for any seed
+_INITS: dict = {}
 
 
 def perturbed_variables(model, sample, seed: int = 0, scale: float = 0.02):
-    """JAX init, then every leaf + scale·N(0, 1) from numpy, so that zero-
-    initialised biases and bias tables are exercised; BN variances stay > 0."""
-    variables = model.init(jax.random.PRNGKey(seed), jnp.asarray(sample))
+    """JAX init (jitted, compiled once per model), then every leaf +
+    scale·N(0, 1) from numpy, so that zero-initialised biases and bias tables
+    are exercised; BN variances stay > 0."""
+    sample = np.asarray(sample)
+    backbone = getattr(getattr(model, "config", None), "backbone_config", None)
+    key = (repr(model), repr(backbone), sample.shape, str(sample.dtype))
+    if key not in _INITS:
+        _INITS[key] = jax.jit(model.init)
+    variables = jax.device_get(_INITS[key](jax.random.PRNGKey(seed), jnp.asarray(sample)))
     rng = np.random.RandomState(seed + 1)
 
     def bump(path, leaf):
@@ -66,16 +80,19 @@ def perturbed_variables(model, sample, seed: int = 0, scale: float = 0.02):
             return np.abs(a + noise) + 0.5
         return a + noise
 
-    return jax.tree_util.tree_map_with_path(bump, jax.device_get(variables))
+    return jax.tree_util.tree_map_with_path(bump, variables)
 
 
 def jax_and_port(variant="b0", hw=(112, 112), depth=1, num_classes=7, seed=0,
-                 jax_block_impl=(None, "fused", "fused", None)):
+                 jax_block_impl=(None, "fused", "fused", None), dwconv_impl=None):
     """(JAX model, its variables, the port model on the same weights, the input clip)."""
-    jcfg = jax_config(variant, num_classes, depth, jax_block_impl)
+    jcfg = jax_config(variant, num_classes, depth, jax_block_impl, dwconv_impl)
     jmodel = JaxSegmentor(jcfg)
     clip = np.random.RandomState(seed).randn(1, 4, *hw, 3).astype(np.float32)
-    variables = perturbed_variables(jmodel, clip, seed)
+    # the fused FFN keeps the composed parameter tree: init without it, as
+    # its interpreted kernel would make the init trace slow
+    variables = perturbed_variables(JaxSegmentor(dataclasses.replace(jcfg, dwconv_impl=None)),
+                                    clip, seed)
     pmodel = CFFMSegmentor(port_config(jcfg))
     pmodel.load_state_dict(state_dict_from_jax(variables, jcfg), strict=True)
     return jmodel, variables, pmodel.eval(), clip
@@ -110,16 +127,22 @@ def train_patches(variant: str = "b0"):
 
 
 def train_configs(variant: str = "b0", num_classes: int = 7, depth: int = 1,
-                  train_block_impl=None):
+                  train_block_impl=None, loss: dict | None = None):
     """(JAX config, port config) of the train tests: the JAX block form
     ``train_block_impl`` (default None, composed blocks at every stage; the
-    port takes the same form, without "-interpret"), head dropout 0. Use
-    inside ``train_patches``."""
+    port takes the same form, without "-interpret"), head dropout 0, and the
+    head's ``LossConfig`` fields ``loss`` on both sides. Use inside
+    ``train_patches``."""
+    from vss_cffm_tpu.models.losses import LossConfig as JaxLossConfig
+
+    loss = loss or {}
     jcfg = jax_config(variant, num_classes, depth)
     jcfg = dataclasses.replace(jcfg, train_block_impl=train_block_impl,
-                               head=dataclasses.replace(jcfg.head, dropout_ratio=0.0))
+                               head=dataclasses.replace(jcfg.head, dropout_ratio=0.0,
+                                                        loss=JaxLossConfig(**loss)))
     pc = port_config(jcfg)
-    return jcfg, dataclasses.replace(pc, head=dataclasses.replace(pc.head, dropout_ratio=0.0))
+    return jcfg, dataclasses.replace(pc, head=dataclasses.replace(
+        pc.head, dropout_ratio=0.0, loss=pcfg.LossConfig(**loss)))
 
 
 def train_batch(b: int, hw: tuple[int, int], num_classes: int, seed: int = 0):

@@ -31,6 +31,9 @@ __all__ = [
 ]
 
 
+DWCONV_IMPLS = (None, "fused")
+
+
 @dataclasses.dataclass(frozen=True)
 class MiTConfig:
     embed_dims: tuple[int, ...] = (64, 128, 320, 512)
@@ -53,6 +56,16 @@ class MiTConfig:
     # whole block through ops.stage_block.mit_block_train; "ffn" = composed
     # attention half, then ops.mixffn.block_ffn_train for x + s·FFN(LN2 x)
     train_block_impl: str | tuple | None = None
+    # inference FFN form, one string for all stages: None = composed MixFFN;
+    # "fused" = x + FFN(LN2 x) through ops.mixffn.block_ffn_fused in every
+    # block that block_impl does not fuse (MixFFN alone: ops.mixffn_fused)
+    dwconv_impl: str | None = None
+
+    def __post_init__(self):
+        # the JAX package's other names ("fused-interpret", "xla", "shifts",
+        # "shifts-cvjp", "pallas", "interpret") pick TPU or interpret forms
+        if self.dwconv_impl not in DWCONV_IMPLS:
+            raise ValueError(f"dwconv_impl={self.dwconv_impl!r}: expected one of {DWCONV_IMPLS}")
 
 
 MIT_VARIANTS: dict[str, MiTConfig] = {
@@ -89,8 +102,9 @@ class CFFMDecoderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
-    """The reference head's ``loss_decode`` / ``sampler`` surface. The port
-    serves ``type="ce"`` without class weights or OHEM; the rest raises."""
+    """The reference head's ``loss_decode`` / ``sampler`` surface: CE with
+    optional per-class weights and the OHEM pixel sampler, or Lovász
+    (``models/losses.py:make_clip_loss``)."""
 
     type: str = "ce"  # 'ce' | 'lovasz'
     loss_weight: float = 1.0
@@ -151,9 +165,12 @@ class SegmentorConfig:
     # train pair ("full") at stages 1-3, the composed block (None) at stage 4;
     # "ffn" runs the attention half composed and the FFN half as one pair
     train_block_impl: str | tuple | None = ("full", "full", "full", None)
+    # inference FFN form of the blocks block_impl does not fuse (MiTConfig)
+    dwconv_impl: str | None = None
     test_cfg: TestConfig = dataclasses.field(default_factory=TestConfig)
 
     def __post_init__(self):
+        self.backbone_config  # MiTConfig checks dwconv_impl
         impls = (self.train_block_impl if isinstance(self.train_block_impl, tuple)
                  else (self.train_block_impl,))
         bad = [i for i in impls if i not in TRAIN_BLOCK_IMPLS]
@@ -165,7 +182,8 @@ class SegmentorConfig:
     def backbone_config(self) -> MiTConfig:
         return dataclasses.replace(MIT_VARIANTS[self.backbone],
                                    block_impl=self.block_impl,
-                                   train_block_impl=self.train_block_impl)
+                                   train_block_impl=self.train_block_impl,
+                                   dwconv_impl=self.dwconv_impl)
 
 
 def build_model_config(variant: str = "b1", num_classes: int = 124,

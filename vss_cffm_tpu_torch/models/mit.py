@@ -12,7 +12,14 @@ statistics and softmax, like the JAX modules' ``dtype`` plan.
 Per stage, ``MiTConfig.block_impl`` picks the block form at inference:
 "fused" runs LN1 and the spatial-reduced K/V here and the rest of the block
 through ``ops.mit_block_fused``; None runs the composed block, whose
-depthwise conv goes through ``ops.dwconv3x3``. A block in ``train()`` mode
+depthwise conv goes through ``ops.dwconv3x3``, or with
+``MiTConfig.dwconv_impl="fused"`` its FFN half ``x + FFN(LN2 x)`` through
+``ops.block_ffn_fused`` (the JAX order: the whole-block kernel first, then
+the training forms, then the fused FFN). ``MixFFN`` in eval mode with
+"fused" runs ``ops.mixffn_fused``; inside the block the FFN half takes
+``block_ffn_fused`` first, so the segmentor never calls it. A geometry that
+the FFN launches refuse (``ops.block_ffn_train_fits``) runs composed. A
+block in ``train()`` mode
 never takes the inference form, as the JAX block takes it only when
 deterministic. ``forward(x, train=True, generator=g)`` adds stochastic depth
 (timm ``DropPath``, the linear schedule over all blocks) drawn from g, and
@@ -37,11 +44,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import TRAIN_BLOCK_IMPLS, MiTConfig
-from ..ops import (block_ffn_train, block_ffn_train_fits, dwconv3x3, mit_block_fused,
-                   mit_block_train, mit_block_train_fits)
+from ..ops import (block_ffn_fused, block_ffn_train, block_ffn_train_fits, dwconv3x3,
+                   mit_block_fused, mit_block_train, mit_block_train_fits, mixffn_fused)
 from ..ops.cfm_attention import scale_in
 
-__all__ = ["MiT", "MiTBlock", "OverlapPatchEmbed", "SRAttention", "MixFFN",
+__all__ = ["MiT", "MiTBlock", "OverlapPatchEmbed", "SRAttention", "MixFFN", "dense_t",
            "linear", "layer_norm", "conv2d_nhwc", "derived", "drop_path", "keep_mask",
            "branch_scale"]
 
@@ -188,12 +195,19 @@ class DWConv(nn.Module):
         return derived(self, "kernel", (w,), lambda: w.permute(2, 3, 1, 0).contiguous())
 
 
+def dense_t(lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
+    """The dense kernel (in, out) contiguous in dt, as the block GEMMs read
+    it, made once (``derived``)."""
+    return derived(lin, ("t", dt), (lin.weight,), lambda: lin.weight.t().to(dt).contiguous())
+
+
 class MixFFN(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dwconv_impl: str | None = None):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.dwconv = DWConv(hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.dwconv_impl = dwconv_impl
         self.compute_dtype = torch.float32
         self.force: str | None = None
 
@@ -202,7 +216,23 @@ class MixFFN(nn.Module):
         h = linear(x, self.fc1, self.compute_dtype)
         return h, self.dwconv.kernel(), self.dwconv.dwconv.bias
 
+    def fused_params(self) -> tuple:
+        """(W1, b1, kdw, bdw, W2, b2) of the inference FFN ops: dense kernels
+        (in, out) in the compute dtype."""
+        dt = self.compute_dtype
+        return (dense_t(self.fc1, dt), self.fc1.bias, self.dwconv.kernel(),
+                self.dwconv.dwconv.bias, dense_t(self.fc2, dt), self.fc2.bias)
+
+    def fuses(self, x: torch.Tensor) -> bool:
+        """Whether the inference FFN ops serve input x (B, H, W, C)."""
+        _, h, w, c = x.shape
+        return (self.dwconv_impl == "fused" and not self.training
+                and block_ffn_train_fits(h, w, c, self.fc1.out_features))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fuses(x):
+            return mixffn_fused(x.to(self.compute_dtype), *self.fused_params(),
+                                force=self.force)
         h = dwconv3x3(*self.dwconv_args(x), gelu=True, force=self.force)
         return linear(h, self.fc2, self.compute_dtype)
 
@@ -212,7 +242,7 @@ class MiTBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int, mlp_ratio: int,
                  qkv_bias: bool, norm_eps: float, fused: bool, drop_path_rate: float = 0.0,
-                 train_impl: str | None = None):
+                 train_impl: str | None = None, dwconv_impl: str | None = None):
         super().__init__()
         if train_impl not in TRAIN_BLOCK_IMPLS:
             raise ValueError(f"train_block_impl {train_impl!r}: expected one of "
@@ -222,7 +252,7 @@ class MiTBlock(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=norm_eps)
         self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
-        self.mlp = MixFFN(dim, int(dim * mlp_ratio))
+        self.mlp = MixFFN(dim, int(dim * mlp_ratio), dwconv_impl)
         self.fused = fused
         self.compute_dtype = torch.float32
         self.force: str | None = None
@@ -234,13 +264,9 @@ class MiTBlock(nn.Module):
         a, m = self.attn, self.mlp
         k, v = a.kv_only(layer_norm(x, self.norm1, dt))
         bq = a.q.bias if a.q.bias is not None else torch.zeros_like(a.proj.bias)
-        # dense kernels (in, out) contiguous in dt, as the block's GEMMs read them
-        wt = lambda lin: derived(lin, ("t", dt), (lin.weight,),
-                                 lambda: lin.weight.t().to(dt).contiguous())
-        args = (x.to(dt), self.norm1.weight, self.norm1.bias, wt(a.q), bq, k, v,
-                wt(a.proj), a.proj.bias, self.norm2.weight, self.norm2.bias,
-                wt(m.fc1), m.fc1.bias, m.dwconv.kernel(), m.dwconv.dwconv.bias,
-                wt(m.fc2), m.fc2.bias)
+        args = (x.to(dt), self.norm1.weight, self.norm1.bias, dense_t(a.q, dt), bq, k, v,
+                dense_t(a.proj, dt), a.proj.bias, self.norm2.weight, self.norm2.bias,
+                *m.fused_params())
         return args, dict(num_heads=a.num_heads, eps=self.norm1.eps)
 
     def train_args(self, x: torch.Tensor) -> tuple[tuple, dict]:
@@ -288,6 +314,9 @@ class MiTBlock(nn.Module):
             s_ffn = branch_scale(x.shape[0], rate, generator, x.device)
             return block_ffn_train(x.to(dt), *self.ffn_params(), s_ffn, self.norm2.eps,
                                    force=self.force)
+        if self.mlp.fuses(x):
+            return block_ffn_fused(x.to(dt), self.norm2.weight, self.norm2.bias,
+                                   *self.mlp.fused_params(), self.norm2.eps, force=self.force)
         return x + drop_path(self.mlp(layer_norm(x, self.norm2, dt)), rate, generator)
 
 
@@ -316,7 +345,8 @@ class MiT(nn.Module):
                 MiTBlock(dim, cfg.num_heads[s], cfg.sr_ratios[s], cfg.mlp_ratios[s],
                          cfg.qkv_bias, cfg.norm_eps, fused=impl == "fused",
                          drop_path_rate=dpr[first + i],
-                         train_impl=per_stage(cfg.train_block_impl, s))
+                         train_impl=per_stage(cfg.train_block_impl, s),
+                         dwconv_impl=cfg.dwconv_impl)
                 for i in range(cfg.depths[s])))
             setattr(self, f"norm{s + 1}", nn.LayerNorm(dim, eps=cfg.norm_eps))
             in_ch = dim

@@ -2,12 +2,15 @@
 and carries its launch count as ``<op>.launches``."""
 
 from .ce_upsampled import (ce_upsampled_loss, ce_upsampled_loss_bwd,
-                           ce_upsampled_loss_bwd_torch, ce_upsampled_loss_torch)
+                           ce_upsampled_loss_bwd_torch, ce_upsampled_loss_torch,
+                           ce_upsampled_nll, ce_upsampled_nll_bwd, ce_upsampled_nll_bwd_torch,
+                           ce_upsampled_nll_torch)
 from .cfm_attention import (cfm_attention, cfm_attention_bwd, cfm_attention_bwd_torch,
                             cfm_attention_torch)
 from .dwconv import dwconv3x3, dwconv3x3_bwd_torch, dwconv3x3_torch
-from .mixffn import (block_ffn_train, block_ffn_train_bwd, block_ffn_train_bwd_torch,
-                     block_ffn_train_fits, block_ffn_train_torch)
+from .mixffn import (block_ffn_fused, block_ffn_fused_torch, block_ffn_train,
+                     block_ffn_train_bwd, block_ffn_train_bwd_torch, block_ffn_train_fits,
+                     block_ffn_train_torch, mixffn_fused, mixffn_fused_torch)
 from .resize import resize_bilinear, resize_nearest
 from .stage_block import (mit_block_fused, mit_block_step_errors, mit_block_torch,
                           mit_block_train, mit_block_train_bwd, mit_block_train_bwd_torch,
@@ -17,12 +20,14 @@ __all__ = [
     "cfm_attention", "cfm_attention_torch", "cfm_attention_bwd", "cfm_attention_bwd_torch",
     "dwconv3x3", "dwconv3x3_torch", "dwconv3x3_bwd_torch",
     "ce_upsampled_loss", "ce_upsampled_loss_torch", "ce_upsampled_loss_bwd",
-    "ce_upsampled_loss_bwd_torch",
+    "ce_upsampled_loss_bwd_torch", "ce_upsampled_nll", "ce_upsampled_nll_torch",
+    "ce_upsampled_nll_bwd", "ce_upsampled_nll_bwd_torch",
     "mit_block_fused", "mit_block_torch", "mit_block_step_errors",
     "mit_block_train", "mit_block_train_torch", "mit_block_train_bwd",
     "mit_block_train_bwd_torch", "mit_block_train_fits",
     "block_ffn_train", "block_ffn_train_torch", "block_ffn_train_bwd",
     "block_ffn_train_bwd_torch", "block_ffn_train_fits",
+    "block_ffn_fused", "block_ffn_fused_torch", "mixffn_fused", "mixffn_fused_torch",
     "resize_bilinear", "resize_nearest",
     "KERNEL_OPS", "reset_launches", "launches",
 ]
@@ -33,7 +38,9 @@ KERNEL_OPS = {"mit_block_fused": mit_block_fused, "cfm_attention": cfm_attention
               "ce_upsampled_loss": ce_upsampled_loss,
               "ce_upsampled_loss_bwd": ce_upsampled_loss_bwd,
               "mit_block_train": mit_block_train, "mit_block_train_bwd": mit_block_train_bwd,
-              "block_ffn_train": block_ffn_train, "block_ffn_train_bwd": block_ffn_train_bwd}
+              "block_ffn_train": block_ffn_train, "block_ffn_train_bwd": block_ffn_train_bwd,
+              "block_ffn_fused": block_ffn_fused, "mixffn_fused": mixffn_fused,
+              "ce_upsampled_nll": ce_upsampled_nll, "ce_upsampled_nll_bwd": ce_upsampled_nll_bwd}
 
 
 def reset_launches() -> None:

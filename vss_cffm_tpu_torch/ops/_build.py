@@ -57,6 +57,8 @@ _SIGNATURES = {
     "ce_upsampled": {
         "ce_fwd_loss": "pppiiiiiifiip",
         "ce_bwd_loss": "ppppiiiiiifip",
+        "ce_fwd_nll": "pppppiiiiiiip",
+        "ce_bwd_nll": "pppppiiiiiiip",
     },
     "gemm_tn": {
         "gemm_tn": "ppppiiilllllliiiiip",

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["use_kernel", "require", "stream_of", "ptr"]
+__all__ = ["use_kernel", "require", "refuse_grad", "stream_of", "ptr"]
 
 _FORCES = (None, "torch", "kernel")
 
@@ -32,6 +32,15 @@ def require(cond: bool, op: str, what: str) -> None:
     """Raise the wrapper's refusal when a kernel cannot take its inputs."""
     if not cond:
         raise ValueError(f"{op}: the CUDA kernel does not take this input: {what}")
+
+
+def refuse_grad(op: str, args: tuple, instead: str) -> None:
+    """Raise, rather than cut a gradient, when an op with no backward is
+    called while autograd records and one of its inputs requires grad."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
+                                       for a in args):
+        raise RuntimeError(f"{op} has no backward: train with {instead}, or run it under "
+                           "torch.no_grad()")
 
 
 def ptr(t: torch.Tensor | None, op: str) -> int | None:

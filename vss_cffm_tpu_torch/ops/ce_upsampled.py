@@ -1,4 +1,4 @@
-"""Fully reduced cross-entropy on ×s bilinear-upsampled logits.
+"""Cross-entropy on ×s bilinear-upsampled logits: fully reduced, or per pixel.
 
 ``ce_upsampled_loss(logits, labels, s, img_w, count_acc=True, force=None)``
 with logits (N, h, w, C) and labels (N, h·s, w·s) in natural layout
@@ -23,6 +23,21 @@ answered TPU tiling questions; the port takes natural labels.
 versions: an f32 ``F.interpolate``, ``logsumexp − picked``; the backward
 applies the adjoint of that upsample to ``img_w·g·(softmax − onehot)`` on
 the valid pixels.
+
+``ce_upsampled_nll(logits, labels, s, force=None)`` returns the per-pixel
+maps ``(nll, pred, lse)``, each (N, h·s, w·s) in natural
+layout: ``nll = lse(up) − up[safe]`` (f32), ``pred`` the first maximum in
+torch's tie order (int32) and ``lse`` (f32), where ``safe`` is the label, or
+class 0 for a label outside [0, C): the caller masks those pixels and gives
+them a zero cotangent. It is the OHEM and class-weight route of the clip
+loss, whose per-pixel weights the caller applies. Differentiable with
+respect to ``logits``: the backward ``ce_upsampled_nll_bwd(logits, labels,
+lse, g_nll, s)`` applies the adjoint of the upsample to ``g_nll·(exp(up −
+lse) − onehot(safe))`` with the forward's lse. Its CUDA kernels replace the
+TPU kernels ``_ce_fwd_pallas`` (``_fwd_kernel``), which writes the same three
+maps in a phase layout, and ``_ce_bwd_pallas`` (``_bwd_kernel``);
+``ce_upsampled_nll_torch`` / ``ce_upsampled_nll_bwd_torch`` are the plain
+versions.
 """
 
 from __future__ import annotations
@@ -34,7 +49,8 @@ from . import _build
 from ._dispatch import ptr, require, stream_of, use_kernel
 
 __all__ = ["ce_upsampled_loss", "ce_upsampled_loss_bwd", "ce_upsampled_loss_torch",
-           "ce_upsampled_loss_bwd_torch"]
+           "ce_upsampled_loss_bwd_torch", "ce_upsampled_nll", "ce_upsampled_nll_bwd",
+           "ce_upsampled_nll_torch", "ce_upsampled_nll_bwd_torch", "valid_safe"]
 
 # classes one warp lane holds: a warp covers up to 32·CPL classes
 _MAX_CLASSES = 256
@@ -57,7 +73,8 @@ def _upsample(x: torch.Tensor, s: int) -> torch.Tensor:
                          mode="bilinear", align_corners=False)
 
 
-def _valid_safe(labels: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor]:
+def valid_safe(labels: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The port's label rule: (valid = 0 ≤ label < C, the label or class 0)."""
     lbl = labels.long()
     valid = (lbl >= 0) & (lbl < c)
     return valid, torch.where(valid, lbl, 0)
@@ -69,7 +86,7 @@ def ce_upsampled_loss_torch(logits: torch.Tensor, labels: torch.Tensor, s: int,
     _check_shapes(logits, labels, s, "ce_upsampled_loss")
     c = logits.shape[-1]
     up = _upsample(logits, s)
-    valid, safe = _valid_safe(labels, c)
+    valid, safe = valid_safe(labels, c)
     lse = torch.logsumexp(up, dim=1)
     picked = up.gather(1, safe[:, None])[:, 0]
     wsum = torch.where(valid, lse - picked, 0.0).sum() * img_w
@@ -89,7 +106,7 @@ def ce_upsampled_loss_bwd_torch(logits: torch.Tensor, labels: torch.Tensor,
     with torch.enable_grad():
         up = _upsample(x, s)
     with torch.no_grad():
-        valid, safe = _valid_safe(labels, c)
+        valid, safe = valid_safe(labels, c)
         t = torch.softmax(up.detach(), dim=1)
         t.scatter_add_(1, safe[:, None], -torch.ones_like(t[:, :1]))
         t = t * torch.where(valid, g.float() * img_w, 0.0)[:, None]
@@ -181,3 +198,110 @@ def ce_upsampled_loss(logits: torch.Tensor, labels: torch.Tensor, s: int, img_w:
 
 ce_upsampled_loss.launches = 0
 ce_upsampled_loss_bwd.launches = 0
+
+
+# ---- per-pixel maps: the OHEM / class-weight route ----------------------------
+
+
+def ce_upsampled_nll_torch(logits: torch.Tensor, labels: torch.Tensor, s: int
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(nll, pred, lse), each (N, h·s, w·s): f32, int32, f32."""
+    _check_shapes(logits, labels, s, "ce_upsampled_nll")
+    up = _upsample(logits, s)
+    _, safe = valid_safe(labels, logits.shape[-1])
+    lse = torch.logsumexp(up, dim=1)
+    picked = up.gather(1, safe[:, None])[:, 0]
+    return lse - picked, up.argmax(dim=1).int(), lse
+
+
+def ce_upsampled_nll_bwd_torch(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
+                               g_nll: torch.Tensor, s: int) -> torch.Tensor:
+    """dlogits (logits' dtype) for the per-pixel cotangent g_nll of nll."""
+    _check_shapes(logits, labels, s, "ce_upsampled_nll_bwd")
+    x = logits.detach().float().requires_grad_(True)
+    with torch.enable_grad():
+        up = _upsample(x, s)
+    with torch.no_grad():
+        _, safe = valid_safe(labels, logits.shape[-1])
+        t = torch.exp(up.detach() - lse.float()[:, None])
+        t.scatter_add_(1, safe[:, None], -torch.ones_like(t[:, :1]))
+        t = t * g_nll.float()[:, None]
+    (dx,) = torch.autograd.grad(up, x, t)
+    return dx.to(logits.dtype)
+
+
+def _nll_fwd_launch(logits, labels, s: int):
+    op = "ce_upsampled_nll"
+    logits, labels, lbl32 = _kernel_inputs(logits, labels, s, op)
+    n, h, w, c = logits.shape
+    nll = torch.empty(labels.shape, device=logits.device, dtype=torch.float32)
+    lse = torch.empty_like(nll)
+    pred = torch.empty(labels.shape, device=logits.device, dtype=torch.int32)
+    dev, stream = stream_of(logits)
+    rc = _build.library("ce_upsampled").ce_fwd_nll(
+        ptr(logits, op), ptr(labels, op), ptr(nll, op), ptr(pred, op), ptr(lse, op), n, h, w, c,
+        s, lbl32, dev, stream)
+    _build.check(rc, op)
+    return nll, pred, lse
+
+
+def ce_upsampled_nll_bwd(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
+                         g_nll: torch.Tensor, s: int, force: str | None = None) -> torch.Tensor:
+    """The backward of ``ce_upsampled_nll``: dlogits for the per-pixel
+    cotangent g_nll of nll, from the forward's lse. force: None (kernel on
+    CUDA, plain on CPU) | 'torch' | 'kernel'."""
+    op = "ce_upsampled_nll_bwd"
+    if not use_kernel(force, logits, op):
+        return ce_upsampled_nll_bwd_torch(logits, labels, lse, g_nll, s)
+    _check_shapes(logits, labels, s, op)
+    logits, labels, lbl32 = _kernel_inputs(logits, labels, s, op)
+    for name, t in (("lse", lse), ("g_nll", g_nll)):
+        require(t.is_cuda and tuple(t.shape) == tuple(labels.shape), op,
+                f"{name} of shape {tuple(t.shape)} against labels {tuple(labels.shape)}")
+    n, h, w, c = logits.shape
+    ls = lse.detach().to(torch.float32).contiguous()
+    g = g_nll.detach().to(torch.float32).contiguous()
+    out = torch.empty_like(logits)
+    dev, stream = stream_of(logits)
+    rc = _build.library("ce_upsampled").ce_bwd_nll(
+        ptr(logits, op), ptr(labels, op), ptr(ls, op), ptr(g, op), ptr(out, op), n, h, w, c, s,
+        lbl32, dev, stream)
+    _build.check(rc, op)
+    ce_upsampled_nll_bwd.launches += 1
+    return out
+
+
+class _CEUpsampledNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, s, force, kernel):
+        if kernel:
+            nll, pred, lse = _nll_fwd_launch(logits, labels, s)
+            ce_upsampled_nll.launches += 1
+        else:
+            nll, pred, lse = ce_upsampled_nll_torch(logits, labels, s)
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.args = (s, force)
+        ctx.mark_non_differentiable(pred, lse)
+        return nll, pred, lse
+
+    @staticmethod
+    def backward(ctx, g_nll, g_pred, g_lse):
+        logits, labels, lse = ctx.saved_tensors
+        s, force = ctx.args
+        dlogits = ce_upsampled_nll_bwd(logits, labels, lse, g_nll, s, force=force)
+        return dlogits, None, None, None, None
+
+
+def ce_upsampled_nll(logits: torch.Tensor, labels: torch.Tensor, s: int,
+                     force: str | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(nll, pred, lse); only nll carries a gradient. force: None (kernel on
+    CUDA, plain on CPU) | 'torch' | 'kernel'; the backward follows it
+    (``ce_upsampled_nll_bwd``)."""
+    _check_shapes(logits, labels, s, "ce_upsampled_nll")
+    kernel = use_kernel(force, logits, "ce_upsampled_nll")
+    return _CEUpsampledNLL.apply(logits, labels, s, force, kernel)
+
+
+ce_upsampled_nll.launches = 0
+ce_upsampled_nll_bwd.launches = 0

@@ -1,4 +1,5 @@
-"""The FFN half of a MiT block in training: ``out = x + s·FFN(LN(x))``.
+"""The FFN half of a MiT block, ``out = x + s·FFN(LN(x))``, in training and
+at inference, and the MixFFN alone.
 
 ``block_ffn_train(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale, eps,
 force=None)`` keeps the JAX signature (``force`` in place of ``interpret``):
@@ -22,28 +23,56 @@ versions with the TPU kernel's rounding points: f32 LN statistics, the LN
 output, a, bf16(go·s) and d_hid rounded to x's dtype, the hidden map, z and
 every sum in f32, and one rounding of the f32 x + s·branch (where
 ``block_ffn_train_xla`` rounds the branch first).
+
+**Inference** (``SegmentorConfig.dwconv_impl="fused"``), no backward: like
+``mit_block_fused`` each raises when autograd records and an input requires
+grad.
+
+- ``block_ffn_fused(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps, force)``
+  = x + (GELU(dw3×3(LN(x)·W1 + b1) + bdw)·W2 + b2) replaces the TPU kernel
+  ``vss_cffm_tpu/ops/mixffn.py:block_ffn_fused`` (``_kernel_ln`` without a
+  scale): the forward's three launches without the branch scale. Its
+  rounding points are the Pallas kernel's: f32 LN statistics, the LN output
+  in x's dtype, the hidden map in f32 (the composed block rounds it), a =
+  GELU(·) rounded once, one rounding of the f32 x + branch. The XLA twin
+  ``block_ffn_xla`` rounds the branch before the residual; the port follows
+  the kernel.
+- ``mixffn_fused(x, w1, b1, kdw, bdw, w2, b2, force)`` = GELU(dw3×3(x·W1 +
+  b1) + bdw)·W2 + b2 replaces ``mixffn_fused`` (``_kernel``): the same
+  launches without the LayerNorm prologue and without the residual, the
+  hidden map in f32, the output in x's dtype.
+
+In the MiT block with ``dwconv_impl="fused"`` the FFN half of every block
+that ``block_impl`` does not fuse takes ``block_ffn_fused`` at inference, so
+no block of the segmentor reaches ``mixffn_fused`` (the JAX gates are the
+same): ``MixFFN`` in eval mode takes it when called as a module of its own.
+``block_ffn_fused_torch`` and ``mixffn_fused_torch`` are the plain versions.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._dispatch import require, use_kernel
+from ._dispatch import refuse_grad, require, use_kernel
 from .stage_block import (STEP_TOLERANCE, _ffn_fwd_steps, _held, bwd_step_errors, bwd_table,
                           ffn_bwd_steps, run_steps)
 
-__all__ = ["block_ffn_train", "block_ffn_train_bwd", "block_ffn_train_torch",
+__all__ = ["block_ffn_fused", "block_ffn_fused_torch", "mixffn_fused", "mixffn_fused_torch",
+           "block_ffn_train", "block_ffn_train_bwd", "block_ffn_train_torch",
            "block_ffn_train_bwd_torch", "block_ffn_train_fits", "block_ffn_train_step_errors",
            "block_ffn_train_bwd_step_errors", "FFN_GRADS"]
 
 # the backward's outputs in the JAX order, as the table names them
 FFN_GRADS = ("dx", "dg2", "dbe2", "dw1", "db1", "dkdw", "dbdw", "dw2", "db2")
 _ACTS = ("hid", "a")
+# what trains in place of the inference FFN ops, which have no backward
+_TRAIN_INSTEAD = "block_ffn_train or the composed MixFFN (train() mode)"
 
 
 def _forward(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale, eps: float, kernel: bool,
-             op: str, names=("hid", "a", "out")) -> dict:
-    """{hid, a[, out]} of the pair's forward; x is the FFN's input and residual."""
+             op: str, names=("hid", "a", "out"), residual: bool = True) -> dict:
+    """{hid, a[, out]} of the FFN's forward; x is the FFN's input and (with
+    ``residual``) its residual; gamma None skips the LayerNorm."""
     if kernel:
         require(x.dim() == 4 and x.dtype == torch.bfloat16, op,
                 f"x {x.dtype} {tuple(x.shape)} (bf16 NHWC only)")
@@ -54,8 +83,55 @@ def _forward(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale, eps: float, kernel
     t = {"hid": steps["hid"](y)}
     t["a"] = steps["a"](t["hid"])
     if "out" in names:
-        t["out"] = steps["out"](t["a"], y).reshape(x.shape)
+        t["out"] = steps["out"](t["a"], y if residual else None).reshape(x.shape)
     return t
+
+
+def block_ffn_fused_torch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """The plain ``block_ffn_fused``, with ``_kernel_ln``'s rounding points."""
+    return _forward(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, None, eps, False,
+                    "block_ffn_fused")["out"]
+
+
+def block_ffn_fused(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps: float = 1e-6,
+                    force: str | None = None) -> torch.Tensor:
+    """Inference ``x + FFN(LN(x))``, x (B, H, W, C), dense kernels (in, out),
+    kdw (3, 3, 1, Ch). force: None (kernels on CUDA, plain on CPU) | 'torch'
+    | 'kernel'. Raises under autograd when an input requires grad."""
+    op = "block_ffn_fused"
+    args = (x, gamma, beta, w1, b1, kdw, bdw, w2, b2)
+    refuse_grad(op, args, _TRAIN_INSTEAD)
+    kernel = use_kernel(force, x, op)
+    out = _forward(*args, None, eps, kernel, op)["out"]
+    if kernel:
+        block_ffn_fused.launches += 1
+    return out
+
+
+def mixffn_fused_torch(x, w1, b1, kdw, bdw, w2, b2) -> torch.Tensor:
+    """The plain ``mixffn_fused``, with ``_kernel``'s rounding points."""
+    return _forward(x, None, None, w1, b1, kdw, bdw, w2, b2, None, 0.0, False, "mixffn_fused",
+                    residual=False)["out"]
+
+
+def mixffn_fused(x, w1, b1, kdw, bdw, w2, b2, force: str | None = None) -> torch.Tensor:
+    """Inference ``GELU(dw3×3(x·W1 + b1) + bdw)·W2 + b2`` in x's dtype. force:
+    None (kernels on CUDA, plain on CPU) | 'torch' | 'kernel'. Raises under
+    autograd when an input requires grad."""
+    op = "mixffn_fused"
+    args = (x, w1, b1, kdw, bdw, w2, b2)
+    refuse_grad(op, args, _TRAIN_INSTEAD)
+    kernel = use_kernel(force, x, op)
+    out = _forward(x, None, None, w1, b1, kdw, bdw, w2, b2, None, 0.0, kernel, op,
+                   residual=False)["out"]
+    if kernel:
+        mixffn_fused.launches += 1
+    return out
+
+
+block_ffn_fused.launches = 0
+mixffn_fused.launches = 0
 
 
 def _params(x, gamma, beta, w1, kdw, bdw, w2, scale, eps: float) -> dict:
@@ -154,7 +230,7 @@ def block_ffn_train_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale,
                                 eps: float = 1e-6) -> list:
     """[(check, max |kernel − plain|, tolerance)] of the forward's three
     launches, each fed the plain path's inputs (CUDA tensors, no count), at
-    ``stage_block.STEP_TOLERANCE``."""
+    ``stage_block.STEP_TOLERANCE``; scale None gives ``block_ffn_fused``'s."""
     op = "block_ffn_train"
     ins = (x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale, eps)
     plain = _ffn_fwd_steps(*ins[1:], tuple(x.shape), x.dtype, False, op)

@@ -60,8 +60,9 @@ run the same steps in PyTorch with those rounding points, so that
 ``mit_block_step_errors`` (with the branch scales) and
 ``mit_block_train_bwd_step_errors`` hold each launch on its own against its
 plain step, at a tolerance relative to that step's own output.
-``ops/mixffn.py`` (``block_ffn_train``) reuses launches 4-6 of the forward
-and 1-5, 10, 11 of the backward.
+``ops/mixffn.py`` reuses launches 4-6 of the forward (``block_ffn_train``,
+and at inference ``block_ffn_fused`` and, without LN2 and the residual,
+``mixffn_fused``) and 1-5, 10, 11 of the backward.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._dispatch import SMEM_LIMIT, ptr, require, stream_of, use_kernel
+from ._dispatch import SMEM_LIMIT, ptr, refuse_grad, require, stream_of, use_kernel
 from .cfm_attention import attention_launch, scale_in
 from .dwconv import _gelu_grad, _preact, dwconv3x3_launch, dwconv3x3_torch
 
@@ -156,27 +157,34 @@ STEPS = (("q", ()), ("ctx", ("q",)), ("y", ("ctx",)), ("hid", ("y",)), ("a", ("h
 
 def _ffn_fwd_steps(g2, be2, w1, b1, kdw, bdw, w2, b2, s_ffn, eps: float, shape, dt,
                    kernel: bool, op: str) -> dict:
-    """Steps hid, a, out of the block (also the FFN-half pair's forward):
-    y is the FFN's input and residual, (M, C) f32 or in x's dtype."""
+    """Steps hid, a, out of the block (also the forward of the FFN-half pair
+    and of the inference FFN ops in ``ops/mixffn.py``): y is the FFN's input
+    and residual, (M, C) f32 or in x's dtype. Without g2 fc1 reads y as it
+    is (no LayerNorm), and ``out(a, None)`` adds no residual."""
     b, h, w, _ = shape
     ch = w1.shape[1]
     m = b * h * w
     if not kernel:
         sf = None if s_ffn is None else _frame_rows(s_ffn, h * w)
 
+        def hid_torch(y):
+            ln = y if g2 is None else _ln_f32(y.float(), g2.float(), be2.float(), eps)
+            return _mm(ln.to(dt), w1, dt) + b1.float()
+
         def out_torch(a, y):
             br = _mm(a, w2, dt) + b2.float()
-            return ((br if sf is None else sf * br) + y.float()).to(dt)
+            br = br if sf is None else sf * br
+            return (br if y is None else br + y.float()).to(dt)
 
         return {
-            "hid": lambda y: _mm(_ln_f32(y.float(), g2.float(), be2.float(), eps).to(dt), w1, dt)
-            + b1.float(),
+            "hid": hid_torch,
             "a": lambda hid: dwconv3x3_torch(hid.reshape(b, h, w, ch), kdw, bdw,
                                              gelu=True).to(dt).reshape(m, ch),
             "out": out_torch,
         }
+    ln = None if g2 is None else (g2, be2, eps)
     return {
-        "hid": lambda y: _gemm(y, w1, b1, out_dtype=_F32, ln=(g2, be2, eps), op=op),
+        "hid": lambda y: _gemm(y, w1, b1, out_dtype=_F32, ln=ln, op=op),
         "a": lambda hid: dwconv3x3_launch(hid.view(b, h, w, ch), kdw, bdw, gelu=True,
                                           op=op).view(m, ch),
         "out": lambda a, y: _gemm(a, w2, b2, out_dtype=_BF16, res=y, o_scale=s_ffn,
@@ -313,10 +321,7 @@ def mit_block_fused(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw
     Inference only: it raises rather than cut a gradient when autograd
     records and an input requires grad; training takes ``mit_block_train``."""
     args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
-    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
-                                       for a in args):
-        raise RuntimeError("mit_block_fused has no backward: train with mit_block_train "
-                           "(MiTBlock in train() mode), or run it under torch.no_grad()")
+    refuse_grad("mit_block_fused", args, "mit_block_train (MiTBlock in train() mode)")
     if not use_kernel(force, x, "mit_block_fused"):
         return mit_block_torch(*args, num_heads=num_heads, eps=eps)
     out = _run(_block_steps(*args, num_heads=num_heads, eps=eps, kernel=True))["out"]
