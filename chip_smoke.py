@@ -10,9 +10,13 @@ clips of 4 frames, 480×480, bf16 compute, f32 parameters) through
 ``TrainState`` and ``make_train_step``, in the three block forms of
 training: the default ``train_block_impl=("full", "full", "full", None)``
 (the whole-block train pair at stages 1-3), "ffn" (the block-FFN pair) and
-None (composed blocks), and in a fourth form, "ohem": the default blocks
+None (composed blocks), in a fourth form, "ohem": the default blocks
 with the head's loss configured for OHEM and class weights (the per-pixel CE
-pair ``ce_upsampled_nll``).
+pair ``ce_upsampled_nll``), and in a fifth, "train_probs": the default
+blocks with the CFM attention's backward from the forward's saved
+probabilities (``ops.cfm_attention._BWD = "kernel"``, f32 probabilities);
+then the CE microbench (``vss_cffm_tpu_torch.tools.bench_ce``) with the
+four label-layout variants of the CE loss pair.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the device: name, ``nvidia-smi`` name and power limit, torch and CUDA;
@@ -58,20 +62,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      four stages; in "ohem" the per-pixel CE pair at N 8 and N 2 (nll, lse,
      pred and dlogits) and the share of valid pixels that OHEM kept (near 1
      at thresh 0.7 with random weights: the CPU tests are where the mask
-     bites); the gradients of one forward/backward with the kernels
+     bites); in "train_probs" the CFM attention forward with its
+     probabilities output and the backward from them (then again from the
+     same probabilities in bf16), and the size of the probabilities held
+     from the forward to the backward; the gradients of one forward/backward with the kernels
      against the plain path's on the same weights, batch and generator;
      then, with the counts set to 0, TRAIN_COUNTED train steps, the counts
      held to the form's launches per step and a finite loss; then ms per
      step, train frames/s (B·T frames per step) over the form's rounds of
      TRAIN_STEPS steps, every round printed, and peak memory;
-  6. one JSON line of kernels, the ``nvidia-smi`` line, and the final
+  6. the CE microbench: ``bench_ce.main`` at N 8 (the step's frames) with
+     the counts set to 0 before it and held after (each of its six kernels
+     launched warm-up + timed times), then each of the six kernels held
+     against its plain version at the bench's inputs at N 8 and N 2, timed
+     as in 3;
+  7. one JSON line of kernels, the ``nvidia-smi`` line, and the final
      ``{"ok": true, "device": {...}}`` line.
 
 ``--profile`` adds, for one clip of each inference path and for one train
 step of each form, the device busy time, the number of kernel launches and
 of ``aten::_to_copy`` calls, and a torch.profiler table of device time by
 kernel, written to ``chiprun_out/profile{,_ffn}.txt`` and
-``chiprun_out/profile_train{,_ffn,_composed,_ohem}.txt``.
+``chiprun_out/profile_train{,_ffn,_composed,_ohem,_probs}.txt``.
 
 Per-kernel times in the JSON line are per call, averaged over the kernel's
 shapes on its path (``ms``: the wrapper call between CUDA events, host
@@ -85,6 +97,7 @@ take: the largest of bytes / 3.35 TB/s, tensor ops / 989 TFLOP/s, f32 ops /
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -374,9 +387,9 @@ def check_kernels(ops, caught, kernels: dict, profile: bool = False) -> dict:
             compare = case.get("compare") or (lambda g, w: _compare_one(g, w, spec["rel_tol"]))
             checks = compare(got, want)
             for label, err, tol in checks:
+                share = f"{err / tol:.3f} of it" if tol else "exact" if err == 0 else "inexact"
                 print(f"[kernel] {name} {case['shape']} {label}: max_abs_err={err:.3e} "
-                      f"tol={tol:.3e} ({err / tol if tol else float('inf'):.3f} of it)",
-                      flush=True)
+                      f"tol={tol:.3e} ({share})", flush=True)
                 if not err <= tol:
                     raise RuntimeError(f"{name}: kernel disagrees with its plain version "
                                        f"({label}: {err} > {tol}) at {case['shape']}")
@@ -441,12 +454,13 @@ def _ce_case(ops, args):
                 shape=f"logits{tuple(logits.shape)} s={s}")
 
 
-def _ce_bwd_case(ops, args):
+def _ce_bwd_case(ops, args, out_bytes: int = 2):
+    """dlogits, bf16 (row 17) or f32 (``out_bytes`` 4, rows 15, 19)."""
     logits, labels, g, s, img_w = args
     c = logits.shape[-1]
     exps = int(((labels >= 0) & (labels < c)).sum()) * c
     # per class of a valid pixel: lerps, softmax, the weighted adjoint (~16)
-    bound = _bound_ms(_nbytes(logits, labels) + logits.numel() * 2, 0, exps * 16, exps)
+    bound = _bound_ms(_nbytes(logits, labels) + logits.numel() * out_bytes, 0, exps * 16, exps)
     f = torch.nn.functional
     x = logits.detach().clone().requires_grad_(True)
     lab = labels.long()
@@ -553,6 +567,65 @@ def _cfm_bwd_case(ops, args):
     return dict(call=lambda force: ops.cfm_attention_bwd(q, k, v, bias, mask, g, nh, force=force),
                 bound=bound, library=library, compare=compare,
                 shape=f"q{tuple(q.shape)} N={n} nh={nh}")
+
+
+def _cfm_probs_case(ops, args):
+    """Row 2's :357 call: the forward that also writes p (nW, nh, 49, N)."""
+    q, ks, vs, bias, mask, nh = args
+    nw, area, c = q.shape
+    n = sum(k.shape[1] for k in ks)
+    hd = c // nh
+    pdt = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")._probs_dtype(q)
+    p_bytes = nw * nh * area * n * torch.empty((), dtype=pdt).element_size()
+    bound = _bound_ms(_nbytes(q, *ks, *vs, bias, mask) + q.numel() * 2 + p_bytes,
+                      2 * 2 * nw * nh * area * n * hd, nw * nh * area * n * 5,
+                      nw * nh * area * n)
+
+    def compare(got, want):
+        # out: as row 2's :372 call, 2^-6 of its largest value; p: f32
+        # softmaxes of the same bf16 inputs with the scores summed in other
+        # orders (wmma against an f32 matmul), moving p by p times a few f32
+        # ulps of the scores: 2^-14 of the largest p
+        return [("out", *_compare_one(got[0], want[0], 2.0 ** -6)[0][1:]),
+                ("probs", *_compare_one(got[1], want[1], 2.0 ** -14)[0][1:])]
+
+    # library: none, no one PyTorch call returns the probabilities with the
+    # output (SDPA's forward is row 2's yardstick)
+    return dict(call=lambda force: ops.cfm_attention_probs(q, ks, vs, bias, mask, nh,
+                                                           force=force),
+                bound=bound, library=None, compare=compare,
+                shape=f"q{tuple(q.shape)} N={n} nh={nh} probs {str(pdt).split('.')[-1]}")
+
+
+def _cfm_bwd_probs_case(ops, args):
+    """Row 5: the backward from the forward's p, held again with p in bf16."""
+    q, k, v, probs, g, nh = args
+    nw, area, c = q.shape
+    n, hd = k.shape[1], c // nh
+    pairs = nw * nh * area * n
+    # four products (dP, dV, dq, dK), ~8 f32 ops per score, no exps; p read
+    bound = _bound_ms(_nbytes(q, k, v, g, probs) + _nbytes(q, k, v) + nh * area * n * 4,
+                      4 * 2 * pairs * hd, 8 * pairs)
+    rels = (2.0 ** -6,) * 3 + (2.0 ** -10,)
+
+    def compare(got, want):
+        # as row 4's: dq, dK, dV 2^-6, dbias 2^-10 of each one's largest value
+        return (_held_outputs(("dq", "dk", "dv"), got[:3], want[:3], rels[0])
+                + _held_outputs(("dbias",), got[3:], want[3:], rels[3]))
+
+    def bf16_probs():
+        pb = probs.to(torch.bfloat16)
+        got = ops.cfm_attention_bwd_probs(q, k, v, pb, g, nh, force="kernel")
+        want = ops.cfm_attention_bwd_probs(q, k, v, pb, g, nh, force="torch")
+        torch.cuda.synchronize()
+        return [(f"bf16 probs {label}", e, t) for label, e, t in compare(got, want)]
+
+    # library: none, no PyTorch call takes saved probabilities (SDPA's
+    # backward, row 4's yardstick, recomputes them from q, K, bias and mask)
+    return dict(call=lambda force: ops.cfm_attention_bwd_probs(q, k, v, probs, g, nh,
+                                                               force=force),
+                bound=bound, library=None, compare=compare, steps=bf16_probs,
+                shape=f"q{tuple(q.shape)} N={n} nh={nh} probs {str(probs.dtype).split('.')[-1]}")
 
 
 def _dwconv_train_case(ops, args):
@@ -736,6 +809,19 @@ OHEM_KERNELS = {
         rel_tol=2.0 ** -7, case=_ce_nll_bwd_case),
 }
 
+PROBS_KERNELS = {
+    "cfm_attention_probs": dict(
+        sources=["vss_cffm_tpu_torch/csrc/attention.cu"],
+        # _fwd_kernel, called with probabilities by _cfm_attention_pallas_impl :357
+        replaces="vss_cffm_tpu/ops/cfm_attention.py:81",
+        counter="cfm_attention",  # the same kernel with its probabilities output
+        case=_cfm_probs_case),
+    "cfm_attention_bwd_probs": dict(
+        sources=["vss_cffm_tpu_torch/csrc/attention_bwd.cu"],
+        replaces="vss_cffm_tpu/ops/cfm_attention.py:250",  # _bwd_kernel, called at :400
+        case=_cfm_bwd_probs_case),
+}
+
 # the "ohem" form's loss: OHEM at the reference sampler's defaults and class
 # weights in [0.5, 1.5] drawn from SEED
 OHEM_LOSS = dict(use_ohem=True, ohem_thresh=0.7, ohem_min_kept=100000,
@@ -745,8 +831,10 @@ OHEM_LOSS = dict(use_ohem=True, ohem_thresh=0.7, ohem_min_kept=100000,
 # the block forms of training: train_block_impl, the kernels held at the
 # form's inputs, launches per step, timed rounds (and the head's loss)
 _SHARED = {"ce_upsampled_loss": 2, "ce_upsampled_loss_bwd": 2, "cfm_attention": 2,
-           "cfm_attention_bwd": 2, "mit_block_fused": 0, "ce_upsampled_nll": 0,
-           "ce_upsampled_nll_bwd": 0, "block_ffn_fused": 0, "mixffn_fused": 0}
+           "cfm_attention_bwd": 2, "cfm_attention_bwd_probs": 0, "mit_block_fused": 0,
+           "ce_upsampled_nll": 0, "ce_upsampled_nll_bwd": 0, "block_ffn_fused": 0,
+           "mixffn_fused": 0, "ce_bwd_loss_v2": 0, "ce_fwd_loss_v5": 0, "ce_fwd_loss_v3": 0,
+           "ce_bwd_loss_v3": 0}
 TRAIN_FORMS = {
     "train": dict(impl=("full", "full", "full", None), kernels=TRAIN_KERNELS,
                   per_step={**_SHARED, "mit_block_train": 6, "mit_block_train_bwd": 6,
@@ -767,14 +855,35 @@ TRAIN_FORMS = {
                                  "mit_block_train": 6, "mit_block_train_bwd": 6, "dwconv3x3": 2,
                                  "block_ffn_train": 0, "block_ffn_train_bwd": 0},
                        rounds=1),
+    # the CFM attention backward from the forward's f32 probabilities
+    "train_probs": dict(impl=("full", "full", "full", None), kernels=PROBS_KERNELS,
+                        cfm_bwd=("kernel", torch.float32),
+                        per_step={**_SHARED, "cfm_attention_bwd": 0,
+                                  "cfm_attention_bwd_probs": 2, "mit_block_train": 6,
+                                  "mit_block_train_bwd": 6, "dwconv3x3": 2,
+                                  "block_ffn_train": 0, "block_ffn_train_bwd": 0},
+                        rounds=1),
 }
+
+
+@contextlib.contextmanager
+def _cfm_switches(bwd: str, probs_dtype):
+    """The CFM attention's module switches (``_BWD``, ``_PROBS_DTYPE``) for a form."""
+    mod = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")
+    saved = mod._BWD, mod._PROBS_DTYPE
+    mod._BWD, mod._PROBS_DTYPE = bwd, probs_dtype
+    try:
+        yield
+    finally:
+        mod._BWD, mod._PROBS_DTYPE = saved
 
 
 def _capture_train_inputs(model, x, labels, force_loss, kernels: dict):
     """One plain forward/backward of the train step; the arguments of each
     kernel op in ``kernels`` at its call sites are recorded (copies): the CE
     pair in use and its backward, the CFM attention forward (first decoder
-    block) and backward (both decoder blocks), the depthwise conv of each composed FFN
+    block; with or without probabilities) and backward (both decoder blocks;
+    recomputing or from probabilities), the depthwise conv of each composed FFN
     (first block of the stage), and the block pairs of the first block of
     stages 1-3 with their output cotangents."""
     from vss_cffm_tpu_torch.models import losses, set_force
@@ -816,6 +925,8 @@ def _capture_train_inputs(model, x, labels, force_loss, kernels: dict):
                    "ce_upsampled_nll_bwd", ce_upsampled.ce_upsampled_nll_bwd, 5)),
                (cfm_attention, "cfm_attention_bwd", recorder(
                    "cfm_attention_bwd", cfm_attention.cfm_attention_bwd, 7)),
+               (cfm_attention, "cfm_attention_bwd_probs", recorder(
+                   "cfm_attention_bwd_probs", cfm_attention.cfm_attention_bwd_probs, 6)),
                (mit, "mit_block_train", pair_recorder(
                    ("mit_block_train", "mit_block_train_bwd"), mit.mit_block_train, 19)),
                (mit, "block_ffn_train", pair_recorder(
@@ -829,12 +940,15 @@ def _capture_train_inputs(model, x, labels, force_loss, kernels: dict):
                                                             for t in mod.dwconv_args(a[0]))))
             for s in range(1, 5)]
 
+    forwards = [key for key in ("cfm_attention", "cfm_attention_probs") if key in caught]
+
     def attention_inputs(mod, a):
         q, ks, vs, bias, mask, nh = mod.attention_inputs(*a)
-        caught["cfm_attention"].append((copy(q), [copy(k) for k in ks], [copy(v) for v in vs],
-                                        copy(bias), copy(mask), nh))
+        for key in forwards:
+            caught[key].append((copy(q), [copy(k) for k in ks], [copy(v) for v in vs],
+                                copy(bias), copy(mask), nh))
 
-    if "cfm_attention" in caught:
+    if forwards:
         hooks.append(model.decode_head.decoder_focal.blocks[0].attn.register_forward_pre_hook(
             attention_inputs))
     set_force(model, "torch")
@@ -928,6 +1042,13 @@ def train_phase(apis, ops, opts, root, kind, smi, form: str) -> tuple[dict, dict
     x = device_normalize(imgs, torch.bfloat16)
 
     caught = _capture_train_inputs(model, x, batch["labels"], loss_of, spec["kernels"])
+    for q, ks, _, _, _, nh in caught.get("cfm_attention_probs", ()):
+        # p is held from each decoder block's forward to its backward
+        n, nb = sum(k.shape[1] for k in ks), cfg.head.decoder.depth
+        per_block = nh * q.shape[0] * q.shape[1] * n * 4
+        print(f"[{form}] probabilities residual: nh={nh} nW={q.shape[0]} Lq={q.shape[1]} N={n}, "
+              f"{per_block} B (f32) per decoder block, {nb * per_block} B for the {nb} blocks",
+              flush=True)
     stats = check_kernels(ops, caught, spec["kernels"], opts.profile)
     for logits, labels, s in caught.get("ce_upsampled_nll", ()):
         # the share of valid pixels the form's OHEM mask keeps, per branch
@@ -983,6 +1104,97 @@ def train_phase(apis, ops, opts, root, kind, smi, form: str) -> tuple[dict, dict
         fname = "profile_" + ("train" if form == "train" else form) + ".txt"
         _profile(lambda: step(batch, gen), f"one train step ({form})", fname, root, kind, smi)
     del bundle, model, state, step
+    torch.cuda.empty_cache()
+    return stats, counts
+
+
+# ---- the CE microbench: its six kernels at its own inputs --------------------
+
+CE_BENCH_N = (8, 2)  # the train step's frames, and one clip's branch
+CE_BENCH_HW = (120, 120)  # the logits of a 480x480 frame
+
+
+def _ce_bench_fwd_case(ops, rec):
+    """Row 14 (natural labels) or 16, 18 (w-major labels) at the bench's inputs:
+    row 14's bound, yardstick and wsum tolerance (the label layouts differ
+    only in where the same bytes lie); corr exactly: the bench's fixed
+    inputs hold no near-tie that the kernels' lerps and F.interpolate's
+    split."""
+    bench, inp = rec
+    case = _ce_case(ops, (inp["logits"], inp["labels"], inp["s"], inp["img_w"], True))
+    case["call"] = _bench_ce().cases(inp)[bench][1]
+    case["shape"] += f" {bench}"
+    row14 = case["compare"]
+    case["compare"] = lambda got, want: [
+        (label, err, 0.0 if label == "corr" else tol) for label, err, tol in row14(got, want)]
+    return case
+
+
+def _ce_bench_bwd_case(ops, rec):
+    """Row 17 (natural labels, bf16 out) or 15, 19 (phase labels, f32 out)."""
+    bench, inp = rec
+    case = _ce_bwd_case(ops, (inp["logits"], inp["labels"], inp["ct"], inp["s"], inp["img_w"]),
+                        out_bytes=4 if bench != "v5 bwd" else 2)
+    case["call"] = _bench_ce().cases(inp)[bench][1]
+    case["shape"] += f" {bench}"
+    return case
+
+
+def _bench_ce():
+    return importlib.import_module("vss_cffm_tpu_torch.tools.bench_ce")
+
+
+# f32 dlogits from the same terms summed in other orders, the lerp rounded as
+# F.interpolate rounds it: 2^-14 of the largest value
+CE_F32_REL = 2.0 ** -14
+CE_BENCH_KERNELS = {
+    "ce_upsampled_loss": dict(bench="v2 fwd", case=_ce_bench_fwd_case),
+    "ce_bwd_loss_v2": dict(
+        sources=["vss_cffm_tpu_torch/csrc/ce_phase.cu"],
+        replaces="vss_cffm_tpu/ops/ce_upsampled.py:470",  # _bwd_loss_kernel, called at :599
+        bench="v2 bwd", rel_tol=CE_F32_REL, case=_ce_bench_bwd_case),
+    "ce_fwd_loss_v5": dict(
+        sources=["vss_cffm_tpu_torch/csrc/ce_phase.cu"],
+        replaces="vss_cffm_tpu/ops/ce_upsampled.py:671",  # _fwd_loss_kernel5, called at :743
+        bench="v5 fwd", case=_ce_bench_fwd_case),
+    # bf16 dlogits, as in the train step: one ulp
+    "ce_upsampled_loss_bwd": dict(bench="v5 bwd", rel_tol=2.0 ** -7, case=_ce_bench_bwd_case),
+    "ce_fwd_loss_v3": dict(
+        sources=["vss_cffm_tpu_torch/csrc/ce_phase.cu"],
+        replaces="vss_cffm_tpu/ops/ce_upsampled.py:917",  # _fwd_loss_kernel3, called at :999
+        bench="v3 fwd", case=_ce_bench_fwd_case),
+    "ce_bwd_loss_v3": dict(
+        sources=["vss_cffm_tpu_torch/csrc/ce_phase.cu"],
+        replaces="vss_cffm_tpu/ops/ce_upsampled.py:1020",  # _bwd_loss_kernel3, called at :1148
+        bench="v3 bwd", rel_tol=CE_F32_REL, case=_ce_bench_bwd_case),
+}
+CE_BENCH_ITERS, CE_BENCH_CHUNK, CE_BENCH_WARMUP = 20, 10, 2
+
+
+def ce_bench_phase(ops, opts) -> tuple[dict, dict]:
+    """The port's CE microbench at N 8 with the launch counts held, then its
+    six kernels against their plain versions at N 8 and N 2."""
+    bench_ce = _bench_ce()
+    argv = ["--n", str(CE_BENCH_N[0]), "--hw", *map(str, CE_BENCH_HW),
+            "--c", str(NUM_CLASSES), "--iters", str(CE_BENCH_ITERS), "--chunk", str(CE_BENCH_CHUNK)]
+    print(f"[ce_bench] python -m vss_cffm_tpu_torch.tools.bench_ce {' '.join(argv)}", flush=True)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    times = bench_ce.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    print(f"[ce_bench] launches: {counts}", flush=True)
+    calls = CE_BENCH_WARMUP + CE_BENCH_ITERS // CE_BENCH_CHUNK * CE_BENCH_CHUNK
+    for name in CE_BENCH_KERNELS:
+        if counts[name] != calls:
+            raise RuntimeError(f"ce_bench: {name} launched {counts[name]} times, expected {calls}")
+    if sum(counts.values()) != calls * len(CE_BENCH_KERNELS) or len(times) != 6:
+        raise RuntimeError(f"ce_bench: other launches or lines than its six kernels' ({counts})")
+    inputs = [bench_ce.make_inputs(n, CE_BENCH_HW, NUM_CLASSES, 4, "cuda") for n in CE_BENCH_N]
+    caught = {name: [(spec["bench"], inp) for inp in inputs]
+              for name, spec in CE_BENCH_KERNELS.items()}
+    stats = check_kernels(ops, caught, CE_BENCH_KERNELS, opts.profile)
+    del inputs, caught
     torch.cuda.empty_cache()
     return stats, counts
 
@@ -1187,25 +1399,36 @@ def main() -> int:
 
     # ---- 5. the train step, in each block form ------------------------------
     train_stats, train_counts = {}, {}
-    for form in TRAIN_FORMS:
-        train_stats[form], train_counts[form] = train_phase(apis, ops, opts, root, kind, smi, form)
+    for form, spec in TRAIN_FORMS.items():
+        with _cfm_switches(*spec.get("cfm_bwd", ("recompute", torch.float32))):
+            train_stats[form], train_counts[form] = train_phase(apis, ops, opts, root, kind, smi,
+                                                                form)
 
-    # ---- 6. result lines -----------------------------------------------------
+    # ---- 6. the CE microbench and its six kernels ----------------------------
+    ce_stats, ce_counts = ce_bench_phase(ops, opts)
+
+    # ---- 7. result lines -----------------------------------------------------
     # launches: each kernel's count on its own path (the inference clips for
     # the inference kernels, the fused-FFN clips for block_ffn_fused, the
     # MixFFN module for mixffn_fused, the counted steps of the default train
     # form for the train ones, of the "ffn" form for the block-FFN pair, of
-    # the "ohem" form for the per-pixel CE pair); launches_by_path gives
-    # every path's
+    # the "ohem" form for the per-pixel CE pair, of "train_probs" for the
+    # probabilities pair (its forward counts as cfm_attention), the CE
+    # microbench for the four layout variants); launches_by_path gives every
+    # path's
     kernels = []
     rows = [(n, spec, kernel_stats[n], "inference") for n, spec in KERNELS.items()]
     rows += [(n, spec, kernel_stats[n], "inference_ffn" if n == "block_ffn_fused" else "mixffn")
              for n, spec in FFN_INFER_KERNELS.items()]
     rows += [(n, spec, train_stats[form][n], form) for form in TRAIN_FORMS
              for n, spec in TRAIN_FORMS[form]["kernels"].items() if "sources" in spec]
+    rows += [(n, spec, ce_stats[n], "ce_bench") for n, spec in CE_BENCH_KERNELS.items()
+             if "sources" in spec]
     for name, spec, st, path in rows:
-        by_path = {"inference": counts[name], "inference_ffn": counts_f[name],
-                   "mixffn": counts_mix[name], **{f: c[name] for f, c in train_counts.items()}}
+        cn = spec.get("counter", name)
+        by_path = {"inference": counts[cn], "inference_ffn": counts_f[cn],
+                   "mixffn": counts_mix[cn], **{f: c[cn] for f, c in train_counts.items()},
+                   "ce_bench": ce_counts[cn]}
         kernels.append({"name": name, "route": "cuda", "source": spec["sources"][0],
                         "sources": spec["sources"],
                         "replaces": spec["replaces"], "launches": by_path[path], "path": path,

@@ -1,9 +1,12 @@
 """PyTorch port, on the card: each CUDA kernel against its plain version at
 shapes beyond the main path's (odd maps, ragged row tiles, grouped K/V,
 several head counts, ragged window tiles, ignored labels, B0 widths, zero
-branch scales, C = 7 and 124 classes), in bf16; train steps in each block
-form, and with OHEM and class weights, whose gradients go through the
-kernels; B0 clip inference with the fused FFN.
+branch scales, C = 7 and 124 classes), in bf16; the CFM attention's
+probabilities pair (f32 and bf16 probabilities) and the CE loss pair's
+label-layout variants (odd h, ragged column segments); train steps in each
+block form, with OHEM and class weights, and with the CFM attention's
+backward from probabilities, whose gradients go through the kernels; B0 clip
+inference with the fused FFN.
 
 Marked ``cuda`` and skipped where no CUDA device is present. On a machine
 with one, from the repository root::
@@ -472,6 +475,141 @@ def test_ohem_train_step_goes_through_the_per_pixel_kernels(dev):
     counts = runs[None][1]
     assert counts["ce_upsampled_nll"] == 2 and counts["ce_upsampled_nll_bwd"] == 2, counts
     assert counts["ce_upsampled_loss"] == 0 and counts["ce_upsampled_loss_bwd"] == 0, counts
+    assert np.isfinite(runs[None][0])
+    assert abs(runs[None][0] - runs["torch"][0]) <= 1e-2 * abs(runs["torch"][0])
+    assert torch.nn.functional.cosine_similarity(runs[None][2], runs["torch"][2], dim=0) >= 0.99
+
+
+@pytest.mark.parametrize("nw,nh,hd,gsizes,p_dtype", [
+    (10, 2, 32, [49, 20, 9], torch.float32),                  # a ragged window tile
+    (11, 8, 32, [49, 132, 25, 49, 25, 9], torch.float32),     # the B1 decoder's groups
+    (3, 2, 64, [49, 71], torch.float32),
+    (5, 4, 64, [49, 30], torch.bfloat16),
+    (7, 2, 32, [78], torch.bfloat16),
+])
+def test_cfm_attention_probs_kernels_match_plain(dev, monkeypatch, nw, nh, hd, gsizes, p_dtype):
+    """The forward with its probabilities output: out to 2^-6 of its largest
+    value (as without), f32 p to 2^-14 of its largest (f32 softmaxes of the
+    same inputs, scores summed in other orders), bf16 p to 2^-7 (one ulp
+    where that difference crosses a rounding boundary). The backward from the
+    plain forward's p: dq, dK, dV to 2^-6, dbias to 2^-10, as row 4's."""
+    import importlib
+
+    monkeypatch.setattr(importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention"),
+                        "_PROBS_DTYPE", p_dtype)
+    rng = np.random.RandomState(15)
+    c = nh * hd
+    n = sum(gsizes)
+    q = _rand(rng, nw, 49, c, dev=dev)
+    ks = [_rand(rng, nw, gs, c, dev=dev) for gs in gsizes]
+    vs = [_rand(rng, nw, gs, c, dev=dev) for gs in gsizes]
+    g = _rand(rng, nw, 49, c, dev=dev)
+    bias = _rand(rng, nh, 49, n, dtype=torch.float32, dev=dev)
+    mask = torch.from_numpy(np.where(rng.rand(nw, n) < 0.2, -100.0, 0.0)
+                            .astype(np.float32)).to(dev)
+    ops.reset_launches()
+    out_k, p_k = ops.cfm_attention_probs(q, ks, vs, bias, mask, nh, force="kernel")
+    out_p, p_p = ops.cfm_attention_probs(q, ks, vs, bias, mask, nh, force="torch")
+    assert ops.launches()["cfm_attention"] == 1
+    assert p_k.dtype == p_dtype and tuple(p_k.shape) == (nw, nh, 49, n)
+    _close(out_k, out_p, 2.0 ** -6)
+    _close(p_k, p_p, 2.0 ** -14 if p_dtype == torch.float32 else 2.0 ** -7)
+    k, v = torch.cat(ks, 1), torch.cat(vs, 1)
+    got = ops.cfm_attention_bwd_probs(q, k, v, p_p, g, nh, force="kernel")
+    want = ops.cfm_attention_bwd_probs(q, k, v, p_p, g, nh, force="torch")
+    assert ops.launches()["cfm_attention_bwd_probs"] == 1
+    for a, b, rel in zip(got, want, (2.0 ** -6,) * 3 + (2.0 ** -10,)):
+        _close(a, b, rel)
+
+
+@pytest.mark.parametrize("n,h,w,c,s,ldt", [
+    (2, 8, 12, 7, 4, torch.uint8), (1, 7, 9, 124, 4, torch.uint8),
+    (3, 5, 33, 40, 4, torch.uint8), (1, 30, 61, 124, 4, torch.uint8),
+    (2, 9, 10, 19, 2, torch.uint8),
+])
+def test_ce_variant_kernels_match_plain(dev, n, h, w, c, s, ldt):
+    """The four label-layout variants against their plain versions: wsum to
+    1e-4 relative and the correct count within 1e-3 of the pixels (as row
+    14's); the f32 dlogits to 2^-14 of their largest value (f32 sums of the
+    same terms in other orders, the lerp rounded as F.interpolate rounds
+    it). Odd h (the TPU backwards refuse it), column segments with ragged
+    tails (w 33, 61), s 4 and 2; int32 labels are refused."""
+    rng = np.random.RandomState(16)
+    x = _rand(rng, n, h, w, c, scale=2.0, dev=dev)
+    lab = _labels(rng, n, h * s, w * s, c, ldt, dev)
+    ph = ops.labels_to_phase(lab, s).contiguous()
+    phw = ops.labels_to_phase_w(lab, s).contiguous()
+    img_w, g = 0.5 / lab.numel(), torch.tensor(1.7, device=dev)
+    ops.reset_launches()
+    for op in (ops.ce_fwd_loss_v5, ops.ce_fwd_loss_v3):
+        got = op(x, phw, s, img_w, force="kernel")
+        want = op(x, phw, s, img_w, force="torch")
+        torch.cuda.synchronize()
+        assert abs(got[0].item() - want[0].item()) <= 1e-4 * abs(want[0].item()), op
+        assert abs(got[1].item() - want[1].item()) <= max(1.0, 1e-3 * lab.numel()), op
+    for op, labels in ((ops.ce_bwd_loss_v2, ph), (ops.ce_bwd_loss_v3, phw)):
+        gk = op(x, labels, g, s, img_w, force="kernel")
+        gp = op(x, labels, g, s, img_w, force="torch")
+        assert gk.dtype == torch.float32
+        _close(gk, gp, 2.0 ** -14)
+    assert {k: v for k, v in ops.launches().items() if v} == {
+        "ce_fwd_loss_v5": 1, "ce_fwd_loss_v3": 1, "ce_bwd_loss_v2": 1, "ce_bwd_loss_v3": 1}
+    with pytest.raises(ValueError, match="uint8 only"):
+        ops.ce_fwd_loss_v5(x, phw.int(), s, img_w, force="kernel")
+
+
+def test_ce_runtime_phase_loop_takes_any_scale(dev):
+    """The v3 pair's runtime loop at s = 3 (the unrolled variants take 2 and 4
+    and refuse 3)."""
+    rng = np.random.RandomState(17)
+    x = _rand(rng, 1, 6, 11, 40, scale=2.0, dev=dev)
+    lab = _labels(rng, 1, 18, 33, 40, torch.uint8, dev)
+    phw = ops.labels_to_phase_w(lab, 3).contiguous()
+    img_w, g = 0.5 / lab.numel(), torch.tensor(0.8, device=dev)
+    got = ops.ce_fwd_loss_v3(x, phw, 3, img_w, force="kernel")
+    want = ops.ce_fwd_loss_v3(x, phw, 3, img_w, force="torch")
+    assert abs(got[0].item() - want[0].item()) <= 1e-4 * abs(want[0].item())
+    _close(ops.ce_bwd_loss_v3(x, phw, g, 3, img_w, force="kernel"),
+           ops.ce_bwd_loss_v3(x, phw, g, 3, img_w, force="torch"), 2.0 ** -14)
+    with pytest.raises(ValueError, match="does not take"):
+        ops.ce_fwd_loss_v5(x, phw, 3, img_w, force="kernel")
+
+
+def test_train_step_with_the_probabilities_backward(dev, monkeypatch):
+    """A B0 train step at 64² with ``_BWD = "kernel"``: every CFM attention
+    forward writes p and every backward reads it (as many
+    ``cfm_attention_bwd_probs`` launches as forwards, no recompute backward);
+    the loss and the gradients against the plain path in the same mode (loss
+    1e-2 relative, cosine of all gradients ≥ 0.99)."""
+    import importlib
+
+    from vss_cffm_tpu_torch.models import set_force
+    from vss_cffm_tpu_torch.models.losses import clip_ce_loss
+    from vss_cffm_tpu_torch.train.step import device_normalize
+
+    monkeypatch.setattr(importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention"),
+                        "_BWD", "kernel")
+    model = _b0_model(dev, train_block_impl=("full", "full", "full", None)).train()
+    rng = np.random.RandomState(18)
+    imgs = device_normalize(torch.from_numpy(
+        rng.randint(0, 256, (1, 4, 64, 64, 3)).astype(np.uint8)).to(dev), torch.bfloat16)
+    lab = _labels(rng, 4, 64, 64, 11, torch.uint8, dev).reshape(1, 4, 64, 64)
+    runs = {}
+    for force in (None, "torch"):
+        set_force(model, force)
+        model.zero_grad(set_to_none=True)
+        ops.reset_launches()
+        out = model(imgs, train=True, generator=torch.Generator(dev).manual_seed(1))
+        loss = clip_ce_loss(out, lab, force=force)["loss_seg"]
+        loss.backward()
+        runs[force] = (loss.item(), ops.launches(),
+                       torch.cat([p.grad.float().reshape(-1) for p in model.parameters()]))
+    set_force(model, None)
+    counts = runs[None][1]
+    depth = model.config.head.decoder.depth
+    assert counts["cfm_attention"] == depth and counts["cfm_attention_bwd_probs"] == depth, counts
+    assert counts["cfm_attention_bwd"] == 0 and counts["mit_block_train_bwd"] == 6, counts
+    assert all(v == 0 for v in runs["torch"][1].values())
     assert np.isfinite(runs[None][0])
     assert abs(runs[None][0] - runs["torch"][0]) <= 1e-2 * abs(runs["torch"][0])
     assert torch.nn.functional.cosine_similarity(runs[None][2], runs["torch"][2], dim=0) >= 0.99

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_common import assert_bf16_rounded_alike
 from vss_cffm_tpu.ops import ce_upsampled as jax_ce
 from vss_cffm_tpu.ops import cfm_attention as jax_cfm
 from vss_cffm_tpu.ops import dwconv as jax_dw
@@ -120,20 +121,6 @@ def _j(t: torch.Tensor):
         jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
 
 
-def _assert_bf16_rounded_alike(got: torch.Tensor, want, label: str) -> None:
-    """bf16 outputs rounded at the same points from f32 sums taken in other
-    orders: a rounding flips one ulp only where an f32 sum lies within f32
-    rounding of a bf16 boundary, and a flip upstream moves a later sum by far
-    less than an ulp. So ≥ 99 % of the elements are bitwise equal (a rounding
-    moved, added or dropped leaves 60-75 % equal at these sizes), and none is
-    off by more than 2^-8 of the largest."""
-    assert got.dtype == torch.bfloat16, label
-    g = got.float().numpy()
-    w = np.asarray(jnp.asarray(want).astype(jnp.float32))
-    assert np.mean(g == w) >= 0.99, (label, np.mean(g == w))
-    assert np.abs(g - w).max() <= 2.0 ** -8 * np.abs(w).max(), label
-
-
 def test_cfm_attention_bwd_plain_matches_pallas_interpret_bf16(rng):
     """bf16 q, K, V and g, as on the card: the rounding points of
     ``_bwd_kernel_rc`` and its wrapper (q·scale in q's dtype, ds and p
@@ -147,9 +134,9 @@ def test_cfm_attention_bwd_plain_matches_pallas_interpret_bf16(rng):
         _j(q), tuple(map(_j, ks)), tuple(map(_j, vs)), _j(bias), _j(mask), _j(g), 2,
         interpret=True)
     got = ops.cfm_attention_bwd(q, torch.cat(ks, 1), torch.cat(vs, 1), bias, mask, g, 2)
-    _assert_bf16_rounded_alike(got[0], dq, "dq")
-    _assert_bf16_rounded_alike(got[1], jnp.concatenate(dks, 1), "dk")
-    _assert_bf16_rounded_alike(got[2], jnp.concatenate(dvs, 1), "dv")
+    assert_bf16_rounded_alike(got[0], dq, "dq")
+    assert_bf16_rounded_alike(got[1], jnp.concatenate(dks, 1), "dk")
+    assert_bf16_rounded_alike(got[2], jnp.concatenate(dvs, 1), "dv")
     np.testing.assert_allclose(got[3].numpy(), np.asarray(dbias),
                                atol=1e-5 * np.abs(np.asarray(dbias)).max())
 
@@ -213,7 +200,7 @@ def test_dwconv_bwd_plain_matches_jax_vjp_bf16(rng, shape):
     leaves = [x.clone().requires_grad_(True), k.clone().requires_grad_(True),
               b.clone().requires_grad_(True)]
     ops.dwconv3x3(*leaves, gelu=True).backward(g)
-    _assert_bf16_rounded_alike(leaves[0].grad, want[0], "dx")
+    assert_bf16_rounded_alike(leaves[0].grad, want[0], "dx")
     for leaf, w in zip(leaves[1:], want[1:]):
         w = np.asarray(w)
         np.testing.assert_allclose(leaf.grad.numpy(), w, atol=1e-5 * np.abs(w).max())

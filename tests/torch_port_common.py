@@ -106,14 +106,9 @@ def to_np(t: torch.Tensor) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def train_patches(variant: str = "b0"):
-    """The train tests' settings on both sides: stochastic depth 0 (the MiT
-    variant's ``drop_path_rate``), and on the JAX side the fused CE kernels
-    in the loss, run in interpret mode (``losses._FORCE_FUSED``,
-    ``ce_upsampled._INTERPRET``)."""
-    from vss_cffm_tpu.models import losses as jax_losses
+def no_drop_path(variant: str = "b0"):
+    """Stochastic depth 0 on both sides (the MiT variant's ``drop_path_rate``)."""
     from vss_cffm_tpu.models import mit as jax_mit
-    from vss_cffm_tpu.ops import ce_upsampled as jax_ce
 
     name = f"mit_{variant}"
     with pytest.MonkeyPatch.context() as mp:
@@ -121,6 +116,18 @@ def train_patches(variant: str = "b0"):
                    dataclasses.replace(jax_mit.MIT_VARIANTS[name], drop_path_rate=0.0))
         mp.setitem(pcfg.MIT_VARIANTS, name,
                    dataclasses.replace(pcfg.MIT_VARIANTS[name], drop_path_rate=0.0))
+        yield
+
+
+@contextlib.contextmanager
+def train_patches(variant: str = "b0"):
+    """The train tests' settings on both sides: stochastic depth 0
+    (``no_drop_path``), and on the JAX side the fused CE kernels in the loss,
+    run in interpret mode (``losses._FORCE_FUSED``, ``ce_upsampled._INTERPRET``)."""
+    from vss_cffm_tpu.models import losses as jax_losses
+    from vss_cffm_tpu.ops import ce_upsampled as jax_ce
+
+    with no_drop_path(variant), pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_losses, "_FORCE_FUSED", True)
         mp.setattr(jax_ce, "_INTERPRET", True)
         yield
@@ -176,3 +183,17 @@ def flat(tree, prefix: str = "") -> dict:
         else:
             out[f"{prefix}{k}"] = np.asarray(v)
     return out
+
+
+def assert_bf16_rounded_alike(got: torch.Tensor, want, label: str) -> None:
+    """bf16 outputs rounded at the same points from f32 sums taken in other
+    orders: a rounding flips one ulp only where an f32 sum lies within f32
+    rounding of a bf16 boundary, and a flip upstream moves a later sum by far
+    less than an ulp. So ≥ 99 % of the elements are bitwise equal (a rounding
+    moved, added or dropped leaves 60-75 % equal at these sizes), and none is
+    off by more than 2^-8 of the largest."""
+    assert got.dtype == torch.bfloat16, label
+    g = got.float().numpy()
+    w = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert np.mean(g == w) >= 0.99, (label, np.mean(g == w))
+    assert np.abs(g - w).max() <= 2.0 ** -8 * np.abs(w).max(), label

@@ -5,9 +5,12 @@
 // _cfm_attention_pallas_impl (_fwd_kernel): the CFM window attention of every
 // CFFM decoder block, (q*scale)·Kᵀ over the concatenated K/V source groups
 // + relative-position bias (nh, Lq, N) + window mask (G, N), f32 softmax,
-// P·V. The same routine serves the spatial-reduction attention inside the
-// whole-block path (ops/stage_block.py), with the scale folded into K and no
-// bias or mask.
+// P·V. With a probabilities pointer it also writes the normalised softmax p
+// (G, nh, Lq, N) in f32 or bf16, the same values that are rounded to bf16
+// for P·V (the TPU kernel's with_probs call, whose p the backward from
+// probabilities reads). The same routine serves the spatial-reduction
+// attention inside the whole-block path (ops/stage_block.py), with the scale
+// folded into K and no bias or mask.
 //
 // Bound on the H100: memory for the CFM shapes (q, K, V, bias and mask are
 // read once; about 2·Lq·N·hd·2 FLOP per (group, head) is little work per
@@ -90,8 +93,8 @@ template <int HD>
 __global__ void __launch_bounds__(128) attention_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-    const float* __restrict__ mask, __nv_bfloat16* __restrict__ out, int Lq, int N,
-    int C, float q_scale, float k_scale) {
+    const float* __restrict__ mask, __nv_bfloat16* __restrict__ out, void* __restrict__ probs,
+    int probs_bf16, int Lq, int N, int C, float q_scale, float k_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int nwarps = blockDim.x / 32;
   const Smem L(nwarps, N, HD, Lq, bias != nullptr, mask != nullptr);
@@ -212,11 +215,20 @@ __global__ void __launch_bounds__(128) attention_fwd_kernel(
     }
 #pragma unroll
     for (int u = 0; u < 16; ++u) sm[u] = vss::warp_sum(sm[u]);
+    // p rows of this warp in the probabilities output (G, nh, Lq, N)
+    const long long prow = ((g * gridDim.y + h) * Lq + row0 + r0) * (long long)N;
     for (int n = lane; n < L.Np; n += 32) {
 #pragma unroll
       for (int u = 0; u < 16; ++u) {
         const float pv = n < N ? Sw[(size_t)u * L.ls + n] / sm[u] : 0.f;
         Pw[(size_t)u * L.Np + n] = __float2bfloat16_rn(u < nv ? pv : 0.f);
+        if (probs != nullptr && u < nv && n < N) {
+          if (probs_bf16)
+            static_cast<__nv_bfloat16*>(probs)[prow + (long long)u * N + n] =
+                __float2bfloat16_rn(pv);
+          else
+            static_cast<float*>(probs)[prow + (long long)u * N + n] = pv;
+        }
       }
     }
   } else {
@@ -255,8 +267,8 @@ __global__ void __launch_bounds__(128) attention_fwd_kernel(
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* bias, const void* mask,
-           void* out, int G, int Lq, int N, int nh, int C, float q_scale, float k_scale,
-           int nwarps, cudaStream_t s) {
+           void* out, void* probs, int probs_bf16, int G, int Lq, int N, int nh, int C,
+           float q_scale, float k_scale, int nwarps, cudaStream_t s) {
   const Smem L(nwarps, N, HD, Lq, bias != nullptr, mask != nullptr);
   const size_t bytes = L.bytes();
   cudaError_t e = cudaFuncSetAttribute(attention_fwd_kernel<HD>,
@@ -267,8 +279,8 @@ int launch(const void* q, const void* k, const void* v, const void* bias, const 
   attention_fwd_kernel<HD><<<grid, 32 * nwarps, bytes, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(out), Lq, N, C, q_scale,
-      k_scale);
+      static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(out), probs, probs_bf16, Lq,
+      N, C, q_scale, k_scale);
   return (int)cudaGetLastError();
 }
 
@@ -276,19 +288,20 @@ int launch(const void* q, const void* k, const void* v, const void* bias, const 
 
 // q/out (G, Lq, C) bf16, k/v (G, N, C) bf16 with C = nh*hd (head h owns
 // channels [h*hd, (h+1)*hd)); bias (nh, Lq, N) f32 or null; mask (G, N) f32
-// or null. hd in {32, 64}, the head dims of every MiT-B* stage and CFFM
-// decoder; nwarps in 1..4. Returns a cudaError_t.
+// or null; probs (G, nh, Lq, N), bf16 when probs_bf16 else f32, or null.
+// hd in {32, 64}, the head dims of every MiT-B* stage and CFFM decoder;
+// nwarps in 1..4. Returns a cudaError_t.
 VSS_EXPORT int attention_fwd(const void* q, const void* k, const void* v, const void* bias,
-                             const void* mask, void* out, int G, int Lq, int N, int nh,
-                             int hd, int C, float q_scale, float k_scale, int nwarps,
-                             int device, void* stream) {
+                             const void* mask, void* out, void* probs, int probs_bf16, int G,
+                             int Lq, int N, int nh, int hd, int C, float q_scale,
+                             float k_scale, int nwarps, int device, void* stream) {
   cudaSetDevice(device);
   if (G == 0 || Lq == 0) return 0;
   if (nwarps < 1 || nwarps > 4 || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch<32>(q, k, v, bias, mask, out, G, Lq, N, nh, C, q_scale, k_scale, nwarps, s);
-    case 64: return launch<64>(q, k, v, bias, mask, out, G, Lq, N, nh, C, q_scale, k_scale, nwarps, s);
+    case 32: return launch<32>(q, k, v, bias, mask, out, probs, probs_bf16, G, Lq, N, nh, C, q_scale, k_scale, nwarps, s);
+    case 64: return launch<64>(q, k, v, bias, mask, out, probs, probs_bf16, G, Lq, N, nh, C, q_scale, k_scale, nwarps, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

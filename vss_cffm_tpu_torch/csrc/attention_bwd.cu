@@ -1,11 +1,18 @@
-// Backward of the CFM window attention with the softmax recomputed.
+// Backward of the CFM window attention, with the softmax recomputed or read
+// from the forward's probabilities.
 //
-// Replaces the TPU kernel vss_cffm_tpu/ops/cfm_attention.py:
+// Replaces the TPU kernels vss_cffm_tpu/ops/cfm_attention.py:
 // _cfm_attention_bwd_pallas_rc (_bwd_kernel_rc): for every (window, head),
 // qs = bf16(q * scale), S = qs K^T + bias + mask (f32), p = softmax(S) (f32),
 // dP = g V^T, ds = p (dP - sum_n dP p) (f32), dq = bf16(bf16(ds) K) * scale
 // rounded again, dK = bf16(ds)^T qs, dV = bf16(p)^T g, and dbias = the sum
 // of ds over the windows. Packed K/V: one (G, N, C) tensor each.
+// _cfm_attention_bwd_pallas (_bwd_kernel), the compile-time mode FROM_PROBS:
+// p is read from the forward's probabilities (G, nh, Lq, N), f32 or bf16,
+// the S = qs K^T recompute and its exps are skipped (bias and mask are not
+// read), and the rest is the same arithmetic. At the train step p is 73 MB
+// in f32 per call, so that mode moves more bytes than the recompute and
+// skips one of five products and the 18.4 M exps.
 //
 // Bound on the H100 at the train step (162 windows, 49 queries, N 289, 8
 // heads of 32): reading q, g, K, V, bias and mask and writing dq, dK, dV and
@@ -26,6 +33,8 @@
 // block of ~165 KB per SM: latency, not bytes, will bound this first
 // version.
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -123,11 +132,20 @@ __device__ __forceinline__ void write_tile(const float* T, __nv_bfloat16* dst, i
   __syncwarp();
 }
 
-template <int HD>
+// p of one query row from the forward's probabilities, f32 or bf16
+__device__ __forceinline__ float load_p(const float* p, long long i) { return p[i]; }
+__device__ __forceinline__ float load_p(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+
+// PT = void: the softmax recomputed from q, K, bias and mask; PT = float or
+// __nv_bfloat16: p read from probs (G, nh, Lq, N) of that type
+template <int HD, typename PT>
 __global__ void __launch_bounds__(32 * kWarps) attention_bwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-    const float* __restrict__ mask, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ mask, const void* __restrict__ probs,
+    const __nv_bfloat16* __restrict__ g,
     __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dv, float* __restrict__ dbias_partial, int G, int Lq, int N,
     int nh, int C, float q_scale, int tw) {
@@ -164,60 +182,77 @@ __global__ void __launch_bounds__(32 * kWarps) attention_bwd_kernel(
     }
     __syncthreads();
 
-    // ---- S = qs K^T for this warp's 16 rows ----------------------------------
-    {
-      FragA a[HD / 16];
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) wmma::load_matrix_sync(a[kk], qs + r0 * HD + kk * 16, HD);
-      for (int j = 0; j < Np / 16; ++j) {
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          FragBT b;
-          wmma::load_matrix_sync(b, ks + j * 16 * HD + kk * 16, HD);
-          wmma::mma_sync(acc, a[kk], b, acc);
-        }
-        wmma::store_matrix_sync(S + (size_t)r0 * Np + j * 16, acc, Np, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // ---- p = softmax((S + bias) + mask), f32 in S and bf16 in Pb -------------
-    for (int u = 0; u < 16; ++u) {
-      const int row = r0 + u;
-      float* Sr = S + (size_t)row * Np;
-      __nv_bfloat16* Pr = Pb + (size_t)row * Np;
-      if (row >= Lq) {
+    constexpr bool kFromProbs = !std::is_void<PT>::value;
+    if constexpr (kFromProbs) {
+      // ---- p from the forward: f32 in S and bf16 in Pb, zero past Lq and N --
+      const PT* pw = static_cast<const PT*>(probs) + ((long long)wi * nh + h) * Lq * N;
+      for (int u = 0; u < 16; ++u) {
+        const int row = r0 + u;
+        float* Sr = S + (size_t)row * Np;
+        __nv_bfloat16* Pr = Pb + (size_t)row * Np;
         for (int n = lane; n < Np; n += 32) {
-          Sr[n] = 0.f;
-          Pr[n] = __float2bfloat16_rn(0.f);
+          const float p = row < Lq && n < N ? load_p(pw, (long long)row * N + n) : 0.f;
+          Sr[n] = p;
+          Pr[n] = __float2bfloat16_rn(p);
         }
-        continue;
       }
-      const float* br = bias + ((long long)h * Lq + row) * N;
-      const float* mr = mask + (long long)wi * N;
-      float mx = -3.402823466e38f;
-      for (int n = lane; n < N; n += 32) {
-        const float sv = (Sr[n] + br[n]) + mr[n];
-        Sr[n] = sv;
-        mx = fmaxf(mx, sv);
+      __syncthreads();
+    } else {
+      // ---- S = qs K^T for this warp's 16 rows ----------------------------------
+      {
+        FragA a[HD / 16];
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) wmma::load_matrix_sync(a[kk], qs + r0 * HD + kk * 16, HD);
+        for (int j = 0; j < Np / 16; ++j) {
+          FragC acc;
+          wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            FragBT b;
+            wmma::load_matrix_sync(b, ks + j * 16 * HD + kk * 16, HD);
+            wmma::mma_sync(acc, a[kk], b, acc);
+          }
+          wmma::store_matrix_sync(S + (size_t)r0 * Np + j * 16, acc, Np, wmma::mem_row_major);
+        }
       }
-      mx = vss::warp_max(mx);
-      float sum = 0.f;
-      for (int n = lane; n < N; n += 32) {
-        const float e = expf(Sr[n] - mx);
-        Sr[n] = e;
-        sum += e;
+      __syncwarp();
+
+      // ---- p = softmax((S + bias) + mask), f32 in S and bf16 in Pb -------------
+      for (int u = 0; u < 16; ++u) {
+        const int row = r0 + u;
+        float* Sr = S + (size_t)row * Np;
+        __nv_bfloat16* Pr = Pb + (size_t)row * Np;
+        if (row >= Lq) {
+          for (int n = lane; n < Np; n += 32) {
+            Sr[n] = 0.f;
+            Pr[n] = __float2bfloat16_rn(0.f);
+          }
+          continue;
+        }
+        const float* br = bias + ((long long)h * Lq + row) * N;
+        const float* mr = mask + (long long)wi * N;
+        float mx = -3.402823466e38f;
+        for (int n = lane; n < N; n += 32) {
+          const float sv = (Sr[n] + br[n]) + mr[n];
+          Sr[n] = sv;
+          mx = fmaxf(mx, sv);
+        }
+        mx = vss::warp_max(mx);
+        float sum = 0.f;
+        for (int n = lane; n < N; n += 32) {
+          const float e = expf(Sr[n] - mx);
+          Sr[n] = e;
+          sum += e;
+        }
+        sum = vss::warp_sum(sum);
+        for (int n = lane; n < Np; n += 32) {
+          const float p = n < N ? Sr[n] / sum : 0.f;
+          Sr[n] = p;
+          Pr[n] = __float2bfloat16_rn(p);
+        }
       }
-      sum = vss::warp_sum(sum);
-      for (int n = lane; n < Np; n += 32) {
-        const float p = n < N ? Sr[n] / sum : 0.f;
-        Sr[n] = p;
-        Pr[n] = __float2bfloat16_rn(p);
-      }
+      __syncthreads();
     }
-    __syncthreads();
 
     // ---- dV = bf16(p)^T g ----------------------------------------------------
     for (int t = warp; t < (Np / 16) * (HD / 16); t += kWarps) {
@@ -287,19 +322,19 @@ __global__ void __launch_bounds__(32 * kWarps) attention_bwd_kernel(
   }
 }
 
-template <int HD>
+template <int HD, typename PT>
 int launch(const void* q, const void* k, const void* v, const void* bias, const void* mask,
-           const void* g, void* dq, void* dk, void* dv, void* partial, int G, int Lq, int N,
-           int nh, int C, float q_scale, int tw, cudaStream_t s) {
+           const void* probs, const void* g, void* dq, void* dk, void* dv, void* partial, int G,
+           int Lq, int N, int nh, int C, float q_scale, int tw, cudaStream_t s) {
   const size_t bytes = Smem(N, HD).bytes();
-  cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel<HD>,
+  cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel<HD, PT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((G + tw - 1) / tw, nh);
-  attention_bwd_kernel<HD><<<grid, 32 * kWarps, bytes, s>>>(
+  attention_bwd_kernel<HD, PT><<<grid, 32 * kWarps, bytes, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const float*>(mask), probs, static_cast<const __nv_bfloat16*>(g),
       static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), static_cast<float*>(partial), G, Lq, N, nh, C, q_scale,
       tw);
@@ -322,10 +357,31 @@ VSS_EXPORT int attention_bwd(const void* q, const void* k, const void* v, const 
   if (Lq > kRows || N < 1 || tw < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch<32>(q, k, v, bias, mask, g, dq, dk, dv, partial, G, Lq, N, nh, C, q_scale, tw, s);
-    case 64: return launch<64>(q, k, v, bias, mask, g, dq, dk, dv, partial, G, Lq, N, nh, C, q_scale, tw, s);
+    case 32: return launch<32, void>(q, k, v, bias, mask, nullptr, g, dq, dk, dv, partial, G, Lq, N, nh, C, q_scale, tw, s);
+    case 64: return launch<64, void>(q, k, v, bias, mask, nullptr, g, dq, dk, dv, partial, G, Lq, N, nh, C, q_scale, tw, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The same gradients from the forward's probabilities probs (G, nh, Lq, N),
+// bf16 when probs_bf16 else f32, in place of bias and mask.
+VSS_EXPORT int attention_bwd_probs(const void* q, const void* k, const void* v,
+                                   const void* probs, int probs_bf16, const void* g, void* dq,
+                                   void* dk, void* dv, void* partial, int G, int Lq, int N,
+                                   int nh, int hd, int C, float q_scale, int tw, int device,
+                                   void* stream) {
+  cudaSetDevice(device);
+  if (G == 0 || Lq == 0) return 0;
+  if (Lq > kRows || N < 1 || tw < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define VSS_BWD_P(HD, PT) \
+  return launch<HD, PT>(q, k, v, nullptr, nullptr, probs, g, dq, dk, dv, partial, G, Lq, N, nh, C, q_scale, tw, s)
+  if (hd == 32 && probs_bf16) VSS_BWD_P(32, __nv_bfloat16);
+  if (hd == 32) VSS_BWD_P(32, float);
+  if (hd == 64 && probs_bf16) VSS_BWD_P(64, __nv_bfloat16);
+  if (hd == 64) VSS_BWD_P(64, float);
+#undef VSS_BWD_P
+  return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory one block needs; -1 when Lq exceeds the 64 rows held.

@@ -48,9 +48,13 @@
 // row (a source row is read by about 2s output rows, so each output pixel's
 // softmax is recomputed about twice, plus s pixels at each segment edge),
 // then writes each dlogits element once, in bf16.
-#include "common.cuh"
+#include "ce_common.cuh"
 
 namespace {
+
+using vss::ce::clampi;
+using vss::ce::class_max;
+using vss::ce::softmax_stats;
 
 constexpr int kWarps = 4;
 constexpr int kMaxScale = 8;
@@ -69,8 +73,6 @@ struct Coeffs {
     }
   }
 };
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
 // xh[j] = x0[c]*(1 - fh) + x1[c]*fh at column v, class c = lane + 32 j
 template <int CPL>
@@ -98,16 +100,6 @@ __device__ __forceinline__ void col_lerp(const float* xl, const float* xc, const
   }
 }
 
-// the largest of up over the warp's C classes
-template <int CPL>
-__device__ __forceinline__ float class_max(const float* up, int C, int lane) {
-  float m = -3.402823466e38f;
-#pragma unroll
-  for (int j = 0; j < CPL; ++j)
-    if (lane + 32 * j < C) m = fmaxf(m, up[j]);
-  return vss::warp_max(m);
-}
-
 // the smallest class whose up equals the maximum m (torch's argmax tie order)
 template <int CPL>
 __device__ __forceinline__ int first_argmax(const float* up, float m, int C, int lane) {
@@ -118,26 +110,6 @@ __device__ __forceinline__ int first_argmax(const float* up, float m, int C, int
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) best = min(best, __shfl_xor_sync(0xffffffffu, best, o));
   return best;
-}
-
-// Over the warp, given the row max m (class_max): up[label] (label in
-// [0, C)) and the sum of exp(up - m); up[j] is replaced by exp(up[j] - m)
-// (0 past C).
-template <int CPL>
-__device__ __forceinline__ void softmax_stats(float* up, float m, int C, int lane, int label,
-                                              float& sum, float& picked) {
-  float mine = 0.f;
-#pragma unroll
-  for (int j = 0; j < CPL; ++j)
-    if (j == (label >> 5)) mine = up[j];
-  picked = __shfl_sync(0xffffffffu, mine, label & 31);
-  sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    up[j] = lane + 32 * j < C ? expf(up[j] - m) : 0.f;
-    sum += up[j];
-  }
-  sum = vss::warp_sum(sum);
 }
 
 template <int CPL>

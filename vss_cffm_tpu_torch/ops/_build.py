@@ -30,7 +30,7 @@ __all__ = ["library", "build_all", "check", "SOURCES", "BUILD_DIR"]
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("dwconv", "attention", "block_gemm", "attention_bwd", "ce_upsampled", "gemm_tn",
-           "block_bwd", "sra_attention_bwd")
+           "block_bwd", "sra_attention_bwd", "ce_phase")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -44,7 +44,7 @@ _SIGNATURES = {
         "dwconv3x3_nhwc": "pppppiiiiiiip",
     },
     "attention": {
-        "attention_fwd": "ppppppiiiiiiffiip",
+        "attention_fwd": "pppppppiiiiiiiffiip",
         "attention_smem_bytes": "iiiiii",
     },
     "block_gemm": {
@@ -52,6 +52,7 @@ _SIGNATURES = {
     },
     "attention_bwd": {
         "attention_bwd": "ppppppppppiiiiiifiip",
+        "attention_bwd_probs": "ppppipppppiiiiiifiip",
         "attention_bwd_smem_bytes": "iii",
     },
     "ce_upsampled": {
@@ -70,6 +71,10 @@ _SIGNATURES = {
     },
     "sra_attention_bwd": {
         "sra_attention_bwd": "ppppppppiiiiiifip",
+    },
+    "ce_phase": {
+        "ce_phase_fwd_loss": "pppiiiiiifiip",
+        "ce_phase_bwd_loss": "ppppiiiiiiifip",
     },
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong, "f": ctypes.c_float}

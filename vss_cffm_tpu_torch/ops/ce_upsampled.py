@@ -38,6 +38,27 @@ TPU kernels ``_ce_fwd_pallas`` (``_fwd_kernel``), which writes the same three
 maps in a phase layout, and ``_ce_bwd_pallas`` (``_bwd_kernel``);
 ``ce_upsampled_nll_torch`` / ``ce_upsampled_nll_bwd_torch`` are the plain
 versions.
+
+The CE microbench's variants (``tools/bench_ce.py``) take the labels in the
+TPU kernels' phase layouts, h-major (N, h, s², w) (``labels_to_phase``) or
+w-major (N, h, w, s²) (``labels_to_phase_w``), and are not differentiable:
+
+- ``ce_bwd_loss_v2(logits, labels_ph, ct, s, img_w)``: f32 dlogits (N, h, w,
+  C) for the 0-d cotangent ``ct`` of wsum, h-major labels, the phases unrolled
+  (``_ce_bwd_loss_pallas``, ``_bwd_loss_kernel``);
+- ``ce_fwd_loss_v5(logits, labels_phw, s, img_w, count_acc)``: (wsum, corr),
+  w-major labels, the phases unrolled (``_ce_fwd_loss_pallas5``,
+  ``_fwd_loss_kernel5``);
+- ``ce_fwd_loss_v3`` / ``ce_bwd_loss_v3``: the forward and the f32 backward
+  with w-major labels and the phases as a runtime loop
+  (``_ce_fwd_loss_pallas3`` / ``_ce_bwd_loss_pallas3``, ``_fwd_loss_kernel3``
+  / ``_bwd_loss_kernel3``).
+
+Their CUDA kernels are in ``csrc/ce_phase.cu`` and take uint8 labels (the
+bench's and the train batch's); the unrolled ones take s in {2, 4}, the
+runtime loops 1 ≤ s ≤ 8. Their plain versions are the loss
+pair's, applied after the labels are put back in natural layout
+(``phase_to_natural``), the backward's result kept in f32.
 """
 
 from __future__ import annotations
@@ -50,7 +71,9 @@ from ._dispatch import ptr, require, stream_of, use_kernel
 
 __all__ = ["ce_upsampled_loss", "ce_upsampled_loss_bwd", "ce_upsampled_loss_torch",
            "ce_upsampled_loss_bwd_torch", "ce_upsampled_nll", "ce_upsampled_nll_bwd",
-           "ce_upsampled_nll_torch", "ce_upsampled_nll_bwd_torch", "valid_safe"]
+           "ce_upsampled_nll_torch", "ce_upsampled_nll_bwd_torch", "valid_safe",
+           "labels_to_phase", "labels_to_phase_w", "phase_to_natural", "ce_bwd_loss_v2",
+           "ce_fwd_loss_v5", "ce_fwd_loss_v3", "ce_bwd_loss_v3"]
 
 # classes one warp lane holds: a warp covers up to 32·CPL classes
 _MAX_CLASSES = 256
@@ -100,6 +123,11 @@ def ce_upsampled_loss_torch(logits: torch.Tensor, labels: torch.Tensor, s: int,
 def ce_upsampled_loss_bwd_torch(logits: torch.Tensor, labels: torch.Tensor,
                                 g: torch.Tensor, s: int, img_w: float) -> torch.Tensor:
     """dlogits (logits' dtype) for the cotangent g of ``wsum``."""
+    return _loss_bwd_f32(logits, labels, g, s, img_w).to(logits.dtype)
+
+
+def _loss_bwd_f32(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tensor, s: int,
+                  img_w: float) -> torch.Tensor:
     _check_shapes(logits, labels, s, "ce_upsampled_loss_bwd")
     c = logits.shape[-1]
     x = logits.detach().float().requires_grad_(True)
@@ -111,7 +139,7 @@ def ce_upsampled_loss_bwd_torch(logits: torch.Tensor, labels: torch.Tensor,
         t.scatter_add_(1, safe[:, None], -torch.ones_like(t[:, :1]))
         t = t * torch.where(valid, g.float() * img_w, 0.0)[:, None]
     (dx,) = torch.autograd.grad(up, x, t)
-    return dx.to(logits.dtype)
+    return dx
 
 
 def _kernel_inputs(logits: torch.Tensor, labels: torch.Tensor, s: int, op: str):
@@ -305,3 +333,144 @@ def ce_upsampled_nll(logits: torch.Tensor, labels: torch.Tensor, s: int,
 
 ce_upsampled_nll.launches = 0
 ce_upsampled_nll_bwd.launches = 0
+
+
+# ---- the TPU kernels' phase layouts: the CE microbench's variants -------------
+
+
+def labels_to_phase(labels: torch.Tensor, s: int) -> torch.Tensor:
+    """(N, H, W) → (N, h, s·s, w), phase = ph·s + pw (h-major)."""
+    n, hh, ww = labels.shape
+    h, w = hh // s, ww // s
+    return labels.reshape(n, h, s, w, s).permute(0, 1, 2, 4, 3).reshape(n, h, s * s, w)
+
+
+def phase_to_natural(x_ph: torch.Tensor, s: int) -> torch.Tensor:
+    """(N, h, s·s, w) → (N, H, W): inverse of ``labels_to_phase``."""
+    n, h, _, w = x_ph.shape
+    return x_ph.reshape(n, h, s, s, w).permute(0, 1, 2, 4, 3).reshape(n, h * s, w * s)
+
+
+def labels_to_phase_w(labels: torch.Tensor, s: int) -> torch.Tensor:
+    """(N, H, W) → (N, h, w, s·s): [n, k, v, ph·s + pw] = labels[n, s·k + ph,
+    s·v + pw] (w-major)."""
+    n, hh, ww = labels.shape
+    h, w = hh // s, ww // s
+    return labels.reshape(n, h, s, w, s).permute(0, 1, 3, 2, 4).reshape(n, h, w, s * s)
+
+
+def _natural(labels: torch.Tensor, s: int, w_major: bool) -> torch.Tensor:
+    return phase_to_natural(labels.transpose(2, 3) if w_major else labels, s)
+
+
+def _check_phase(logits: torch.Tensor, labels: torch.Tensor, s: int, w_major: bool,
+                 op: str) -> None:
+    if logits.dim() != 4:
+        raise ValueError(f"{op}: logits (N, h, w, C), got {tuple(logits.shape)}")
+    n, h, w, _ = logits.shape
+    want = (n, h, w, s * s) if w_major else (n, h, s * s, w)
+    if tuple(labels.shape) != want:
+        raise ValueError(f"{op}: labels {tuple(labels.shape)} are not the "
+                         f"{'w' if w_major else 'h'}-major phase layout {want} of logits "
+                         f"{tuple(logits.shape)} at scale {s}")
+
+
+def _phase_inputs(logits, labels, s: int, unrolled: bool, op: str):
+    logits, labels, _ = _kernel_inputs(logits, labels, s, op)
+    require(labels.dtype == torch.uint8, op, f"labels of dtype {labels.dtype} (uint8 only)")
+    if unrolled:
+        require(s in (2, 4), op, f"scale {s} (the unrolled phases: 2 or 4)")
+    else:
+        require(1 <= s <= 8, op, f"scale {s} (1 to 8)")
+    return logits, labels
+
+
+def _phase_fwd_launch(logits, labels, s: int, img_w: float, count_acc: bool, unrolled: bool,
+                      op: str):
+    logits, labels = _phase_inputs(logits, labels, s, unrolled, op)
+    n, h, w, c = logits.shape
+    partial = torch.empty((n * h * -(-w // 32), 2), device=logits.device, dtype=torch.float32)
+    dev, stream = stream_of(logits)
+    rc = _build.library("ce_phase").ce_phase_fwd_loss(
+        ptr(logits, op), ptr(labels, op), ptr(partial, op), n, h, w, c, s, int(unrolled),
+        float(img_w), int(count_acc), dev, stream)
+    _build.check(rc, op)
+    sums = partial.sum(dim=0)
+    return sums[0], sums[1]
+
+
+def _phase_bwd_launch(logits, labels, ct: torch.Tensor, s: int, img_w: float, w_major: bool,
+                      unrolled: bool, op: str) -> torch.Tensor:
+    logits, labels = _phase_inputs(logits, labels, s, unrolled, op)
+    require(ct.numel() == 1, op, f"a cotangent of shape {tuple(ct.shape)} (one value)")
+    n, h, w, c = logits.shape
+    g = ct.detach().to(device=logits.device, dtype=torch.float32).reshape(1).contiguous()
+    out = torch.empty(logits.shape, device=logits.device, dtype=torch.float32)
+    dev, stream = stream_of(logits)
+    rc = _build.library("ce_phase").ce_phase_bwd_loss(
+        ptr(logits, op), ptr(labels, op), ptr(g, op), ptr(out, op), n, h, w, c, s,
+        int(w_major), int(unrolled), float(img_w), dev, stream)
+    _build.check(rc, op)
+    return out
+
+
+def ce_bwd_loss_v2(logits: torch.Tensor, labels_ph: torch.Tensor, ct: torch.Tensor, s: int,
+                   img_w: float, force: str | None = None) -> torch.Tensor:
+    """f32 dlogits (N, h, w, C) for the cotangent ct of wsum, labels h-major
+    (N, h, s², w). force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'."""
+    op = "ce_bwd_loss_v2"
+    _check_phase(logits, labels_ph, s, False, op)
+    if not use_kernel(force, logits, op):
+        return _loss_bwd_f32(logits, _natural(labels_ph, s, False), ct, s, img_w)
+    out = _phase_bwd_launch(logits, labels_ph, ct, s, img_w, False, True, op)
+    ce_bwd_loss_v2.launches += 1
+    return out
+
+
+def ce_fwd_loss_v5(logits: torch.Tensor, labels_phw: torch.Tensor, s: int, img_w: float,
+                   count_acc: bool = True, force: str | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(wsum, corr) with labels w-major (N, h, w, s²), the phases unrolled.
+    force as for ``ce_bwd_loss_v2``."""
+    op = "ce_fwd_loss_v5"
+    _check_phase(logits, labels_phw, s, True, op)
+    if not use_kernel(force, logits, op):
+        return ce_upsampled_loss_torch(logits, _natural(labels_phw, s, True), s, img_w,
+                                       count_acc)
+    out = _phase_fwd_launch(logits, labels_phw, s, img_w, count_acc, True, op)
+    ce_fwd_loss_v5.launches += 1
+    return out
+
+
+def ce_fwd_loss_v3(logits: torch.Tensor, labels_phw: torch.Tensor, s: int, img_w: float,
+                   count_acc: bool = True, force: str | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(wsum, corr) with labels w-major (N, h, w, s²), the phases a runtime
+    loop. force as for ``ce_bwd_loss_v2``."""
+    op = "ce_fwd_loss_v3"
+    _check_phase(logits, labels_phw, s, True, op)
+    if not use_kernel(force, logits, op):
+        return ce_upsampled_loss_torch(logits, _natural(labels_phw, s, True), s, img_w,
+                                       count_acc)
+    out = _phase_fwd_launch(logits, labels_phw, s, img_w, count_acc, False, op)
+    ce_fwd_loss_v3.launches += 1
+    return out
+
+
+def ce_bwd_loss_v3(logits: torch.Tensor, labels_phw: torch.Tensor, ct: torch.Tensor, s: int,
+                   img_w: float, force: str | None = None) -> torch.Tensor:
+    """f32 dlogits (N, h, w, C) with labels w-major (N, h, w, s²), the phases a
+    runtime loop. force as for ``ce_bwd_loss_v2``."""
+    op = "ce_bwd_loss_v3"
+    _check_phase(logits, labels_phw, s, True, op)
+    if not use_kernel(force, logits, op):
+        return _loss_bwd_f32(logits, _natural(labels_phw, s, True), ct, s, img_w)
+    out = _phase_bwd_launch(logits, labels_phw, ct, s, img_w, True, False, op)
+    ce_bwd_loss_v3.launches += 1
+    return out
+
+
+ce_bwd_loss_v2.launches = 0
+ce_fwd_loss_v5.launches = 0
+ce_fwd_loss_v3.launches = 0
+ce_bwd_loss_v3.launches = 0

@@ -28,6 +28,25 @@ and V, ds = p∘(dP − Σ dP∘p) in f32, ds rounded to q's dtype for dq and dK
 p rounded for dV, dbias = Σ over windows of the f32 ds, dq = (dq_h rounded
 to q's dtype)·scale, rounded again.
 
+Two module switches, named and defaulted as in the JAX package and read
+when the op's forward runs, choose the backward:
+
+- ``_BWD = "recompute"`` (the default) takes the backward above;
+  ``"kernel"`` makes the forward also write the normalised softmax p
+  (``cfm_attention_probs``, the same kernel with its probabilities output;
+  the TPU kernel's ``_cfm_attention_pallas_impl(..., with_probs=True)``)
+  and keeps (q, K, V, p) for the backward ``cfm_attention_bwd_probs``
+  (``csrc/attention_bwd.cu`` in its probabilities mode), which replaces
+  ``_cfm_attention_bwd_pallas`` (``_bwd_kernel``): no q·Kᵀ recompute and no
+  exps. p is (nW, nh, 49, N) and held from the forward to the backward.
+- ``_PROBS_DTYPE = torch.float32``: the dtype p is kept in; None keeps it in
+  q's dtype (bf16 on the card), which moves the gradients by about 1 %.
+
+``cfm_attention_probs_torch`` and ``cfm_attention_bwd_probs_torch`` are the
+plain versions: the forward above returning p (f32 softmax, cast to the
+probabilities' dtype), and ``_bwd_kernel``'s arithmetic from ``probs.float()``
+on, as in the recompute backward.
+
 ``attention_launch`` launches the forward kernel without counting; the
 whole-block path (``ops/stage_block.py``) uses it for its attention step.
 """
@@ -42,11 +61,20 @@ from . import _build
 from ._dispatch import SMEM_LIMIT, ptr, require, stream_of, use_kernel
 
 __all__ = ["cfm_attention", "cfm_attention_torch", "cfm_attention_bwd",
-           "cfm_attention_bwd_torch", "attention_launch", "scale_in"]
+           "cfm_attention_bwd_torch", "cfm_attention_probs", "cfm_attention_probs_torch",
+           "cfm_attention_bwd_probs", "cfm_attention_bwd_probs_torch", "attention_launch",
+           "scale_in"]
 
 # windows per backward block are chosen so that about this many blocks
 # per SM share the heads' work (dbias partials: one per block)
 _BWD_BLOCKS_PER_SM = 2
+
+# the backward of cfm_attention: "recompute" (the softmax recomputed from q
+# and K) or "kernel" (the forward saves p, the backward reads it)
+_BWD = "recompute"
+# the dtype of the saved p; None: q's dtype
+_PROBS_DTYPE = torch.float32
+_BWD_MODES = ("recompute", "kernel")
 
 
 def scale_in(dtype: torch.dtype, value: float) -> float:
@@ -56,9 +84,8 @@ def scale_in(dtype: torch.dtype, value: float) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def cfm_attention_torch(q: torch.Tensor, ks: Sequence[torch.Tensor],
-                        vs: Sequence[torch.Tensor], bias: torch.Tensor,
-                        mask: torch.Tensor, nh: int) -> torch.Tensor:
+def _fwd_torch(q, ks, vs, bias, mask, nh: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, the f32 softmax p (nW, nh, 49, N)) with the kernel's arithmetic."""
     n_w, area, c = q.shape
     hd = c // nh
     dt = q.dtype
@@ -71,9 +98,27 @@ def cfm_attention_torch(q: torch.Tensor, ks: Sequence[torch.Tensor],
     s = qh @ kh.transpose(-1, -2)
     s = s + bias.float()[None]
     s = s + mask.float()[:, None, None, :]
-    p = torch.softmax(s, dim=-1).to(dt)
-    out = (p.float() @ vh).to(dt)
-    return out.transpose(1, 2).reshape(n_w, area, c)
+    p = torch.softmax(s, dim=-1)
+    out = (p.to(dt).float() @ vh).to(dt)
+    return out.transpose(1, 2).reshape(n_w, area, c), p
+
+
+def cfm_attention_torch(q: torch.Tensor, ks: Sequence[torch.Tensor],
+                        vs: Sequence[torch.Tensor], bias: torch.Tensor,
+                        mask: torch.Tensor, nh: int) -> torch.Tensor:
+    return _fwd_torch(q, ks, vs, bias, mask, nh)[0]
+
+
+def _probs_dtype(q: torch.Tensor) -> torch.dtype:
+    return _PROBS_DTYPE or q.dtype
+
+
+def cfm_attention_probs_torch(q: torch.Tensor, ks: Sequence[torch.Tensor],
+                              vs: Sequence[torch.Tensor], bias: torch.Tensor,
+                              mask: torch.Tensor, nh: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, p): p (nW, nh, 49, N) in ``_PROBS_DTYPE`` (None: q's dtype)."""
+    out, p = _fwd_torch(q, ks, vs, bias, mask, nh)
+    return out, p.to(_probs_dtype(q))
 
 
 def _pick_warps(lib, n: int, hd: int, lq: int, bias: bool, mask: bool, op: str) -> int:
@@ -87,11 +132,14 @@ def _pick_warps(lib, n: int, hd: int, lq: int, bias: bool, mask: bool, op: str) 
 
 def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor | None, mask: torch.Tensor | None, nh: int,
-                     q_scale: float, k_scale: float, op: str) -> torch.Tensor:
+                     q_scale: float, k_scale: float, op: str,
+                     probs: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the attention kernel: q (G, Lq, C), k/v (G, N, C) bf16 → bf16.
 
     bias (nh, Lq, N) and mask (G, N) are f32 or None; q_scale / k_scale
-    multiply q / K, rounding to bf16, before the scores. No count."""
+    multiply q / K, rounding to bf16, before the scores. ``probs``, when
+    given, (G, nh, Lq, N) f32 or bf16, receives the normalised softmax. No
+    count."""
     require(q.is_cuda, op, "a CPU tensor")
     for name, t in (("q", q), ("k", k), ("v", v)):
         require(t.dtype == torch.bfloat16, op, f"{name} of dtype {t.dtype} (bf16 only)")
@@ -109,13 +157,18 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         require(mask.dtype == torch.float32 and tuple(mask.shape) == (g, n), op,
                 f"mask {mask.dtype} {tuple(mask.shape)}")
+    if probs is not None:
+        require(probs.dtype in (torch.float32, torch.bfloat16)
+                and tuple(probs.shape) == (g, nh, lq, n), op,
+                f"probs {probs.dtype} {tuple(probs.shape)} (f32 or bf16, {(g, nh, lq, n)})")
     lib = _build.library("attention")
     nwarps = _pick_warps(lib, n, hd, lq, bias is not None, mask is not None, op)
     out = torch.empty_like(q)
     dev, stream = stream_of(q)
     rc = lib.attention_fwd(ptr(q, op), ptr(k, op), ptr(v, op), ptr(bias, op),
-                           ptr(mask, op), ptr(out, op), g, lq, n, nh, hd, c,
-                           q_scale, k_scale, nwarps, dev, stream)
+                           ptr(mask, op), ptr(out, op), ptr(probs, op),
+                           int(probs is not None and probs.dtype == torch.bfloat16), g, lq, n,
+                           nh, hd, c, q_scale, k_scale, nwarps, dev, stream)
     _build.check(rc, op)
     return out
 
@@ -131,17 +184,13 @@ def _merge(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).reshape(g, l, nh * hd)
 
 
-def cfm_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            bias: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
-                            nh: int) -> tuple[torch.Tensor, ...]:
-    """(dq, dk, dv, dbias) of the packed attention for the output cotangent g."""
+def _bwd_from_p(q, k, v, p, g, nh: int) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, dbias) from the f32 softmax p (nW, nh, 49, N), with
+    ``_bwd_kernel``'s roundings (the recompute backward's too)."""
     dt = q.dtype
     sc = scale_in(dt, (q.shape[-1] // nh) ** -0.5)
     qh = _heads(q * sc, nh).float()
     kh, vh, gh = _heads(k, nh).float(), _heads(v, nh).float(), _heads(g.to(dt), nh).float()
-    s = qh @ kh.transpose(-1, -2) + bias.float()[None]
-    s = s + mask.float()[:, None, None, :]
-    p = torch.softmax(s, dim=-1)
     dp = gh @ vh.transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     dsb = ds.to(dt).float()
@@ -152,8 +201,27 @@ def cfm_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ds.sum(dim=0))
 
 
-def _bwd_launch(q, k, v, bias, mask, g, nh: int) -> tuple[torch.Tensor, ...]:
-    op = "cfm_attention_bwd"
+def cfm_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bias: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
+                            nh: int) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, dbias) of the packed attention for the output cotangent g."""
+    sc = scale_in(q.dtype, (q.shape[-1] // nh) ** -0.5)
+    s = _heads(q * sc, nh).float() @ _heads(k, nh).float().transpose(-1, -2) + bias.float()[None]
+    s = s + mask.float()[:, None, None, :]
+    return _bwd_from_p(q, k, v, torch.softmax(s, dim=-1), g, nh)
+
+
+def cfm_attention_bwd_probs_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  probs: torch.Tensor, g: torch.Tensor,
+                                  nh: int) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, dbias) from the forward's p (nW, nh, 49, N), any float dtype."""
+    return _bwd_from_p(q, k, v, probs.float(), g, nh)
+
+
+def _bwd_launch(q, k, v, bias, mask, g, nh: int, probs=None) -> tuple[torch.Tensor, ...]:
+    """The backward kernel: the softmax recomputed from bias and mask, or,
+    with ``probs``, read from the forward's p (bias and mask then None)."""
+    op = "cfm_attention_bwd" if probs is None else "cfm_attention_bwd_probs"
     require(q.is_cuda, op, "a CPU tensor")
     for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
         require(t.dtype == torch.bfloat16 and t.dim() == 3, op,
@@ -164,10 +232,15 @@ def _bwd_launch(q, k, v, bias, mask, g, nh: int) -> tuple[torch.Tensor, ...]:
             f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, g {tuple(g.shape)}")
     require(c % nh == 0 and c // nh in (32, 64), op, f"C={c} over {nh} heads (head dim 32 or 64)")
     hd = c // nh
-    require(bias.dtype == torch.float32 and tuple(bias.shape) == (nh, lq, n), op,
-            f"bias {bias.dtype} {tuple(bias.shape)}")
-    require(mask.dtype == torch.float32 and tuple(mask.shape) == (n_w, n), op,
-            f"mask {mask.dtype} {tuple(mask.shape)}")
+    if probs is None:
+        require(bias.dtype == torch.float32 and tuple(bias.shape) == (nh, lq, n), op,
+                f"bias {bias.dtype} {tuple(bias.shape)}")
+        require(mask.dtype == torch.float32 and tuple(mask.shape) == (n_w, n), op,
+                f"mask {mask.dtype} {tuple(mask.shape)}")
+    else:
+        require(probs.dtype in (torch.float32, torch.bfloat16)
+                and tuple(probs.shape) == (n_w, nh, lq, n), op,
+                f"probs {probs.dtype} {tuple(probs.shape)} (f32 or bf16, {(n_w, nh, lq, n)})")
     require(lq <= 64, op, f"{lq} query rows (at most 64)")
     lib = _build.library("attention_bwd")
     require(0 < lib.attention_bwd_smem_bytes(n, hd, lq) <= SMEM_LIMIT, op,
@@ -180,10 +253,16 @@ def _bwd_launch(q, k, v, bias, mask, g, nh: int) -> tuple[torch.Tensor, ...]:
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     partial = torch.empty((tiles, nh, lq, n), device=q.device, dtype=torch.float32)
     dev, stream = stream_of(q)
-    rc = lib.attention_bwd(ptr(q, op), ptr(k, op), ptr(v, op), ptr(bias, op), ptr(mask, op),
-                           ptr(g, op), ptr(dq, op), ptr(dk, op), ptr(dv, op), ptr(partial, op),
-                           n_w, lq, n, nh, hd, c, scale_in(q.dtype, hd ** -0.5), tw, dev,
-                           stream)
+    scale = scale_in(q.dtype, hd ** -0.5)
+    if probs is None:
+        rc = lib.attention_bwd(ptr(q, op), ptr(k, op), ptr(v, op), ptr(bias, op), ptr(mask, op),
+                               ptr(g, op), ptr(dq, op), ptr(dk, op), ptr(dv, op),
+                               ptr(partial, op), n_w, lq, n, nh, hd, c, scale, tw, dev, stream)
+    else:
+        rc = lib.attention_bwd_probs(ptr(q, op), ptr(k, op), ptr(v, op), ptr(probs, op),
+                                     int(probs.dtype == torch.bfloat16), ptr(g, op), ptr(dq, op),
+                                     ptr(dk, op), ptr(dv, op), ptr(partial, op), n_w, lq, n, nh,
+                                     hd, c, scale, tw, dev, stream)
     _build.check(rc, op)
     return dq, dk, dv, partial.sum(dim=0)
 
@@ -200,41 +279,91 @@ def cfm_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: t
     return out
 
 
+def cfm_attention_bwd_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            probs: torch.Tensor, g: torch.Tensor, nh: int,
+                            force: str | None = None) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, dbias) of the packed attention from the forward's p
+    (nW, nh, 49, N). force: None (kernel on CUDA, plain on CPU) | 'torch' |
+    'kernel'."""
+    if not use_kernel(force, q, "cfm_attention_bwd_probs"):
+        return cfm_attention_bwd_probs_torch(q, k, v, probs, g, nh)
+    out = _bwd_launch(q, k, v, None, None, g.contiguous(), nh, probs=probs.contiguous())
+    cfm_attention_bwd_probs.launches += 1
+    return out
+
+
+def _fwd(q, k, v, bias, mask, nh: int, kernel: bool, with_probs: bool):
+    """(out, p or None) of the packed attention; a kernel launch is counted."""
+    if not kernel:
+        if with_probs:
+            return cfm_attention_probs_torch(q, [k], [v], bias, mask, nh)
+        return cfm_attention_torch(q, [k], [v], bias, mask, nh), None
+    probs = None
+    if with_probs:
+        probs = torch.empty((q.shape[0], nh, q.shape[1], k.shape[1]), device=q.device,
+                            dtype=_probs_dtype(q))
+    out = attention_launch(q, k, v, bias, mask, nh, scale_in(q.dtype, (q.shape[-1] // nh) ** -0.5),
+                           1.0, "cfm_attention", probs=probs)
+    cfm_attention.launches += 1
+    return out, probs
+
+
 class _CFMAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, nh, force, kernel):
-        if kernel:
-            hd = q.shape[-1] // nh
-            out = attention_launch(q, k, v, bias, mask, nh, scale_in(q.dtype, hd ** -0.5),
-                                   1.0, "cfm_attention")
-            cfm_attention.launches += 1
+        if _BWD not in _BWD_MODES:
+            raise ValueError(f"cfm_attention: _BWD must be one of {_BWD_MODES}, got {_BWD!r}")
+        from_probs = _BWD == "kernel"
+        out, probs = _fwd(q, k, v, bias, mask, nh, kernel, from_probs)
+        if from_probs:
+            ctx.save_for_backward(q, k, v, probs)
         else:
-            out = cfm_attention_torch(q, [k], [v], bias, mask, nh)
-        ctx.save_for_backward(q, k, v, bias, mask)
-        ctx.args = (nh, force)
+            ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.args = (nh, force, from_probs, bias.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias, mask = ctx.saved_tensors
-        nh, force = ctx.args
-        dq, dk, dv, dbias = cfm_attention_bwd(q, k, v, bias, mask, g, nh, force=force)
-        return dq, dk, dv, dbias.to(bias.dtype), None, None, None, None
+        nh, force, from_probs, bias_dtype = ctx.args
+        if from_probs:
+            q, k, v, probs = ctx.saved_tensors
+            dq, dk, dv, dbias = cfm_attention_bwd_probs(q, k, v, probs, g, nh, force=force)
+        else:
+            q, k, v, bias, mask = ctx.saved_tensors
+            dq, dk, dv, dbias = cfm_attention_bwd(q, k, v, bias, mask, g, nh, force=force)
+        return dq, dk, dv, dbias.to(bias_dtype), None, None, None, None
+
+
+def _packed(q, ks, vs, bias, mask, kernel: bool):
+    k = torch.cat(list(ks), dim=1)
+    v = torch.cat(list(vs), dim=1)
+    if kernel:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        bias, mask = bias.float().contiguous(), mask.float().contiguous()
+    return q, k, v, bias, mask
 
 
 def cfm_attention(q: torch.Tensor, ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
                   bias: torch.Tensor, mask: torch.Tensor, nh: int,
                   force: str | None = None) -> torch.Tensor:
     """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'; the
-    backward follows the same rule (``cfm_attention_bwd``)."""
+    backward follows the same rule (``cfm_attention_bwd``, or with
+    ``_BWD = "kernel"`` ``cfm_attention_bwd_probs``)."""
     kernel = use_kernel(force, q, "cfm_attention")
-    k = torch.cat(list(ks), dim=1)
-    v = torch.cat(list(vs), dim=1)
-    if kernel:
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        bias, mask = bias.float().contiguous(), mask.float().contiguous()
-    return _CFMAttention.apply(q, k, v, bias, mask, nh, force, kernel)
+    return _CFMAttention.apply(*_packed(q, ks, vs, bias, mask, kernel), nh, force, kernel)
+
+
+def cfm_attention_probs(q: torch.Tensor, ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
+                        bias: torch.Tensor, mask: torch.Tensor, nh: int,
+                        force: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, p): the forward that ``_BWD = "kernel"`` runs, without autograd;
+    p (nW, nh, 49, N) in ``_PROBS_DTYPE`` (None: q's dtype). Its launches
+    count as ``cfm_attention``'s. force as for ``cfm_attention``."""
+    kernel = use_kernel(force, q, "cfm_attention")
+    q, k, v, bias, mask = _packed(q, ks, vs, bias, mask, kernel)
+    return _fwd(q, k, v, bias, mask, nh, kernel, True)
 
 
 cfm_attention.launches = 0
 cfm_attention_bwd.launches = 0
+cfm_attention_bwd_probs.launches = 0
