@@ -21,16 +21,20 @@ four label-layout variants of the CE loss pair.
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the device: name, ``nvidia-smi`` name and power limit, torch and CUDA;
   2. build every kernel from ``vss_cffm_tpu_torch/csrc`` (one nvcc per
-     source, all at once), timed;
+     source, all at once), timed; for the two attention kernels, what
+     ``ptxas -v`` reported per instance (registers, stack and spill bytes)
+     and the blocks one SM holds at the main path's shapes
+     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
   3. each kernel at the main path's own inputs (captured from one forward of
      the plain path), in bf16: kernel against its plain PyTorch version on the
      card (max abs error, stated tolerance), then CUDA-event times of the
      kernel, the plain version and, where one PyTorch call computes the same
-     function, that call (``library_ms``); ``bound_ms`` is the least time the
-     card could take, the largest of bytes / 3.35 TB/s, tensor ops / 989
-     TFLOP/s and f32 ops / 67 TFLOP/s (H100 SXM data-sheet peaks); the whole
-     block is also held step by step: each of its six launches against its
-     plain step, at a tolerance relative to that step's own output;
+     function, that call (``library_ms``, and kernel/library beside it);
+     ``bound_ms`` is the least time the card could take, the largest of
+     bytes / 3.35 TB/s, tensor ops / 989 TFLOP/s and f32 ops / 67 TFLOP/s
+     (H100 SXM data-sheet peaks); the whole block is also held step by
+     step: each of its six launches against its plain step, at a tolerance
+     relative to that step's own output;
   4. the main path: launch counts set to 0, CLIPS synthetic uint8 clips through
      ``inference_segmentor``, counts read and held to 4 / 2 / 4 per clip
      (whole block / CFM attention / depthwise conv); logits against the same
@@ -54,7 +58,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      forward/backward (with the output cotangent of each block pair), and
      each held against its plain version as in 3: in the default form the
      CE forward and backward at N 8 and N 2, the CFM attention forward and
-     backward at 162 windows, the depthwise conv at stage 4 and the
+     backward at 162 windows (the backward also at its first 81, beside
+     its library call), the depthwise conv at stage 4 and the
      whole-block train pair at stages 1-3, forward (its six launches step by
      step) and backward (its fifteen launches step by step, then its 17
      outputs each at its own scale); in "ffn" the block-FFN pair likewise;
@@ -404,8 +409,9 @@ def check_kernels(ops, caught, kernels: dict, profile: bool = False) -> dict:
             lib_ms = _time_ms(case["library"]) if case["library"] is not None else None
             dev_ms = _device_ms(lambda: case["call"]("kernel")) if profile else None
             bound_ms, bound_by = case["bound"]
+            ratio = f" kernel/library={ms / lib_ms:.3f}" if lib_ms else ""
             print(f"[kernel] {name} {case['shape']}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={lib_ms} bound_ms={bound_ms:.4f} ({bound_by}) "
+                  f"library_ms={lib_ms}{ratio} bound_ms={bound_ms:.4f} ({bound_by}) "
                   f"device_ms={dev_ms}", flush=True)
             per_shape.append(dict(shape=case["shape"], err=max(c[1] for c in checks), ms=ms,
                                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
@@ -1050,6 +1056,12 @@ def train_phase(apis, ops, opts, root, kind, smi, form: str) -> tuple[dict, dict
               f"{per_block} B (f32) per decoder block, {nb * per_block} B for the {nb} blocks",
               flush=True)
     stats = check_kernels(ops, caught, spec["kernels"], opts.profile)
+    if "cfm_attention_bwd" in caught:
+        # row 4 also at inference's 81 windows, checked and timed beside its
+        # library call (not part of the form's statistics)
+        check_kernels(ops, {"cfm_attention_bwd": [_first_windows(a, a[0].shape[0] // 2)
+                                                  for a in caught["cfm_attention_bwd"]]},
+                      {"cfm_attention_bwd": spec["kernels"]["cfm_attention_bwd"]}, opts.profile)
     for logits, labels, s in caught.get("ce_upsampled_nll", ()):
         # the share of valid pixels the form's OHEM mask keeps, per branch
         with torch.no_grad():
@@ -1232,6 +1244,47 @@ def _check_masks(masks, num_classes: int) -> None:
             raise RuntimeError("mask class out of range")
 
 
+# the CFM attention (B1 decoder: N 289, heads of 32, with bias and mask) and
+# the spatial-reduction attention of the MiT blocks (N 225, heads of 64,
+# neither) at the main path's shapes: (N, head dim, with bias and mask, what)
+ATTENTION_SHAPES = ((289, 32, 1, "CFM window attention"),
+                    (225, 64, 0, "spatial-reduction attention"))
+
+
+def attention_resources(build) -> None:
+    """What ``ptxas -v`` reported for each instance of the two attention
+    kernels (registers, static shared memory, stack and spill bytes), and the
+    blocks one SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
+    at the main path's shapes."""
+    cfm = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")
+    fwd, bwd = build.library("attention"), build.library("attention_bwd")
+    for src in ("attention", "attention_bwd"):
+        for k in build.ptxas_usage(src):
+            print(f"[ptxas] csrc/{src}.cu {k['kernel']}: {k['registers']} registers, "
+                  f"{k['smem']} B static smem, {k['stack']} B stack, spill stores "
+                  f"{k['spill_stores']} B, spill loads {k['spill_loads']} B", flush=True)
+    for n, hd, with_bias, what in ATTENTION_SHAPES:
+        for probs in (False, True) if with_bias else (False,):
+            print(f"[occupancy] attention_fwd N={n} hd={hd} ({what}"
+                  f"{', writing p' if probs else ''}): "
+                  f"{fwd.attention_fwd_smem_bytes(n, hd, int(probs))} B dynamic smem, "
+                  f"{cfm.blocks_per_sm('fwd', n, hd, 0, with_bias + 2 * probs)} blocks per SM",
+                  flush=True)
+    for n, hd, _, _ in ATTENTION_SHAPES:
+        for mode, label in ((0, "recompute"), (1, "f32 p"), (2, "bf16 p")):
+            print(f"[occupancy] attention_bwd N={n} hd={hd} {label}: "
+                  f"{bwd.attention_bwd_smem_bytes(n, hd)} B dynamic smem, "
+                  f"{cfm.blocks_per_sm('bwd', n, hd, 0, mode)} blocks per SM", flush=True)
+
+
+def _first_windows(args, count: int):
+    """The tensors of a backward's arguments cut to their first ``count``
+    windows (bias, shared by the windows, and nh as they are)."""
+    nw = args[0].shape[0]
+    return tuple(a[:count] if isinstance(a, torch.Tensor) and a.shape[0] == nw else a
+                 for a in args)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1264,6 +1317,7 @@ def main() -> int:
         _build.library(name)
     print(f"[build] {len(_build.SOURCES)} sources in {time.perf_counter() - tb:.1f} s",
           flush=True)
+    attention_resources(_build)
 
     # ---- model and synthetic clips -------------------------------------------
     bundle = apis.init_segmentor("b1", device="cuda", dtype=torch.bfloat16, seed=SEED)

@@ -13,6 +13,7 @@ count exactly (no near-ties at these random logits).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,7 +36,8 @@ def _inputs(seed: int, c: int, n=N, h=H, w=W):
 
 
 def _j(t: torch.Tensor):
-    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    """A JAX copy of t in bf16 (a copy: no JAX buffer aliases a tensor's memory)."""
+    return jnp.array(t.float().numpy()).astype(jnp.bfloat16)
 
 
 @pytest.mark.parametrize("shape,s", [((2, 8, 12), 4), ((1, 6, 10), 2), ((3, 9, 15), 3)])
@@ -62,7 +64,10 @@ def test_fwd_variant_plain_matches_pallas_interpret(variant, c, count_acc):
     img_w = 0.5 / labels.numel()
     phw = ops.labels_to_phase_w(labels, S)
     pallas = {"v5": jax_ce._ce_fwd_loss_pallas5, "v3": jax_ce._ce_fwd_loss_pallas3}[variant]
-    want = pallas(_j(logits), jnp.asarray(phw.numpy()), S, img_w, count_acc, interpret=True)
+    # the JAX result complete before the port runs: no JAX work in flight
+    # beside the two port calls compared bitwise below
+    want = jax.block_until_ready(pallas(_j(logits), jnp.array(phw.numpy()), S, img_w,
+                                        count_acc, interpret=True))
     op = {"v5": ops.ce_fwd_loss_v5, "v3": ops.ce_fwd_loss_v3}[variant]
     got = op(logits, phw, S, img_w, count_acc)
     np.testing.assert_allclose(got[0].item(), float(want[0]), rtol=2e-5)

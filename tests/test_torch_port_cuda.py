@@ -98,6 +98,8 @@ def test_cfm_attention_kernel_matches_plain(dev, nw, area, nh, hd, gsizes):
     ((1, 8, 8, 32), 128, 4, 1),     # one head
     ((1, 6, 7, 160), 640, 9, 5),    # five heads of 32
     ((1, 17, 9, 128), 512, 15, 2),  # heads of 64, more rows than one attention row tile
+    ((1, 30, 30, 64), 256, 225, 1),   # the spatial-reduction attention of B1 stage 3's
+    ((1, 30, 32, 128), 512, 225, 2),  # geometry: Lq 900 / 960, N 225, heads of 64
 ])
 def test_mit_block_kernel_matches_plain(dev, shape, ch, s, nh):
     """The whole block, with weights scaled so that the attention and FFN
@@ -613,3 +615,147 @@ def test_train_step_with_the_probabilities_backward(dev, monkeypatch):
     assert np.isfinite(runs[None][0])
     assert abs(runs[None][0] - runs["torch"][0]) <= 1e-2 * abs(runs["torch"][0])
     assert torch.nn.functional.cosine_similarity(runs[None][2], runs["torch"][2], dim=0) >= 0.99
+
+
+def _cfm_inputs(rng, nw, area, nh, hd, n, dev):
+    """q, K, V, bias and a -100 mask (20 % of the keys) whose window 0 keeps
+    one key only."""
+    c = nh * hd
+    q = _rand(rng, nw, area, c, dev=dev)
+    k = _rand(rng, nw, n, c, dev=dev)
+    v = _rand(rng, nw, n, c, dev=dev)
+    bias = _rand(rng, nh, area, n, dtype=torch.float32, dev=dev)
+    mask = np.where(rng.rand(nw, n) < 0.2, -100.0, 0.0).astype(np.float32)
+    mask[0] = -100.0
+    mask[0, n // 2] = 0.0
+    return q, k, v, bias, torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.parametrize("area,n,hd", [
+    (49, 5, 32),     # N below one 16-key step
+    (49, 37, 32),    # N not a multiple of it
+    (49, 289, 32),   # the B1 decoder's N, 19 steps
+    (100, 100, 32),  # Lq past one 64-row tile
+    (49, 23, 64),
+    (100, 90, 64),
+])
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_cfm_attention_kernel_edges(dev, monkeypatch, area, n, hd, p_dtype):
+    """The forward at the edges of its tiles, with and without its
+    probabilities output: out to 2^-6, f32 p to 2^-14, bf16 p to 2^-7 of the
+    largest value (as at the main path's shapes); a window masked on all keys
+    but one puts all its weight there."""
+    import importlib
+
+    monkeypatch.setattr(importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention"),
+                        "_PROBS_DTYPE", p_dtype)
+    rng = np.random.RandomState(19)
+    nh = 2
+    q, k, v, bias, mask = _cfm_inputs(rng, 3, area, nh, hd, n, dev)
+    _close(ops.cfm_attention(q, [k], [v], bias, mask, nh, force="kernel"),
+           ops.cfm_attention(q, [k], [v], bias, mask, nh, force="torch"), 2.0 ** -6)
+    out_k, p_k = ops.cfm_attention_probs(q, [k], [v], bias, mask, nh, force="kernel")
+    out_p, p_p = ops.cfm_attention_probs(q, [k], [v], bias, mask, nh, force="torch")
+    _close(out_k, out_p, 2.0 ** -6)
+    _close(p_k, p_p, 2.0 ** -14 if p_dtype == torch.float32 else 2.0 ** -7)
+    assert (p_k[0, :, :, n // 2].float() > 0.99).all()
+
+
+def _bwd_tiles(n_w, nh, n, hd, mode):
+    """(windows per block, blocks, the most blocks per head) as the backward's
+    wrapper picks them."""
+    import importlib
+
+    mod = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cap = mod.blocks_per_sm("bwd", n, hd, 0, mode) * sms // nh
+    tw = -(-n_w // max(1, min(n_w, cap)))
+    return tw, -(-n_w // tw), cap
+
+
+@pytest.mark.parametrize("nw,nh,hd,n,p_dtype", [
+    (3, 2, 32, 5, None),                 # N below one 16-key step
+    (3, 2, 32, 37, None),                # N not a multiple of it
+    (3, 2, 32, 300, torch.float32),      # five 64-key tiles, the last one ragged
+    (4, 2, 64, 90, torch.bfloat16),      # head dim 64
+    (None, 8, 32, 289, None),            # None: a window count whose last window
+    (None, 8, 32, 289, torch.float32),   # tile is shorter than the others
+    (None, 2, 32, 78, torch.bfloat16),
+])
+def test_cfm_attention_bwd_kernel_edges(dev, nw, nh, hd, n, p_dtype):
+    """The backward, recomputing the softmax (p_dtype None) or from the plain
+    forward's p in f32 or bf16, at the edges of its key steps and tiles and
+    with a last window tile shorter than the others: dq, dK, dV to 2^-6 and
+    dbias to 2^-10 of each one's largest value, as at the main path's shapes."""
+    mode = 0 if p_dtype is None else 1 if p_dtype == torch.float32 else 2
+    if nw is None:  # past one window per block, the first count with a ragged last tile
+        nw = _bwd_tiles(1, nh, n, hd, mode)[2] + 1
+        while nw % _bwd_tiles(nw, nh, n, hd, mode)[0] == 0:
+            nw += 1
+        tw, tiles, _ = _bwd_tiles(nw, nh, n, hd, mode)
+        assert tw > 1 and tiles > 1 and nw % tw != 0, (nw, tw, tiles)
+    rng = np.random.RandomState(20)
+    q, k, v, bias, mask = _cfm_inputs(rng, nw, 49, nh, hd, n, dev)
+    g = _rand(rng, nw, 49, nh * hd, dev=dev)
+    if p_dtype is None:
+        got = ops.cfm_attention_bwd(q, k, v, bias, mask, g, nh, force="kernel")
+        want = ops.cfm_attention_bwd(q, k, v, bias, mask, g, nh, force="torch")
+    else:
+        _, p = ops.cfm_attention_probs_torch(q, [k], [v], bias, mask, nh)
+        p = p.to(p_dtype)
+        got = ops.cfm_attention_bwd_probs(q, k, v, p, g, nh, force="kernel")
+        want = ops.cfm_attention_bwd_probs(q, k, v, p, g, nh, force="torch")
+    for a, b, rel in zip(got, want, (2.0 ** -6,) * 3 + (2.0 ** -10,)):
+        _close(a, b, rel)
+
+
+@pytest.mark.parametrize("p_dtype", [None, torch.float32, torch.bfloat16])
+def test_cfm_attention_bwd_is_deterministic(dev, p_dtype):
+    """Two backward runs on the same inputs are bitwise equal (the dbias
+    partials are summed in a fixed order, no atomics), at the train step's
+    window count."""
+    rng = np.random.RandomState(21)
+    q, k, v, bias, mask = _cfm_inputs(rng, 162, 49, 8, 32, 289, dev)
+    g = _rand(rng, 162, 49, 256, dev=dev)
+    if p_dtype is None:
+        run = lambda: ops.cfm_attention_bwd(q, k, v, bias, mask, g, 8, force="kernel")
+    else:
+        p = ops.cfm_attention_probs_torch(q, [k], [v], bias, mask, 8)[1].to(p_dtype)
+        run = lambda: ops.cfm_attention_bwd_probs(q, k, v, p, g, 8, force="kernel")
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_softmax_division_is_the_operators(dev):
+    """The attention kernels' p = e / sum (``vss::div_rn``: a reciprocal per
+    row, two corrections, no branch) against the ``/`` operator on the
+    kernels' operands: e = exp(x) for x in [-110, 0], and e of every binary
+    exponent down to 2^-149, over sums in [1, 4096]. Bit for bit for a
+    quotient of 2^-110 or more; below it (a p that no tolerance sees, where
+    the remainder can fall under the subnormal grid) within one ulp."""
+    from vss_cffm_tpu_torch.ops import _build
+    from vss_cffm_tpu_torch.ops._dispatch import ptr, stream_of
+
+    gen = torch.Generator().manual_seed(23)
+    n = 1 << 24
+    k = torch.arange(0, 150).repeat_interleave(4096)
+    a = torch.cat([torch.exp(-110.0 * torch.rand(n, generator=gen, dtype=torch.float64)),
+                   (1.0 + torch.rand(k.numel(), generator=gen, dtype=torch.float64))
+                   * torch.pow(2.0, -k.double()),
+                   torch.tensor([1.0, 0.0, 1.0, 1.0], dtype=torch.float64)]).float()
+    b = torch.cat([1.0 + 4095.0 * torch.rand(n + k.numel(), generator=gen),
+                   torch.tensor([1.0, 289.0, 3.0, 4096.0])])
+    a, b = a.to(dev), b.to(dev)
+    q, q_ref = torch.empty_like(a), torch.empty_like(a)
+    op = "attention_div_check"
+    dev_i, stream = stream_of(a)
+    _build.check(_build.library("attention").attention_div_check(
+        ptr(a, op), ptr(b, op), ptr(q, op), ptr(q_ref, op), a.numel(), dev_i, stream), op)
+    torch.cuda.synchronize()
+    big = q_ref >= 2.0 ** -110
+    assert big.float().mean().item() > 0.6
+    assert torch.equal(q[big], q_ref[big])
+    small, small_ref = q[~big].double(), q_ref[~big].double()
+    assert ((small - small_ref).abs() <= 2.0 ** -23 * small_ref + 2.0 ** -149).all()

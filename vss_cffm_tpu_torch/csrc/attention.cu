@@ -1,5 +1,5 @@
-// Multi-head attention forward with an optional additive bias and mask,
-// whole key axis resident in shared memory.
+// Multi-head attention forward with an optional additive bias and mask:
+// scores in registers, K and V in shared memory.
 //
 // Replaces the TPU kernel vss_cffm_tpu/ops/cfm_attention.py:
 // _cfm_attention_pallas_impl (_fwd_kernel): the CFM window attention of every
@@ -12,271 +12,264 @@
 // attention inside the whole-block path (ops/stage_block.py), with the scale
 // folded into K and no bias or mask.
 //
-// Bound on the H100: memory for the CFM shapes (q, K, V, bias and mask are
-// read once; about 2·Lq·N·hd·2 FLOP per (group, head) is little work per
-// byte). Design: one block per (group, head, tile of 16·nwarps query rows).
-// The block copies its q rows, the group's whole K and V head slices, its
-// bias rows and the mask row into shared memory with cp.async, all in flight
-// at once (zero rows pad N up to a multiple of 16). Each warp computes its 16
-// query rows' scores for all keys with bf16 wmma tiles (f32 accumulation),
-// then takes the exact f32 max-subtracted softmax of score + bias + mask over
-// its 16 rows together (16 independent chains per lane, so shared-memory
-// latency overlaps), rounds P to bf16 and multiplies by V with wmma again.
-// Scores never reach device memory. Scaling rounds to bf16 like the reference
-// (q·scale in q's dtype for CFM, K·scale in K's dtype for the MiT block).
-// The caller picks nwarps so that shared memory fits the SM's 227 KB; at the
-// main path's shapes that leaves one block of 4 warps per SM, so latency, not
-// the bytes, bounds the kernel: flash-style tiles with register-resident
-// scores are the later fix.
-#include <cuda_pipeline.h>
-#include <mma.h>
-
+// Bound on the H100: neither bytes nor tensor ops at the CFM shapes (q
+// (nW, 49, 256), K/V (nW, 289, 256), 8 heads of 32): a (window, head) holds
+// ~0.6 MFLOP of products against ~40 KB of K/V, so what limits the kernel
+// is latency, and the lever is the number of blocks in flight.
+// Design: one block of 4 warps per (64 query rows, head, group), each warp
+// owning 16 query rows, whose q fragments (scaled and rounded to bf16 like
+// the reference) it loads once into registers. Shared memory holds only the
+// group's K and V head slices (N padded to 16 with zero rows, chunks
+// XOR-swizzled for conflict-free ldmatrix), staged with cp.async in two
+// groups so that the first pass starts when K has landed: 38 KB at head dim
+// 32 and N 289, and launch bounds that hold a thread to 96 registers, so 5
+// blocks share an SM (the SM's carveout set to its largest). Scores live in
+// registers: mma.sync m16n8k16 tiles of 16 keys, bias and mask read from
+// global memory (L2) straight into the accumulator layout, one step ahead of
+// their use, (S + bias) + mask in f32. Two passes over the key tiles: the
+// first keeps each row's running max and sum of exps, the second recomputes
+// S, forms the normalised p = exp(s - max) / sum, packs it to bf16 A
+// fragments in registers (the accumulator layout of two n-blocks is the A
+// operand layout) and multiplies by V fragments read with ldmatrix.trans,
+// accumulating out in f32. When p is asked for, it goes through a (16, 64)
+// f32 tile per warp in shared memory and out row by row, 32 lanes on
+// consecutive addresses (18 KB more: 4 blocks per SM then). So the
+// reference's rounding points stay: bf16(normalised p), f32 P·V, one bf16
+// cast; e = expf(s - max) and p = e / sum rounded as the `/` operator rounds
+// it, from a reciprocal of the sum taken once per row and two corrections
+// (vss::div_rn: the operator's branch to its slow path made the kernel 1.5x
+// slower). wgmma is not
+// used: at head dim 32 and 49 queries the products are not the limit, and
+// 64-row warpgroup tiles would only add padding.
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "mma_sync.cuh"
 
 namespace {
 
+constexpr int kWarps = 4;
+constexpr int kRows = 16 * kWarps;  // query rows per block
+
 __host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
 
-// Layout (bytes) of the dynamic shared memory for one block.
-struct Smem {
-  int R, Np, ls, hd, N, brows, mlen;
-  __host__ __device__ Smem(int nwarps, int N_, int hd_, int Lq, bool bias, bool mask) {
-    R = 16 * nwarps;
-    Np = round16(N_);
-    hd = hd_;
-    N = N_;
-    ls = Np > hd ? Np : hd;  // score rows also stage the (16, hd) output tile
-    brows = bias ? (R < Lq ? R : Lq) : 0;
-    mlen = mask ? N_ : 0;
-  }
-  __host__ __device__ size_t q_off() const { return 0; }
-  __host__ __device__ size_t k_off() const { return q_off() + (size_t)R * hd * 2; }
-  __host__ __device__ size_t v_off() const { return k_off() + (size_t)Np * hd * 2; }
-  __host__ __device__ size_t s_off() const { return v_off() + (size_t)Np * hd * 2; }
-  __host__ __device__ size_t p_off() const { return s_off() + (size_t)R * ls * 4; }
-  __host__ __device__ size_t b_off() const { return p_off() + (size_t)R * Np * 2; }
-  // bias rows (stride N) and mask row, each with 4 floats of slack so that
-  // it can start at its source's offset modulo 16 bytes
-  __host__ __device__ size_t m_off() const { return b_off() + run_bytes(brows * N); }
-  __host__ __device__ size_t bytes() const { return m_off() + run_bytes(mlen); }
-  __host__ __device__ static size_t run_bytes(int n) {
-    return n ? ((size_t)n * 4 + 16 + 15) / 16 * 16 : 0;
-  }
-};
+// rows of a warp's p staging tile: 64 f32 columns, padded to 72 so that the
+// float2 stores of the accumulator layout meet no bank twice
+constexpr int kPStride = 72;
 
-// Copy n floats from src to dst by the whole block with cp.async; dst and src
-// are equal modulo 16 bytes, src lying `mis` floats past a 16-byte boundary.
-__device__ __forceinline__ void copy_floats(float* dst, const float* src, int n, int mis) {
-  const int head = min(n, (4 - mis) & 3);          // up to the first boundary
-  const int body = (n - head) / 4 * 4;             // whole 16-byte chunks
-  for (int i = threadIdx.x; i < head; i += blockDim.x) __pipeline_memcpy_async(dst + i, src + i, 4);
-  for (int i = head + threadIdx.x * 4; i < head + body; i += blockDim.x * 4)
-    __pipeline_memcpy_async(dst + i, src + i, 16);
-  for (int i = head + body + threadIdx.x; i < n; i += blockDim.x)
-    __pipeline_memcpy_async(dst + i, src + i, 4);
+// dynamic shared memory of one block: K and V, (round16(N), HD) bf16 each,
+// and with probabilities a (16, 64) f32 staging tile per warp
+__host__ __device__ inline size_t smem_bytes(int N, int hd, bool probs) {
+  return (size_t)round16(N) * hd * 2 * 2 + (probs ? (size_t)kWarps * 16 * kPStride * 4 : 0);
 }
 
-// x[i] = bf16(x[i] * s) over n (a multiple of 8) elements, by the whole block
-__device__ __forceinline__ void scale_bf16(__nv_bfloat16* x, int n, float s) {
-  for (int c = threadIdx.x * 8; c < n; c += blockDim.x * 8) {
-    float f[8];
-    vss::load8(x + c, f);
+// q[row, col..col+1] of this (group, head) scaled and rounded to bf16 as the
+// reference rounds q·scale, packed; zero past the last row
+__device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* qg, int row, int Lq, int C,
+                                           int col, float s) {
+  if (row >= Lq) return 0u;
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(qg + (long long)row * C + col);
+  if (s == 1.f) return u;
+  const float2 f = vss::unpack_bf16(u);
+  return vss::pack_bf16(f.x * s, f.y * s);
+}
+
+// Step n0's bias and mask into b, m (loaded one step earlier into bn, mn),
+// and step n0 + 16's requested into bn, mn: the L2 latency overlaps a step's
+// math. Nothing without bias and mask (BM false).
+template <bool BM>
+__device__ __forceinline__ void next_bias_mask(float (&b)[8], float (&m)[4], float (&bn)[8],
+                                               float (&mn)[4], const float* b_lo,
+                                               const float* b_hi, const float* mrow, int n0,
+                                               int t2, int N) {
+  if constexpr (BM) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = f[i] * s;
-    vss::store8(x + c, f);
+    for (int i = 0; i < 8; ++i) b[i] = bn[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m[i] = mn[i];
+    vss::load_bias(bn, b_lo, b_hi, n0 + 16, t2, N);
+    vss::load_mask(mn, mrow, n0 + 16, t2, N);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(128) attention_fwd_kernel(
+template <int HD, bool BM>
+__global__ void __launch_bounds__(32 * kWarps, HD == 32 ? 5 : 3) attention_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
     const float* __restrict__ mask, __nv_bfloat16* __restrict__ out, void* __restrict__ probs,
     int probs_bf16, int Lq, int N, int C, float q_scale, float k_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int nwarps = blockDim.x / 32;
-  const Smem L(nwarps, N, HD, Lq, bias != nullptr, mask != nullptr);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L.q_off());
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L.k_off());
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + L.v_off());
-  float* S = reinterpret_cast<float*>(smem + L.s_off());
-  __nv_bfloat16* P = reinterpret_cast<__nv_bfloat16*>(smem + L.p_off());
-  float* Bs = reinterpret_cast<float*>(smem + L.b_off());  // bias rows, stride N
-  float* Ms = reinterpret_cast<float*>(smem + L.m_off());  // mask row
-
-  const int row0 = blockIdx.x * L.R;
-  const int rows = min(L.R, Lq - row0);  // valid query rows of this block
+  constexpr int CH = HD / 8;  // 16-byte chunks per head row
+  const int Np = round16(N);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Vs = Ks + Np * HD;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.y;
   const long long g = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  constexpr int CH = HD / 8;  // 16-byte chunks per head row
+  const int t2 = (lane & 3) * 2;
 
-  // ---- stage q rows, K / V head slices, bias rows and mask: all in flight --
-  for (int c = tid; c < L.R * CH; c += blockDim.x) {
-    const int r = c / CH, d = (c % CH) * 8;
-    if (r < rows)
-      __pipeline_memcpy_async(qs + r * HD + d, q + (g * Lq + row0 + r) * C + h * HD + d, 16);
-    else
-      *reinterpret_cast<uint4*>(qs + r * HD + d) = make_uint4(0, 0, 0, 0);
-  }
-  for (int c = tid; c < L.Np * CH; c += blockDim.x) {
+  // ---- K, then V, in flight as two cp.async groups; zero rows pad to Np -----
+  const __nv_bfloat16* kg = k + g * N * C + h * HD;
+  const __nv_bfloat16* vg = v + g * N * C + h * HD;
+  for (int c = tid; c < Np * CH; c += blockDim.x) {
     const int n = c / CH, d = (c % CH) * 8;
-    if (n < N) {
-      const long long off = (g * N + n) * C + h * HD + d;
-      __pipeline_memcpy_async(ks + n * HD + d, k + off, 16);
-      __pipeline_memcpy_async(vs + n * HD + d, v + off, 16);
-    } else {
-      *reinterpret_cast<uint4*>(ks + n * HD + d) = make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(vs + n * HD + d) = make_uint4(0, 0, 0, 0);
-    }
+    if (n < N)
+      vss::cp_async16(Ks + vss::swz<HD>(n, d), kg + (long long)n * C + d);
+    else
+      vss::zero16(Ks + vss::swz<HD>(n, d));
   }
-  // The block's bias rows are one contiguous run of floats, and so is the
-  // mask row; each lands at its source's offset modulo 16 bytes, so that its
-  // aligned middle goes in 16-byte copies and only the ragged ends in 4-byte
-  // ones.
-  if (L.brows) {
-    const float* src = bias + ((long long)h * Lq + row0) * N;
-    Bs += (reinterpret_cast<size_t>(src) & 15) / 4;
-    copy_floats(Bs, src, rows * N, (reinterpret_cast<size_t>(src) & 15) / 4);
+  vss::cp_async_commit();
+  for (int c = tid; c < Np * CH; c += blockDim.x) {
+    const int n = c / CH, d = (c % CH) * 8;
+    if (n < N)
+      vss::cp_async16(Vs + vss::swz<HD>(n, d), vg + (long long)n * C + d);
+    else
+      vss::zero16(Vs + vss::swz<HD>(n, d));
   }
-  if (L.mlen) {
-    const float* src = mask + g * N;
-    Ms += (reinterpret_cast<size_t>(src) & 15) / 4;
-    copy_floats(Ms, src, N, (reinterpret_cast<size_t>(src) & 15) / 4);
-  }
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  // the scale, rounded to bf16 with the product as in the reference
-  if (q_scale != 1.f) scale_bf16(qs, L.R * HD, q_scale);
-  if (k_scale != 1.f) scale_bf16(ks, L.Np * HD, k_scale);
-  __syncthreads();
+  vss::cp_async_commit();
 
-  // ---- scores: this warp's 16 rows x all keys, f32 in shared memory -------
-  const int r0 = warp * 16;
-  float* Sw = S + (size_t)r0 * L.ls;
-  __nv_bfloat16* Pw = P + (size_t)r0 * L.Np;
-  {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[HD / 16];
+  // ---- this warp's q fragments, scaled and rounded, in registers -----------
+  const int r_lo = blockIdx.x * kRows + warp * 16 + (lane >> 2), r_hi = r_lo + 8;
+  const __nv_bfloat16* qg = q + g * Lq * C + h * HD;
+  uint32_t qa[HD / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wmma::load_matrix_sync(a[kk], qs + r0 * HD + kk * 16, HD);
-    for (int j = 0; j < L.Np / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, ks + j * 16 * HD + kk * 16, HD);
-        wmma::mma_sync(acc, a[kk], b, acc);
-      }
-      wmma::store_matrix_sync(Sw + j * 16, acc, L.ls, wmma::mem_row_major);
-    }
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    qa[kk][0] = q_pair(qg, r_lo, Lq, C, kk * 16 + t2, q_scale);
+    qa[kk][1] = q_pair(qg, r_hi, Lq, C, kk * 16 + t2, q_scale);
+    qa[kk][2] = q_pair(qg, r_lo, Lq, C, kk * 16 + 8 + t2, q_scale);
+    qa[kk][3] = q_pair(qg, r_hi, Lq, C, kk * 16 + 8 + t2, q_scale);
   }
-  __syncwarp();
+  // bias rows (rows past Lq read the last row: finite, never written) and mask
+  const float* b_lo = BM ? bias + ((long long)h * Lq + min(r_lo, Lq - 1)) * N : nullptr;
+  const float* b_hi = BM ? bias + ((long long)h * Lq + min(r_hi, Lq - 1)) * N : nullptr;
+  const float* mrow = BM ? mask + g * N : nullptr;
 
-  // ---- (score + bias) + mask, exact f32 softmax, P rounded to bf16 --------
-  // The warp's 16 rows are walked together, lane owning columns lane + 32·i,
-  // with no branch inside the loops so that the 16 rows' shared-memory
-  // accesses overlap. Rows past the valid ones compute on finite stand-ins
-  // (zero q rows, the last valid bias row) and get P = 0.
-  const int nv = max(0, min(16, rows - r0));  // valid rows of this warp
-  if (nv > 0) {
-    const float* Bw = Bs + (size_t)r0 * N;
-    float mx[16], sm[16];
+  vss::cp_async_wait<1>();  // K has landed
+  __syncthreads();
+  if (k_scale != 1.f) {  // K·scale rounded to bf16, as the reference (block path)
+    for (int c = tid; c < N * CH; c += blockDim.x) {
+      __nv_bfloat16* p = Ks + vss::swz<HD>(c / CH, (c % CH) * 8);
+      float f[8];
+      vss::load8(p, f);
 #pragma unroll
-    for (int u = 0; u < 16; ++u) {
-      mx[u] = -3.402823466e38f;  // every row holds >= 1 finite score
-      sm[u] = 0.f;
+      for (int i = 0; i < 8; ++i) f[i] = f[i] * k_scale;
+      vss::store8(p, f);
     }
-    for (int n = lane; n < N; n += 32) {
-      const float mk = L.mlen ? Ms[n] : 0.f;
+    __syncthreads();
+  }
+
+  // ---- pass 1: each row's max and sum of exps (running, rescaled) ----------
+  float mx[2] = {-3.402823466e38f, -3.402823466e38f}, sm[2] = {0.f, 0.f};
+  float b[8] = {}, m[4] = {}, bn[8] = {}, mn[4] = {};
+  if constexpr (BM) {
+    vss::load_bias(bn, b_lo, b_hi, 0, t2, N);
+    vss::load_mask(mn, mrow, 0, t2, N);
+  }
+  for (int n0 = 0; n0 < Np; n0 += 16) {
+    float s[2][4];
+    next_bias_mask<BM>(b, m, bn, mn, b_lo, b_hi, mrow, n0, t2, N);
+    vss::mma_xt<HD>(s, qa, Ks, n0, lane);
+    vss::add_bias_mask<BM>(s, b, m, n0, t2, N);
+    vss::softmax_step(mx, sm, s);
+  }
+  vss::softmax_rows(mx, sm);
+  const float inv[2] = {vss::recip(sm[0]), vss::recip(sm[1])};
+
+  // ---- pass 2: p = exp(s - max) / sum, p written if asked, out += bf16(p) V -
+  vss::cp_async_wait<0>();  // V has landed
+  __syncthreads();
+  float o[HD / 8][4];
 #pragma unroll
-      for (int u = 0; u < 16; ++u) {
-        float s = Sw[(size_t)u * L.ls + n];
-        if (L.brows) s = s + Bw[(size_t)min(u, nv - 1) * N + n];
-        if (L.mlen) s = s + mk;
-        Sw[(size_t)u * L.ls + n] = s;
-        mx[u] = fmaxf(mx[u], s);
+  for (int d = 0; d < HD / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  // p of this warp's first row in probs (G, nh, Lq, N), and its staging tile
+  const int row_w = blockIdx.x * kRows + warp * 16;
+  const long long p_w = ((g * gridDim.y + h) * Lq + row_w) * (long long)N;
+  float* Pw = reinterpret_cast<float*>(Vs + Np * HD) + warp * 16 * kPStride;
+  if constexpr (BM) {
+    vss::load_bias(bn, b_lo, b_hi, 0, t2, N);
+    vss::load_mask(mn, mrow, 0, t2, N);
+  }
+  for (int n0 = 0; n0 < Np; n0 += 16) {
+    float s[2][4];
+    next_bias_mask<BM>(b, m, bn, mn, b_lo, b_hi, mrow, n0, t2, N);
+    vss::mma_xt<HD>(s, qa, Ks, n0, lane);
+    vss::add_bias_mask<BM>(s, b, m, n0, t2, N);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = vss::div_rn(expf(s[j][e] - mx[e >> 1]), sm[e >> 1], inv[e >> 1]);
+    if (probs != nullptr) {
+      // p into the warp's staging tile; each 64 keys (or the last step) go
+      // out row by row, 32 lanes on consecutive addresses
+      const int c0 = n0 & 63;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = c0 + 8 * j + t2;
+        *reinterpret_cast<float2*>(Pw + (lane >> 2) * kPStride + c) =
+            make_float2(s[j][0], s[j][1]);
+        *reinterpret_cast<float2*>(Pw + ((lane >> 2) + 8) * kPStride + c) =
+            make_float2(s[j][2], s[j][3]);
       }
-    }
-#pragma unroll
-    for (int u = 0; u < 16; ++u) mx[u] = vss::warp_max(mx[u]);
-    for (int n = lane; n < N; n += 32) {
-#pragma unroll
-      for (int u = 0; u < 16; ++u) {
-        const float e = expf(Sw[(size_t)u * L.ls + n] - mx[u]);
-        Sw[(size_t)u * L.ls + n] = e;
-        sm[u] += e;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 16; ++u) sm[u] = vss::warp_sum(sm[u]);
-    // p rows of this warp in the probabilities output (G, nh, Lq, N)
-    const long long prow = ((g * gridDim.y + h) * Lq + row0 + r0) * (long long)N;
-    for (int n = lane; n < L.Np; n += 32) {
-#pragma unroll
-      for (int u = 0; u < 16; ++u) {
-        const float pv = n < N ? Sw[(size_t)u * L.ls + n] / sm[u] : 0.f;
-        Pw[(size_t)u * L.Np + n] = __float2bfloat16_rn(u < nv ? pv : 0.f);
-        if (probs != nullptr && u < nv && n < N) {
-          if (probs_bf16)
-            static_cast<__nv_bfloat16*>(probs)[prow + (long long)u * N + n] =
-                __float2bfloat16_rn(pv);
-          else
-            static_cast<float*>(probs)[prow + (long long)u * N + n] = pv;
+      if (c0 == 48 || n0 + 16 == Np) {
+        __syncwarp();
+        const int t0 = n0 - c0, width = min(c0 + 16, N - t0);
+        for (int r = 0; r < 16 && row_w + r < Lq; ++r) {
+          const long long base = p_w + (long long)r * N + t0;
+          for (int c = lane; c < width; c += 32) {
+            if (probs_bf16)
+              static_cast<__nv_bfloat16*>(probs)[base + c] =
+                  __float2bfloat16_rn(Pw[r * kPStride + c]);
+            else
+              static_cast<float*>(probs)[base + c] = Pw[r * kPStride + c];
+          }
         }
+        __syncwarp();
       }
     }
-  } else {
-    for (int i = lane; i < 16 * L.Np; i += 32) Pw[i] = __float2bfloat16_rn(0.f);
+    const uint32_t a[4] = {vss::pack_bf16(s[0][0], s[0][1]), vss::pack_bf16(s[0][2], s[0][3]),
+                           vss::pack_bf16(s[1][0], s[1][1]), vss::pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int d = 0; d < HD; d += 16) {
+      uint32_t b[4];
+      vss::load_b<HD>(b, Vs, n0, d, lane);
+      vss::mma16816(o[d / 8], a, b[0], b[1]);
+      vss::mma16816(o[d / 8 + 1], a, b[2], b[3]);
+    }
   }
-  __syncwarp();
 
-  // ---- out = P · V (f32 accumulation), staged through this warp's S rows --
-  {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[HD / 16];
+  // ---- out rows, one bf16 cast ---------------------------------------------
+  __nv_bfloat16* og = out + g * Lq * C + h * HD;
 #pragma unroll
-    for (int d = 0; d < HD / 16; ++d) wmma::fill_fragment(o[d], 0.f);
-    for (int kt = 0; kt < L.Np / 16; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Pw + kt * 16, L.Np);
-#pragma unroll
-      for (int d = 0; d < HD / 16; ++d) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, vs + kt * 16 * HD + d * 16, HD);
-        wmma::mma_sync(o[d], a, b, o[d]);
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < HD / 16; ++d)
-      wmma::store_matrix_sync(Sw + d * 16, o[d], L.ls, wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int c = lane; c < nv * CH; c += 32) {
-    const int r = c / CH, d = (c % CH) * 8;
-    float f[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = Sw[(size_t)r * L.ls + d + i];
-    vss::store8(out + (g * Lq + row0 + r0 + r) * C + h * HD + d, f);
+  for (int d = 0; d < HD / 8; ++d) {
+    if (r_lo < Lq)
+      *reinterpret_cast<uint32_t*>(og + (long long)r_lo * C + d * 8 + t2) =
+          vss::pack_bf16(o[d][0], o[d][1]);
+    if (r_hi < Lq)
+      *reinterpret_cast<uint32_t*>(og + (long long)r_hi * C + d * 8 + t2) =
+          vss::pack_bf16(o[d][2], o[d][3]);
   }
 }
 
-template <int HD>
+// the kernel's shared memory, and the largest carveout of the SM for it, so
+// that as many blocks as the occupancy calculator counts share an SM
+template <int HD, bool BM>
+cudaError_t prepare(size_t bytes) {
+  cudaError_t e = cudaFuncSetAttribute(attention_fwd_kernel<HD, BM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(attention_fwd_kernel<HD, BM>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int HD, bool BM>
 int launch(const void* q, const void* k, const void* v, const void* bias, const void* mask,
            void* out, void* probs, int probs_bf16, int G, int Lq, int N, int nh, int C,
-           float q_scale, float k_scale, int nwarps, cudaStream_t s) {
-  const Smem L(nwarps, N, HD, Lq, bias != nullptr, mask != nullptr);
-  const size_t bytes = L.bytes();
-  cudaError_t e = cudaFuncSetAttribute(attention_fwd_kernel<HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bytes);
+           float q_scale, float k_scale, cudaStream_t s) {
+  const size_t bytes = smem_bytes(N, HD, probs != nullptr);
+  cudaError_t e = prepare<HD, BM>(bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Lq + L.R - 1) / L.R, nh, G);
-  attention_fwd_kernel<HD><<<grid, 32 * nwarps, bytes, s>>>(
+  dim3 grid((Lq + kRows - 1) / kRows, nh, G);
+  attention_fwd_kernel<HD, BM><<<grid, 32 * kWarps, bytes, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(out), probs, probs_bf16, Lq,
@@ -284,30 +277,82 @@ int launch(const void* q, const void* k, const void* v, const void* bias, const 
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+template <int HD, bool BM>
+int blocks_per_sm(int N, bool probs) {
+  const size_t bytes = smem_bytes(N, HD, probs);
+  cudaError_t e = prepare<HD, BM>(bytes);
+  if (e != cudaSuccess) return -(int)e;
+  int n = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attention_fwd_kernel<HD, BM>,
+                                                    32 * kWarps, bytes);
+  return e == cudaSuccess ? n : -(int)e;
+}
 
-// q/out (G, Lq, C) bf16, k/v (G, N, C) bf16 with C = nh*hd (head h owns
-// channels [h*hd, (h+1)*hd)); bias (nh, Lq, N) f32 or null; mask (G, N) f32
-// or null; probs (G, nh, Lq, N), bf16 when probs_bf16 else f32, or null.
-// hd in {32, 64}, the head dims of every MiT-B* stage and CFFM decoder;
-// nwarps in 1..4. Returns a cudaError_t.
-VSS_EXPORT int attention_fwd(const void* q, const void* k, const void* v, const void* bias,
-                             const void* mask, void* out, void* probs, int probs_bf16, int G,
-                             int Lq, int N, int nh, int hd, int C, float q_scale,
-                             float k_scale, int nwarps, int device, void* stream) {
-  cudaSetDevice(device);
-  if (G == 0 || Lq == 0) return 0;
-  if (nwarps < 1 || nwarps > 4 || N < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32: return launch<32>(q, k, v, bias, mask, out, probs, probs_bf16, G, Lq, N, nh, C, q_scale, k_scale, nwarps, s);
-    case 64: return launch<64>(q, k, v, bias, mask, out, probs, probs_bf16, G, Lq, N, nh, C, q_scale, k_scale, nwarps, s);
-    default: return (int)cudaErrorInvalidValue;
+// q[i] = a[i] / b[i] by the kernels' division (vss::div_rn) and q_ref[i] by
+// the `/` operator, for the card test that holds one to the other
+__global__ void div_check_kernel(const float* a, const float* b, float* q, float* q_ref,
+                                 int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    q[i] = vss::div_rn(a[i], b[i], vss::recip(b[i]));
+    q_ref[i] = a[i] / b[i];
   }
 }
 
-// Dynamic shared memory one block needs (the wrapper picks nwarps with it).
-VSS_EXPORT int attention_smem_bytes(int N, int hd, int nwarps, int Lq, int has_bias,
-                                    int has_mask) {
-  return (int)Smem(nwarps, N, hd, Lq, has_bias != 0, has_mask != 0).bytes();
+}  // namespace
+
+// q/out (G, Lq, C) bf16, k/v (G, N, C) bf16 with C = nh*hd (head h owns
+// channels [h*hd, (h+1)*hd)); bias (nh, Lq, N) f32 and mask (G, N) f32, both
+// or neither; probs (G, nh, Lq, N), bf16 when probs_bf16 else f32, or null.
+// hd in {32, 64}, the head dims of every MiT-B* stage and CFFM decoder; K
+// and V of one (group, head) must fit one block's shared memory. Returns a
+// cudaError_t.
+VSS_EXPORT int attention_fwd(const void* q, const void* k, const void* v, const void* bias,
+                             const void* mask, void* out, void* probs, int probs_bf16, int G,
+                             int Lq, int N, int nh, int hd, int C, float q_scale,
+                             float k_scale, int device, void* stream) {
+  cudaSetDevice(device);
+  if (G == 0 || Lq == 0) return 0;
+  if (N < 1 || (bias == nullptr) != (mask == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define VSS_FWD(HD, BM) \
+  return launch<HD, BM>(q, k, v, bias, mask, out, probs, probs_bf16, G, Lq, N, nh, C, q_scale, k_scale, s)
+  if (hd == 32 && bias) VSS_FWD(32, true);
+  if (hd == 32) VSS_FWD(32, false);
+  if (hd == 64 && bias) VSS_FWD(64, true);
+  if (hd == 64) VSS_FWD(64, false);
+#undef VSS_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one block at N keys and head dim hd, writing
+// probabilities or not: the wrapper's gate against the card's limit.
+VSS_EXPORT int attention_fwd_smem_bytes(int N, int hd, int with_probs) {
+  return (int)smem_bytes(N, hd, with_probs != 0);
+}
+
+// Blocks of the kernel one SM holds at N keys and head dim hd, with bias and
+// mask or without, writing probabilities or not
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); minus a cudaError_t on
+// failure.
+VSS_EXPORT int attention_fwd_blocks_per_sm(int N, int hd, int with_bias, int with_probs,
+                                           int device) {
+  cudaSetDevice(device);
+  if (N < 1) return -(int)cudaErrorInvalidValue;
+  const bool p = with_probs != 0;
+  if (hd == 32) return with_bias ? blocks_per_sm<32, true>(N, p) : blocks_per_sm<32, false>(N, p);
+  if (hd == 64) return with_bias ? blocks_per_sm<64, true>(N, p) : blocks_per_sm<64, false>(N, p);
+  return -(int)cudaErrorInvalidValue;
+}
+
+// The softmax's division two ways over n pairs (a, b on the device): the
+// kernels' and the `/` operator's. Returns a cudaError_t.
+VSS_EXPORT int attention_div_check(const void* a, const void* b, void* q, void* q_ref, int n,
+                                   int device, void* stream) {
+  cudaSetDevice(device);
+  if (n <= 0) return 0;
+  div_check_kernel<<<(n + 255) / 256, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(q),
+      static_cast<float*>(q_ref), n);
+  return (int)cudaGetLastError();
 }

@@ -21,18 +21,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 
-__all__ = ["library", "build_all", "check", "SOURCES", "BUILD_DIR"]
+__all__ = ["library", "build_all", "check", "ptxas_usage", "SOURCES", "BUILD_DIR"]
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("dwconv", "attention", "block_gemm", "attention_bwd", "ce_upsampled", "gemm_tn",
            "block_bwd", "sra_attention_bwd", "ce_phase")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -44,8 +45,10 @@ _SIGNATURES = {
         "dwconv3x3_nhwc": "pppppiiiiiiip",
     },
     "attention": {
-        "attention_fwd": "pppppppiiiiiiiffiip",
-        "attention_smem_bytes": "iiiiii",
+        "attention_fwd": "pppppppiiiiiiiffip",
+        "attention_fwd_smem_bytes": "iii",
+        "attention_fwd_blocks_per_sm": "iiiii",
+        "attention_div_check": "ppppiip",
     },
     "block_gemm": {
         "gemm_ln_bias_res": "pppppppppiiiiiiiifip",
@@ -53,7 +56,8 @@ _SIGNATURES = {
     "attention_bwd": {
         "attention_bwd": "ppppppppppiiiiiifiip",
         "attention_bwd_probs": "ppppipppppiiiiiifiip",
-        "attention_bwd_smem_bytes": "iii",
+        "attention_bwd_smem_bytes": "ii",
+        "attention_bwd_blocks_per_sm": "iiii",
     },
     "ce_upsampled": {
         "ce_fwd_loss": "pppiiiiiifiip",
@@ -129,6 +133,8 @@ def _finish_build(name: str, job) -> None:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n{out}")
+    with open(f"{dst}.log", "w") as fh:  # ptxas -v: registers, spills per kernel
+        fh.write(out)
     os.replace(tmp, dst)
 
 
@@ -161,6 +167,37 @@ def library(name: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _libs[name] = lib
     return _libs[name]
+
+
+def ptxas_usage(name: str) -> list[dict]:
+    """Per kernel of ``csrc/<name>.cu`` as ``ptxas -v`` reported it when the
+    library was built: {"kernel" (mangled), "registers", "stack",
+    "spill_stores", "spill_loads", "smem" (static bytes)}; [] when the
+    library was built without its log."""
+    path = f"{_lib_path(name)}.log"
+    if not os.path.exists(path):
+        return []
+    out, cur = [], None
+    with open(path) as fh:
+        for line in fh:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = {"kernel": m.group(1), "registers": 0, "stack": 0, "spill_stores": 0,
+                       "spill_loads": 0, "smem": 0}
+                out.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def check(rc: int, what: str) -> None:

@@ -28,9 +28,13 @@ def use_kernel(force: str | None, x: torch.Tensor, op: str) -> bool:
     return x.is_cuda
 
 
-def require(cond: bool, op: str, what: str) -> None:
-    """Raise the wrapper's refusal when a kernel cannot take its inputs."""
+def require(cond: bool, op: str, what) -> None:
+    """Raise the wrapper's refusal when a kernel cannot take its inputs;
+    ``what`` is the reason, or a callable that formats it (only on refusal,
+    so that a hot wrapper does not format shapes on every call)."""
     if not cond:
+        if callable(what):
+            what = what()
         raise ValueError(f"{op}: the CUDA kernel does not take this input: {what}")
 
 

@@ -112,7 +112,11 @@ def ce_upsampled_loss_torch(logits: torch.Tensor, labels: torch.Tensor, s: int,
     valid, safe = valid_safe(labels, c)
     lse = torch.logsumexp(up, dim=1)
     picked = up.gather(1, safe[:, None])[:, 0]
-    wsum = torch.where(valid, lse - picked, 0.0).sum() * img_w
+    # the per-pixel terms summed in f64 over one contiguous run: an f32 sum
+    # moves by ulps with the order the reduction takes, an f64 sum rounded
+    # once to f32 does not, so equal labels give one answer
+    terms = torch.where(valid, lse - picked, 0.0).contiguous()
+    wsum = (terms.double().sum() * img_w).float()
     if count_acc:
         corr = (valid & (picked == up.amax(dim=1))).sum().float()
     else:

@@ -49,10 +49,15 @@ on, as in the recompute backward.
 
 ``attention_launch`` launches the forward kernel without counting; the
 whole-block path (``ops/stage_block.py``) uses it for its attention step.
+The wrappers' gates ask the libraries for a block's shared memory
+(``attention_fwd_smem_bytes``, ``attention_bwd_smem_bytes``), and
+``blocks_per_sm`` gives the blocks one SM holds (the backward's window
+tiles fill one wave of them).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -63,11 +68,7 @@ from ._dispatch import SMEM_LIMIT, ptr, require, stream_of, use_kernel
 __all__ = ["cfm_attention", "cfm_attention_torch", "cfm_attention_bwd",
            "cfm_attention_bwd_torch", "cfm_attention_probs", "cfm_attention_probs_torch",
            "cfm_attention_bwd_probs", "cfm_attention_bwd_probs_torch", "attention_launch",
-           "scale_in"]
-
-# windows per backward block are chosen so that about this many blocks
-# per SM share the heads' work (dbias partials: one per block)
-_BWD_BLOCKS_PER_SM = 2
+           "blocks_per_sm", "scale_in"]
 
 # the backward of cfm_attention: "recompute" (the softmax recomputed from q
 # and K) or "kernel" (the forward saves p, the backward reads it)
@@ -77,6 +78,7 @@ _PROBS_DTYPE = torch.float32
 _BWD_MODES = ("recompute", "kernel")
 
 
+@functools.lru_cache(maxsize=None)
 def scale_in(dtype: torch.dtype, value: float) -> float:
     """The attention scale rounded to ``dtype``, as JAX's weak-typed scalar
     is: x·scale_in(x.dtype, s) then rounds like x · s in x's dtype. A Python
@@ -121,13 +123,27 @@ def cfm_attention_probs_torch(q: torch.Tensor, ks: Sequence[torch.Tensor],
     return out, p.to(_probs_dtype(q))
 
 
-def _pick_warps(lib, n: int, hd: int, lq: int, bias: bool, mask: bool, op: str) -> int:
-    for nwarps in (4, 2, 1):
-        if lib.attention_smem_bytes(n, hd, nwarps, lq, int(bias), int(mask)) <= SMEM_LIMIT:
-            return nwarps
-    require(False, op, f"{n} keys at head dim {hd}: K, V and one warp's scores "
-                       f"exceed {SMEM_LIMIT} bytes of shared memory")
-    return 0
+_occupancy: dict = {}
+
+
+def blocks_per_sm(kind: str, n: int, hd: int, device: int, mode: int = 0) -> int:
+    """Blocks of the forward (kind "fwd"; mode 1 with bias and mask, 0
+    without, + 2 when it writes probabilities) or backward ("bwd"; mode 0
+    recompute, 1 f32 p, 2 bf16 p) kernel one SM holds, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; cached per shape."""
+    key = (kind, n, hd, device, mode)
+    if key not in _occupancy:
+        if kind == "fwd":
+            got = _build.library("attention").attention_fwd_blocks_per_sm(
+                n, hd, mode & 1, mode >> 1, device)
+        else:
+            got = _build.library("attention_bwd").attention_bwd_blocks_per_sm(
+                n, hd, mode, device)
+        if got <= 0:
+            raise RuntimeError(f"attention {kind}: no block fits an SM at N={n}, hd={hd} "
+                               f"(CUDA error {-got})")
+        _occupancy[key] = got
+    return _occupancy[key]
 
 
 def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -142,33 +158,40 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     count."""
     require(q.is_cuda, op, "a CPU tensor")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        require(t.dtype == torch.bfloat16, op, f"{name} of dtype {t.dtype} (bf16 only)")
-        require(t.dim() == 3, op, f"{name} of shape {tuple(t.shape)}")
+        require(t.dtype == torch.bfloat16, op, lambda: f"{name} of dtype {t.dtype} (bf16 only)")
+        require(t.dim() == 3, op, lambda: f"{name} of shape {tuple(t.shape)}")
     g, lq, c = q.shape
     n = k.shape[1]
     require(tuple(k.shape) == (g, n, c) and k.shape == v.shape, op,
-            f"k {tuple(k.shape)} / v {tuple(v.shape)} against q {tuple(q.shape)}")
-    require(c % nh == 0, op, f"C={c} not divisible by {nh} heads")
+            lambda: f"k {tuple(k.shape)} / v {tuple(v.shape)} against q {tuple(q.shape)}")
+    require(c % nh == 0, op, lambda: f"C={c} not divisible by {nh} heads")
     hd = c // nh
-    require(hd in (32, 64), op, f"head dim {hd} (32 or 64)")
+    require(hd in (32, 64), op, lambda: f"head dim {hd} (32 or 64)")
     if bias is not None:
         require(bias.dtype == torch.float32 and tuple(bias.shape) == (nh, lq, n), op,
-                f"bias {bias.dtype} {tuple(bias.shape)}")
+                lambda: f"bias {bias.dtype} {tuple(bias.shape)}")
     if mask is not None:
         require(mask.dtype == torch.float32 and tuple(mask.shape) == (g, n), op,
-                f"mask {mask.dtype} {tuple(mask.shape)}")
+                lambda: f"mask {mask.dtype} {tuple(mask.shape)}")
+    require((bias is None) == (mask is None), op,
+            "a bias without a mask or a mask without a bias (both or neither)")
     if probs is not None:
         require(probs.dtype in (torch.float32, torch.bfloat16)
                 and tuple(probs.shape) == (g, nh, lq, n), op,
-                f"probs {probs.dtype} {tuple(probs.shape)} (f32 or bf16, {(g, nh, lq, n)})")
+                lambda: f"probs {probs.dtype} {tuple(probs.shape)} "
+                        f"(f32 or bf16, {(g, nh, lq, n)})")
+    require(g <= 65535 and nh <= 65535, op,
+            lambda: f"{g} groups of {nh} heads (at most 65535 each)")
     lib = _build.library("attention")
-    nwarps = _pick_warps(lib, n, hd, lq, bias is not None, mask is not None, op)
+    require(lib.attention_fwd_smem_bytes(n, hd, int(probs is not None)) <= SMEM_LIMIT, op,
+            lambda: f"{n} keys at head dim {hd}: K and V exceed {SMEM_LIMIT} bytes of "
+                    "shared memory")
     out = torch.empty_like(q)
     dev, stream = stream_of(q)
     rc = lib.attention_fwd(ptr(q, op), ptr(k, op), ptr(v, op), ptr(bias, op),
                            ptr(mask, op), ptr(out, op), ptr(probs, op),
                            int(probs is not None and probs.dtype == torch.bfloat16), g, lq, n,
-                           nh, hd, c, q_scale, k_scale, nwarps, dev, stream)
+                           nh, hd, c, q_scale, k_scale, dev, stream)
     _build.check(rc, op)
     return out
 
@@ -225,34 +248,40 @@ def _bwd_launch(q, k, v, bias, mask, g, nh: int, probs=None) -> tuple[torch.Tens
     require(q.is_cuda, op, "a CPU tensor")
     for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
         require(t.dtype == torch.bfloat16 and t.dim() == 3, op,
-                f"{name} {t.dtype} {tuple(t.shape)} (bf16, 3-d)")
+                lambda: f"{name} {t.dtype} {tuple(t.shape)} (bf16, 3-d)")
     n_w, lq, c = q.shape
     n = k.shape[1]
     require(tuple(k.shape) == (n_w, n, c) and k.shape == v.shape and g.shape == q.shape, op,
-            f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, g {tuple(g.shape)}")
-    require(c % nh == 0 and c // nh in (32, 64), op, f"C={c} over {nh} heads (head dim 32 or 64)")
+            lambda: f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                    f"g {tuple(g.shape)}")
+    require(c % nh == 0 and c // nh in (32, 64), op,
+            lambda: f"C={c} over {nh} heads (head dim 32 or 64)")
     hd = c // nh
     if probs is None:
         require(bias.dtype == torch.float32 and tuple(bias.shape) == (nh, lq, n), op,
-                f"bias {bias.dtype} {tuple(bias.shape)}")
+                lambda: f"bias {bias.dtype} {tuple(bias.shape)}")
         require(mask.dtype == torch.float32 and tuple(mask.shape) == (n_w, n), op,
-                f"mask {mask.dtype} {tuple(mask.shape)}")
+                lambda: f"mask {mask.dtype} {tuple(mask.shape)}")
     else:
         require(probs.dtype in (torch.float32, torch.bfloat16)
                 and tuple(probs.shape) == (n_w, nh, lq, n), op,
-                f"probs {probs.dtype} {tuple(probs.shape)} (f32 or bf16, {(n_w, nh, lq, n)})")
-    require(lq <= 64, op, f"{lq} query rows (at most 64)")
+                lambda: f"probs {probs.dtype} {tuple(probs.shape)} "
+                        f"(f32 or bf16, {(n_w, nh, lq, n)})")
+    require(lq <= 64, op, lambda: f"{lq} query rows (at most 64)")
+    require(nh <= 65535, op, lambda: f"{nh} heads (at most 65535)")
     lib = _build.library("attention_bwd")
-    require(0 < lib.attention_bwd_smem_bytes(n, hd, lq) <= SMEM_LIMIT, op,
-            f"{n} keys and {lq} queries at head dim {hd} exceed {SMEM_LIMIT} bytes of "
-            "shared memory")
+    require(lib.attention_bwd_smem_bytes(n, hd) <= SMEM_LIMIT, op,
+            lambda: f"{n} keys at head dim {hd} exceed {SMEM_LIMIT} bytes of shared memory")
+    dev, stream = stream_of(q)
+    # one wave: as many window tiles per head as blocks fit on the card at once
+    # (each tile writes one dbias partial)
+    mode = 0 if probs is None else 1 if probs.dtype == torch.float32 else 2
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    tiles = max(1, min(n_w, _BWD_BLOCKS_PER_SM * sms // nh))
+    tiles = max(1, min(n_w, blocks_per_sm("bwd", n, hd, dev, mode) * sms // nh))
     tw = -(-n_w // tiles)
     tiles = -(-n_w // tw)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     partial = torch.empty((tiles, nh, lq, n), device=q.device, dtype=torch.float32)
-    dev, stream = stream_of(q)
     scale = scale_in(q.dtype, hd ** -0.5)
     if probs is None:
         rc = lib.attention_bwd(ptr(q, op), ptr(k, op), ptr(v, op), ptr(bias, op), ptr(mask, op),

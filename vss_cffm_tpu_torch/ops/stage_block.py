@@ -807,24 +807,17 @@ mit_block_train.launches = 0
 mit_block_train_bwd.launches = 0
 
 
-def attention_fwd_smem(n: int, dh: int) -> int:
-    """Shared memory of one 1-warp block of ``csrc/attention.cu`` without bias
-    or mask (its ``Smem``): q rows, K and V, f32 scores and bf16 P."""
-    np_ = round16(n)
-    return 16 * dh * 2 + np_ * dh * 2 * 2 + 16 * max(np_, dh) * 4 + 16 * np_ * 2
-
-
 def mit_block_train_fits(h: int, w: int, c: int, ch: int, nh: int, n_kv: int) -> bool:
     """Whether the train pair's launches take an (h, w, c) block with hidden
     width ch, nh heads and n_kv keys, forward and backward: head dim 32 or
     64, widths multiples of 8, C <= 512 (the LayerNorm backward's rows), the
-    attention forward and backward within one block's shared memory. The
-    MiT block runs composed otherwise, on every device alike."""
+    attention backward within one block's shared memory (it holds the
+    forward's K and V and more, so the forward then fits too). The MiT block
+    runs composed otherwise, on every device alike."""
     if nh < 1 or c % nh or n_kv < 1 or h < 1 or w < 1:
         return False
     dh = c // nh
     return (dh in (32, 64) and c % 8 == 0 and ch % 8 == 0 and c <= 512
-            and attention_fwd_smem(n_kv, dh) <= SMEM_LIMIT
             and sra_attention_bwd_smem(n_kv, dh) <= SMEM_LIMIT)
 
 
