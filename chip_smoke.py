@@ -61,13 +61,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      backward at 162 windows (the backward also at its first 81, beside
      its library call), the depthwise conv at stage 4 and the
      whole-block train pair at stages 1-3, forward (its six launches step by
-     step) and backward (its fifteen launches step by step, then its 17
+     step) and backward (its twelve launches step by step, then its 17
      outputs each at its own scale); in "ffn" the block-FFN pair likewise;
      composed, the depthwise conv with its pre-activation output at the
      four stages; in "ohem" the per-pixel CE pair at N 8 and N 2 (nll, lse,
      pred and dlogits) and the share of valid pixels that OHEM kept (near 1
-     at thresh 0.7 with random weights: the CPU tests are where the mask
-     bites); in "train_probs" the CFM attention forward with its
+     at thresh 0.7 with random weights), then the OHEM path (rows 12, 13,
+     the sort and the threshold) against the plain path on the same
+     branches with a margin added to the label class at half the pixels,
+     so that the mask keeps 25-75 % of them; in "train_probs" the CFM
+     attention forward with its
      probabilities output and the backward from them (then again from the
      same probabilities in bf16), and the size of the probabilities held
      from the forward to the backward; the gradients of one forward/backward with the kernels
@@ -196,7 +199,31 @@ def _dwconv_case(ops, args):
     library = lambda: torch.nn.functional.gelu(
         torch.nn.functional.conv2d(xc, wk, bb, padding=1, groups=c))
     return dict(call=lambda force: ops.dwconv3x3(x, k, b, gelu=True, force=force),
-                bound=bound, library=library, shape=f"x{tuple(x.shape)}")
+                bound=bound, library=library, shape=f"x{tuple(x.shape)}",
+                host_us=lambda: _dwconv_host_us(ops, x, k, b))
+
+
+def _dwconv_host_us(ops, x, k, b, calls: int = 2000) -> float:
+    """Host µs of one ``dwconv3x3`` call with the kernel's launch replaced by
+    nothing: the wrapper with the C entry's no-launch twin in its place
+    (same arguments, device check, no launch), on the host clock."""
+    from vss_cffm_tpu_torch.ops import _build
+
+    dw = importlib.import_module("vss_cffm_tpu_torch.ops.dwconv")
+    real, count = dw._c_entry(), ops.dwconv3x3.launches
+    dw._entry["dwconv3x3_nhwc"] = _build.library("dwconv").dwconv3x3_nhwc_nolaunch
+    try:
+        for _ in range(50):
+            ops.dwconv3x3(x, k, b, gelu=True)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        for _ in range(calls):
+            ops.dwconv3x3(x, k, b, gelu=True)
+        us = (time.perf_counter() - ts) * 1e6 / calls
+    finally:
+        dw._entry["dwconv3x3_nhwc"] = real
+        ops.dwconv3x3.launches = count  # nothing was launched
+    return us
 
 
 def _cfm_case(ops, args):
@@ -408,6 +435,10 @@ def check_kernels(ops, caught, kernels: dict, profile: bool = False) -> dict:
             plain_ms = _time_ms(lambda: case["call"]("torch"))
             lib_ms = _time_ms(case["library"]) if case["library"] is not None else None
             dev_ms = _device_ms(lambda: case["call"]("kernel")) if profile else None
+            if "host_us" in case:
+                print(f"[kernel] {name} {case['shape']}: host_us={case['host_us']():.2f} per call "
+                      f"with the launch replaced by nothing (wrapper, checks, allocation, "
+                      f"ctypes call)", flush=True)
             bound_ms, bound_by = case["bound"]
             ratio = f" kernel/library={ms / lib_ms:.3f}" if lib_ms else ""
             print(f"[kernel] {name} {case['shape']}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -773,8 +804,9 @@ TRAIN_KERNELS = {
         replaces="vss_cffm_tpu/ops/stage_block.py:321",  # _train_fwd_kernel, called at :672
         case=_block_train_case),
     "mit_block_train_bwd": dict(
-        # fifteen launches: input-gradient GEMMs, depthwise / LayerNorm passes,
-        # the attention backward, the row-reduction GEMMs
+        # twelve launches: input-gradient GEMMs, the fused depthwise + GELU
+        # pass and the LayerNorm passes, the attention backward with dK and
+        # dV, the weight row-reduction GEMMs
         sources=["vss_cffm_tpu_torch/csrc/sra_attention_bwd.cu",
                  "vss_cffm_tpu_torch/csrc/block_bwd.cu", "vss_cffm_tpu_torch/csrc/gemm_tn.cu",
                  "vss_cffm_tpu_torch/csrc/block_gemm.cu"],
@@ -796,7 +828,7 @@ FFN_KERNELS = {
         replaces="vss_cffm_tpu/ops/mixffn.py:106",
         case=_ffn_train_case),
     "block_ffn_train_bwd": dict(
-        # seven launches: the FFN half of the block's backward
+        # six launches: the FFN half of the block's backward
         sources=["vss_cffm_tpu_torch/csrc/block_bwd.cu", "vss_cffm_tpu_torch/csrc/gemm_tn.cu",
                  "vss_cffm_tpu_torch/csrc/block_gemm.cu"],
         replaces="vss_cffm_tpu/ops/mixffn.py:313",  # _bwd_kernel_ln, called at :517
@@ -982,6 +1014,42 @@ def _capture_train_inputs(model, x, labels, force_loss, kernels: dict):
     return caught
 
 
+def _ohem_bites(ops, logits, s: int) -> None:
+    """The OHEM CUDA path (rows 12, 13, the sort and the k-th threshold) against
+    the plain path with a mask that keeps 25-75 % of the valid pixels: the
+    branch's logits plus a margin of 30 on the label class at half the
+    low-resolution pixels (labels constant on each s x s block, 5 % ignored),
+    so that those pixels are easy (p ≈ 1 > thresh) and the rest hard; min_kept
+    · N stays below the hard share, so the threshold is thresh itself."""
+    from vss_cffm_tpu_torch.models import losses
+
+    n, h, w, c = logits.shape
+    g = torch.Generator("cuda").manual_seed(SEED + 2)
+    low = torch.randint(0, c, (n, h, w), generator=g, device="cuda")
+    easy = torch.rand((n, h, w), generator=g, device="cuda") < 0.5
+    lg = (logits.float() + 30.0 * torch.nn.functional.one_hot(low, c).float()
+          * easy[..., None]).to(logits.dtype)
+    lab = low.repeat_interleave(s, 1).repeat_interleave(s, 2)
+    lab = torch.where(torch.rand(lab.shape, generator=g, device="cuda") < 0.05, 255,
+                      lab).to(torch.uint8)
+    cw = torch.tensor(OHEM_LOSS["class_weight"], device="cuda")
+    r = losses.ohem_path_errors(lg, lab, s, OHEM_LOSS["ohem_thresh"], OHEM_LOSS["ohem_min_kept"],
+                                cw)
+    (lk, lp), (dk, dp) = r["loss"], r["dlogits"]
+    d_err = (dk.float() - dp.float()).abs().max().item()
+    d_tol = 2.0 ** -7 * dp.float().abs().max().item()
+    print(f"[ohem] N={n} crafted margin: OHEM kept {r['kept']:.6f} of the {r['valid']} valid "
+          f"pixels (plain path {r['kept_plain']:.6f}), kept flags differing "
+          f"{r['flag_differs']}; loss {lk:.8f} vs {lp:.8f} (rel {abs(lk - lp) / abs(lp):.3e}); "
+          f"dlogits max_abs_err={d_err:.3e} tol={d_tol:.3e}", flush=True)
+    # a pixel may flip only where its gt probability lies within an nll
+    # rounding of the threshold (1e-5 of the valid pixels); the loss is a mean
+    # of f32 nll computed in two orders (1e-4); dlogits bf16, one ulp (2^-7)
+    if not (0.25 <= r["kept"] <= 0.75 and r["flag_differs"] <= 1e-5 * r["valid"]
+            and abs(lk - lp) <= 1e-4 * abs(lp) and d_err <= d_tol):
+        raise RuntimeError(f"OHEM path with a partial mask disagrees with the plain path: {r}")
+
+
 def _grad_agreement(model, x, labels, loss_of, form: str) -> None:
     """One forward/backward with the kernels and one on the plain path, same
     weights, batch and generator seed; the loss, each parameter's gradient
@@ -1072,7 +1140,9 @@ def train_phase(apis, ops, opts, root, kind, smi, form: str) -> tuple[dict, dict
         print(f"[{form}] OHEM kept {kept.sum().item() / valid.sum().item():.6f} of the "
               f"{int(valid.sum())} valid pixels of the N={logits.shape[0]} branch (thresh "
               f"{OHEM_LOSS['ohem_thresh']}, min_kept {OHEM_LOSS['ohem_min_kept']}; near 1 with "
-              f"random weights; the CPU tests hold a mask that bites)", flush=True)
+              f"random weights; the [ohem] check holds a mask that bites)", flush=True)
+    for logits, _, s in caught.get("ce_upsampled_nll", ()):
+        _ohem_bites(ops, logits, s)
     del caught
     _grad_agreement(model, x, batch["labels"], loss_of, form)
 
@@ -1211,6 +1281,13 @@ def ce_bench_phase(ops, opts) -> tuple[dict, dict]:
     return stats, counts
 
 
+# kernels that only row 7's backward launches in the default step; the
+# unfused d_z / d_hid pair (dgelu_dz, dwconv_t) is listed too, so that the
+# profile of a tree from before the fusion reads the same way
+ROW7_KERNELS = ("sra_attention_bwd_kernel", "gemm_tn_kernel", "dz_dhid_kernel",
+                "dgelu_dz_kernel", "dwconv_t_kernel", "ln_bwd_kernel")
+
+
 def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1229,6 +1306,13 @@ def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> None:
     line = (f"[profile] {what}: device busy {busy:.3f} ms, {n_launch} kernel launches, "
             f"{n_copy} aten::_to_copy calls (dtype or device copies)")
     print(line, flush=True)
+    for e in events if fname == "profile_train.txt" else ():
+        # row 7's own kernels by name (its block_gemm launches share their
+        # kernel with the forward's and are not told apart here)
+        if e.device_type == DeviceType.CUDA and any(k in e.key for k in ROW7_KERNELS):
+            us = e.self_device_time_total
+            print(f"[row7] {e.key[:90]}: {e.count} launches, {us / 1e3:.3f} ms per step, "
+                  f"{us / e.count:.1f} us per launch", flush=True)
     table = events.table(sort_by="cuda_time_total", row_limit=120)
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", fname), "w") as fh:
@@ -1252,13 +1336,14 @@ ATTENTION_SHAPES = ((289, 32, 1, "CFM window attention"),
 
 
 def attention_resources(build) -> None:
-    """What ``ptxas -v`` reported for each instance of the two attention
-    kernels (registers, static shared memory, stack and spill bytes), and the
-    blocks one SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
-    at the main path's shapes."""
+    """What ``ptxas -v`` reported for each instance of the attention kernels,
+    the depthwise conv and the block backward's passes (registers, static
+    shared memory, stack and spill bytes), and the blocks one SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the main path's
+    shapes."""
     cfm = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")
     fwd, bwd = build.library("attention"), build.library("attention_bwd")
-    for src in ("attention", "attention_bwd"):
+    for src in ("attention", "attention_bwd", "sra_attention_bwd", "dwconv", "block_bwd"):
         for k in build.ptxas_usage(src):
             print(f"[ptxas] csrc/{src}.cu {k['kernel']}: {k['registers']} registers, "
                   f"{k['smem']} B static smem, {k['stack']} B stack, spill stores "
@@ -1275,6 +1360,11 @@ def attention_resources(build) -> None:
             print(f"[occupancy] attention_bwd N={n} hd={hd} {label}: "
                   f"{bwd.attention_bwd_smem_bytes(n, hd)} B dynamic smem, "
                   f"{cfm.blocks_per_sm('bwd', n, hd, 0, mode)} blocks per SM", flush=True)
+    sra = build.library("sra_attention_bwd")
+    for n, hd in ((225, 64), (225, 32)):  # the MiT stages at 480² (B1: heads of 64; B0: 32)
+        print(f"[occupancy] sra_attention_bwd S={n} hd={hd}: "
+              f"{sra.sra_attention_bwd_smem_bytes(n, hd)} B dynamic smem, "
+              f"{sra.sra_attention_bwd_blocks_per_sm(n, hd, 0)} blocks per SM", flush=True)
 
 
 def _first_windows(args, count: int):

@@ -15,14 +15,15 @@ from vss_cffm_tpu_torch.ops.stage_block import sra_attention_bwd_smem
 
 
 @pytest.mark.parametrize("hd,n_kv,fits", [
-    (32, 416, True), (32, 417, False),   # the most keys the SRA backward's block holds
-    (64, 320, True), (64, 321, False),
+    (32, 512, True), (32, 513, False),   # the most keys the SRA backward's block holds
+    (64, 233, True), (64, 234, False),   # (the MiT stages at 480²: 225 keys)
 ])
 def test_block_train_gate_follows_the_attention_backward(hd, n_kv, fits):
     """The whole-block gate takes a key count while the spatial-reduction
-    attention backward's block fits the card's shared memory (that block
-    holds the forward's K and V and more); past it the MiT block runs
-    composed."""
+    attention backward's block fits the card's shared memory: K and V, the
+    q / d_ctx ring, the p and d_s tiles and the f32 dK and dV accumulators of
+    all the frame's keys (that block holds the forward's K and V and more);
+    past it the MiT block runs composed."""
     assert ops.mit_block_train_fits(30, 30, 64, 256, 64 // hd, n_kv) == fits
     assert (sra_attention_bwd_smem(n_kv, hd) <= SMEM_LIMIT) == fits
 

@@ -162,3 +162,54 @@ def test_bench_ce_runs_the_six_kernels_plain_on_the_cpu():
     assert lab.dtype == np.uint8 and set(np.unique(lab)) <= set(range(9)) | {255}
     np.testing.assert_array_equal(inp["lphw"].numpy(),
                                   np.asarray(jax_ce.labels_to_phase_w(jnp.asarray(lab), 4)))
+
+
+@pytest.mark.parametrize("variant", ["v5 fwd", "v3 bwd"])
+def test_variants_take_int32_labels_as_the_pallas_kernels_do(variant):
+    """int32 labels with values past 255 and below 0 (ignored, as every label
+    outside [0, C)): the plain versions against the Pallas kernels in
+    interpret mode, which cast any integer labels to int32; and the uint8
+    labels the CUDA kernels read (``phase_labels_u8``: outside [0, C) → 255)
+    give the plain versions the same result bit for bit, where a cast alone
+    would turn 263 into class 7 and -250 into class 6."""
+    c = 19
+    logits, labels = _inputs(21, c)
+    rng = np.random.RandomState(22)
+    lab = labels.numpy().astype(np.int32)
+    wide = rng.rand(*lab.shape)
+    lab[wide < 0.05] = rng.randint(256, 1000, int((wide < 0.05).sum()))
+    lab[(wide >= 0.05) & (wide < 0.1)] = rng.randint(-300, 0, int(((wide >= 0.05)
+                                                                   & (wide < 0.1)).sum()))
+    lab32 = torch.from_numpy(lab)
+    u8 = ops.phase_labels_u8(lab32, c)
+    assert u8.dtype == torch.uint8
+    np.testing.assert_array_equal(u8.numpy(), np.where((lab >= 0) & (lab < c), lab, 255))
+    assert not torch.equal(lab32.to(torch.uint8), u8)  # a plain cast would not ignore them
+    img_w, ct = 0.5 / lab.size, torch.tensor(1.1)
+    phw32, phw8 = ops.labels_to_phase_w(lab32, S), ops.labels_to_phase_w(u8, S)
+    if variant == "v5 fwd":
+        want = jax.block_until_ready(jax_ce._ce_fwd_loss_pallas5(
+            _j(logits), jnp.array(phw32.numpy()), S, img_w, True, interpret=True))
+        got = ops.ce_fwd_loss_v5(logits, phw32, S, img_w)
+        np.testing.assert_allclose(got[0].item(), float(want[0]), rtol=2e-5)
+        assert got[1].item() == float(want[1])
+        got8 = ops.ce_fwd_loss_v5(logits, phw8, S, img_w)
+        assert got8[0].item() == got[0].item() and got8[1].item() == got[1].item()
+    else:
+        want = jax_ce._ce_bwd_loss_pallas3(_j(logits), jnp.array(phw32.numpy()),
+                                           jnp.asarray(1.1, jnp.float32), S, c, img_w,
+                                           interpret=True)
+        got = ops.ce_bwd_loss_v3(logits, phw32, ct, S, img_w)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=1e-9)
+        torch.testing.assert_close(ops.ce_bwd_loss_v3(logits, phw8, ct, S, img_w), got,
+                                   rtol=0, atol=0)
+
+
+def test_wide_labels_need_an_ignore_value_outside_the_classes():
+    """With 256 classes no uint8 value is ignored: wider labels are refused."""
+    with pytest.raises(ValueError, match="256 classes"):
+        ops.phase_labels_u8(torch.zeros(2, 4, dtype=torch.int32), 256)
+    with pytest.raises(ValueError, match="integer dtype"):
+        ops.phase_labels_u8(torch.zeros(2, 4), 7)
+    u8 = torch.full((2, 4), 255, dtype=torch.uint8)
+    assert ops.phase_labels_u8(u8, 256) is u8

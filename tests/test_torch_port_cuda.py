@@ -535,7 +535,8 @@ def test_ce_variant_kernels_match_plain(dev, n, h, w, c, s, ldt):
     14's); the f32 dlogits to 2^-14 of their largest value (f32 sums of the
     same terms in other orders, the lerp rounded as F.interpolate rounds
     it). Odd h (the TPU backwards refuse it), column segments with ragged
-    tails (w 33, 61), s 4 and 2; int32 labels are refused."""
+    tails (w 33, 61), s 4 and 2; int32 labels with values past 255 and below
+    0 give the uint8 labels' results."""
     rng = np.random.RandomState(16)
     x = _rand(rng, n, h, w, c, scale=2.0, dev=dev)
     lab = _labels(rng, n, h * s, w * s, c, ldt, dev)
@@ -556,8 +557,17 @@ def test_ce_variant_kernels_match_plain(dev, n, h, w, c, s, ldt):
         _close(gk, gp, 2.0 ** -14)
     assert {k: v for k, v in ops.launches().items() if v} == {
         "ce_fwd_loss_v5": 1, "ce_fwd_loss_v3": 1, "ce_bwd_loss_v2": 1, "ce_bwd_loss_v3": 1}
-    with pytest.raises(ValueError, match="uint8 only"):
-        ops.ce_fwd_loss_v5(x, phw.int(), s, img_w, force="kernel")
+    # int32 labels, some past 255 or below 0 (ignored as every label outside
+    # [0, C)): the kernels give what they give for the same labels in uint8
+    wide = phw.int().clone()
+    out = wide >= c
+    wide[out] = torch.from_numpy(rng.choice([-7, 255, 300, 1000], int(out.sum()))).to(
+        dev, torch.int32)
+    got = ops.ce_fwd_loss_v5(x, wide, s, img_w, force="kernel")
+    want = ops.ce_fwd_loss_v5(x, phw, s, img_w, force="kernel")
+    assert got[0].item() == want[0].item() and got[1].item() == want[1].item()
+    assert torch.equal(ops.ce_bwd_loss_v3(x, wide, g, s, img_w, force="kernel"),
+                       ops.ce_bwd_loss_v3(x, phw, g, s, img_w, force="kernel"))
 
 
 def test_ce_runtime_phase_loop_takes_any_scale(dev):
@@ -759,3 +769,145 @@ def test_attention_softmax_division_is_the_operators(dev):
     assert torch.equal(q[big], q_ref[big])
     small, small_ref = q[~big].double(), q_ref[~big].double()
     assert ((small - small_ref).abs() <= 2.0 ** -23 * small_ref + 2.0 ** -149).all()
+
+
+# ---- the redesigned depthwise conv (row 3) and row 7's fused launches --------
+
+@pytest.mark.parametrize("shape,rows,f32_in", [
+    ((4, 120, 120, 256), None, False), ((4, 15, 15, 2048), None, False),   # inference, B1
+    ((8, 15, 15, 2048), None, False), ((8, 120, 120, 256), None, True),    # train; hid in f32
+    ((2, 13, 7, 24), 5, False), ((1, 9, 11, 16), 4, True),                 # strips of 5, 5, 3; 4, 4, 1
+    ((2, 6, 3, 8), 1, False), ((1, 5, 5, 40), 7, True),                    # one row a strip; one strip
+])
+def test_dwconv_strips_match_plain(dev, monkeypatch, shape, rows, f32_in):
+    """The strip kernel against the plain version at the main path's shapes
+    (its own strip plan) and with strips forced to lengths that do not divide
+    H: out (GELU) to one bf16 ulp, z to one ulp; two runs bitwise equal."""
+    if rows is not None:
+        monkeypatch.setattr(ops.dwconv, "strip_plan", lambda *a: (rows, -(-shape[1] // rows)))
+    rng = np.random.RandomState(30)
+    c = shape[-1]
+    x = _rand(rng, *shape, dtype=torch.float32 if f32_in else torch.bfloat16, dev=dev)
+    k = _rand(rng, 3, 3, 1, c, scale=0.3, dtype=torch.float32, dev=dev)
+    b = _rand(rng, c, scale=0.1, dtype=torch.float32, dev=dev)
+    z = torch.empty(shape, device=dev, dtype=torch.bfloat16)
+    got = ops.dwconv.dwconv3x3_launch(x, k, b, True, z=z)
+    _close(got, ops.dwconv3x3_torch(x, k, b, True).to(torch.bfloat16), 2.0 ** -7)
+    _close(z, ops.dwconv._preact(x, k, b).to(torch.bfloat16), 2.0 ** -7)
+    z2 = torch.empty_like(z)
+    again = ops.dwconv.dwconv3x3_launch(x, k, b, True, z=z2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(z, z2)
+
+
+SRA_SHAPES = [
+    ((8, 120, 120, 64), 225, 1, None), ((8, 60, 60, 128), 225, 2, None),   # B1 stages 1-3 at 480²
+    ((8, 30, 30, 320), 225, 5, None),
+    ((2, 9, 11, 64), 20, 1, 1),      # 99 queries: a last tile of 35 rows; a split a tile
+    ((1, 17, 9, 64), 15, 2, 2),      # heads of 32; 153 queries in splits of 2 tiles and 1
+    ((3, 10, 10, 32), 236, 1, None), # head dim 32 at 236 keys: a last key chunk of 16
+    ((1, 20, 20, 64), 233, 1, 3),    # the most keys the block holds at head dim 64
+    ((2, 4, 4, 64), 9, 1, None),     # one 16-key step: the second warp group has no keys
+]
+
+
+@pytest.mark.parametrize("shape,s,nh,tps", SRA_SHAPES)
+def test_sra_attention_bwd_fused_matches_plain(dev, monkeypatch, shape, s, nh, tps):
+    """The attention backward with dK and dV fused (p and d_s never written)
+    against its plain step, each output at ``BWD_STEP_TOLERANCE``, at the
+    main path's shapes and at ragged ones (a last tile short of 64 queries,
+    splits of forced lengths with a short last one, a last key chunk of 16,
+    a second warp group with no keys); two runs bitwise equal (the split
+    partials summed in a fixed order)."""
+    sb = ops.stage_block
+    if tps is not None:
+        monkeypatch.setattr(sb, "sra_bwd_splits", lambda b, h, ntq, slots: (tps, -(-ntq // tps)))
+    b, h, w, c = shape
+    rng = np.random.RandomState(31)
+    q = _rand(rng, b * h * w, c, dev=dev)
+    k, v = _rand(rng, b, s, c, dev=dev), _rand(rng, b, s, c, dev=dev)
+    g = _rand(rng, b * h * w, c, scale=0.5, dev=dev)
+    run = lambda kernel: sb.sra_attention_bwd(q, k, v, g, shape, nh, torch.bfloat16,
+                                              kernel=kernel, op="sra_attention_bwd")
+    got, want = run(True), run(False)
+    assert set(got) == set(want) == {"d_q", "dbq", "dk", "dv"}
+    for key in got:
+        _close(got[key], want[key], sb.BWD_STEP_TOLERANCE[key])
+    again = run(True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[key], again[key]) for key in got)
+
+
+def test_sra_attention_bwd_smem_is_the_kernels(dev):
+    """The gate's shared-memory sum (``sra_attention_bwd_smem``, which the CPU
+    gate reads) equals the kernel's own layout, which its launch asks for."""
+    from vss_cffm_tpu_torch.ops import _build
+
+    lib = _build.library("sra_attention_bwd")
+    for s in (1, 15, 225, 233, 234, 512, 513):
+        for hd in (32, 64):
+            assert lib.sra_attention_bwd_smem_bytes(s, hd) == \
+                ops.stage_block.sra_attention_bwd_smem(s, hd), (s, hd)
+    assert lib.sra_attention_bwd_blocks_per_sm(225, 64, 0) >= 1
+
+
+@pytest.mark.parametrize("shape,rows", [
+    ((8, 120, 120, 256), None), ((8, 60, 60, 512), None), ((8, 30, 30, 1280), None),  # B1
+    ((2, 23, 19, 64), 6),    # strips of 6, 6, 6, 5; column tiles of 8, 8, 3
+    ((1, 9, 11, 40), 4),     # 40 channels: a slab of 8 live lanes
+    ((2, 5, 4, 128), 1),     # one row a strip, a map narrower than a tile
+])
+def test_dz_dhid_fused_matches_plain(dev, monkeypatch, shape, rows):
+    """The d_z → d_hid pass (d_z on chip) against its plain step, each output at
+    ``BWD_STEP_TOLERANCE``, at the main path's shapes and at strips and tiles
+    that do not divide the map; two runs bitwise equal."""
+    sb = ops.stage_block
+    b, h, w, ch = shape
+    if rows is not None:
+        monkeypatch.setattr(sb, "dz_dhid_plan", lambda *a: (rows, -(-h // rows), -(-w // 8)))
+    rng = np.random.RandomState(32)
+    f = lambda *sh, sc: _rand(rng, *sh, scale=sc, dtype=torch.float32, dev=dev)
+    d_a, hid = f(*shape, sc=0.5), f(*shape, sc=1.0)
+    kdw, bdw = f(3, 3, 1, ch, sc=1 / 3), f(ch, sc=0.1)
+    run = lambda kernel: sb.dz_dhid(d_a, hid, kdw, bdw, torch.bfloat16, kernel=kernel, op="dz_dhid")
+    got, want = run(True), run(False)
+    assert set(got) == set(want) == {"d_hid", "db1", "dkdw", "dbdw"}
+    for key in got:
+        _close(got[key], want[key], sb.BWD_STEP_TOLERANCE[key])
+    again = run(True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[key], again[key]) for key in got)
+
+
+def _ohem_biting(rng, n, h, w, c, s, dev):
+    """bf16 logits with a margin of 30 on the label class at half the
+    low-resolution pixels (easy: p ≈ 1), labels constant on each s x s block,
+    5 % ignored: an OHEM mask at thresh 0.7 keeps about the other half."""
+    low = rng.randint(0, c, (n, h, w))
+    logits = rng.randn(n, h, w, c).astype(np.float32)
+    easy = rng.rand(n, h, w) < 0.5
+    logits[easy, low[easy]] += 30.0
+    lab = low.repeat(s, 1).repeat(s, 2)
+    lab[rng.rand(*lab.shape) < 0.05] = 255
+    return (torch.from_numpy(logits).to(dev, torch.bfloat16),
+            torch.from_numpy(lab.astype(np.uint8)).to(dev))
+
+
+@pytest.mark.parametrize("n,h,w,c,min_kept,cw", [(2, 30, 30, 19, 1000, False),
+                                                  (4, 24, 36, 124, 3000, True)])
+def test_ohem_cuda_path_with_a_partial_mask(dev, n, h, w, c, min_kept, cw):
+    """The OHEM CUDA path (rows 12, 13, the sort and the k-th threshold)
+    against the plain path with a mask that keeps 25-75 % of the valid
+    pixels: the kept flags equal, the loss to 1e-4 relative, dlogits (for the
+    plain route's weights on both) to one bf16 ulp of the largest."""
+    from vss_cffm_tpu_torch.models import losses
+
+    rng = np.random.RandomState(33)
+    logits, lab = _ohem_biting(rng, n, h, w, c, 4, dev)
+    weights = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(dev) if cw else None
+    r = losses.ohem_path_errors(logits, lab, 4, 0.7, min_kept, weights)
+    assert 0.25 <= r["kept"] <= 0.75, r["kept"]
+    assert r["flag_differs"] == 0 and r["kept"] == r["kept_plain"]
+    lk, lp = r["loss"]
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    _close(*r["dlogits"], 2.0 ** -7)

@@ -311,7 +311,7 @@ VSS_EXPORT int attention_fwd(const void* q, const void* k, const void* v, const 
                              const void* mask, void* out, void* probs, int probs_bf16, int G,
                              int Lq, int N, int nh, int hd, int C, float q_scale,
                              float k_scale, int device, void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if (G == 0 || Lq == 0) return 0;
   if (N < 1 || (bias == nullptr) != (mask == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -337,7 +337,7 @@ VSS_EXPORT int attention_fwd_smem_bytes(int N, int hd, int with_probs) {
 // failure.
 VSS_EXPORT int attention_fwd_blocks_per_sm(int N, int hd, int with_bias, int with_probs,
                                            int device) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if (N < 1) return -(int)cudaErrorInvalidValue;
   const bool p = with_probs != 0;
   if (hd == 32) return with_bias ? blocks_per_sm<32, true>(N, p) : blocks_per_sm<32, false>(N, p);
@@ -349,7 +349,7 @@ VSS_EXPORT int attention_fwd_blocks_per_sm(int N, int hd, int with_bias, int wit
 // kernels' and the `/` operator's. Returns a cudaError_t.
 VSS_EXPORT int attention_div_check(const void* a, const void* b, void* q, void* q_ref, int n,
                                    int device, void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if (n <= 0) return 0;
   div_check_kernel<<<(n + 255) / 256, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(q),

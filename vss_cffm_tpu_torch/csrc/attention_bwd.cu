@@ -392,7 +392,7 @@ VSS_EXPORT int attention_bwd(const void* q, const void* k, const void* v, const 
                              const void* mask, const void* g, void* dq, void* dk, void* dv,
                              void* partial, int G, int Lq, int N, int nh, int hd, int C,
                              float q_scale, int tw, int device, void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if (G == 0 || Lq == 0) return 0;
   if (!valid(Lq, N, tw)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -410,7 +410,7 @@ VSS_EXPORT int attention_bwd_probs(const void* q, const void* k, const void* v,
                                    void* dk, void* dv, void* partial, int G, int Lq, int N,
                                    int nh, int hd, int C, float q_scale, int tw, int device,
                                    void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if (G == 0 || Lq == 0) return 0;
   if (!valid(Lq, N, tw)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -432,7 +432,7 @@ VSS_EXPORT int attention_bwd_smem_bytes(int N, int hd) { return (int)Smem(N, hd)
 // at N keys and head dim hd; mode 0 recomputes the softmax, 1 reads f32
 // probabilities, 2 bf16 ones. Minus a cudaError_t on failure.
 VSS_EXPORT int attention_bwd_blocks_per_sm(int N, int hd, int mode, int device) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if (N < 1) return -(int)cudaErrorInvalidValue;
   if (hd == 32 && mode == 0) return blocks_per_sm<32, void>(N);
   if (hd == 32 && mode == 1) return blocks_per_sm<32, float>(N);

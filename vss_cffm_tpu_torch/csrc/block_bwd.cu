@@ -5,14 +5,14 @@
 // _mit_block_train_bwd (_train_bwd_kernel) and vss_cffm_tpu/ops/mixffn.py:
 // _block_ffn_bwd_pallas (_bwd_kernel_ln), which do this work per (frame, row
 // tile) in VMEM between their products (the products are block_gemm.cu,
-// gemm_tn.cu and sra_attention_bwd.cu). Three entry points:
+// gemm_tn.cu and sra_attention_bwd.cu). Two entry points:
 //
-//   dgelu_dz  z = dw3x3(hid) + bdw recomputed in f32 (zero outside the
-//             image), d_z = d_a · GELU'(z) (exact erff), and per block the
-//             partial sums of the 9 depthwise taps Σ hid(shifted)·d_z and of
-//             Σ d_z (dkdw, dbdw);
-//   dwconv_t  d_hid = the transposed depthwise conv of d_z, rounded to
-//             bf16, and the partial sums Σ d_hid (db1, of the f32 values);
+//   dz_dhid   z = dw3x3(hid) + bdw recomputed in f32 (zero outside the
+//             image), d_z = d_a · GELU'(z) (exact erff), kept on chip in f32,
+//             d_hid = the transposed depthwise conv of d_z, rounded to bf16,
+//             and per block the partial sums of the 9 depthwise taps
+//             Σ hid(shifted)·d_z, of Σ d_z and of Σ d_hid (dkdw, dbdw, db1,
+//             of the f32 values);
 //   ln_bwd    per row of (M, C): the LayerNorm's f32 statistics of its input
 //             recomputed, dx = res + rsig·(dly − mean(dly) − x̂·mean(dly·x̂))
 //             with dly = dl·γ, the rounded LN output x̂·γ + β (bf16, an input
@@ -21,11 +21,16 @@
 //             Σ dl, Σ dx·s_out, Σ res·s_res (dγ, dβ, dbproj, db2).
 //
 // Bound on the H100: memory (a few f32 maps of the block read and written
-// once, 9 to 20 flops per element). Design: the depthwise passes give one
-// thread one channel of a run of pixels, so a warp reads 32 neighbouring
-// channels of a pixel (coalesced) and the thread's tap sums stay in
-// registers; the 9 neighbours of a pixel come from L1/L2. The LayerNorm pass
-// gives one warp one row (C <= 512, a lane holding channels lane + 32·i).
+// once, 9 to 40 flops per element; dz_dhid's ~80 instructions an element
+// with erff and expf make it bound by instruction issue first). dz_dhid
+// reads d_a and hid (f32) and writes d_hid (bf16) once: d_z, f32 in the
+// reference, stays on chip (split over two launches it would cost 2 x 4
+// bytes an element of device memory traffic). Its tiles of 8 columns x a
+// strip of rows recompute z and d_z on a one-pixel halo (1.25 x the
+// columns, (rows + 2) / rows the rows); a warp reads 64 neighbouring
+// channels of a pixel (256 bytes, coalesced; a lane two channels, 8 bytes).
+// The LayerNorm pass gives one warp one row (C <= 512, a lane holding
+// channels lane + 32·i).
 // No atomics: every block writes its own partial sums, which the wrapper
 // reduces with one torch.sum, so results repeat exactly; inside a block the
 // warps' sums are added in a fixed order.
@@ -33,7 +38,7 @@
 
 namespace {
 
-constexpr int PIX_THREADS = 256;
+constexpr int kTileW = 8;  // owned columns of a d_z -> d_hid block
 constexpr int LN_WARPS = 4;
 constexpr int LN_MAXI = 16;  // C <= 32 * LN_MAXI
 
@@ -42,84 +47,157 @@ __device__ __forceinline__ float gelu_grad(float z) {
   return 0.5f * (1.0f + erff(z * 0.7071067811865476f)) + z * phi;
 }
 
-__global__ void __launch_bounds__(PIX_THREADS) dgelu_dz_kernel(
+// d_z and d_hid in one pass. A block owns a tile of TW columns x rows
+// [i0, i1) of one frame and 64 channels; warp w is column j0 - 1 + w (the TW
+// owned columns and one halo column each side), lane l channels 2l, 2l + 1
+// (8-byte loads: a warp reads 256 contiguous bytes of a pixel). It walks
+// down the rows r = i0 - 1 .. i1: z(r) = dw3x3(hid) + bdw from a 3x3 window
+// of hid that rolls down in registers (one new row of 3 loads per step),
+// d_z(r) = d_a(r)·GELU'(z) into a ring of 4 rows of d_z in shared memory
+// (zero outside the image), then, once d_z(r) of every column is there,
+// d_hid(r - 1) = dw3x3^T(d_z) of the owned columns from the ring. With 4
+// slots one barrier a row suffices: the slot written at r + 1 is none of the
+// three read at r. Only owned pixels add to the tap, Σ d_z and Σ d_hid
+// partials, so the halo's recompute never counts a pixel twice. Offsets
+// inside a frame are 32-bit and the column offsets and their validity are
+// computed once (the pass is bound by its instructions, not its bytes).
+template <int TW>
+__global__ void __launch_bounds__(32 * (TW + 2), 2) dz_dhid_kernel(
     const float* __restrict__ d_a, const float* __restrict__ hid, const float* __restrict__ wk,
-    const float* __restrict__ bdw, float* __restrict__ d_z, float* __restrict__ partial, int H,
-    int W, int C, long long M, int per) {
-  const int c = blockIdx.y * PIX_THREADS + threadIdx.x;
-  if (c >= C) return;
-  float k[9], tap[9];
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    k[t] = wk[t * C + c];
-    tap[t] = 0.f;
-  }
-  const float bb = bdw[c];
-  float sdz = 0.f;
-  const long long p0 = (long long)blockIdx.x * per;
-  const long long p1 = min(M, p0 + per);
-  for (long long p = p0; p < p1; ++p) {
-    const int j = (int)(p % W);
-    const long long t = p / W;
-    const int i = (int)(t % H);
-    const long long f = t / H;
-    float hv[9];
-    float z = 0.f;
-#pragma unroll
-    for (int di = 0; di < 3; ++di) {
-#pragma unroll
-      for (int dj = 0; dj < 3; ++dj) {
-        const int ii = i + di - 1, jj = j + dj - 1;
-        const float v = (ii >= 0 && ii < H && jj >= 0 && jj < W)
-                            ? hid[((f * H + ii) * W + jj) * C + c] : 0.f;
-        hv[di * 3 + dj] = v;
-        z += v * k[di * 3 + dj];
-      }
-    }
-    z += bb;
-    const float g = d_a[p * C + c] * gelu_grad(z);
-    d_z[p * C + c] = g;
-#pragma unroll
-    for (int t9 = 0; t9 < 9; ++t9) tap[t9] += hv[t9] * g;
-    sdz += g;
-  }
-  float* out = partial + (long long)blockIdx.x * 10 * C + c;
-#pragma unroll
-  for (int t = 0; t < 9; ++t) out[t * C] = tap[t];
-  out[9 * C] = sdz;
-}
+    const float* __restrict__ bdw, __nv_bfloat16* __restrict__ d_hid,
+    float* __restrict__ partial, int H, int W, int C, int rows, int strips, int ctiles) {
+  __shared__ float2 ring[4][TW + 2][32];
+  __shared__ float2 red[TW][11][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the channel slab varies fastest over the blocks, so that the blocks of
+  // one tile's slabs run together and read each pixel's channels in one pass
+  const int slabs = (C + 63) / 64, slab = blockIdx.x % slabs;
+  const int tile = blockIdx.x / slabs;
+  const int c = slab * 64 + 2 * lane;
+  const bool live = c < C;
+  const int cc = live ? c : 0;
+  int t = tile;
+  const int ct = t % ctiles;
+  t /= ctiles;
+  const int strip = t % strips;
+  const long long f = t / strips;
+  const int i0 = strip * rows, i1 = min(H, i0 + rows);
+  const int j0 = ct * TW, col = j0 - 1 + warp;
+  const bool interior = warp >= 1 && warp <= TW && col < W;
+  const bool col_in = col >= 0 && col < W;
+  const long long fbase = f * H * W * C;
+  const float* hf = hid + fbase;
+  const float* af = d_a + fbase;
+  const int rstride = W * C;
 
-__global__ void __launch_bounds__(PIX_THREADS) dwconv_t_kernel(
-    const float* __restrict__ d_z, const float* __restrict__ wk,
-    __nv_bfloat16* __restrict__ d_hid, float* __restrict__ partial, int H, int W, int C,
-    long long M, int per) {
-  const int c = blockIdx.y * PIX_THREADS + threadIdx.x;
-  if (c >= C) return;
-  float k[9];
+  float2 k[9];
 #pragma unroll
-  for (int t = 0; t < 9; ++t) k[t] = wk[t * C + c];
-  float sum = 0.f;
-  const long long p0 = (long long)blockIdx.x * per;
-  const long long p1 = min(M, p0 + per);
-  for (long long p = p0; p < p1; ++p) {
-    const int j = (int)(p % W);
-    const long long t = p / W;
-    const int i = (int)(t % H);
-    const long long f = t / H;
-    float acc = 0.f;
+  for (int q = 0; q < 9; ++q) k[q] = *reinterpret_cast<const float2*>(wk + q * C + cc);
+  const float2 bb = *reinterpret_cast<const float2*>(bdw + cc);
+  int coff[3];
+  bool cok[3];
+#pragma unroll
+  for (int dj = 0; dj < 3; ++dj) {
+    const int jj = col - 1 + dj;
+    cok[dj] = jj >= 0 && jj < W;
+    coff[dj] = (cok[dj] ? jj : 0) * C + cc;
+  }
+  // hid(rr, col - 1 + dj), zero outside the image
+  auto load_row = [&](float2 (&row)[3], int rr) {
+    const bool rok = rr >= 0 && rr < H;
+    const float* base = hf + (rok ? rr : 0) * rstride;
 #pragma unroll
     for (int dj = 0; dj < 3; ++dj) {
-#pragma unroll
-      for (int di = 0; di < 3; ++di) {
-        const int ii = i + 1 - di, jj = j + 1 - dj;
-        if (ii >= 0 && ii < H && jj >= 0 && jj < W)
-          acc += d_z[((f * H + ii) * W + jj) * C + c] * k[di * 3 + dj];
-      }
+      const float2 v = *reinterpret_cast<const float2*>(base + coff[dj]);
+      row[dj] = rok && cok[dj] ? v : make_float2(0.f, 0.f);
     }
-    d_hid[p * C + c] = __float2bfloat16_rn(acc);
-    sum += acc;
+  };
+  // hv: the window of the row computed; nx: hid of the row after it and nda
+  // d_a of the next row, both loaded a step ahead of their use
+  float2 hv[3][3], nx[3];
+  load_row(hv[0], i0 - 2);
+  load_row(hv[1], i0 - 1);
+  load_row(nx, i0);
+  auto load_da = [&](int rr) {
+    const bool ok = rr >= 0 && rr < H && col_in;
+    return *reinterpret_cast<const float2*>(af + (ok ? rr : 0) * rstride + coff[1]);
+  };
+  float2 nda = load_da(i0 - 1);
+  float2 tap[9], sdz = make_float2(0.f, 0.f), sdh = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int q = 0; q < 9; ++q) tap[q] = make_float2(0.f, 0.f);
+
+  for (int r = i0 - 1; r <= i1; ++r) {
+#pragma unroll
+    for (int dj = 0; dj < 3; ++dj) hv[2][dj] = nx[dj];
+    const float2 da = nda;
+    load_row(nx, r + 2);
+    nda = load_da(r + 1);
+    const bool in = r >= 0 && r < H && col_in;
+    float2 z = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int di = 0; di < 3; ++di)
+#pragma unroll
+      for (int dj = 0; dj < 3; ++dj) {
+        z.x += hv[di][dj].x * k[di * 3 + dj].x;
+        z.y += hv[di][dj].y * k[di * 3 + dj].y;
+      }
+    z.x += bb.x;
+    z.y += bb.y;
+    const float2 g = in ? make_float2(da.x * gelu_grad(z.x), da.y * gelu_grad(z.y))
+                        : make_float2(0.f, 0.f);
+    ring[r & 3][warp][lane] = g;
+    if (interior && r >= i0 && r < i1) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) {
+        tap[q].x += hv[q / 3][q % 3].x * g.x;
+        tap[q].y += hv[q / 3][q % 3].y * g.y;
+      }
+      sdz.x += g.x;
+      sdz.y += g.y;
+    }
+    __syncthreads();
+    if (interior && r - 1 >= i0) {  // d_hid of row r - 1: d_z rows r - 2 .. r are in the ring
+      float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+        for (int di = 0; di < 3; ++di) {
+          const float2 dz = ring[(r - di) & 3][warp + 1 - dj][lane];
+          acc.x += dz.x * k[di * 3 + dj].x;
+          acc.y += dz.y * k[di * 3 + dj].y;
+        }
+      if (live)
+        *reinterpret_cast<__nv_bfloat162*>(d_hid + fbase + (r - 1) * rstride + col * C + c) =
+            __floats2bfloat162_rn(acc.x, acc.y);
+      sdh.x += acc.x;
+      sdh.y += acc.y;
+    }
+#pragma unroll
+    for (int dj = 0; dj < 3; ++dj) {
+      hv[0][dj] = hv[1][dj];
+      hv[1][dj] = hv[2][dj];
+    }
   }
-  partial[(long long)blockIdx.x * C + c] = sum;
+  if (warp >= 1 && warp <= TW) {  // owned columns past W hold zeros
+#pragma unroll
+    for (int q = 0; q < 9; ++q) red[warp - 1][q][lane] = tap[q];
+    red[warp - 1][9][lane] = sdz;
+    red[warp - 1][10][lane] = sdh;
+  }
+  __syncthreads();
+  // the block's partials, its columns added in order
+  for (int e = threadIdx.x; e < 11 * 32; e += blockDim.x) {
+    const int q = e / 32, l = e % 32, ch = slab * 64 + 2 * l;
+    if (ch >= C) continue;
+    float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < TW; ++w) {
+      v.x += red[w][q][l].x;
+      v.y += red[w][q][l].y;
+    }
+    *reinterpret_cast<float2*>(partial + ((long long)tile * 11 + q) * C + ch) = v;
+  }
 }
 
 template <typename T>
@@ -240,36 +318,23 @@ int launch_ln(const float* dl, const void* xin, const float* g, const float* b, 
 
 }  // namespace
 
-// d_a, hid, d_z (B, H, W, C) f32; wk (9, C) f32 taps in (di, dj) order; bdw
-// (C,) f32; partial (ceil(B·H·W / per), 10, C) f32: the 9 tap sums, then
-// Σ d_z. Returns a cudaError_t.
-VSS_EXPORT int dgelu_dz(const void* d_a, const void* hid, const void* wk, const void* bdw,
-                        void* d_z, void* partial, int B, int H, int W, int C, int per,
-                        int device, void* stream) {
-  cudaSetDevice(device);
-  const long long M = (long long)B * H * W;
-  if (M == 0 || C == 0) return 0;
-  if (per < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((M + per - 1) / per), (C + PIX_THREADS - 1) / PIX_THREADS);
-  dgelu_dz_kernel<<<grid, PIX_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+// d_a, hid (B, H, W, C) f32; wk (9, C) f32 taps in (di, dj) order; bdw (C,)
+// f32; d_hid (B, H, W, C) bf16; partial (B * strips * ceil(W / kTileW), 11,
+// C) f32 per block: the 9 tap sums Σ hid(shifted)·d_z, Σ d_z, Σ d_hid. A
+// block walks `rows` rows (strips = ceil(H / rows)). Returns a cudaError_t.
+VSS_EXPORT int dz_dhid(const void* d_a, const void* hid, const void* wk, const void* bdw,
+                       void* d_hid, void* partial, int B, int H, int W, int C, int rows,
+                       int device, void* stream) {
+  vss::use_device(device);
+  if ((long long)B * H * W == 0 || C == 0) return 0;
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const int strips = (H + rows - 1) / rows, ctiles = (W + kTileW - 1) / kTileW;
+  const unsigned grid = (unsigned)((long long)B * strips * ctiles * ((C + 63) / 64));
+  dz_dhid_kernel<kTileW><<<grid, 32 * (kTileW + 2), 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(d_a), static_cast<const float*>(hid),
-      static_cast<const float*>(wk), static_cast<const float*>(bdw), static_cast<float*>(d_z),
-      static_cast<float*>(partial), H, W, C, M, per);
-  return (int)cudaGetLastError();
-}
-
-// d_z (B, H, W, C) f32; wk (9, C) f32; d_hid (B, H, W, C) bf16; partial
-// (ceil(B·H·W / per), C) f32. Returns a cudaError_t.
-VSS_EXPORT int dwconv_t(const void* d_z, const void* wk, void* d_hid, void* partial, int B,
-                        int H, int W, int C, int per, int device, void* stream) {
-  cudaSetDevice(device);
-  const long long M = (long long)B * H * W;
-  if (M == 0 || C == 0) return 0;
-  if (per < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((M + per - 1) / per), (C + PIX_THREADS - 1) / PIX_THREADS);
-  dwconv_t_kernel<<<grid, PIX_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(d_z), static_cast<const float*>(wk),
-      static_cast<__nv_bfloat16*>(d_hid), static_cast<float*>(partial), H, W, C, M, per);
+      static_cast<const float*>(wk), static_cast<const float*>(bdw),
+      static_cast<__nv_bfloat16*>(d_hid), static_cast<float*>(partial), H, W, C, rows, strips,
+      ctiles);
   return (int)cudaGetLastError();
 }
 
@@ -284,7 +349,7 @@ VSS_EXPORT int ln_bwd(const void* dl, const void* xin, const void* gamma, const 
                       void* dxs, void* partial, int M, int C, int xin_f32, int res_f32,
                       int dx_f32, int rows_per_frame, int per, float eps, int device,
                       void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if (M == 0 || C == 0) return 0;
   if (C > 32 * LN_MAXI || per < 1 || rows_per_frame < 1 || (s_out != nullptr && dxs == nullptr))
     return (int)cudaErrorInvalidValue;

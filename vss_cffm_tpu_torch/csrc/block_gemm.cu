@@ -242,7 +242,7 @@ VSS_EXPORT int gemm_ln_bias_res(const void* A, const void* gamma, const void* be
                                 const void* a_scale, const void* o_scale, void* out, int M,
                                 int N, int K, int a_f32, int ln, int res_kind, int out_f32,
                                 int rows_per_frame, float eps, int device, void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if (M == 0 || N == 0) return 0;
   if ((ln && K > KMAX_LN) || rows_per_frame < 1) return (int)cudaErrorInvalidValue;
   const float* sa = static_cast<const float*>(a_scale);

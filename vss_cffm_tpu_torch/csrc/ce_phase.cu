@@ -408,7 +408,7 @@ int bwd_by_variant(const void* x, const void* labels, const void* g, void* out, 
 VSS_EXPORT int ce_phase_fwd_loss(const void* logits, const void* labels, void* partial, int N,
                                  int h, int w, int C, int s, int unrolled, float img_w,
                                  int count_acc, int device, void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if ((long long)N * h * w == 0) return 0;
   if (s < 1 || s > kMaxScale || C < 1) return (int)cudaErrorInvalidValue;
   return fwd_by_scale(logits, labels, partial, N, h, w, C, s, unrolled, img_w, count_acc,
@@ -422,7 +422,7 @@ VSS_EXPORT int ce_phase_fwd_loss(const void* logits, const void* labels, void* p
 VSS_EXPORT int ce_phase_bwd_loss(const void* logits, const void* labels, const void* g,
                                  void* out, int N, int h, int w, int C, int s, int w_major,
                                  int unrolled, float img_w, int device, void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if ((long long)N * h * w == 0) return 0;
   if (s < 1 || s > kMaxScale || C < 1) return (int)cudaErrorInvalidValue;
   return bwd_by_variant(logits, labels, g, out, N, h, w, C, s, w_major, unrolled, img_w,

@@ -394,7 +394,7 @@ int launch_bwd(const void* x, const void* labels, const void* g, const void* lse
 VSS_EXPORT int ce_fwd_loss(const void* logits, const void* labels, void* partial, int N, int h,
                            int w, int C, int s, int labels_i32, float img_w, int count_acc,
                            int device, void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if ((long long)N * h * w == 0) return 0;
   if (s < 1 || s > kMaxScale || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -408,7 +408,7 @@ VSS_EXPORT int ce_fwd_loss(const void* logits, const void* labels, void* partial
 VSS_EXPORT int ce_bwd_loss(const void* logits, const void* labels, const void* g, void* out,
                            int N, int h, int w, int C, int s, int labels_i32, float img_w,
                            int device, void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if ((long long)N * h * w == 0) return 0;
   if (s < 1 || s > kMaxScale || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -424,7 +424,7 @@ VSS_EXPORT int ce_bwd_loss(const void* logits, const void* labels, const void* g
 VSS_EXPORT int ce_fwd_nll(const void* logits, const void* labels, void* nll, void* pred,
                           void* lse, int N, int h, int w, int C, int s, int labels_i32,
                           int device, void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if ((long long)N * h * w == 0) return 0;
   if (s < 1 || s > kMaxScale || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -438,7 +438,7 @@ VSS_EXPORT int ce_fwd_nll(const void* logits, const void* labels, void* nll, voi
 VSS_EXPORT int ce_bwd_nll(const void* logits, const void* labels, const void* lse,
                           const void* g_nll, void* out, int N, int h, int w, int C, int s,
                           int labels_i32, int device, void* stream) {
-  cudaSetDevice(device);
+  vss::use_device(device);
   if ((long long)N * h * w == 0) return 0;
   if (s < 1 || s > kMaxScale || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

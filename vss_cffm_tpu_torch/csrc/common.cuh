@@ -71,4 +71,11 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// Make `device` current for the launch; cudaGetDevice is a thread-local read,
+// so a call on the device already current skips cudaSetDevice
+inline void use_device(int device) {
+  int cur = -1;
+  if (cudaGetDevice(&cur) != cudaSuccess || cur != device) cudaSetDevice(device);
+}
+
 }  // namespace vss

@@ -1,11 +1,11 @@
 // Sums over rows of Aᵀ·B, split over blocks, one f32 partial per split:
 //
-//     partial[split, g1, g2] = Σ_{rows r of the split} A[g1, g2, r, :]ᵀ · B'[g1, g2, r, :]
+//     partial[split] = Σ_{rows r of the split} A[r, :]ᵀ · B'[r, :]
 //     B' = bf16(B · s[r / rows_per_frame])   (without a scale: B)
 //
-// A (G1, G2, M, K1) and B (G1, G2, M, N) are bf16 strided views with a unit
-// last stride. The wrapper reduces the partials over the splits with one
-// torch.sum, so the result repeats exactly run to run (no atomics).
+// A (M, K1) and B (M, N) are contiguous bf16. The wrapper reduces the
+// partials over the splits with one torch.sum, so the result repeats
+// exactly run to run (no atomics).
 //
 // Part of the port of the TPU kernel vss_cffm_tpu/ops/stage_block.py:
 // _mit_block_train_bwd (_train_bwd_kernel), and of the FFN-half backward
@@ -15,15 +15,14 @@
 // blocks run in parallel, so the row axis is split over blocks and the
 // partials are reduced in a second pass. This GEMM serves every product
 // that reduces over the rows of the block: dW2 = aᵀ·bf16(go·s_ffn), dW1 =
-// ln2ᵀ·d_hid, dWproj = ctxᵀ·d_attn, dWq = ln1ᵀ·d_q over M = B·H·W rows, and,
-// per (frame, head), dKᵀ = d_sᵀ·q and dV = pᵀ·d_ctx over the frame's H·W
-// queries.
+// ln2ᵀ·d_hid, dWproj = ctxᵀ·d_attn, dWq = ln1ᵀ·d_q over M = B·H·W rows (dK
+// and dV are sra_attention_bwd.cu's own).
 //
 // Bound on the H100: the bytes of A and B (each read once; K1, N <= 1280,
 // so the products are 2·K1·N flops per row pair of 2·(K1 + N) bytes, at or
 // below the ~295 flop/byte ridge for the weight gradients) and, for small
 // outputs, the partials. Design (right and simple first): a block of 4 warps
-// owns one 64x64 tile of the (K1, N) output for one (g1, g2) and one split
+// owns one 64x64 tile of the (K1, N) output and one split
 // of the rows; it walks the split 32 rows at a time, staging the A and B
 // rows in shared memory with 16-byte loads, and each warp accumulates a
 // 32x32 sub-tile with bf16 wmma 16x16x16 products, A read column-major (the
@@ -43,8 +42,7 @@ constexpr int LDA = BK1 + 8, LDB = BN + 8, LDC = BN + 4;
 __global__ void __launch_bounds__(THREADS) gemm_tn_kernel(
     const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
     const float* __restrict__ b_scale, float* __restrict__ partial, int M, int K1, int N,
-    long long lda, long long ldb, long long sa1, long long sa2, long long sb1, long long sb2,
-    int G2, int rows_per_split, int rows_per_frame) {
+    int rows_per_split, int rows_per_frame) {
   __shared__ __align__(128) __nv_bfloat16 As[BR * LDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[BR * LDB];
   __shared__ __align__(128) float Cs[BK1 * LDC];
@@ -52,10 +50,7 @@ __global__ void __launch_bounds__(THREADS) gemm_tn_kernel(
   const int tid = threadIdx.x, warp = tid / 32;
   const int tiles_n = (N + BN - 1) / BN;
   const int k0 = (blockIdx.x / tiles_n) * BK1, n0 = (blockIdx.x % tiles_n) * BN;
-  const int g = blockIdx.y, g1 = g / G2, g2 = g % G2;
-  const int split = blockIdx.z;
-  const __nv_bfloat16* a = A + g1 * sa1 + g2 * sa2;
-  const __nv_bfloat16* b = B + g1 * sb1 + g2 * sb2;
+  const int split = blockIdx.y;
   const long long r_begin = (long long)split * rows_per_split;
   const long long r_end = min((long long)M, r_begin + rows_per_split);
 
@@ -72,14 +67,14 @@ __global__ void __launch_bounds__(THREADS) gemm_tn_kernel(
       const int r = c / (BK1 / 8), kc = (c % (BK1 / 8)) * 8;
       uint4 u = make_uint4(0, 0, 0, 0);
       if (r0 + r < r_end && k0 + kc < K1)
-        u = *reinterpret_cast<const uint4*>(a + (r0 + r) * lda + k0 + kc);
+        u = *reinterpret_cast<const uint4*>(A + (r0 + r) * K1 + k0 + kc);
       *reinterpret_cast<uint4*>(As + r * LDA + kc) = u;
     }
     for (int c = tid; c < BR * BN / 8; c += THREADS) {
       const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
       uint4 u = make_uint4(0, 0, 0, 0);
       if (r0 + r < r_end && n0 + nc < N) {
-        u = *reinterpret_cast<const uint4*>(b + (r0 + r) * ldb + n0 + nc);
+        u = *reinterpret_cast<const uint4*>(B + (r0 + r) * N + n0 + nc);
         if (b_scale != nullptr) {
           const float sc = b_scale[(r0 + r) / rows_per_frame];
           float f[8];
@@ -117,7 +112,7 @@ __global__ void __launch_bounds__(THREADS) gemm_tn_kernel(
       wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j], LDC,
                               wmma::mem_row_major);
   __syncthreads();
-  float* out = partial + ((long long)split * gridDim.y + g) * K1 * N;
+  float* out = partial + (long long)split * K1 * N;
   for (int c = tid; c < BK1 * BN / 8; c += THREADS) {
     const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
     if (k0 + r >= K1 || n0 + nc >= N) continue;
@@ -130,23 +125,21 @@ __global__ void __launch_bounds__(THREADS) gemm_tn_kernel(
 
 }  // namespace
 
-// A (G1, G2, M, K1) bf16 with strides (sa1, sa2, lda, 1); B (G1, G2, M, N)
-// bf16 with strides (sb1, sb2, ldb, 1); b_scale (ceil(M / rows_per_frame),)
-// f32 or null; partial (ceil(M / rows_per_split), G1, G2, K1, N) f32. K1,
-// N and every stride multiples of 8, pointers 16-byte aligned (checked by
-// the Python wrapper). Returns a cudaError_t.
+// A (M, K1) and B (M, N) bf16, contiguous; b_scale (ceil(M /
+// rows_per_frame),) f32 or null; partial (ceil(M / rows_per_split), K1, N)
+// f32. K1 and N multiples of 8, pointers 16-byte aligned (checked by the
+// Python wrapper). Returns a cudaError_t.
 VSS_EXPORT int gemm_tn(const void* A, const void* B, const void* b_scale, void* partial, int M,
-                       int K1, int N, long long lda, long long ldb, long long sa1, long long sa2,
-                       long long sb1, long long sb2, int G1, int G2, int rows_per_split,
-                       int rows_per_frame, int device, void* stream) {
-  cudaSetDevice(device);
-  if (M == 0 || K1 == 0 || N == 0 || G1 * G2 == 0) return 0;
+                       int K1, int N, int rows_per_split, int rows_per_frame, int device,
+                       void* stream) {
+  vss::use_device(device);
+  if (M == 0 || K1 == 0 || N == 0) return 0;
   if (rows_per_split < 1 || rows_per_frame < 1 || K1 % 8 || N % 8) return (int)cudaErrorInvalidValue;
   const int splits = (M + rows_per_split - 1) / rows_per_split;
-  dim3 grid(((K1 + BK1 - 1) / BK1) * ((N + BN - 1) / BN), G1 * G2, splits);
+  dim3 grid(((K1 + BK1 - 1) / BK1) * ((N + BN - 1) / BN), splits);
   gemm_tn_kernel<<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(B),
-      static_cast<const float*>(b_scale), static_cast<float*>(partial), M, K1, N, lda, ldb, sa1,
-      sa2, sb1, sb2, G2, rows_per_split, rows_per_frame);
+      static_cast<const float*>(b_scale), static_cast<float*>(partial), M, K1, N,
+      rows_per_split, rows_per_frame);
   return (int)cudaGetLastError();
 }

@@ -34,12 +34,13 @@ import functools
 import torch
 
 from ..config import LossConfig
-from ..ops import ce_upsampled_loss, ce_upsampled_nll
+from ..ops import ce_upsampled_loss, ce_upsampled_nll, ce_upsampled_nll_bwd
 from ..ops.ce_upsampled import valid_safe
 from ..ops.resize import resize_bilinear
 
 __all__ = ["LossConfig", "make_clip_loss", "clip_ce_loss", "clip_ce_loss_city",
-           "clip_lovasz_loss", "cross_entropy", "accuracy", "ohem_weight", "lovasz_softmax"]
+           "clip_lovasz_loss", "cross_entropy", "accuracy", "ohem_weight", "lovasz_softmax",
+           "ohem_path_errors"]
 
 
 def _check_ignore(ignore_index: int, c: int) -> None:
@@ -184,6 +185,37 @@ def _pixel_nll(logits: torch.Tensor, labels: torch.Tensor, s: int, use_ohem: boo
     if cw is not None:
         nll = nll * cw[safe]
     return torch.where(valid, nll, 0.0).mean(), pred
+
+
+@torch.no_grad()
+def ohem_path_errors(logits: torch.Tensor, labels: torch.Tensor, s: int, thresh: float = 0.7,
+                     min_kept: int = 100000, class_weight: torch.Tensor | None = None) -> dict:
+    """One branch of the per-pixel route with OHEM (``_pixel_nll``), its
+    kernels (rows 12, 13) against the plain versions on the card, for a check
+    with a mask that bites: nll from each route, the sort and the k-th
+    threshold, the weighted mean; then the backward of that mean, on both
+    routes, for the plain route's weights (the same g for both, so that a
+    pixel whose probability sits within an nll rounding of the threshold
+    cannot move the dlogits). Returns the kept shares of the valid pixels,
+    the valid pixels whose kept flag differs, the two losses and the two
+    dlogits."""
+    valid, safe = valid_safe(labels, logits.shape[-1])
+    n_valid = int(valid.sum())
+    cw = 1.0 if class_weight is None else class_weight[safe]
+    runs = {}
+    for force in ("kernel", "torch"):
+        nll, _, lse = ce_upsampled_nll(logits, labels, s, force=force)
+        keep = _ohem_from_gt_prob(torch.exp(-nll), valid, thresh, min_kept, logits.shape[0])
+        loss = torch.where(valid, nll * keep * cw, 0.0).mean()
+        runs[force] = (keep, loss, lse)
+    (keep_k, loss_k, lse_k), (keep_p, loss_p, lse_p) = runs["kernel"], runs["torch"]
+    g = torch.where(valid, keep_p * cw, 0.0) / labels.numel()
+    return {"kept": keep_k[valid].sum().item() / max(n_valid, 1),
+            "kept_plain": keep_p[valid].sum().item() / max(n_valid, 1),
+            "flag_differs": int((keep_k != keep_p)[valid].sum()), "valid": n_valid,
+            "loss": (loss_k.item(), loss_p.item()),
+            "dlogits": (ce_upsampled_nll_bwd(logits, labels, lse_k, g, s, force="kernel"),
+                        ce_upsampled_nll_bwd(logits, labels, lse_p, g, s, force="torch"))}
 
 
 def clip_ce_loss(seg_logits: torch.Tensor, seg_labels: torch.Tensor, ignore_index: int = 255,

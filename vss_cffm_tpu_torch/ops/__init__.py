@@ -6,7 +6,7 @@ from .ce_upsampled import (ce_bwd_loss_v2, ce_bwd_loss_v3, ce_fwd_loss_v3, ce_fw
                            ce_upsampled_loss_bwd_torch, ce_upsampled_loss_torch,
                            ce_upsampled_nll, ce_upsampled_nll_bwd, ce_upsampled_nll_bwd_torch,
                            ce_upsampled_nll_torch, labels_to_phase, labels_to_phase_w,
-                           phase_to_natural)
+                           phase_labels_u8, phase_to_natural)
 from .cfm_attention import (cfm_attention, cfm_attention_bwd, cfm_attention_bwd_probs,
                             cfm_attention_bwd_probs_torch, cfm_attention_bwd_torch,
                             cfm_attention_probs, cfm_attention_probs_torch, cfm_attention_torch)
@@ -28,7 +28,7 @@ __all__ = [
     "ce_upsampled_loss_bwd_torch", "ce_upsampled_nll", "ce_upsampled_nll_torch",
     "ce_upsampled_nll_bwd", "ce_upsampled_nll_bwd_torch",
     "ce_bwd_loss_v2", "ce_fwd_loss_v5", "ce_fwd_loss_v3", "ce_bwd_loss_v3",
-    "labels_to_phase", "labels_to_phase_w", "phase_to_natural",
+    "labels_to_phase", "labels_to_phase_w", "phase_to_natural", "phase_labels_u8",
     "mit_block_fused", "mit_block_torch", "mit_block_step_errors",
     "mit_block_train", "mit_block_train_torch", "mit_block_train_bwd",
     "mit_block_train_bwd_torch", "mit_block_train_fits",

@@ -42,7 +42,8 @@ _lock = threading.Lock()
 # int, "f" float
 _SIGNATURES = {
     "dwconv": {
-        "dwconv3x3_nhwc": "pppppiiiiiiip",
+        "dwconv3x3_nhwc": "pppppiiiiiiiip",
+        "dwconv3x3_nhwc_nolaunch": "pppppiiiiiiiip",
     },
     "attention": {
         "attention_fwd": "pppppppiiiiiiiffip",
@@ -66,15 +67,16 @@ _SIGNATURES = {
         "ce_bwd_nll": "pppppiiiiiiip",
     },
     "gemm_tn": {
-        "gemm_tn": "ppppiiilllllliiiiip",
+        "gemm_tn": "ppppiiiiiip",
     },
     "block_bwd": {
-        "dgelu_dz": "ppppppiiiiiip",
-        "dwconv_t": "ppppiiiiiip",
+        "dz_dhid": "ppppppiiiiiip",
         "ln_bwd": "pppppppppppiiiiiiifip",
     },
     "sra_attention_bwd": {
-        "sra_attention_bwd": "ppppppppiiiiiifip",
+        "sra_attention_bwd": "pppppppiiiiiifiip",
+        "sra_attention_bwd_smem_bytes": "ii",
+        "sra_attention_bwd_blocks_per_sm": "iii",
     },
     "ce_phase": {
         "ce_phase_fwd_loss": "pppiiiiiifiip",

@@ -54,8 +54,10 @@ w-major (N, h, w, s²) (``labels_to_phase_w``), and are not differentiable:
   (``_ce_fwd_loss_pallas3`` / ``_ce_bwd_loss_pallas3``, ``_fwd_loss_kernel3``
   / ``_bwd_loss_kernel3``).
 
-Their CUDA kernels are in ``csrc/ce_phase.cu`` and take uint8 labels (the
-bench's and the train batch's); the unrolled ones take s in {2, 4}, the
+Their CUDA kernels are in ``csrc/ce_phase.cu`` and read uint8 labels (the
+bench's and the train batch's); labels of any other integer dtype are first
+mapped by ``phase_labels_u8`` (outside [0, C) → 255, ignored as before), as
+the JAX kernels take any integer labels; the unrolled ones take s in {2, 4}, the
 runtime loops 1 ≤ s ≤ 8. Their plain versions are the loss
 pair's, applied after the labels are put back in natural layout
 (``phase_to_natural``), the backward's result kept in f32.
@@ -73,7 +75,7 @@ __all__ = ["ce_upsampled_loss", "ce_upsampled_loss_bwd", "ce_upsampled_loss_torc
            "ce_upsampled_loss_bwd_torch", "ce_upsampled_nll", "ce_upsampled_nll_bwd",
            "ce_upsampled_nll_torch", "ce_upsampled_nll_bwd_torch", "valid_safe",
            "labels_to_phase", "labels_to_phase_w", "phase_to_natural", "ce_bwd_loss_v2",
-           "ce_fwd_loss_v5", "ce_fwd_loss_v3", "ce_bwd_loss_v3"]
+           "ce_fwd_loss_v5", "ce_fwd_loss_v3", "ce_bwd_loss_v3", "phase_labels_u8"]
 
 # classes one warp lane holds: a warp covers up to 32·CPL classes
 _MAX_CLASSES = 256
@@ -379,9 +381,23 @@ def _check_phase(logits: torch.Tensor, labels: torch.Tensor, s: int, w_major: bo
                          f"{tuple(logits.shape)} at scale {s}")
 
 
+def phase_labels_u8(labels: torch.Tensor, c: int, op: str = "ce_phase") -> torch.Tensor:
+    """Labels of any integer dtype as the uint8 the phase kernels read: those
+    outside [0, C) become 255, which stays outside [0, C) (C ≤ 255), so a
+    wider label is ignored as the JAX kernels ignore it after their int32
+    cast, not cut to its low 8 bits. uint8 labels pass as they are."""
+    if labels.dtype == torch.uint8:
+        return labels
+    require(not labels.is_floating_point() and not labels.is_complex(), op,
+            lambda: f"labels of dtype {labels.dtype} (an integer dtype)")
+    require(c <= 255, op, lambda: f"{c} classes with {labels.dtype} labels (255 at most, "
+                                          "so that 255 stays ignored)")
+    return torch.where((labels >= 0) & (labels < c), labels, 255).to(torch.uint8)
+
+
 def _phase_inputs(logits, labels, s: int, unrolled: bool, op: str):
+    labels = phase_labels_u8(labels, logits.shape[-1], op)
     logits, labels, _ = _kernel_inputs(logits, labels, s, op)
-    require(labels.dtype == torch.uint8, op, f"labels of dtype {labels.dtype} (uint8 only)")
     if unrolled:
         require(s in (2, 4), op, f"scale {s} (the unrolled phases: 2 or 4)")
     else:

@@ -14,9 +14,19 @@ backward is ``dwconv3x3_bwd_torch``, plain PyTorch with ``_shifts_cvjp_bwd``'s
 math: gz = g·GELU′(z) in f32, rounded once to x's dtype; dx the correlation
 of gz with the flipped taps; dk and dbias f32 reductions. The JAX backward
 is XLA, not a TPU kernel; a CUDA backward is open work.
+
+The host path of a call is kept short, as at the stage-4 maps the kernel
+takes as long as the host's work around it: with nothing for autograd to
+record the op launches without the Function; the model's taps
+(``DWConv.kernel``, made once per parameter value) and bias are already
+f32 and contiguous and pass without a copy; the strip plan and the SM
+count are cached per shape; the C entry point is looked up once and sets
+the device only when it is not current.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -75,28 +85,85 @@ def dwconv3x3_bwd_torch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tenso
     return dx.to(x.dtype), dk, gz_f.sum(dim=(0, 1, 2)).to(bias.dtype)
 
 
+# threads a kernel block (csrc/dwconv.cu kThreads), and the blocks one SM
+# holds at its 168 registers a thread
+_THREADS = 128
+_BLOCKS_PER_SM = 3
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def strip_plan(b: int, h: int, w: int, c: int, sms: int) -> tuple[int, int]:
+    """(rows, strips) of the kernel's row strips: a thread walks ``rows``
+    output rows of one column and 8 channels; ``strips`` = ceil(h / rows)
+    strips cover the map, the last one short when rows does not divide h.
+    Of the strip counts, the one with the least waves of resident blocks
+    (``_BLOCKS_PER_SM`` on each of ``sms`` SMs) times a thread's rows plus
+    its two halo rows and a fixed cost of about four rows, as a second,
+    part-filled wave costs more than longer strips save
+    (``python -m vss_cffm_tpu_torch.tools.bench_dwconv`` times every strip
+    length at the B1 path's shapes beside the plan's)."""
+    blocks_per_strip = -(-b * w * (c // 8) // _THREADS)
+    slots = _BLOCKS_PER_SM * sms
+    best = None
+    for strips in range(1, h + 1):
+        rows = -(-h // strips)
+        if best is not None and rows == best[1]:
+            continue
+        waves = -(-blocks_per_strip * -(-h // rows) // slots)
+        cost = waves * (rows + 2 + 4)
+        if best is None or cost < best[0]:
+            best = (cost, rows)
+    rows = best[1]
+    return rows, -(-h // rows)
+
+
+def _f32_on(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """t as a contiguous f32 tensor on dev, without a copy when it is one
+    (the model's taps and bias are: ``models/mit.py:DWConv.kernel``)."""
+    if t.dtype == torch.float32 and t.device == dev and t.is_contiguous():
+        return t
+    return t.to(device=dev, dtype=torch.float32).contiguous()
+
+
+_entry = {}
+
+
+def _c_entry():
+    """The C entry point, looked up once. ``chip_smoke.py`` puts its no-launch
+    twin ``dwconv3x3_nhwc_nolaunch`` in its place to time the host path."""
+    fn = _entry.get("dwconv3x3_nhwc")
+    if fn is None:
+        fn = _entry["dwconv3x3_nhwc"] = _build.library("dwconv").dwconv3x3_nhwc
+    return fn
+
+
 def dwconv3x3_launch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                      gelu: bool, op: str = "dwconv3x3", z: torch.Tensor | None = None
                      ) -> torch.Tensor:
     """Launch the CUDA kernel: x bf16 or f32 (B, H, W, C) → bf16; also writes
     the pre-activation into z (bf16, x's shape) when given. No count."""
-    require(x.is_cuda, op, "a CPU tensor")
-    require(x.dim() == 4, op, f"x of shape {tuple(x.shape)}")
-    require(x.dtype in (torch.bfloat16, torch.float32), op, f"x of dtype {x.dtype}")
+    require(x.is_cuda and x.dim() == 4 and x.dtype in (torch.bfloat16, torch.float32), op,
+            lambda: f"x {x.dtype} {tuple(x.shape)} on {x.device} (bf16 or f32 NHWC on CUDA)")
     b, h, w, c = x.shape
-    require(c % 8 == 0, op, f"C={c} not a multiple of 8")
-    require(tuple(kernel.shape) == (3, 3, 1, c), op, f"kernel of shape {tuple(kernel.shape)}")
-    require(tuple(bias.shape) == (c,), op, f"bias of shape {tuple(bias.shape)}")
-    wk = kernel.reshape(9, c).to(device=x.device, dtype=torch.float32).contiguous()
-    bb = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    require(c % 8 == 0 and kernel.shape == (3, 3, 1, c) and bias.shape == (c,), op,
+            lambda: f"C={c} (a multiple of 8), kernel {tuple(kernel.shape)}, "
+                    f"bias {tuple(bias.shape)}")
+    dev = x.device
+    wk, bb = _f32_on(kernel, dev), _f32_on(bias, dev)
     if z is not None:
         require(z.dtype == torch.bfloat16 and z.shape == x.shape, op,
-                f"z {z.dtype} {tuple(z.shape)}")
-    out = torch.empty(x.shape, device=x.device, dtype=torch.bfloat16)
-    dev, stream = stream_of(x)
-    rc = _build.library("dwconv").dwconv3x3_nhwc(
-        ptr(x, op), ptr(wk, op), ptr(bb, op), ptr(out, op), ptr(z, op), b, h, w, c,
-        int(x.dtype == torch.float32), int(gelu), dev, stream)
+                lambda: f"z {z.dtype} {tuple(z.shape)}")
+    out = torch.empty(x.shape, device=dev, dtype=torch.bfloat16)
+    devi, stream = stream_of(x)
+    rows, _ = strip_plan(b, h, w, c, _sm_count(devi))
+    rc = _c_entry()(
+        ptr(x, op), ptr(wk, op), ptr(bb, op), ptr(out, op), ptr(z, op), b, h, w, c, rows,
+        int(x.dtype == torch.float32), int(gelu), devi, stream)
     _build.check(rc, op)
     return out
 
@@ -128,7 +195,13 @@ def dwconv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'."""
     kernel_path = use_kernel(force, x, "dwconv3x3")
     if kernel_path:
-        require(x.dtype == torch.bfloat16, "dwconv3x3", f"x of dtype {x.dtype} (bf16 only)")
+        require(x.dtype == torch.bfloat16, "dwconv3x3", lambda: f"x of dtype {x.dtype} (bf16 only)")
+        if not (torch.is_grad_enabled()
+                and (x.requires_grad or kernel.requires_grad or bias.requires_grad)):
+            # nothing to record: the launch alone, without the autograd Function
+            out = dwconv3x3_launch(x.contiguous(), kernel, bias, gelu)
+            dwconv3x3.launches += 1
+            return out
     return _DWConv3x3.apply(x, kernel, bias, gelu, kernel_path)
 
 

@@ -15,7 +15,7 @@ line the FFN half of the whole-block train pair. So the CUDA path is that
 pair's FFN launches (``ops/stage_block.py``): the forward is launches 4-6
 (``block_gemm`` with LN in the prologue, ``dwconv``, ``block_gemm`` with the
 scale and the residual in the epilogue), keeping hid and a for the
-backward; the backward is d_a, d_z, d_hid, d_ln2, the LayerNorm backward
+backward; the backward is d_a, d_hid (with d_z on chip), d_ln2, the LayerNorm backward
 (dx = go + LNᵀ(d_ln) in x's dtype) and the dW2, dW1 row reductions.
 
 ``block_ffn_train_torch`` and ``block_ffn_train_bwd_torch`` are the plain
@@ -247,7 +247,7 @@ def block_ffn_train_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale,
 
 def block_ffn_train_bwd_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, go,
                                     eps: float = 1e-6) -> list:
-    """[(check, max |kernel − plain|, tolerance)] of the backward's seven
+    """[(check, max |kernel − plain|, tolerance)] of the backward's six
     launches, each fed the plain path's inputs (CUDA tensors, no count), at
     ``stage_block.BWD_STEP_TOLERANCE``."""
     op = "block_ffn_train_bwd"

@@ -27,32 +27,34 @@ y, hid and a for the backward, where the TPU kernel recomputes them from x
 because VMEM is small; the rounding points are the same either way.
 
 **Backward** (``_mit_block_train_bwd`` (``_train_bwd_kernel``)): dx, dK,
-dV and the 14 parameter gradients, as fifteen launches of four sources:
+dV and the 14 parameter gradients, as twelve launches of four sources:
 
   1. ``block_gemm``   d_a   = bf16(go·s_ffn)·W2ᵀ               (f32; scaled-A prologue)
-  2. ``block_bwd``    d_z   = d_a·GELU′(z), z = dw3×3(hid) + bdw recomputed in f32;
-                      partials of the 9 depthwise taps Σ hid·d_z and of Σ d_z
-  3. ``block_bwd``    d_hid = dw3×3ᵀ(d_z) → bf16, partial Σ d_hid (db1, f32)
-  4. ``block_gemm``   d_ln2 = d_hid_b·W1ᵀ                      (f32)
-  5. ``block_bwd``    LN2 backward: d_y = go + LN2ᵀ(d_ln2) (f32), ln2 (bf16),
+  2. ``block_bwd``    d_hid = dw3×3ᵀ(d_z) → bf16, with z = dw3×3(hid) + bdw and
+                      d_z = d_a·GELU′(z) recomputed in f32 on chip (``dz_dhid``);
+                      partials of the 9 depthwise taps Σ hid·d_z, of Σ d_z and
+                      of Σ d_hid (db1, f32)
+  3. ``block_gemm``   d_ln2 = d_hid_b·W1ᵀ                      (f32)
+  4. ``block_bwd``    LN2 backward: d_y = go + LN2ᵀ(d_ln2) (f32), ln2 (bf16),
                       d_attn_b = bf16(d_y·s_attn); partials dg2, dbe2, dbproj
                       = Σ d_y·s_attn, db2 = Σ go·s_ffn
-  6. ``block_gemm``   d_ctx = bf16(d_attn_b·Wprojᵀ)
-  7. ``sra_attention_bwd``  p and d_s = bf16(p∘(d_p − Σ d_p∘p)) recomputed from
-                      q, K, V per 64-query tile (bf16, written for 12-15), d_q
-                      → bf16, partial Σ d_q (dbq, f32)
-  8. ``block_gemm``   d_ln1 = d_q_b·Wqᵀ                       (f32)
-  9. ``block_bwd``    LN1 backward: dx = d_y + LN1ᵀ(d_ln1) (x's dtype), ln1
+  5. ``block_gemm``   d_ctx = bf16(d_attn_b·Wprojᵀ)
+  6. ``sra_attention_bwd``  per (frame, head, split of its 64-query tiles):
+                      p and d_s = bf16(p∘(d_p − Σ d_p∘p)) recomputed from q,
+                      K, V and never written, d_q → bf16, partial Σ d_q (dbq),
+                      and per split dK = scale·Σ d_sᵀ·q, dV = Σ bf16(p)ᵀ·d_ctx
+                      (f32 partials summed in a fixed order)
+  7. ``block_gemm``   d_ln1 = d_q_b·Wqᵀ                       (f32)
+  8. ``block_bwd``    LN1 backward: dx = d_y + LN1ᵀ(d_ln1) (x's dtype), ln1
                       (bf16); partials dg1, dbe1
-  10-15. ``gemm_tn``  dW2 = aᵀ·go_s, dW1 = ln2ᵀ·d_hid_b, dWproj = ctxᵀ·d_attn_b,
-                      dWq = ln1ᵀ·d_q_b, dK = scale·d_sᵀ·q and dV = p_bᵀ·d_ctx_b
-                      per frame and head: sums over the rows, split over
+  9-12. ``gemm_tn``   dW2 = aᵀ·go_s, dW1 = ln2ᵀ·d_hid_b, dWproj = ctxᵀ·d_attn_b,
+                      dWq = ln1ᵀ·d_q_b: sums over the rows, split over
                       blocks, partials reduced in a fixed order.
 
 No atomics: every reduction over rows writes per-block partials that one
 ``torch.sum`` reduces, so results repeat exactly. The rounding points are
 ``_train_bwd_kernel``'s: bf16 at ln1, q, p, ctx, ln2, a, go_s, d_hid_b,
-d_ctx_b, d_s and d_q_b; f32 elsewhere (z, GELU′, the LN statistics, the
+d_ctx_b, d_s and d_q_b; f32 elsewhere (z, d_z, GELU′, the LN statistics, the
 bias, γ and β sums). dK is the gradient of the scaled K, times the scale.
 
 The plain versions (``mit_block_train_torch``, ``mit_block_train_bwd_torch``)
@@ -62,7 +64,7 @@ run the same steps in PyTorch with those rounding points, so that
 plain step, at a tolerance relative to that step's own output.
 ``ops/mixffn.py`` reuses launches 4-6 of the forward (``block_ffn_train``,
 and at inference ``block_ffn_fused`` and, without LN2 and the residual,
-``mixffn_fused``) and 1-5, 10, 11 of the backward.
+``mixffn_fused``) and 1-4, 9, 10 of the backward.
 """
 
 from __future__ import annotations
@@ -361,34 +363,28 @@ def lin_bwd(a: torch.Tensor, w_t: torch.Tensor, dt: torch.dtype, *, kernel: bool
 
 def gemm_tn(a: torch.Tensor, b: torch.Tensor, *, kernel: bool, b_scale: torch.Tensor | None = None,
             rows_per_frame: int = 1, dt: torch.dtype, op: str) -> torch.Tensor:
-    """Σ over rows of aᵀ·b: a (G1, G2, M, K1), b (G1, G2, M, N) (views with a
-    unit last stride), b times its per-frame scale rounded to dt →
-    (G1, G2, K1, N) f32."""
-    g1, g2, m, k1 = a.shape
-    n = b.shape[3]
+    """Σ over rows of aᵀ·b: a (M, K1), b (M, N), b times its per-frame scale
+    rounded to dt → (K1, N) f32."""
+    m, k1 = a.shape
+    n = b.shape[1]
     if not kernel:
         bf = b.float()
         if b_scale is not None:
             bf = bf * _frame_rows(b_scale, rows_per_frame)
-        return a.to(dt).float().transpose(-1, -2) @ bf.to(dt).float()
-    require(a.dtype == _BF16 and b.dtype == _BF16, op, f"gemm_tn inputs {a.dtype}, {b.dtype}")
-    require(k1 % 8 == 0 and n % 8 == 0, op, f"gemm_tn K1={k1}, N={n} not multiples of 8")
-    require(tuple(b.shape[:3]) == (g1, g2, m), op, f"gemm_tn a {tuple(a.shape)}, b {tuple(b.shape)}")
-    for name, t in (("a", a), ("b", b)):
-        require(t.stride(3) == 1 and all(st % 8 == 0 for st in t.stride()[:3]), op,
-                f"gemm_tn {name} strides {t.stride()}")
-        require(t.data_ptr() % 16 == 0, op, f"gemm_tn {name} not 16-byte aligned")
+        return a.to(dt).float().t() @ bf.to(dt).float()
+    require(a.dtype == _BF16 and b.dtype == _BF16 and b.shape[0] == m, op,
+            lambda: f"gemm_tn a {a.dtype} {tuple(a.shape)}, b {b.dtype} {tuple(b.shape)}")
+    require(k1 % 8 == 0 and n % 8 == 0, op, lambda: f"gemm_tn K1={k1}, N={n} not multiples of 8")
     sb = None if b_scale is None else _scales(b_scale, -(-m // rows_per_frame), a.device, op)
-    tiles = g1 * g2 * -(-k1 // 64) * -(-n // 64)
+    tiles = -(-k1 // 64) * -(-n // 64)
     splits = max(1, min(-(-_BLOCKS_PER_SM * _sms(a) // tiles), -(-m // 256)))
     rps = -(-m // splits)
     splits = -(-m // rps)
-    partial = torch.empty((splits, g1, g2, k1, n), device=a.device, dtype=_F32)
+    partial = torch.empty((splits, k1, n), device=a.device, dtype=_F32)
     dev, stream = stream_of(a)
     rc = _build.library("gemm_tn").gemm_tn(
-        a.data_ptr(), b.data_ptr(), ptr(sb, op), ptr(partial, op), m, k1, n, a.stride(2),
-        b.stride(2), a.stride(0), a.stride(1), b.stride(0), b.stride(1), g1, g2, rps,
-        rows_per_frame, dev, stream)
+        ptr(a, op), ptr(b, op), ptr(sb, op), ptr(partial, op), m, k1, n, rps, rows_per_frame,
+        dev, stream)
     _build.check(rc, op)
     return partial.sum(dim=0)
 
@@ -400,10 +396,48 @@ def _row_chunks(t: torch.Tensor, rows: int, cols_blocks: int = 1) -> tuple[int, 
     return per, -(-rows // per)
 
 
-def dgelu_dz(d_a: torch.Tensor, hid: torch.Tensor, kdw: torch.Tensor, bdw: torch.Tensor, *,
-             kernel: bool, op: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """d_z = d_a·GELU′(z), z = dw3×3(hid) + bdw in f32 (hid, d_a f32 (B, H, W, Ch));
-    dkdw (3, 3, 1, Ch) = Σ hid(shifted)·d_z per tap, dbdw = Σ d_z."""
+# owned columns of a dz_dhid block (csrc/block_bwd.cu kTileW), and the
+# blocks of 320 threads per SM its strips aim for: two are resident (96
+# registers a thread), and the longest strips that fill them recompute the
+# fewest halo rows (at the B1 stage shapes: one strip of all rows)
+DZ_TILE_W = 8
+_DZ_BLOCKS_PER_SM = 2
+
+
+def dz_dhid_plan(b: int, h: int, w: int, ch: int, sms: int) -> tuple[int, int, int]:
+    """(rows, strips, column tiles) of ``dz_dhid``'s blocks: a block owns
+    ``rows`` rows (the last strip shorter when rows does not divide h) x
+    DZ_TILE_W columns x 64 channels of one frame; strips are as long as the
+    blocks of all strips still fill ``_DZ_BLOCKS_PER_SM`` blocks on each of
+    ``sms`` SMs."""
+    ctiles = -(-w // DZ_TILE_W)
+    per_strip = b * ctiles * -(-ch // 64)
+    strips = min(h, max(1, -(-_DZ_BLOCKS_PER_SM * sms // per_strip)))
+    rows = -(-h // strips)
+    return rows, -(-h // rows), ctiles
+
+
+def dz_dhid_tiles(b: int, h: int, w: int, rows: int) -> list:
+    """The (frame, owned rows [i0, i1), owned columns [j0, j1)) of each block
+    of ``dz_dhid`` in its partial's order, as the kernel derives them from its
+    block index (the channel slabs aside)."""
+    strips, ctiles = -(-h // rows), -(-w // DZ_TILE_W)
+    out = []
+    for blk in range(b * strips * ctiles):
+        ct, t = blk % ctiles, blk // ctiles
+        strip, f = t % strips, t // strips
+        out.append((f, strip * rows, min(h, strip * rows + rows), ct * DZ_TILE_W,
+                    min(w, ct * DZ_TILE_W + DZ_TILE_W)))
+    return out
+
+
+def dz_dhid(d_a: torch.Tensor, hid: torch.Tensor, kdw: torch.Tensor, bdw: torch.Tensor,
+            dt: torch.dtype, *, kernel: bool, op: str) -> dict:
+    """The depthwise conv + GELU backward in one pass (hid, d_a f32 (B, H, W,
+    Ch)): z = dw3×3(hid) + bdw in f32, d_z = d_a·GELU′(z) (f32, not kept),
+    d_hid = the transposed 3×3 depthwise conv of d_z, zero outside the image
+    → {d_hid rounded to dt, db1 = Σ d_hid, dkdw (3, 3, 1, Ch) = Σ hid(shifted)
+    ·d_z per tap, dbdw = Σ d_z}, the sums in f32."""
     b, h, w, ch = hid.shape
     if not kernel:
         z = _preact(hid, kdw, bdw)
@@ -411,49 +445,30 @@ def dgelu_dz(d_a: torch.Tensor, hid: torch.Tensor, kdw: torch.Tensor, bdw: torch
         hp = F.pad(hid.float(), (0, 0, 1, 1, 1, 1))
         taps = [(hp[:, di:di + h, dj:dj + w, :] * d_z).sum(dim=(0, 1, 2))
                 for di in range(3) for dj in range(3)]
-        return d_z, torch.stack(taps).reshape(3, 3, 1, ch), d_z.sum(dim=(0, 1, 2))
-    require(hid.dtype == _F32 and d_a.dtype == _F32 and ch % 8 == 0, op,
-            f"d_a {d_a.dtype} / hid {hid.dtype}, Ch={ch}")
-    wk = kdw.reshape(9, ch).to(device=hid.device, dtype=_F32).contiguous()
-    bb = bdw.to(device=hid.device, dtype=_F32).contiguous()
-    gy = -(-ch // 256)
-    per, nchunks = _row_chunks(hid, b * h * w, gy)
-    d_z = torch.empty_like(d_a)
-    partial = torch.empty((nchunks, 10, ch), device=hid.device, dtype=_F32)
-    dev, stream = stream_of(hid)
-    rc = _build.library("block_bwd").dgelu_dz(
-        ptr(d_a, op), ptr(hid, op), ptr(wk, op), ptr(bb, op), ptr(d_z, op), ptr(partial, op),
-        b, h, w, ch, per, dev, stream)
-    _build.check(rc, op)
-    sums = partial.sum(dim=0)
-    return d_z, sums[:9].reshape(3, 3, 1, ch), sums[9]
-
-
-def dwconv_t(d_z: torch.Tensor, kdw: torch.Tensor, dt: torch.dtype, *, kernel: bool,
-             op: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """d_hid = the transposed 3×3 depthwise conv of d_z (f32 (B, H, W, Ch)),
-    zero outside the image → (d_hid rounded to dt, db1 = Σ d_hid in f32)."""
-    b, h, w, ch = d_z.shape
-    if not kernel:
         k = kdw.reshape(3, 3, ch).float()
-        gp = F.pad(d_z.float(), (0, 0, 1, 1, 1, 1))
+        gp = F.pad(d_z, (0, 0, 1, 1, 1, 1))
         d_hid = None
         for dj in range(3):
             for di in range(3):
                 term = gp[:, 2 - di:2 - di + h, 2 - dj:2 - dj + w, :] * k[di, dj]
                 d_hid = term if d_hid is None else d_hid + term
-        return d_hid.to(dt), d_hid.sum(dim=(0, 1, 2))
-    require(d_z.dtype == _F32 and ch % 8 == 0, op, f"d_z {d_z.dtype}, Ch={ch}")
-    wk = kdw.reshape(9, ch).to(device=d_z.device, dtype=_F32).contiguous()
-    per, nchunks = _row_chunks(d_z, b * h * w, -(-ch // 256))
-    d_hid = torch.empty(d_z.shape, device=d_z.device, dtype=_BF16)
-    partial = torch.empty((nchunks, ch), device=d_z.device, dtype=_F32)
-    dev, stream = stream_of(d_z)
-    rc = _build.library("block_bwd").dwconv_t(
-        ptr(d_z, op), ptr(wk, op), ptr(d_hid, op), ptr(partial, op), b, h, w, ch, per, dev,
-        stream)
+        return {"d_hid": d_hid.to(dt), "db1": d_hid.sum(dim=(0, 1, 2)),
+                "dkdw": torch.stack(taps).reshape(3, 3, 1, ch), "dbdw": d_z.sum(dim=(0, 1, 2))}
+    require(hid.dtype == _F32 and d_a.dtype == _F32 and ch % 8 == 0, op,
+            lambda: f"d_a {d_a.dtype} / hid {hid.dtype}, Ch={ch}")
+    wk = kdw.reshape(9, ch).to(device=hid.device, dtype=_F32).contiguous()
+    bb = bdw.to(device=hid.device, dtype=_F32).contiguous()
+    rows, strips, ctiles = dz_dhid_plan(b, h, w, ch, _sms(hid))
+    d_hid = torch.empty(hid.shape, device=hid.device, dtype=_BF16)
+    partial = torch.empty((b * strips * ctiles, 11, ch), device=hid.device, dtype=_F32)
+    dev, stream = stream_of(hid)
+    rc = _build.library("block_bwd").dz_dhid(
+        ptr(d_a, op), ptr(hid, op), ptr(wk, op), ptr(bb, op), ptr(d_hid, op), ptr(partial, op),
+        b, h, w, ch, rows, dev, stream)
     _build.check(rc, op)
-    return d_hid, partial.sum(dim=0)
+    sums = partial.sum(dim=0)
+    return {"d_hid": d_hid, "db1": sums[10], "dkdw": sums[:9].reshape(3, 3, 1, ch),
+            "dbdw": sums[9]}
 
 
 def ln_bwd(dl: torch.Tensor, xin: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -523,60 +538,102 @@ def round16(n: int) -> int:
 
 def sra_attention_bwd_smem(s: int, dh: int) -> int:
     """Shared memory of one block of ``csrc/sra_attention_bwd.cu`` (its
-    ``Smem``): K and V (Sp, dh) bf16, q and d_ctx (64, dh) bf16, the f32 and
-    bf16 (64, Sp) score tiles, four 16×16 f32 scratch tiles and four (64,)
-    f32 column sums."""
-    sp = round16(s)
-    return sp * dh * 2 * 2 + 64 * dh * 2 * 2 + 64 * sp * (4 + 2) + 4 * 256 * 4 + 4 * 64 * 4
+    ``Smem``, which the kernel's launch asks for): K and V (Sp, dh) bf16, a
+    ring of 2 stages of q and d_ctx (64, dh) bf16, each warp group's p and
+    d_s tiles (64, 32) bf16 (also the exchange of d_q, (64, dh) f32), the dK
+    and dV accumulators (S, dh) f32, the groups' row statistics and r (2, 64,
+    3) f32 and four (dh,) f32 column sums of d_q."""
+    return (2 * round16(s) * dh * 2 + 2 * 2 * 64 * dh * 2 + max(2 * 2 * 64 * 32 * 2, 64 * dh * 4)
+            + 2 * s * dh * 4 + 2 * 64 * 3 * 4 + 4 * dh * 4)
+
+
+def sra_bwd_splits(b: int, nh: int, ntq: int, slots: int) -> tuple[int, int]:
+    """(tiles per split, splits) of the attention backward: each of the b·nh
+    (frame, head) pairs cuts its ntq 64-query tiles into ``splits``
+    consecutive runs of ``tiles per split`` (the last one shorter), one block
+    each. Of the splits the fewest that give the least time in waves of
+    ``slots`` blocks (SMs times blocks per SM), a block costing its tiles plus
+    one for its K/V load and its partial."""
+    best = None
+    for sp in range(1, ntq + 1):
+        tps = -(-ntq // sp)
+        sp = -(-ntq // tps)
+        cost = -(-b * nh * sp // slots) * (tps + 1)
+        if best is None or cost < best[0]:
+            best = (cost, tps, sp)
+    return best[1], best[2]
+
+
+_bwd_slots: dict = {}
+
+
+def _sra_bwd_slots(s: int, dh: int, dev: int) -> int:
+    """SMs × blocks of the kernel per SM at s keys and head dim dh (a CUDA
+    occupancy query, cached)."""
+    key = (s, dh, dev)
+    if key not in _bwd_slots:
+        n = _build.library("sra_attention_bwd").sra_attention_bwd_blocks_per_sm(s, dh, dev)
+        require(n > 0, "mit_block_train_bwd",
+                lambda: f"no block of the attention backward fits an SM at {s} keys, "
+                        f"head dim {dh} (CUDA error {-n})")
+        _bwd_slots[key] = n * torch.cuda.get_device_properties(dev).multi_processor_count
+    return _bwd_slots[key]
 
 
 def sra_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_ctx: torch.Tensor,
                       shape, nh: int, dt: torch.dtype, *, kernel: bool, op: str) -> dict:
     """The attention backward of the block per (frame, head): q and d_ctx
     (M, C) in dt, k / v (B, S, C). p = softmax(q·(s·K)ᵀ) recomputed in f32,
-    d_p = d_ctx·Vᵀ, d_s = p∘(d_p − Σ d_p∘p), d_q = bf16(d_s)·(s·K) →
-    {p_b, d_s (B, nh, HW, Sp) in dt, zero past S; d_q in dt (M, C);
-    dbq (C,) = Σ d_q in f32}."""
+    d_p = d_ctx·Vᵀ, d_s = bf16(p∘(d_p − Σ d_p∘p)), d_q = d_s·(s·K) →
+    {d_q in dt (M, C); dbq (C,) = Σ d_q; dk (B, S, C) = scale·Σ d_sᵀ·q, the
+    gradient of the scaled K times the scale; dv (B, S, C) = Σ bf16(p)ᵀ·d_ctx;
+    all sums in f32}."""
     b, h, w, c = shape
     hw, s = h * w, k.shape[1]
     dh = c // nh
-    sp = round16(s)
     ksc = scale_in(dt, dh ** -0.5)
+
+    def heads(t, n):
+        return t.reshape(b, n, nh, dh).transpose(1, 2)        # (b, nh, n, dh)
+
+    def merged(g):
+        return g.transpose(1, 2).reshape(b, -1, c)             # (b, n, c)
+
     if not kernel:
-        heads = lambda t, n: t.reshape(b, n, nh, dh).transpose(1, 2)
         qh = heads(q.to(dt), hw).float()
         kh = heads((k.to(dt) * ksc).to(dt), s).float()
         vh = heads(v.to(dt), s).float()
         gh = heads(d_ctx.to(dt), hw).float()
         p = torch.softmax(qh @ kh.transpose(-1, -2), dim=-1)          # (b, nh, hw, S)
         dp = gh @ vh.transpose(-1, -2)
-        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-        ds_b = ds.to(dt)
-        dq = ds_b.float() @ kh                                          # (b, nh, hw, dh)
-        pad = lambda t: F.pad(t, (0, sp - s))
-        return {"p_b": pad(p.to(dt)), "d_s": pad(ds_b),
-                "d_q": dq.transpose(1, 2).reshape(b * hw, c).to(dt),
-                "dbq": dq.sum(dim=(0, 2)).reshape(c)}
-    require(dh in (32, 64), op, f"head dim {dh} (32 or 64)")
-    require(0 < sra_attention_bwd_smem(s, dh) <= SMEM_LIMIT, op,
-            f"{s} keys at head dim {dh} exceed {SMEM_LIMIT} bytes of shared memory")
+        ds_b = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+        dq = ds_b @ kh                                                  # (b, nh, hw, dh)
+        return {"d_q": merged(dq).reshape(b * hw, c).to(dt), "dbq": dq.sum(dim=(0, 2)).reshape(c),
+                "dk": merged(ds_b.transpose(-1, -2) @ qh) * (dh ** -0.5),
+                "dv": merged(p.to(dt).float().transpose(-1, -2) @ gh)}
+    require(dh in (32, 64), op, lambda: f"head dim {dh} (32 or 64)")
+    lib = _build.library("sra_attention_bwd")
+    require(0 < lib.sra_attention_bwd_smem_bytes(s, dh) <= SMEM_LIMIT, op,
+            lambda: f"{s} keys at head dim {dh} exceed {SMEM_LIMIT} bytes of shared memory")
     for name, t in (("q", q), ("d_ctx", d_ctx)):
         require(t.dtype == _BF16 and tuple(t.shape) == (b * hw, c), op,
-                f"{name} {t.dtype} {tuple(t.shape)}")
+                lambda: f"{name} {t.dtype} {tuple(t.shape)}")
     require(tuple(k.shape) == (b, s, c) and k.shape == v.shape, op,
-            f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+            lambda: f"k {tuple(k.shape)} / v {tuple(v.shape)}")
     kb, vb = k.to(_BF16).contiguous(), v.to(_BF16).contiguous()
     ntq = -(-hw // 64)
-    p_b = torch.empty((b, nh, hw, sp), device=q.device, dtype=_BF16)
-    d_s = torch.empty_like(p_b)
-    d_q = torch.empty_like(q)
-    partial = torch.empty((b, ntq, nh, dh), device=q.device, dtype=_F32)
     dev, stream = stream_of(q)
-    rc = _build.library("sra_attention_bwd").sra_attention_bwd(
-        ptr(q, op), ptr(kb, op), ptr(vb, op), ptr(d_ctx, op), ptr(p_b, op), ptr(d_s, op),
-        ptr(d_q, op), ptr(partial, op), b, hw, s, nh, dh, c, ksc, dev, stream)
+    tps, splits = sra_bwd_splits(b, nh, ntq, _sra_bwd_slots(s, dh, dev))
+    d_q = torch.empty_like(q)
+    dbq = torch.empty((b, ntq, nh, dh), device=q.device, dtype=_F32)
+    dkv = torch.empty((splits, b, nh, 2, s, dh), device=q.device, dtype=_F32)
+    rc = lib.sra_attention_bwd(
+        ptr(q, op), ptr(kb, op), ptr(vb, op), ptr(d_ctx, op), ptr(d_q, op), ptr(dbq, op),
+        ptr(dkv, op), b, hw, s, nh, dh, c, ksc, tps, dev, stream)
     _build.check(rc, op)
-    return {"p_b": p_b, "d_s": d_s, "d_q": d_q, "dbq": partial.sum(dim=(0, 1)).reshape(c)}
+    g = dkv.sum(dim=0)                                                   # (b, nh, 2, S, dh)
+    return {"d_q": d_q, "dbq": dbq.sum(dim=(0, 1)).reshape(c),
+            "dk": merged(g[:, :, 0]) * (dh ** -0.5), "dv": merged(g[:, :, 1])}
 
 
 # ---- the backward as a table of steps ------------------------------------------
@@ -598,14 +655,10 @@ def ffn_bwd_steps(p: dict, kernel: bool, full: bool, op: str) -> list:
         return {"d_a": lin_bwd(t["go"], p["w2"].t(), dt, kernel=kernel, a_scale=p["s_ffn"],
                                rows_per_frame=hw, op=op)}
 
-    def d_z(t):
-        dz, dk, dbdw = dgelu_dz(t["d_a"].view(b, h, w, ch), t["hid"].view(b, h, w, ch),
-                                p["kdw"], p["bdw"], kernel=kernel, op=op)
-        return {"d_z": dz.reshape(m, ch), "dkdw": dk, "dbdw": dbdw}
-
     def d_hid(t):
-        dhb, db1 = dwconv_t(t["d_z"].view(b, h, w, ch), p["kdw"], dt, kernel=kernel, op=op)
-        return {"d_hid": dhb.reshape(m, ch), "db1": db1}
+        o = dz_dhid(t["d_a"].view(b, h, w, ch), t["hid"].view(b, h, w, ch), p["kdw"], p["bdw"],
+                    dt, kernel=kernel, op=op)
+        return dict(o, d_hid=o["d_hid"].reshape(m, ch))
 
     def d_ln2(t):
         return {"d_ln2": lin_bwd(t["d_hid"], p["w1"].t(), dt, kernel=kernel, op=op)}
@@ -623,26 +676,18 @@ def ffn_bwd_steps(p: dict, kernel: bool, full: bool, op: str) -> list:
         return out
 
     def dw2(t):
-        return {"dw2": gemm_tn(t["a"][None, None], t["go"][None, None], kernel=kernel,
-                               b_scale=p["s_ffn"], rows_per_frame=hw, dt=dt, op=op)[0, 0]}
+        return {"dw2": gemm_tn(t["a"], t["go"], kernel=kernel, b_scale=p["s_ffn"],
+                               rows_per_frame=hw, dt=dt, op=op)}
 
     def dw1(t):
-        return {"dw1": gemm_tn(t["ln2"][None, None], t["d_hid"][None, None], kernel=kernel,
-                               dt=dt, op=op)[0, 0]}
+        return {"dw1": gemm_tn(t["ln2"], t["d_hid"], kernel=kernel, dt=dt, op=op)}
 
-    return [("d_a", d_a), ("d_z", d_z), ("d_hid", d_hid), ("d_ln2", d_ln2),
+    return [("d_a", d_a), ("d_hid", d_hid), ("d_ln2", d_ln2),
             ("ln2_bwd", ln2_bwd), ("dW2", dw2), ("dW1", dw1)]
 
 
 def _attn_bwd_steps(p: dict, kernel: bool, op: str) -> list:
-    b, h, w, c = p["shape"]
-    dt, nh, hw = p["dt"], p["num_heads"], h * w
-    dh = c // nh
-    s = p["k"].shape[1]
-
-    def per_head(x2d):
-        """(M, C) → (B, nh, HW, dh) head slices (a view)."""
-        return x2d.view(b, hw, nh, dh).permute(0, 2, 1, 3)
+    dt, nh = p["dt"], p["num_heads"]
 
     def d_ctx(t):
         return {"d_ctx": lin_bwd(t["d_attn"], p["wproj"].t(), dt, kernel=kernel, out_dtype=dt,
@@ -661,25 +706,13 @@ def _attn_bwd_steps(p: dict, kernel: bool, op: str) -> list:
         return {"dx": o["dx"], "ln1": o["ln"], "dg1": o["dg"], "dbe1": o["dbe"]}
 
     def dwproj(t):
-        return {"dwproj": gemm_tn(t["ctx"][None, None], t["d_attn"][None, None], kernel=kernel,
-                                  dt=dt, op=op)[0, 0]}
+        return {"dwproj": gemm_tn(t["ctx"], t["d_attn"], kernel=kernel, dt=dt, op=op)}
 
     def dwq(t):
-        return {"dwq": gemm_tn(t["ln1"][None, None], t["d_q"][None, None], kernel=kernel, dt=dt,
-                               op=op)[0, 0]}
-
-    def dk(t):
-        # the gradient of the scaled K (the TPU kernel's dKᵀ), times the scale
-        g = gemm_tn(t["d_s"], per_head(t["q"]), kernel=kernel, dt=dt, op=op)
-        g = g[:, :, :s] * (dh ** -0.5)
-        return {"dk": g.permute(0, 2, 1, 3).reshape(b, s, c)}
-
-    def dv(t):
-        g = gemm_tn(t["p_b"], per_head(t["d_ctx"]), kernel=kernel, dt=dt, op=op)
-        return {"dv": g[:, :, :s].permute(0, 2, 1, 3).reshape(b, s, c)}
+        return {"dwq": gemm_tn(t["ln1"], t["d_q"], kernel=kernel, dt=dt, op=op)}
 
     return [("d_ctx", d_ctx), ("attn_bwd", attn_bwd), ("d_ln1", d_ln1), ("ln1_bwd", ln1_bwd),
-            ("dWproj", dwproj), ("dWq", dwq), ("dK", dk), ("dV", dv)]
+            ("dWproj", dwproj), ("dWq", dwq)]
 
 
 def _train_bwd_steps(p: dict, kernel: bool, op: str) -> list:
@@ -826,18 +859,18 @@ def mit_block_train_fits(h: int, w: int, c: int, ch: int, nh: int, n_kv: int) ->
 # fraction of its own largest value. f32 outputs computed from the same
 # inputs in another order (the input-gradient products, the depthwise and
 # LayerNorm passes, every sum over rows): 2^-10. bf16 outputs rounded once
-# from such sums (d_hid, d_attn, d_ctx, ln1, ln2, p_b, dx): one ulp, 2^-7.
-# d_s = p∘(d_p − r) rounds after a difference that may cancel, and d_q and
-# Σ d_q follow a product with it: 2^-6.
+# from such sums (d_hid, d_attn, d_ctx, ln1, ln2, dx): one ulp, 2^-7. The
+# attention backward rounds p and d_s inside: dV sums bf16(p), any of which
+# may flip one ulp (2^-7); d_s = p∘(d_p − r) rounds after a difference that
+# may cancel, and d_q, Σ d_q and dK follow a product with it: 2^-6.
 BWD_STEP_TOLERANCE = {
-    "d_a": 2.0 ** -10, "d_z": 2.0 ** -10, "dkdw": 2.0 ** -10, "dbdw": 2.0 ** -10,
+    "d_a": 2.0 ** -10, "dkdw": 2.0 ** -10, "dbdw": 2.0 ** -10,
     "d_hid": 2.0 ** -7, "db1": 2.0 ** -10, "d_ln2": 2.0 ** -10, "ln2": 2.0 ** -7,
     "dg2": 2.0 ** -10, "dbe2": 2.0 ** -10, "db2": 2.0 ** -10, "d_y": 2.0 ** -10,
     "d_attn": 2.0 ** -7, "dbproj": 2.0 ** -10, "dx": 2.0 ** -7, "dw2": 2.0 ** -10,
-    "dw1": 2.0 ** -10, "d_ctx": 2.0 ** -7, "p_b": 2.0 ** -7, "d_s": 2.0 ** -6,
-    "d_q": 2.0 ** -6, "dbq": 2.0 ** -6, "d_ln1": 2.0 ** -10, "ln1": 2.0 ** -7,
+    "dw1": 2.0 ** -10, "d_ctx": 2.0 ** -7, "d_q": 2.0 ** -6, "dbq": 2.0 ** -6,
+    "dk": 2.0 ** -6, "dv": 2.0 ** -7, "d_ln1": 2.0 ** -10, "ln1": 2.0 ** -7,
     "dg1": 2.0 ** -10, "dbe1": 2.0 ** -10, "dwproj": 2.0 ** -10, "dwq": 2.0 ** -10,
-    "dk": 2.0 ** -10, "dv": 2.0 ** -10,
 }
 
 
@@ -858,7 +891,7 @@ def bwd_step_errors(steps_of, p: dict, t: dict, op: str) -> list:
 def mit_block_train_bwd_step_errors(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1,
                                     kdw, bdw, w2, s_attn, s_ffn, go, num_heads: int = 1,
                                     eps: float = 1e-6) -> list:
-    """[(check, max |kernel − plain|, tolerance)] of the backward's fifteen
+    """[(check, max |kernel − plain|, tolerance)] of the backward's twelve
     launches, each fed the plain path's inputs (CUDA tensors, no count)."""
     op = "mit_block_train_bwd"
     ins = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2)
