@@ -19,7 +19,8 @@ then the CE microbench (``vss_cffm_tpu_torch.tools.bench_ce``) with the
 four label-layout variants of the CE loss pair.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
-  1. the device: name, ``nvidia-smi`` name and power limit, torch and CUDA;
+  1. the device: name, ``nvidia-smi`` name and power limit, torch and CUDA,
+     the SM clock (``[clocks]``, again after the train phase);
   2. build every kernel from ``vss_cffm_tpu_torch/csrc`` (one nvcc per
      source, all at once), timed; for the two attention kernels, what
      ``ptxas -v`` reported per instance (registers, stack and spill bytes)
@@ -92,6 +93,12 @@ step of each form, the device busy time, the number of kernel launches and
 of ``aten::_to_copy`` calls, and a torch.profiler table of device time by
 kernel, written to ``chiprun_out/profile{,_ffn}.txt`` and
 ``chiprun_out/profile_train{,_ffn,_composed,_ohem,_probs}.txt``.
+From the default step's table it prints ``[row6]`` and ``[row7]`` lines (each
+of the two rows' kernels by name: launches, ms a step, µs a launch; the block
+pair's GEMM runs as a Fwd and a Bwd instance); then ``[row17]`` lines (rows 17
+and 13 alone at N 8 and N 2: device µs, exp bound, recompute factor) and
+``[gemm]`` lines (every block_gemm launch of a default step and a clip: device
+µs, bytes bound, share of 3.35 TB/s, torch.matmul's µs on the same operands).
 
 Per-kernel times in the JSON line are per call, averaged over the kernel's
 shapes on its path (``ms``: the wrapper call between CUDA events, host
@@ -135,10 +142,17 @@ TRAIN_ROUNDS = 3
 PAIR_REL = 2.0 ** -5
 
 
-def _smi() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def _smi(query: str = "name,power.limit") -> str:
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                        capture_output=True, text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def _clocks(when: str) -> None:
+    """The SM clock, its maximum, power draw and temperature: compute-bound
+    kernels move with the clock between calls."""
+    print(f"[clocks] {when}: "
+          f"{_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu')}", flush=True)
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -156,18 +170,24 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def _device_ms(fn, iters: int = 5) -> float:
     """Device time of one call of fn: the CUDA kernels of ``iters`` calls as
-    torch.profiler traces them, over iters (``--profile`` only)."""
+    torch.profiler traces them, over iters (``--profile`` only); the larger of
+    two such windows, as the profiler now and then drops a window's events
+    (some or all of them: a kernel then read half its time, or 0)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3 / iters
+    best = 0.0
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(e.self_device_time_total for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+                   / 1e3 / iters)
+    return best
 
 
 def _nbytes(*ts) -> int:
@@ -295,7 +315,7 @@ KERNELS = {
                  "vss_cffm_tpu_torch/csrc/dwconv.cu"],
         replaces="vss_cffm_tpu/ops/stage_block.py:106",  # _kernel of mit_block_fused
         # bf16 q, ctx and GELU output are rounded at the same points on both
-        # sides, but from f32 sums taken in other orders (wmma vs cuBLAS), so
+        # sides, but from f32 sums taken in other orders (mma.sync vs cuBLAS), so
         # a rounding can flip by one bf16 ulp and carry through two products:
         # 2^-5 of the largest output. The residual x dominates that output,
         # so this whole-block check is only a sanity check: the steps are
@@ -1281,11 +1301,16 @@ def ce_bench_phase(ops, opts) -> tuple[dict, dict]:
     return stats, counts
 
 
-# kernels that only row 7's backward launches in the default step; the
-# unfused d_z / d_hid pair (dgelu_dz, dwconv_t) is listed too, so that the
-# profile of a tree from before the fusion reads the same way
+# kernels that only row 7's backward launches in the default step (the
+# backward's block_gemm instance is named by its Bwd tag); the unfused d_z /
+# d_hid pair (dgelu_dz, dwconv_t) is listed too, so that the profile of a
+# tree from before the fusion reads the same way
 ROW7_KERNELS = ("sra_attention_bwd_kernel", "gemm_tn_kernel", "dz_dhid_kernel",
-                "dgelu_dz_kernel", "dwconv_t_kernel", "ln_bwd_kernel")
+                "dgelu_dz_kernel", "dwconv_t_kernel", "ln_bwd_kernel", "::Bwd")
+# row 6's six launches in the default step: the forward's block_gemm
+# instance (Fwd tag), the attention without bias and mask (the MiT blocks'
+# spatial-reduction attention) and the depthwise conv on the f32 hidden map
+ROW6_KERNELS = ("::Fwd", "attention_fwd_kernel<64, false>", "dwconv3x3_kernel<float>")
 
 
 def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> None:
@@ -1307,17 +1332,28 @@ def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> None:
             f"{n_copy} aten::_to_copy calls (dtype or device copies)")
     print(line, flush=True)
     for e in events if fname == "profile_train.txt" else ():
-        # row 7's own kernels by name (its block_gemm launches share their
-        # kernel with the forward's and are not told apart here)
-        if e.device_type == DeviceType.CUDA and any(k in e.key for k in ROW7_KERNELS):
-            us = e.self_device_time_total
-            print(f"[row7] {e.key[:90]}: {e.count} launches, {us / 1e3:.3f} ms per step, "
-                  f"{us / e.count:.1f} us per launch", flush=True)
+        # rows 6 and 7's own kernels by name, one step
+        for tag, names in (("row6", ROW6_KERNELS), ("row7", ROW7_KERNELS)):
+            if e.device_type == DeviceType.CUDA and any(k in e.key for k in names):
+                us = e.self_device_time_total
+                print(f"[{tag}] {e.key[:110]}: {e.count} launches, {us / 1e3:.3f} ms per step, "
+                      f"{us / e.count:.1f} us per launch", flush=True)
     table = events.table(sort_by="cuda_time_total", row_limit=120)
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", fname), "w") as fh:
         fh.write(f"{kind} | {smi}\n{line}\n{table}\n")
     print("\n".join(table.splitlines()[:25]), flush=True)
+
+
+def row_splits() -> None:
+    """``[row17]``: rows 17 and 13 alone at N 8 and N 2 (device µs, exp
+    bound, recompute factor; ``tools/bench_ce_bwd.py``); ``[gemm]``: each
+    block_gemm launch of a default step and a clip (device µs, bytes bound,
+    share of 3.35 TB/s, torch.matmul's µs; ``tools/bench_gemm.py``)."""
+    importlib.import_module("vss_cffm_tpu_torch.tools.bench_ce_bwd").main([])
+    torch.cuda.empty_cache()
+    importlib.import_module("vss_cffm_tpu_torch.tools.bench_gemm").main([])
+    torch.cuda.empty_cache()
 
 
 def _check_masks(masks, num_classes: int) -> None:
@@ -1343,8 +1379,11 @@ def attention_resources(build) -> None:
     shapes."""
     cfm = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")
     fwd, bwd = build.library("attention"), build.library("attention_bwd")
-    for src in ("attention", "attention_bwd", "sra_attention_bwd", "dwconv", "block_bwd"):
+    for src in ("attention", "attention_bwd", "sra_attention_bwd", "dwconv", "block_bwd",
+                "block_gemm", "ce_upsampled"):
         for k in build.ptxas_usage(src):
+            if src == "ce_upsampled" and "ce_bwd" not in k["kernel"]:
+                continue  # the forwards are as before; the backward was redesigned
             print(f"[ptxas] csrc/{src}.cu {k['kernel']}: {k['registers']} registers, "
                   f"{k['smem']} B static smem, {k['stack']} B stack, spill stores "
                   f"{k['spill_stores']} B, spill loads {k['spill_loads']} B", flush=True)
@@ -1399,6 +1438,7 @@ def main() -> int:
     smi = _smi()
     print(f"[device] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | python {sys.version.split()[0]}", flush=True)
+    _clocks("start")
 
     # ---- 2. build --------------------------------------------------------------
     tb = time.perf_counter()
@@ -1549,7 +1589,10 @@ def main() -> int:
                                                                 form)
 
     # ---- 6. the CE microbench and its six kernels ----------------------------
+    _clocks("after the train phase")
     ce_stats, ce_counts = ce_bench_phase(ops, opts)
+    if opts.profile:
+        row_splits()
 
     # ---- 7. result lines -----------------------------------------------------
     # launches: each kernel's count on its own path (the inference clips for

@@ -6,7 +6,9 @@ probabilities pair (f32 and bf16 probabilities) and the CE loss pair's
 label-layout variants (odd h, ragged column segments); train steps in each
 block form, with OHEM and class weights, and with the CFM attention's
 backward from probabilities, whose gradients go through the kernels; B0 clip
-inference with the fused FFN.
+inference with the fused FFN; the redesigned block_gemm (rows 1, 6-11) and
+CE backward (rows 17, 13) at the path's shapes and at ragged ones, with
+forced plans, two runs bitwise equal.
 
 Marked ``cuda`` and skipped where no CUDA device is present. On a machine
 with one, from the repository root::
@@ -911,3 +913,144 @@ def test_ohem_cuda_path_with_a_partial_mask(dev, n, h, w, c, min_kept, cw):
     lk, lp = r["loss"]
     assert abs(lk - lp) <= 1e-4 * abs(lp)
     _close(*r["dlogits"], 2.0 ** -7)
+
+
+# ---- the redesigned block_gemm (row 6, shared by rows 1, 7-11) and CE
+# backward (rows 17 and 13) -----------------------------------------------------
+
+def _gemm_plain(a, w, bias, out_dtype, ln=None, res=None, a_scale=None, o_scale=None,
+                rows_per_frame=1):
+    """block_gemm's steps with its rounding points: LN in f32 (or A times its
+    frame's scale), bf16 before the product, f32 sums, bias, scale, residual,
+    the output dtype."""
+    sb = ops.stage_block
+    af = a.float()
+    if ln is not None:
+        af = sb._ln_f32(af, ln[0].float(), ln[1].float(), ln[2])
+    elif a_scale is not None:
+        af = af * sb._frame_rows(a_scale, rows_per_frame)
+    out = af.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
+    if bias is not None:
+        out = out + bias.float()
+    if o_scale is not None:
+        out = out * sb._frame_rows(o_scale, rows_per_frame)
+    if res is not None:
+        out = out + res.float()
+    return out.to(out_dtype)
+
+
+# (M, N, K, LN, A dtype, out dtype, residual dtype, a_scale, o_scale, rows a
+# frame): the B1 train step's launches at stages 1 and 3 (q, y, hid, out; d_a,
+# d_ln2, d_ctx), row 8's stage-4 FFN, and ragged ones (M short of a 64-row
+# block, N = 8 x odd, K not a multiple of the 32-deep K step)
+F32, BF16 = torch.float32, torch.bfloat16
+GEMM_CASES = [
+    (115200, 64, 64, True, BF16, BF16, None, False, False, 14400),
+    (115200, 64, 64, False, BF16, F32, BF16, False, True, 14400),
+    (115200, 256, 64, True, F32, F32, None, False, False, 14400),
+    (115200, 64, 256, False, BF16, BF16, F32, False, True, 14400),
+    (115200, 256, 64, False, BF16, F32, None, True, False, 14400),
+    (115200, 64, 256, False, BF16, F32, None, False, False, 14400),
+    (7200, 320, 320, True, BF16, BF16, None, False, False, 900),
+    (7200, 1280, 320, True, F32, F32, None, False, False, 900),
+    (7200, 320, 1280, False, BF16, BF16, F32, False, True, 900),
+    (7200, 320, 1280, False, BF16, F32, None, False, False, 900),
+    (900, 2048, 512, True, BF16, F32, None, False, False, 225),
+    (900, 512, 2048, False, BF16, BF16, BF16, False, False, 225),
+    (1000, 24, 40, True, F32, BF16, BF16, False, True, 250),
+    (1000, 40, 24, False, BF16, F32, F32, True, True, 250),
+    (1000, 72, 200, False, BF16, BF16, None, False, False, 250),
+    (77, 200, 72, True, BF16, F32, F32, False, True, 7),
+    (77, 136, 8, False, F32, F32, None, False, False, 77),
+]
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["plan", "one_slab"])
+@pytest.mark.parametrize("m,n,k,ln,adt,odt,rdt,a_sc,o_sc,rpf", GEMM_CASES)
+def test_block_gemm_matches_plain(dev, monkeypatch, split, m, n, k, ln, adt, odt, rdt, a_sc,
+                                  o_sc, rpf):
+    """block_gemm against its plain steps at the path's launch shapes and at
+    ragged ones, with the plan's column runs and with one slab a block (every
+    row block's A read once per run): f32 outputs held as the branch (out −
+    residual) to 2^-10 of its largest value (the same bf16 inputs, f32 sums
+    in another order), or 2^-7 after a LayerNorm (its bf16 output may flip
+    one ulp); bf16 outputs to 2^-7 (one rounding); two runs bitwise equal."""
+    sb = ops.stage_block
+    if split:
+        monkeypatch.setattr(sb, "block_gemm_plan",
+                            lambda m_, n_, k_, res, sms: ((1, 64) if n_ <= 64 else (2, 128)))
+    rng = np.random.RandomState(40 + k)
+    frames = -(-m // rpf)
+    a = _rand(rng, m, k, dtype=adt, dev=dev)
+    w = _rand(rng, k, n, scale=k ** -0.5, dev=dev)
+    bias = _rand(rng, n, scale=0.1, dtype=F32, dev=dev)
+    lnp = (_rand(rng, k, scale=0.2, dtype=F32, dev=dev) + 1, _rand(rng, k, scale=0.1, dtype=F32,
+                                                                     dev=dev), 1e-6) if ln else None
+    res = None if rdt is None else _rand(rng, m, n, dtype=rdt, dev=dev)
+    sa = torch.from_numpy(rng.uniform(0.5, 1.5, frames).astype(np.float32)).to(dev) if a_sc else None
+    so = torch.from_numpy(rng.uniform(0.5, 1.5, frames).astype(np.float32)).to(dev) if o_sc else None
+    kw = dict(ln=lnp, res=res, a_scale=sa, o_scale=so, rows_per_frame=rpf)
+    got = sb._gemm(a, w, bias, out_dtype=odt, **kw)
+    want = _gemm_plain(a, w, bias, odt, **kw)
+    torch.cuda.synchronize()
+    if odt == F32:
+        r = 0.0 if res is None else res.float()
+        _close(got - r, want - r, 2.0 ** -7 if ln else 2.0 ** -10)
+    else:
+        _close(got, want, 2.0 ** -7)
+    again = sb._gemm(a, w, bias, out_dtype=odt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_block_gemm_smem_is_the_kernels(dev):
+    """The plan's shared-memory sum (``block_gemm_smem``) equals the kernel's."""
+    from vss_cffm_tpu_torch.ops import _build
+
+    lib = _build.library("block_gemm")
+    for k in (8, 24, 64, 320, 512, 1280, 2048):
+        for res in (0, 1):
+            for nb in (1, 2):
+                assert lib.gemm_smem_bytes(k, res, nb) == ops.stage_block.block_gemm_smem(
+                    k, bool(res), nb)
+
+
+# (N, h, w, C, s, label dtype, plan): the train step's two branches, ragged
+# maps, s 2 / 4 / 8, C 19 / 124 / 150, and forced plans (strips of 3 and 1
+# column, segments of 2 rows: partials at every segment boundary)
+CE_BWD_CASES = [
+    (8, 120, 120, 124, 4, torch.uint8, None), (2, 120, 120, 124, 4, torch.int32, None),
+    (2, 37, 53, 19, 2, torch.uint8, None), (1, 37, 53, 150, 8, torch.int32, None),
+    (3, 13, 7, 124, 4, torch.uint8, (3, 6)), (2, 9, 10, 40, 2, torch.int32, (1, 4)),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,s,ldt,plan", CE_BWD_CASES)
+def test_ce_bwd_redesign_matches_plain(dev, monkeypatch, n, h, w, c, s, ldt, plan):
+    """Rows 17 and 13 against their plain versions, bf16 dlogits to 2^-7 of
+    the largest (one rounding of f32 sums in other orders), with a strip of
+    source pixels whose labels are all ignored (and whose per-pixel cotangent
+    is 0); two runs bitwise equal."""
+    ce = ops.ce_upsampled
+    if plan is not None:
+        g_, cpl = ce.ce_bwd_groups(c)
+        monkeypatch.setattr(ce, "ce_bwd_plan", lambda *a: (plan[0], plan[1], g_ * cpl + 1))
+    rng = np.random.RandomState(50 + c)
+    x = _rand(rng, n, h, w, c, scale=2.0, dev=dev)
+    lab = _labels(rng, n, h * s, w * s, c, ldt, dev)
+    lab[:, : 2 * s, : 3 * s] = 255  # every label of a 2 x 3 source tile ignored
+    img_w = 0.5 / lab.numel()
+    g = torch.tensor(1.3, device=dev)
+    valid = lab.long() < c
+    gn = _rand(rng, *lab.shape, dtype=torch.float32, dev=dev) * valid
+    lse = ops.ce_upsampled_nll(x, lab, s, force="torch")[2].contiguous()
+    runs = {
+        17: lambda force: ops.ce_upsampled_loss_bwd(x, lab, g, s, img_w, force=force),
+        13: lambda force: ops.ce_upsampled_nll_bwd(x, lab, lse, gn, s, force=force),
+    }
+    for row, run in runs.items():
+        got, want = run("kernel"), run("torch")
+        _close(got, want, 2.0 ** -7)
+        again = run("kernel")
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), row

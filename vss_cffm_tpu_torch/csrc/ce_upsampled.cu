@@ -31,8 +31,8 @@
 // The per-pixel pair does the same exps and writes 12 B per output pixel
 // (nll, pred, lse; ~22 MB at the train step), reading lse and g back in the
 // backward: still bound by the exps.
-// Design: one warp walks one output row (forward) or one source row
-// segment (backward); each lane holds the classes lane + 32*j in registers.
+// Forward design: one warp walks one output row; each lane holds the
+// classes lane + 32*j in registers.
 // The row-lerped logits of three neighbouring source columns stay in
 // registers as the warp slides along the row, so each source value is
 // loaded about twice per output row that uses it (from L1/L2), and the
@@ -42,13 +42,16 @@
 // torch.sum outside; no atomics, so the result is the same run to run.
 // The per-pixel forward keeps each of 32 consecutive pixels' results in the
 // lane of its column and writes them as one coalesced store per map.
-// Backward: a warp owns a segment of source columns of one source row and
-// accumulates that segment's dlogits in its own slice of shared memory,
-// f32, in a fixed order, walking every output row that reads the source
-// row (a source row is read by about 2s output rows, so each output pixel's
-// softmax is recomputed about twice, plus s pixels at each segment edge),
-// then writes each dlogits element once, in bf16.
+// Backward (rows 13 and 17): each output pixel's softmax is computed once
+// for its strip of source columns (a recompute of s/2 output columns at each
+// strip edge only, ~1.06x at the train step), by G = 8 lanes (16 classes a
+// lane at C 124), so the max and the sum take 3 shuffles; the column adjoint
+// stays in registers and the row adjoint in two f32 shared-memory rows per
+// warp; segments of source rows meet in f32 partials summed in a fixed
+// order. The softmax's division is vss::div_rn (the `/` operator's rounding
+// without its slow-path branch). See ce_bwd_kernel below.
 #include "ce_common.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -58,8 +61,6 @@ using vss::ce::softmax_stats;
 
 constexpr int kWarps = 4;
 constexpr int kMaxScale = 8;
-// source columns of one row that one backward warp owns
-constexpr int kSeg = 30;
 
 struct Coeffs {
   int delta[kMaxScale];
@@ -223,95 +224,334 @@ __global__ void __launch_bounds__(32 * kWarps) ce_nll_fwd_kernel(
   }
 }
 
-// One warp per (frame n, source row k, segment of kSeg source columns).
+// ---- the backward: strips of source columns, each output row once ---------
+//
+// A unit is one warp's work: frame n, a segment [k_lo, k_hi) of source rows
+// (at least 2 rows) and a strip [v0, v1) of source columns. It computes every
+// output pixel of the output rows s*k_lo .. s*k_hi - 1 (each output row
+// belongs to exactly one segment) whose columns reach the strip: X in
+// [s*v0 - s/2, s*v1 + s/2), so the strip's s/2-column halo on each side is
+// the only recompute. A pixel's G lanes hold its classes c = gl + G*j, so
+// the max and the sum of exps take log2(G) shuffles; the warp's 32 / G
+// groups walk consecutive runs of `run` output columns of the same output
+// row in lockstep (a multiple of s and at least 2s, so their column windows
+// never meet while they slide; the last windows are flushed by even groups,
+// then odd ones). Each group keeps the row-lerped logits of two source columns and
+// two f32 column accumulators (the column adjoint) in registers; when its
+// window slides, the finished column goes, times the two row weights, into
+// the warp's shared-memory rows (two live source rows, f32, the row
+// adjoint). A finished source row is written once: in bf16 to dlogits, or,
+// for the two rows at each segment boundary that the neighbouring segment
+// also reaches, in f32 to a partial buffer, added in a fixed order (upper
+// segment, then lower) by ce_bwd_combine_kernel. No atomics.
+
+constexpr int kBwdWarps = 4;
+
+// the max / the sum over the G lanes of one pixel (G a power of two, groups
+// aligned in the warp; every lane takes part)
+template <int G>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// xh[j] = x0[c]*(1 - fh) + x1[c]*fh at column v, class c = gl + G j (the
+// forward's row lerp, load_row_lerp, with G lanes a pixel)
+template <int G, int CPL>
+__device__ __forceinline__ void lerp_cols(const __nv_bfloat16* x0, const __nv_bfloat16* x1,
+                                          int v, int C, float fh, int gl, float* xh) {
+  const __nv_bfloat16* p0 = x0 + (long long)v * C;
+  const __nv_bfloat16* p1 = x1 + (long long)v * C;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int c = gl + G * j;
+    xh[j] = c < C ? __bfloat162float(p0[c]) * (1.f - fh) + __bfloat162float(p1[c]) * fh : 0.f;
+  }
+}
+
 // PIXEL = false: the loss's backward, t = img_w * g[0] * (softmax(up) -
 // onehot) on the valid pixels. PIXEL = true: the per-pixel backward, t =
 // g[p] * (exp(up - lse[p]) - onehot(safe label)) on every pixel whose g is
-// not 0 (a zero g adds exactly 0: exp(up - lse) <= 1).
-template <int CPL, typename L, bool PIXEL>
-__global__ void __launch_bounds__(32 * kWarps) ce_bwd_kernel(
+// not 0 (a zero g adds exactly 0: exp(up - lse) <= 1). Every exp runs for
+// all of a lane's classes, masked by a product with 0 or 1 past C, its
+// argument clamped to <= 0 (a no-op for a class in [0, C): up <= max <= lse):
+// written as `c < C ? expf(..) : 0` each exp sat in its own branch and the
+// 16 of a lane could not overlap.
+template <int G, int CPL, typename L, bool PIXEL>
+__global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
     const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
     const float* __restrict__ g, const float* __restrict__ lse, __nv_bfloat16* __restrict__ out,
-    int N, int h, int w, int C, int s, float img_w) {
+    float* __restrict__ part, int N, int h, int w, int C, int s, float img_w, int tw, int nseg,
+    int cs) {
+  constexpr int NG = 32 / G;
   extern __shared__ float acc_all[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x / 32;
-  const int nseg = (w + kSeg - 1) / kSeg;
-  const long long item = (long long)blockIdx.x * kWarps + warp;
-  if (item >= (long long)N * h * nseg) return;
-  const Coeffs cf(s);
-  const int n = (int)(item / ((long long)h * nseg));
-  const int k = (int)(item / nseg % h);
-  const int v_lo = (int)(item % nseg) * kSeg;
-  const int v_hi = min(v_lo + kSeg, w) - 1;
-  const int H = h * s, W = w * s;
-  constexpr int CP = 32 * CPL;
-  float* acc = acc_all + (size_t)warp * kSeg * CP;  // acc[(v - v_lo) * CP + j*32 + lane]
-  for (int i = lane; i < kSeg * CP; i += 32) acc[i] = 0.f;
-  const float ct = PIXEL ? 0.f : g[0] * img_w;
-
-  float xl[CPL], xc[CPL], xr[CPL], up[CPL];
-  for (int kp = max(k - 1, 0); kp <= min(k + 1, h - 1); ++kp) {
-    for (int ph = 0; ph < s; ++ph) {
-      const int r0 = clampi(kp + cf.delta[ph], 0, h - 1);
-      const int r1 = clampi(kp + cf.delta[ph] + 1, 0, h - 1);
-      if (r0 != k && r1 != k) continue;
-      const float fh = cf.f[ph];
-      const float a = (r0 == k ? 1.f - fh : 0.f) + (r1 == k ? fh : 0.f);
-      const __nv_bfloat16* x0 = x + ((long long)n * h + r0) * w * C;
-      const __nv_bfloat16* x1 = x + ((long long)n * h + r1) * w * C;
-      const long long prow = ((long long)n * H + kp * s + ph) * W;
-      const L* lrow = labels + prow;
-      const int vs = max(v_lo - 1, 0), ve = min(v_hi + 1, w - 1);
-      load_row_lerp<CPL>(x0, x1, max(vs - 1, 0), C, fh, lane, xl);
-      load_row_lerp<CPL>(x0, x1, vs, C, fh, lane, xc);
-      load_row_lerp<CPL>(x0, x1, min(vs + 1, w - 1), C, fh, lane, xr);
-      for (int v = vs; v <= ve; ++v) {
-        for (int pw = 0; pw < s; ++pw) {
-          const int dw = cf.delta[pw];
-          const float fw = cf.f[pw];
-          const int c0 = clampi(v + dw, 0, w - 1), c1 = clampi(v + dw + 1, 0, w - 1);
-          const bool in0 = c0 >= v_lo && c0 <= v_hi, in1 = c1 >= v_lo && c1 <= v_hi;
-          int label = (int)lrow[v * s + pw];
-          float gp = ct;
-          if constexpr (PIXEL) {
-            gp = g[prow + v * s + pw];
-            if (!(in0 || in1) || gp == 0.f) continue;
-            if (label < 0 || label >= C) label = 0;
-          } else {
-            if (!(in0 || in1) || label < 0 || label >= C) continue;
-          }
-          col_lerp<CPL>(xl, xc, xr, dw, fw, up);
-          float sum = 1.f;
-          if constexpr (PIXEL) {
-            const float ls = lse[prow + v * s + pw];
-#pragma unroll
-            for (int j = 0; j < CPL; ++j) up[j] = lane + 32 * j < C ? expf(up[j] - ls) : 0.f;
-          } else {
-            float picked;
-            softmax_stats<CPL>(up, class_max<CPL>(up, C, lane), C, lane, label, sum, picked);
-          }
-          const float w0 = a * (1.f - fw), w1 = a * fw;
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            const int c = lane + 32 * j;
-            if (c >= C) continue;
-            const float p = PIXEL ? up[j] : up[j] / sum;
-            const float t = gp * (p - (c == label ? 1.f : 0.f));
-            if (in0) acc[(c0 - v_lo) * CP + c] += w0 * t;
-            if (in1) acc[(c1 - v_lo) * CP + c] += w1 * t;
-          }
-        }
-        shift_window<CPL>(xl, xc, xr);
-        load_row_lerp<CPL>(x0, x1, min(v + 2, w - 1), C, fh, lane, xr);
-      }
+  __shared__ float sf[kMaxScale];
+  __shared__ int sd[kMaxScale];
+  if (threadIdx.x == 0) {
+    const Coeffs cf(s);
+    for (int p = 0; p < s; ++p) {
+      sf[p] = cf.f[p];
+      sd[p] = cf.delta[p];
     }
   }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gi = lane / G, gl = lane % G;
+  const int nstrip = (w + tw - 1) / tw;
+  const long long unit = (long long)blockIdx.x * kBwdWarps + warp;
+  if (unit >= (long long)N * nseg * nstrip) return;
+  const int strip = (int)(unit % nstrip);
+  const int seg = (int)(unit / nstrip % nseg), n = (int)(unit / nstrip / nseg);
+  const int k_lo = (int)((long long)seg * h / nseg);
+  const int k_hi = (int)((long long)(seg + 1) * h / nseg);
+  const int v0 = strip * tw, v1 = min(v0 + tw, w);
+  const int H = h * s, W = w * s, hs = s / 2;
+  const int xa = max(0, s * v0 - hs), xb = min(W, s * v1 + hs);
+  const int run = s * max(2, ((xb - xa + s - 1) / s + NG - 1) / NG);
+  const int xg = xa + gi * run;  // the group's first output column
+  const bool active = xg < xb;   // the group has a live pixel
+  const long long xn = (long long)n * h * w * C;
+  float* A = acc_all + (size_t)warp * 2 * tw * cs;  // [row & 1][col - v0][class]
+  for (int i = lane; i < 2 * tw * cs; i += 32) A[i] = 0.f;
   __syncwarp();
-  __nv_bfloat16* orow = out + ((long long)n * h + k) * w * C;
-  for (int v = v_lo; v <= v_hi; ++v)
-    for (int c = lane; c < C; c += 32)
-      orow[(long long)v * C + c] = __float2bfloat16_rn(acc[(v - v_lo) * CP + c]);
+  const float ct = PIXEL ? 0.f : g[0] * img_w;
+
+  // write source row r (all its strip columns) and clear its slot
+  auto emit = [&](int r) {
+    __syncwarp();
+    float* As = A + (r & 1) * tw * cs;
+    const bool top = k_lo > 0 && r <= k_lo, bottom = k_hi < h && r >= k_hi - 1;
+    if (top || bottom) {
+      const int j = top ? seg - 1 : seg, rr = r - (top ? k_lo : k_hi) + 1;
+      float* pp = part + ((((long long)n * (nseg - 1) + j) * 2 + (top ? 1 : 0)) * 2 + rr) * w * C +
+                  (long long)v0 * C;
+      for (int col = 0; col < v1 - v0; ++col)
+        for (int c = lane; c < C; c += 32) pp[col * C + c] = As[col * cs + c];
+    } else {
+      __nv_bfloat16* o = out + xn + ((long long)r * w + v0) * C;
+      for (int col = 0; col < v1 - v0; ++col)
+        for (int c = lane; c < C; c += 32) o[col * C + c] = __float2bfloat16_rn(As[col * cs + c]);
+    }
+    __syncwarp();
+    for (int i = lane; i < tw * cs; i += 32) As[i] = 0.f;
+    __syncwarp();
+  };
+
+  int base = max(k_lo - 1, 0);  // the lowest source row not yet written
+  float xw0[CPL], xw1[CPL], nx0[CPL], nx1[CPL], acc0[CPL], acc1[CPL], up[CPL];
+  for (int Y = s * k_lo; Y < s * k_hi; ++Y) {
+    const int k = Y / s, ph = Y % s;
+    const int r0 = clampi(k + sd[ph], 0, h - 1), r1 = clampi(k + sd[ph] + 1, 0, h - 1);
+    const float fh = sf[ph], wr0 = 1.f - fh;
+    while (r0 > base) emit(base++);
+    float* A0 = A + (r0 & 1) * tw * cs;
+    float* A1 = A + (r1 & 1) * tw * cs;
+    // the column accumulator of source column cr, times the row weights,
+    // into the rows r0 and r1 (a group without a live pixel adds nothing:
+    // its window may sit, clamped, on a column another group flushes)
+    auto flush = [&](int cr, const float (&a)[CPL]) {
+      if (active && cr >= v0 && cr < v1) {
+        float* d0 = A0 + (cr - v0) * cs + gl;
+        float* d1 = A1 + (cr - v0) * cs + gl;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) d0[G * j] += wr0 * a[j];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) d1[G * j] += fh * a[j];
+      }
+    };
+    const __nv_bfloat16* x0 = x + xn + (long long)r0 * w * C;
+    const __nv_bfloat16* x1 = x + xn + (long long)r1 * w * C;
+    const long long prow = ((long long)n * H + Y) * W;
+    const L* lrow = labels + prow;
+    int X = xg, v = min(X, W - 1) / s, pw = min(X, W - 1) % s;
+    int wc = v + sd[pw];  // the window: raw source columns wc, wc + 1
+    lerp_cols<G, CPL>(x0, x1, clampi(wc, 0, w - 1), C, fh, gl, xw0);
+    lerp_cols<G, CPL>(x0, x1, clampi(wc + 1, 0, w - 1), C, fh, gl, xw1);
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) acc0[j] = acc1[j] = 0.f;
+    const int Xl = min(X, W - 1);
+    int lab = (int)lrow[Xl];
+    float gp = PIXEL ? g[prow + Xl] : ct, ls = PIXEL ? lse[prow + Xl] : 0.f;
+    for (int jx = 0; jx < run; ++jx, ++X) {
+      // the next pixel's column phase and inputs, and the window's next
+      // column when it slides after this pixel
+      int vn = v, pwn = pw + 1;
+      if (pwn == s) {
+        pwn = 0;
+        ++vn;
+      }
+      const bool more = jx + 1 < run && X + 1 < W;
+      const bool slide = more && vn + sd[pwn] > wc;
+      const int Xn = more ? X + 1 : min(X, W - 1);
+      const int lab_n = (int)lrow[Xn];
+      const float gp_n = PIXEL ? g[prow + Xn] : ct, ls_n = PIXEL ? lse[prow + Xn] : 0.f;
+      if (slide) {
+        const __nv_bfloat16* p0 = x0 + (long long)clampi(wc + 2, 0, w - 1) * C;
+        const __nv_bfloat16* p1 = x1 + (long long)clampi(wc + 2, 0, w - 1) * C;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          const int c = gl + G * j;
+          nx0[j] = c < C ? __bfloat162float(p0[c]) : 0.f;
+          nx1[j] = c < C ? __bfloat162float(p1[c]) : 0.f;
+        }
+      }
+      const float fw = sf[pw], wl = 1.f - fw;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) up[j] = xw0[j] * wl + xw1[j] * fw;
+      const bool live = X < xb;
+      // the adjoint's column weights: at the image edge the window's column
+      // -1 or w is the edge column itself, so its share goes there
+      float wa = wl, wb = fw;
+      if (wc < 0) {
+        wb = wl + fw;
+        wa = 0.f;
+      } else if (wc + 1 >= w) {
+        wa = wl + fw;
+        wb = 0.f;
+      }
+      if constexpr (PIXEL) {
+        const int label = lab < 0 || lab >= C ? 0 : lab;
+        if (live && gp != 0.f) {
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            const int c = gl + G * j;
+            const float e = expf(fminf(up[j] - ls, 0.f)) * (c < C ? 1.f : 0.f);
+            const float t = gp * (e - (c == label ? 1.f : 0.f));
+            acc0[j] += wa * t;
+            acc1[j] += wb * t;
+          }
+        }
+      } else {
+        float m = -3.402823466e38f;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) m = fmaxf(m, gl + G * j < C ? up[j] : -3.402823466e38f);
+        m = group_max<G>(m);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          up[j] = expf(fminf(up[j] - m, 0.f)) * (gl + G * j < C ? 1.f : 0.f);
+          sum += up[j];
+        }
+        sum = group_sum<G>(sum);
+        if (live && lab >= 0 && lab < C) {
+          const float rs = vss::recip(sum);
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            const int c = gl + G * j;
+            const float t = gp * (vss::div_rn(up[j], sum, rs) - (c == lab ? 1.f : 0.f));
+            acc0[j] += wa * t;
+            acc1[j] += wb * t;
+          }
+        }
+      }
+      if (slide) {
+        flush(wc, acc0);
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          acc0[j] = acc1[j];
+          acc1[j] = 0.f;
+          xw0[j] = xw1[j];
+          xw1[j] = nx0[j] * wr0 + nx1[j] * fh;
+        }
+        ++wc;
+      }
+      v = vn;
+      pw = pwn;
+      lab = lab_n;
+      gp = gp_n;
+      ls = ls_n;
+      __syncwarp();
+    }
+    // the window's last two columns, even groups first: a group whose run
+    // ends at the image edge may share its last window with the next one's
+    for (int par = 0; par < 2; ++par) {
+      if ((gi & 1) == par) {
+        flush(wc, acc0);
+        flush(wc + 1, acc1);
+      }
+      __syncwarp();
+    }
+  }
+  const int last = min(k_hi, h - 1);
+  while (base <= last) emit(base++);
+}
+
+// dlogits rows b - 1 and b of each segment boundary b: the upper segment's
+// partial plus the lower one's, in that order, rounded to bf16
+__global__ void ce_bwd_combine_kernel(const float* __restrict__ part,
+                                      __nv_bfloat16* __restrict__ out, int N, int h, int w, int C,
+                                      int nseg) {
+  const long long row = (long long)w * C;
+  const long long total = (long long)N * (nseg - 1) * 2 * row;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long e = i % row, t = i / row;
+    const int rr = (int)(t % 2), j = (int)(t / 2 % (nseg - 1)), n = (int)(t / 2 / (nseg - 1));
+    const int b = (int)((long long)(j + 1) * h / nseg);
+    const float* p = part + (((long long)n * (nseg - 1) + j) * 4 + rr) * row + e;
+    out[((long long)n * h + b - 1 + rr) * row + e] = __float2bfloat16_rn(p[0] + p[2 * row]);
+  }
+}
+
+template <int G, int CPL, typename L, bool PIXEL>
+int launch_bwd_gc(const void* x, const void* labels, const void* g, const void* lse, void* out,
+                  void* part, int N, int h, int w, int C, int s, float img_w, int tw, int nseg,
+                  int cs, cudaStream_t st) {
+  const long long units = (long long)N * nseg * ((w + tw - 1) / tw);
+  const unsigned blocks = (unsigned)((units + kBwdWarps - 1) / kBwdWarps);
+  const size_t bytes = (size_t)kBwdWarps * 2 * tw * cs * sizeof(float);
+  static bool attr = false;  // one instance per template: set its limit once
+  if (!attr) {
+    cudaError_t e = cudaFuncSetAttribute(ce_bwd_kernel<G, CPL, L, PIXEL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  auto* pb = static_cast<float*>(part);
+  ce_bwd_kernel<G, CPL, L, PIXEL><<<blocks, 32 * kBwdWarps, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const L*>(labels),
+      static_cast<const float*>(g), static_cast<const float*>(lse), ob, pb, N, h, w, C, s, img_w,
+      tw, nseg, cs);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || nseg < 2) return (int)e;
+  const long long total = (long long)N * (nseg - 1) * 2 * w * C;
+  const long long cblocks = (total + 255) / 256;
+  const unsigned cb = (unsigned)(cblocks < 132 * 16 ? cblocks : 132 * 16);
+  ce_bwd_combine_kernel<<<cb, 256, 0, st>>>(pb, ob, N, h, w, C, nseg);
+  return (int)cudaGetLastError();
+}
+
+// classes: G lanes a pixel, CPL classes a lane (ops/ce_upsampled.py
+// ce_bwd_groups has the same table)
+template <typename L, bool PIXEL>
+int launch_bwd(const void* x, const void* labels, const void* g, const void* lse, void* out,
+               void* part, int N, int h, int w, int C, int s, float img_w, int tw, int nseg,
+               int cs, cudaStream_t st) {
+#define VSS_CE_BWD(G, K) \
+  return launch_bwd_gc<G, K, L, PIXEL>(x, labels, g, lse, out, part, N, h, w, C, s, img_w, tw, \
+                                       nseg, cs, st)
+  if (C <= 32) VSS_CE_BWD(4, 8);
+  if (C <= 64) VSS_CE_BWD(8, 8);
+  if (C <= 128) VSS_CE_BWD(8, 16);
+  if (C <= 256) VSS_CE_BWD(16, 16);
+#undef VSS_CE_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// the plan's checks: a strip of 1..64 columns, segments of at least 2 rows
+// (or one segment), the column stride holding the classes
+inline bool bwd_plan_ok(int h, int C, int tw, int nseg, int cs, const void* part) {
+  const int cp = C <= 32 ? 32 : C <= 64 ? 64 : C <= 128 ? 128 : 256;
+  return tw >= 1 && tw <= 64 && nseg >= 1 && (nseg == 1 || (h / nseg >= 2 && part != nullptr)) &&
+         cs >= cp;
 }
 
 template <typename L>
@@ -356,35 +596,6 @@ int launch_nll_fwd(const void* x, const void* labels, void* nll, void* pred, voi
   return (int)cudaGetLastError();
 }
 
-template <int CPL, typename L, bool PIXEL>
-int launch_bwd_cpl(const void* x, const void* labels, const void* g, const void* lse, void* out,
-                   int N, int h, int w, int C, int s, float img_w, cudaStream_t st) {
-  const long long items = (long long)N * h * ((w + kSeg - 1) / kSeg);
-  const unsigned blocks = (unsigned)((items + kWarps - 1) / kWarps);
-  const size_t bytes = (size_t)kWarps * kSeg * 32 * CPL * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(ce_bwd_kernel<CPL, L, PIXEL>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  ce_bwd_kernel<CPL, L, PIXEL><<<blocks, 32 * kWarps, bytes, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const L*>(labels),
-      static_cast<const float*>(g), static_cast<const float*>(lse),
-      static_cast<__nv_bfloat16*>(out), N, h, w, C, s, img_w);
-  return (int)cudaGetLastError();
-}
-
-template <typename L, bool PIXEL>
-int launch_bwd(const void* x, const void* labels, const void* g, const void* lse, void* out,
-               int N, int h, int w, int C, int s, float img_w, cudaStream_t st) {
-  const int cpl = (C + 31) / 32;
-#define VSS_CE_BWD(K) \
-  return launch_bwd_cpl<K, L, PIXEL>(x, labels, g, lse, out, N, h, w, C, s, img_w, st)
-  if (cpl <= 1) VSS_CE_BWD(1);
-  if (cpl <= 2) VSS_CE_BWD(2);
-  if (cpl <= 4) VSS_CE_BWD(4);
-  if (cpl <= 8) VSS_CE_BWD(8);
-#undef VSS_CE_BWD
-  return (int)cudaErrorInvalidValue;
-}
 
 }  // namespace
 
@@ -404,18 +615,23 @@ VSS_EXPORT int ce_fwd_loss(const void* logits, const void* labels, void* partial
 }
 
 // dlogits (N, h, w, C) bf16 for the cotangent g[0] (f32, on the device) of
-// the forward's img_w-weighted sum.
+// the forward's img_w-weighted sum, in strips of tw source columns and nseg
+// segments of source rows a frame (ops/ce_upsampled.py ce_bwd_plan); with
+// nseg > 1, part is an f32 buffer of N * (nseg - 1) * 4 * w * C for the rows
+// at the segment boundaries; cs (>= the classes' padded width) is the column
+// stride of the shared-memory rows.
 VSS_EXPORT int ce_bwd_loss(const void* logits, const void* labels, const void* g, void* out,
-                           int N, int h, int w, int C, int s, int labels_i32, float img_w,
-                           int device, void* stream) {
+                           void* part, int N, int h, int w, int C, int s, int labels_i32,
+                           float img_w, int tw, int nseg, int cs, int device, void* stream) {
   vss::use_device(device);
   if ((long long)N * h * w == 0) return 0;
-  if (s < 1 || s > kMaxScale || C < 1) return (int)cudaErrorInvalidValue;
+  if (s < 1 || s > kMaxScale || C < 1 || !bwd_plan_ok(h, C, tw, nseg, cs, part))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return labels_i32
-             ? launch_bwd<int, false>(logits, labels, g, nullptr, out, N, h, w, C, s, img_w, st)
-             : launch_bwd<unsigned char, false>(logits, labels, g, nullptr, out, N, h, w, C, s,
-                                                img_w, st);
+  return labels_i32 ? launch_bwd<int, false>(logits, labels, g, nullptr, out, part, N, h, w, C,
+                                             s, img_w, tw, nseg, cs, st)
+                    : launch_bwd<unsigned char, false>(logits, labels, g, nullptr, out, part, N,
+                                                       h, w, C, s, img_w, tw, nseg, cs, st);
 }
 
 // The per-pixel maps of logits (N, h, w, C) bf16 against labels (N, h*s,
@@ -434,16 +650,19 @@ VSS_EXPORT int ce_fwd_nll(const void* logits, const void* labels, void* nll, voi
 }
 
 // dlogits (N, h, w, C) bf16 for the per-pixel cotangent g_nll (N, h*s, w*s)
-// f32 of ce_fwd_nll's nll, from its lse.
+// f32 of ce_fwd_nll's nll, from its lse; the plan (tw, nseg, cs) and part
+// as for ce_bwd_loss.
 VSS_EXPORT int ce_bwd_nll(const void* logits, const void* labels, const void* lse,
-                          const void* g_nll, void* out, int N, int h, int w, int C, int s,
-                          int labels_i32, int device, void* stream) {
+                          const void* g_nll, void* out, void* part, int N, int h, int w, int C,
+                          int s, int labels_i32, int tw, int nseg, int cs, int device,
+                          void* stream) {
   vss::use_device(device);
   if ((long long)N * h * w == 0) return 0;
-  if (s < 1 || s > kMaxScale || C < 1) return (int)cudaErrorInvalidValue;
+  if (s < 1 || s > kMaxScale || C < 1 || !bwd_plan_ok(h, C, tw, nseg, cs, part))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return labels_i32
-             ? launch_bwd<int, true>(logits, labels, g_nll, lse, out, N, h, w, C, s, 0.f, st)
-             : launch_bwd<unsigned char, true>(logits, labels, g_nll, lse, out, N, h, w, C, s,
-                                               0.f, st);
+  return labels_i32 ? launch_bwd<int, true>(logits, labels, g_nll, lse, out, part, N, h, w, C, s,
+                                            0.f, tw, nseg, cs, st)
+                    : launch_bwd<unsigned char, true>(logits, labels, g_nll, lse, out, part, N,
+                                                      h, w, C, s, 0.f, tw, nseg, cs, st);
 }

@@ -5,8 +5,9 @@
 //   (jax.nn.gelu(approximate=False));
 // - warp sum / max reductions.
 //
-// Tensor-core products use nvcuda::wmma 16x16x16 bf16 tiles with f32
-// accumulation (each kernel includes <mma.h> itself).
+// Tensor-core products: gemm_tn.cu uses nvcuda::wmma 16x16x16 bf16 tiles
+// (it includes <mma.h> itself); block_gemm.cu and the attention kernels use
+// mma.sync m16n8k16 with ldmatrix (mma_sync.cuh). f32 accumulation in all.
 #pragma once
 
 #include <cuda_bf16.h>

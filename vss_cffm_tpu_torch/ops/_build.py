@@ -52,7 +52,8 @@ _SIGNATURES = {
         "attention_div_check": "ppppiip",
     },
     "block_gemm": {
-        "gemm_ln_bias_res": "pppppppppiiiiiiiifip",
+        "gemm_ln_bias_res": "pppppppppiiiiiiiifiiiip",
+        "gemm_smem_bytes": "iii",
     },
     "attention_bwd": {
         "attention_bwd": "ppppppppppiiiiiifiip",
@@ -62,9 +63,9 @@ _SIGNATURES = {
     },
     "ce_upsampled": {
         "ce_fwd_loss": "pppiiiiiifiip",
-        "ce_bwd_loss": "ppppiiiiiifip",
+        "ce_bwd_loss": "pppppiiiiiifiiiip",
         "ce_fwd_nll": "pppppiiiiiiip",
-        "ce_bwd_nll": "pppppiiiiiiip",
+        "ce_bwd_nll": "ppppppiiiiiiiiiip",
     },
     "gemm_tn": {
         "gemm_tn": "ppppiiiiiip",

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["use_kernel", "require", "refuse_grad", "stream_of", "ptr"]
+__all__ = ["use_kernel", "require", "refuse_grad", "stream_of", "ptr", "sm_count"]
 
 _FORCES = (None, "torch", "kernel")
 
@@ -59,3 +59,8 @@ def stream_of(x: torch.Tensor) -> tuple[int, int]:
     """(device index, current stream handle) for launches on x's device."""
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
     return dev, torch.cuda.current_stream(dev).cuda_stream
+
+
+def sm_count(x: torch.Tensor) -> int:
+    """Streaming multiprocessors of x's device (the plans size their grids by it)."""
+    return torch.cuda.get_device_properties(x.device).multi_processor_count

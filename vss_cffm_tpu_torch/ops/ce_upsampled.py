@@ -16,8 +16,13 @@ respect to ``logits`` only; ``corr`` carries no gradient.
 Its CUDA kernels (``csrc/ce_upsampled.cu``) replace the TPU kernels
 ``vss_cffm_tpu/ops/ce_upsampled.py:_ce_fwd_loss_pallas`` (``_fwd_loss_kernel``)
 and ``_ce_bwd_loss_pallas5`` (``_bwd_loss_kernel5``): neither writes anything
-pixel-sized. The JAX package feeds them labels in phase layouts, which
-answered TPU tiling questions; the port takes natural labels.
+the size of the upsampled map. The JAX package feeds them labels in phase
+layouts, which answered TPU tiling questions; the port takes natural labels.
+The backward (and the per-pixel one below) runs on a plan of strips of
+source columns and segments of source rows (``ce_bwd_plan``, its units
+``ce_bwd_units``, the exps they execute ``ce_bwd_exps``): each output
+pixel's softmax is computed once for its strip, and the two source rows at
+each segment boundary meet as f32 partials added in a fixed order.
 
 ``ce_upsampled_loss_torch`` / ``ce_upsampled_loss_bwd_torch`` are the plain
 versions: an f32 ``F.interpolate``, ``logsumexp − picked``; the backward
@@ -65,17 +70,20 @@ pair's, applied after the labels are put back in natural layout
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._dispatch import ptr, require, stream_of, use_kernel
+from ._dispatch import SMEM_LIMIT, ptr, require, sm_count, stream_of, use_kernel
 
 __all__ = ["ce_upsampled_loss", "ce_upsampled_loss_bwd", "ce_upsampled_loss_torch",
            "ce_upsampled_loss_bwd_torch", "ce_upsampled_nll", "ce_upsampled_nll_bwd",
            "ce_upsampled_nll_torch", "ce_upsampled_nll_bwd_torch", "valid_safe",
            "labels_to_phase", "labels_to_phase_w", "phase_to_natural", "ce_bwd_loss_v2",
-           "ce_fwd_loss_v5", "ce_fwd_loss_v3", "ce_bwd_loss_v3", "phase_labels_u8"]
+           "ce_fwd_loss_v5", "ce_fwd_loss_v3", "ce_bwd_loss_v3", "phase_labels_u8",
+           "ce_bwd_groups", "ce_bwd_plan", "ce_bwd_units", "ce_bwd_exps"]
 
 # classes one warp lane holds: a warp covers up to 32·CPL classes
 _MAX_CLASSES = 256
@@ -148,6 +156,106 @@ def _loss_bwd_f32(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tensor, s
     return dx
 
 
+# ---- the backward's plan (csrc/ce_upsampled.cu ce_bwd_kernel) ---------------
+#
+# A unit (one warp) is a frame, a segment [k_lo, k_hi) of source rows and a
+# strip [v0, v1) of source columns: it computes the output rows of its
+# segment (each output row once) at the output columns that reach its strip,
+# [s·v0 − s//2, s·v1 + s//2), its 32 / G lane groups walking runs of L
+# columns of one row in lockstep; it writes its own rows of dlogits, and the
+# two rows at each segment boundary as f32 partials that the combine pass
+# adds, upper segment first.
+
+# units (warps) a block; blocks of the kernel an SM holds at most (its
+# launch bounds: 168 registers; a cap of 128 for 4 blocks spills and
+# measured 24 % slower)
+CE_BWD_WARPS = 4
+_CE_BWD_BLOCKS_PER_SM = 3
+# strip widths tried, widest first: tw + 1 spans of s output columns divide
+# evenly among 2, 4 or 8 lane groups
+_CE_BWD_STRIPS = (15, 7, 3)
+
+
+def ce_bwd_groups(c: int) -> tuple[int, int]:
+    """(lanes a pixel G, classes a lane) of the backward at c classes
+    (``launch_bwd``'s table): 8 lanes of 16 classes at C 124."""
+    for g, cpl in ((4, 8), (8, 8), (8, 16), (16, 16)):
+        if c <= g * cpl:
+            return g, cpl
+    raise ValueError(f"{c} classes (at most {_MAX_CLASSES})")
+
+
+def _run_spans(span_count: int, ng: int) -> int:
+    """Column spans of s in one lane group's run (at least 2, so that two
+    groups' windows of two source columns never meet)."""
+    return max(2, -(-span_count // ng))
+
+
+@functools.lru_cache(maxsize=None)
+def ce_bwd_plan(n: int, h: int, w: int, c: int, s: int, sms: int) -> tuple[int, int, int]:
+    """(tw, nseg, cs) of the backward: strips of tw source columns (the
+    widest whose blocks still fit 3 an SM: narrower strips raise the
+    recompute at their edges), nseg segments of at least 2
+    source rows a frame (the count that takes the least time in waves of
+    blocks, a unit costing its rows plus one), and cs, the column stride of
+    the f32 shared-memory rows: the classes' padded width plus a pad that
+    puts the lane groups' simultaneous flushes in distinct banks."""
+    g, cpl = ce_bwd_groups(c)
+    ng = 32 // g
+    for tw in _CE_BWD_STRIPS:
+        run = _run_spans(tw + 1, ng)
+        cs = g * cpl + (g // run if g % run == 0 else 1)
+        smem = CE_BWD_WARPS * 2 * tw * cs * 4
+        if _CE_BWD_BLOCKS_PER_SM * (smem + 1024) <= SMEM_LIMIT:
+            break
+    per_sm = max(1, min(_CE_BWD_BLOCKS_PER_SM, SMEM_LIMIT // (smem + 1024)))
+    nstrip = -(-w // tw)
+    best = None
+    for nseg in range(1, max(1, h // 2) + 1):
+        blocks = -(-n * nstrip * nseg // CE_BWD_WARPS)
+        cost = -(-blocks // (sms * per_sm)) * (-(-h // nseg) + 1)
+        if best is None or cost < best[0]:
+            best = (cost, nseg)
+    return tw, best[1], cs
+
+
+def ce_bwd_units(n: int, h: int, w: int, c: int, s: int, plan: tuple) -> list:
+    """Each unit of the backward in the kernel's order, as it derives them
+    from its warp index: (frame, k_lo, k_hi, v0, v1, xa, xb, run), computing
+    output rows [s·k_lo, s·k_hi) at output columns [xa, xb), each lane group
+    a run of ``run`` columns (the last groups' runs may pass xb: idle)."""
+    tw, nseg, _ = plan
+    ng = 32 // ce_bwd_groups(c)[0]
+    nstrip = -(-w // tw)
+    units = []
+    for u in range(n * nseg * nstrip):
+        strip, seg, f = u % nstrip, u // nstrip % nseg, u // nstrip // nseg
+        v0, v1 = strip * tw, min(strip * tw + tw, w)
+        xa, xb = max(0, s * v0 - s // 2), min(w * s, s * v1 + s // 2)
+        units.append((f, seg * h // nseg, (seg + 1) * h // nseg, v0, v1, xa, xb,
+                      s * _run_spans(-(-(xb - xa) // s), ng)))
+    return units
+
+
+def ce_bwd_exps(live: torch.Tensor, c: int, s: int, plan: tuple, pixel: bool) -> int:
+    """The exps the backward executes for its inputs, labels or g of shape
+    (N, H, W) → live (N, H, W) bool: with ``pixel`` (row 13) C at each live
+    pixel (g ≠ 0) of each unit that computes it; else (row 17) C at every
+    column of every lane group's run, idle and ignored pixels included (the
+    softmax's shuffles run in lockstep)."""
+    n, hh, ww = live.shape
+    h, w = hh // s, ww // s
+    units = ce_bwd_units(n, h, w, c, s, plan)
+    if not pixel:
+        return c * sum(s * (k1 - k0) * (32 // ce_bwd_groups(c)[0]) * run
+                       for _, k0, k1, _, _, _, _, run in units)
+    mult = torch.zeros(ww, dtype=torch.long)
+    for f, k0, _, _, _, xa, xb, _ in units:
+        if f == 0 and k0 == 0:            # one row of strips: every strip once
+            mult[xa:xb] += 1
+    return c * int((live.cpu().long().sum(dim=(0, 1)) * mult).sum())
+
+
 def _kernel_inputs(logits: torch.Tensor, labels: torch.Tensor, s: int, op: str):
     require(logits.is_cuda and labels.is_cuda, op, "a CPU tensor")
     require(logits.dtype == torch.bfloat16, op, f"logits of dtype {logits.dtype} (bf16 only)")
@@ -174,16 +282,27 @@ def _ce_fwd_launch(logits, labels, s: int, img_w: float, count_acc: bool):
     return sums[0], sums[1]
 
 
+def _bwd_plan(logits: torch.Tensor, s: int):
+    """(plan, partial buffer or None) of a backward launch."""
+    n, h, w, c = logits.shape
+    plan = ce_bwd_plan(n, h, w, c, s, sm_count(logits))
+    nseg = plan[1]
+    part = None if nseg == 1 else torch.empty((n * (nseg - 1) * 4 * w * c,),
+                                              device=logits.device, dtype=torch.float32)
+    return plan, part
+
+
 def _ce_bwd_launch(logits, labels, g: torch.Tensor, s: int, img_w: float) -> torch.Tensor:
     op = "ce_upsampled_loss_bwd"
     logits, labels, lbl32 = _kernel_inputs(logits, labels, s, op)
     n, h, w, c = logits.shape
     gf = g.detach().to(device=logits.device, dtype=torch.float32).reshape(1).contiguous()
     out = torch.empty_like(logits)
+    (tw, nseg, cs), part = _bwd_plan(logits, s)
     dev, stream = stream_of(logits)
     rc = _build.library("ce_upsampled").ce_bwd_loss(
-        ptr(logits, op), ptr(labels, op), ptr(gf, op), ptr(out, op), n, h, w, c, s, lbl32,
-        float(img_w), dev, stream)
+        ptr(logits, op), ptr(labels, op), ptr(gf, op), ptr(out, op), ptr(part, op), n, h, w, c,
+        s, lbl32, float(img_w), tw, nseg, cs, dev, stream)
     _build.check(rc, op)
     return out
 
@@ -296,10 +415,11 @@ def ce_upsampled_nll_bwd(logits: torch.Tensor, labels: torch.Tensor, lse: torch.
     ls = lse.detach().to(torch.float32).contiguous()
     g = g_nll.detach().to(torch.float32).contiguous()
     out = torch.empty_like(logits)
+    (tw, nseg, cs), part = _bwd_plan(logits, s)
     dev, stream = stream_of(logits)
     rc = _build.library("ce_upsampled").ce_bwd_nll(
-        ptr(logits, op), ptr(labels, op), ptr(ls, op), ptr(g, op), ptr(out, op), n, h, w, c, s,
-        lbl32, dev, stream)
+        ptr(logits, op), ptr(labels, op), ptr(ls, op), ptr(g, op), ptr(out, op), ptr(part, op), n,
+        h, w, c, s, lbl32, tw, nseg, cs, dev, stream)
     _build.check(rc, op)
     ce_upsampled_nll_bwd.launches += 1
     return out

@@ -69,11 +69,13 @@ and at inference ``block_ffn_fused`` and, without LN2 and the residual,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._dispatch import SMEM_LIMIT, ptr, refuse_grad, require, stream_of, use_kernel
+from ._dispatch import SMEM_LIMIT, ptr, refuse_grad, require, sm_count, stream_of, use_kernel
 from .cfm_attention import attention_launch, scale_in
 from .dwconv import _gelu_grad, _preact, dwconv3x3_launch, dwconv3x3_torch
 
@@ -109,41 +111,89 @@ def _scales(s: torch.Tensor | None, b: int, dev: torch.device, op: str) -> torch
     return s.to(device=dev, dtype=_F32).contiguous()
 
 
+# block_gemm (csrc/block_gemm.cu): rows of a block (BM), the deepest
+# resident A (KMAX_RES), the K step and the depth of the cp.async ring
+GEMM_BM, GEMM_KMAX_RES, _GEMM_BK, _GEMM_STAGES = 64, 512, 32, 3
+# blocks of 128 threads an SM holds when shared memory allows (the kernel's
+# launch bounds: 3)
+_GEMM_BLOCKS_PER_SM = 3
+
+
+def block_gemm_smem(k: int, resident: bool, nb: int) -> int:
+    """Shared memory of one block_gemm block (its ``smem_bytes``): resident A
+    (BM x K rounded up to 64, bf16) or the A ring, and the W ring of nb
+    64-column chunks."""
+    w_ring = _GEMM_STAGES * _GEMM_BK * 64 * nb * 2
+    a = -(-k // 64) * 64 * GEMM_BM * 2 if resident else _GEMM_STAGES * GEMM_BM * _GEMM_BK * 2
+    return a + w_ring
+
+
+@functools.lru_cache(maxsize=None)
+def block_gemm_plan(m: int, n: int, k: int, resident: bool, sms: int) -> tuple[int, int]:
+    """(nb, cols_per_block) of a block_gemm launch: slabs of 64·nb columns (nb
+    2 unless N ≤ 64), and the columns one block walks, all of N unless the
+    row blocks alone leave the card short of work: then N is cut into the
+    fewest equal runs of slabs that take the least time in waves of blocks
+    (a block costing its slabs, plus one for a resident A's prologue), so
+    that each row block's A is read once per run."""
+    nb = 1 if n <= 64 else 2
+    bn = 64 * nb
+    slabs = -(-n // bn)
+    smem = block_gemm_smem(k, resident, nb)
+    per_sm = max(1, min(_GEMM_BLOCKS_PER_SM, SMEM_LIMIT // (smem + 1024)))
+    mblocks = -(-m // GEMM_BM)
+    best = None
+    for runs in range(1, slabs + 1):
+        per_run = -(-slabs // runs)
+        runs = -(-slabs // per_run)
+        waves = -(-mblocks * runs // (sms * per_sm))
+        cost = waves * (per_run + int(resident))
+        if best is None or cost < best[0]:
+            best = (cost, per_run)
+    return nb, best[1] * bn
+
+
 def _gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, *,
           out_dtype: torch.dtype, ln: tuple[torch.Tensor, torch.Tensor, float] | None = None,
           res: torch.Tensor | None = None, a_scale: torch.Tensor | None = None,
           o_scale: torch.Tensor | None = None, rows_per_frame: int = 1,
-          op: str = "mit_block_fused") -> torch.Tensor:
+          op: str = "mit_block_fused", bwd: bool = False) -> torch.Tensor:
     """out (M, N) = [LN(a) | bf16(a·a_scale) | a] · w [+ bias], times o_scale,
     [+ res], on the block_gemm kernel. The scales are per frame (B,), frame
-    = row // rows_per_frame."""
+    = row // rows_per_frame. ``bwd`` launches the backward's instance of the
+    kernel (the same code under its own name, for the profile)."""
     m, kdim = a.shape
     n = w.shape[1]
-    require(kdim % 8 == 0 and n % 8 == 0, op, f"GEMM K={kdim}, N={n} not multiples of 8")
-    require(tuple(w.shape) == (kdim, n), op, f"weight {tuple(w.shape)} for K={kdim}")
-    require(a.dtype in (_BF16, _F32), op, f"GEMM input of dtype {a.dtype}")
+    require(kdim % 8 == 0 and n % 8 == 0, op, lambda: f"GEMM K={kdim}, N={n} not multiples of 8")
+    require(tuple(w.shape) == (kdim, n), op, lambda: f"weight {tuple(w.shape)} for K={kdim}")
+    require(a.dtype in (_BF16, _F32), op, lambda: f"GEMM input of dtype {a.dtype}")
+    resident = ln is not None or a_scale is not None or a.dtype == _F32
+    require(not resident or kdim <= GEMM_KMAX_RES, op,
+            lambda: f"GEMM K={kdim} > {GEMM_KMAX_RES} with a LayerNorm, a scaled or an f32 A "
+                    "(its rows are held in shared memory)")
     dev = a.device
     wb = w.to(device=dev, dtype=_BF16).contiguous()
     bb = None if bias is None else bias.to(device=dev, dtype=_F32).contiguous()
     g = bt = None
     eps = 0.0
     if ln is not None:
-        require(kdim <= 2048, op, f"LayerNorm over {kdim} > 2048 channels")
         g = ln[0].to(device=dev, dtype=_F32).contiguous()
         bt = ln[1].to(device=dev, dtype=_F32).contiguous()
         eps = ln[2]
     res_kind = 0
     if res is not None:
-        require(tuple(res.shape) == (m, n), op, f"residual {tuple(res.shape)}")
+        require(tuple(res.shape) == (m, n), op, lambda: f"residual {tuple(res.shape)}")
         res_kind = {_BF16: 1, _F32: 2}[res.dtype]
-    nb = -(-m // rows_per_frame)
-    sa, so = _scales(a_scale, nb, dev, op), _scales(o_scale, nb, dev, op)
+    nb_frames = -(-m // rows_per_frame)
+    sa, so = _scales(a_scale, nb_frames, dev, op), _scales(o_scale, nb_frames, dev, op)
     out = torch.empty((m, n), device=dev, dtype=out_dtype)
+    nb, cols = block_gemm_plan(m, n, kdim, resident, sm_count(a))
     devi, stream = stream_of(a)
     rc = _build.library("block_gemm").gemm_ln_bias_res(
         ptr(a, op), ptr(g, op), ptr(bt, op), ptr(wb, op), ptr(bb, op), ptr(res, op),
         ptr(sa, op), ptr(so, op), ptr(out, op), m, n, kdim, int(a.dtype == _F32),
-        int(ln is not None), res_kind, int(out_dtype == _F32), rows_per_frame, eps, devi, stream)
+        int(ln is not None), res_kind, int(out_dtype == _F32), rows_per_frame, eps, nb, cols,
+        int(bwd), devi, stream)
     _build.check(rc, op)
     return out
 
@@ -344,10 +394,6 @@ mit_block_fused.launches = 0
 _BLOCKS_PER_SM = 4
 
 
-def _sms(t: torch.Tensor) -> int:
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
-
-
 def lin_bwd(a: torch.Tensor, w_t: torch.Tensor, dt: torch.dtype, *, kernel: bool,
             a_scale: torch.Tensor | None = None, rows_per_frame: int = 1,
             out_dtype: torch.dtype = _F32, op: str) -> torch.Tensor:
@@ -355,7 +401,7 @@ def lin_bwd(a: torch.Tensor, w_t: torch.Tensor, dt: torch.dtype, *, kernel: bool
     rounded to dt, f32 accumulation, out in f32 or rounded to dt."""
     if kernel:
         return _gemm(a, w_t, None, out_dtype=out_dtype, a_scale=a_scale,
-                     rows_per_frame=rows_per_frame, op=op)
+                     rows_per_frame=rows_per_frame, op=op, bwd=True)
     ar = a.float() if a_scale is None else a.float() * _frame_rows(a_scale, rows_per_frame)
     out = _mm(ar.to(dt), w_t, dt)
     return out if out_dtype == _F32 else out.to(dt)
@@ -377,7 +423,7 @@ def gemm_tn(a: torch.Tensor, b: torch.Tensor, *, kernel: bool, b_scale: torch.Te
     require(k1 % 8 == 0 and n % 8 == 0, op, lambda: f"gemm_tn K1={k1}, N={n} not multiples of 8")
     sb = None if b_scale is None else _scales(b_scale, -(-m // rows_per_frame), a.device, op)
     tiles = -(-k1 // 64) * -(-n // 64)
-    splits = max(1, min(-(-_BLOCKS_PER_SM * _sms(a) // tiles), -(-m // 256)))
+    splits = max(1, min(-(-_BLOCKS_PER_SM * sm_count(a) // tiles), -(-m // 256)))
     rps = -(-m // splits)
     splits = -(-m // rps)
     partial = torch.empty((splits, k1, n), device=a.device, dtype=_F32)
@@ -391,7 +437,7 @@ def gemm_tn(a: torch.Tensor, b: torch.Tensor, *, kernel: bool, b_scale: torch.Te
 
 def _row_chunks(t: torch.Tensor, rows: int, cols_blocks: int = 1) -> tuple[int, int]:
     """(rows per block, blocks) for a row-split reduction over ``rows``."""
-    want = max(1, -(-_BLOCKS_PER_SM * _sms(t) // cols_blocks))
+    want = max(1, -(-_BLOCKS_PER_SM * sm_count(t) // cols_blocks))
     per = max(8, -(-rows // want))
     return per, -(-rows // per)
 
@@ -458,7 +504,7 @@ def dz_dhid(d_a: torch.Tensor, hid: torch.Tensor, kdw: torch.Tensor, bdw: torch.
             lambda: f"d_a {d_a.dtype} / hid {hid.dtype}, Ch={ch}")
     wk = kdw.reshape(9, ch).to(device=hid.device, dtype=_F32).contiguous()
     bb = bdw.to(device=hid.device, dtype=_F32).contiguous()
-    rows, strips, ctiles = dz_dhid_plan(b, h, w, ch, _sms(hid))
+    rows, strips, ctiles = dz_dhid_plan(b, h, w, ch, sm_count(hid))
     d_hid = torch.empty(hid.shape, device=hid.device, dtype=_BF16)
     partial = torch.empty((b * strips * ctiles, 11, ch), device=hid.device, dtype=_F32)
     dev, stream = stream_of(hid)
