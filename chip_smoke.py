@@ -95,8 +95,10 @@ kernel, written to ``chiprun_out/profile{,_ffn}.txt`` and
 ``chiprun_out/profile_train{,_ffn,_composed,_ohem,_probs}.txt``.
 From the default step's table it prints ``[row6]`` and ``[row7]`` lines (each
 of the two rows' kernels by name: launches, ms a step, µs a launch; the block
-pair's GEMM runs as a Fwd and a Bwd instance); then ``[row17]`` lines (rows 17
-and 13 alone at N 8 and N 2: device µs, exp bound, recompute factor) and
+pair's GEMM runs as a Fwd and a Bwd instance); then ``[row14]`` lines (rows 14
+and 12 alone at N 8 and N 2: device µs, exp bound and its share, the library
+calls' µs), ``[row17]`` lines (rows 17 and 13 alone at N 8 and N 2: device
+µs, exp bound, recompute factor) and
 ``[gemm]`` lines (every block_gemm launch of a default step and a clip: device
 µs, bytes bound, share of 3.35 TB/s, torch.matmul's µs on the same operands).
 
@@ -1346,10 +1348,14 @@ def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> None:
 
 
 def row_splits() -> None:
-    """``[row17]``: rows 17 and 13 alone at N 8 and N 2 (device µs, exp
+    """``[row14]``: rows 14 and 12 alone at N 8 and N 2 (device µs, exp
+    bound, its share, the library calls' µs; ``tools/bench_ce_fwd.py``);
+    ``[row17]``: rows 17 and 13 alone at N 8 and N 2 (device µs, exp
     bound, recompute factor; ``tools/bench_ce_bwd.py``); ``[gemm]``: each
     block_gemm launch of a default step and a clip (device µs, bytes bound,
     share of 3.35 TB/s, torch.matmul's µs; ``tools/bench_gemm.py``)."""
+    importlib.import_module("vss_cffm_tpu_torch.tools.bench_ce_fwd").main([])
+    torch.cuda.empty_cache()
     importlib.import_module("vss_cffm_tpu_torch.tools.bench_ce_bwd").main([])
     torch.cuda.empty_cache()
     importlib.import_module("vss_cffm_tpu_torch.tools.bench_gemm").main([])
@@ -1373,17 +1379,16 @@ ATTENTION_SHAPES = ((289, 32, 1, "CFM window attention"),
 
 def attention_resources(build) -> None:
     """What ``ptxas -v`` reported for each instance of the attention kernels,
-    the depthwise conv and the block backward's passes (registers, static
-    shared memory, stack and spill bytes), and the blocks one SM holds
+    the depthwise conv, the block backward's passes, the GEMM and the
+    upsampled-CE kernels (registers, static shared memory, stack and spill
+    bytes), and the blocks one SM holds
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the main path's
-    shapes."""
+    shapes, the CE forward's with its plan."""
     cfm = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")
     fwd, bwd = build.library("attention"), build.library("attention_bwd")
     for src in ("attention", "attention_bwd", "sra_attention_bwd", "dwconv", "block_bwd",
                 "block_gemm", "ce_upsampled"):
         for k in build.ptxas_usage(src):
-            if src == "ce_upsampled" and "ce_bwd" not in k["kernel"]:
-                continue  # the forwards are as before; the backward was redesigned
             print(f"[ptxas] csrc/{src}.cu {k['kernel']}: {k['registers']} registers, "
                   f"{k['smem']} B static smem, {k['stack']} B stack, spill stores "
                   f"{k['spill_stores']} B, spill loads {k['spill_loads']} B", flush=True)
@@ -1399,6 +1404,16 @@ def attention_resources(build) -> None:
             print(f"[occupancy] attention_bwd N={n} hd={hd} {label}: "
                   f"{bwd.attention_bwd_smem_bytes(n, hd)} B dynamic smem, "
                   f"{cfm.blocks_per_sm('bwd', n, hd, 0, mode)} blocks per SM", flush=True)
+    ce = importlib.import_module("vss_cffm_tpu_torch.ops.ce_upsampled")
+    lib = build.library("ce_upsampled")
+    for n in (8, 2):  # the upsampled-CE forward (rows 14, 12) at the train step's two branches
+        tw, band = ce.ce_fwd_plan(n, 120, 120, NUM_CLASSES, 4, torch.cuda.get_device_properties(0)
+                                  .multi_processor_count)
+        for pixel, row in ((0, 14), (1, 12)):
+            print(f"[occupancy] ce_fwd (row {row}) N={n} C={NUM_CLASSES} s=4: strips of {tw}, "
+                  f"bands of {band}, {lib.ce_fwd_smem_bytes(NUM_CLASSES, 4, tw, pixel)} B dynamic "
+                  f"smem, {lib.ce_fwd_blocks_per_sm(NUM_CLASSES, 4, tw, pixel)} blocks per SM",
+                  flush=True)
     sra = build.library("sra_attention_bwd")
     for n, hd in ((225, 64), (225, 32)):  # the MiT stages at 480² (B1: heads of 64; B0: 32)
         print(f"[occupancy] sra_attention_bwd S={n} hd={hd}: "

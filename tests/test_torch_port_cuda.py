@@ -6,9 +6,9 @@ probabilities pair (f32 and bf16 probabilities) and the CE loss pair's
 label-layout variants (odd h, ragged column segments); train steps in each
 block form, with OHEM and class weights, and with the CFM attention's
 backward from probabilities, whose gradients go through the kernels; B0 clip
-inference with the fused FFN; the redesigned block_gemm (rows 1, 6-11) and
-CE backward (rows 17, 13) at the path's shapes and at ragged ones, with
-forced plans, two runs bitwise equal.
+inference with the fused FFN; the redesigned block_gemm (rows 1, 6-11), CE
+backward (rows 17, 13) and CE forward (rows 14, 12) at the path's shapes and
+at ragged ones, with forced plans, two runs bitwise equal.
 
 Marked ``cuda`` and skipped where no CUDA device is present. On a machine
 with one, from the repository root::
@@ -1054,3 +1054,77 @@ def test_ce_bwd_redesign_matches_plain(dev, monkeypatch, n, h, w, c, s, ldt, pla
         again = run("kernel")
         torch.cuda.synchronize()
         assert torch.equal(got, again), row
+
+
+# (N, h, w, C, s, label dtype, forced strip width): the train step's two
+# branches, ragged maps at s 2 / 4 / 8, C 19 / 124 / 150 / 256, and forced
+# strips of 3 and 1 columns (ragged last strips)
+CE_FWD_CASES = [
+    (8, 120, 120, 124, 4, torch.uint8, None), (2, 120, 120, 124, 4, torch.int32, None),
+    (2, 37, 53, 19, 2, torch.uint8, None), (1, 37, 53, 124, 4, torch.int32, None),
+    (1, 37, 53, 150, 8, torch.uint8, None), (2, 37, 53, 256, 4, torch.int32, None),
+    (3, 13, 7, 124, 4, torch.uint8, 3), (2, 9, 10, 40, 2, torch.int32, 1),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,s,ldt,tw", CE_FWD_CASES)
+def test_ce_fwd_redesign_matches_plain(dev, monkeypatch, n, h, w, c, s, ldt, tw):
+    """Rows 14 and 12 against their plain versions: wsum to 1e-4 relative, the
+    correct count within 1e-4 of the valid pixels (at least 1: a near-tie may
+    count either way), nll and lse to 1e-5 of the largest, pred on all but
+    1e-4 of the pixels (at least 1); with the first band of every frame all
+    ignored; two calls bitwise equal; then with three classes sharing bf16
+    logits that lead every pixel (in different lanes): pred the first of
+    them, as torch's argmax."""
+    ce = ops.ce_upsampled
+    if tw is not None:
+        band = 32 // ce.ce_bwd_groups(c)[0]
+        monkeypatch.setattr(ce, "ce_fwd_plan", lambda *a: (tw, band))
+    rng = np.random.RandomState(70 + c)
+    x = _rand(rng, n, h, w, c, scale=2.0, dev=dev)
+    lab = _labels(rng, n, h * s, w * s, c, ldt, dev) if c < 256 else torch.from_numpy(
+        rng.randint(-1, c, (n, h * s, w * s)).astype(np.int32)).to(dev, ldt)
+    lab[:, :8] = 255 if c <= 255 else -1  # every label of a frame's first band ignored
+    img_w = 0.5 / lab.numel()
+    n_valid = int(((lab.long() >= 0) & (lab.long() < c)).sum())
+
+    def check(x):
+        got = ops.ce_upsampled_loss(x, lab, s, img_w, force="kernel")
+        want = ops.ce_upsampled_loss(x, lab, s, img_w, force="torch")
+        torch.cuda.synchronize()
+        assert abs(got[0].item() - want[0].item()) <= 1e-4 * abs(want[0].item())
+        assert abs(got[1].item() - want[1].item()) <= max(1.0, 1e-4 * n_valid)
+        again = ops.ce_upsampled_loss(x, lab, s, img_w, force="kernel")
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        maps = ops.ce_upsampled_nll(x, lab, s, force="kernel")
+        plain = ops.ce_upsampled_nll(x, lab, s, force="torch")
+        for i in (0, 2):
+            _close(maps[i], plain[i], 1e-5)
+        assert maps[1].dtype == torch.int32
+        assert int((maps[1] != plain[1]).sum()) <= max(1, 1e-4 * lab.numel())
+        again = ops.ce_upsampled_nll(x, lab, s, force="kernel")
+        assert all(torch.equal(a, b) for a, b in zip(maps, again))
+        return maps[1]
+
+    check(x)
+    t1, t2 = c // 3, c - 1
+    x[..., t1] = x[..., t2] = x[..., 2 * c // 3] = x[..., 0] + 30.0
+    assert (check(x) == t1).all()
+
+
+def test_ce_fwd_smem_is_the_kernels(dev):
+    """The forward plan's shared memory (``ce_fwd_smem``) is the layout the
+    kernel launches with (``ce_fwd_smem_bytes``), at every class table row,
+    scale and strip width; the train step's plan keeps 4 blocks an SM."""
+    from vss_cffm_tpu_torch.ops import _build
+    lib = _build.library("ce_upsampled")
+    for c in (19, 64, 124, 256):
+        for s in range(1, 9):
+            for tw in (1, 8, 15):
+                for pixel in (0, 1):
+                    assert lib.ce_fwd_smem_bytes(c, s, tw, pixel) == ops.ce_upsampled.ce_fwd_smem(
+                        c, s, tw, bool(pixel))
+    # the plan's 4 blocks an SM at the train step
+    for n in (8, 2):
+        tw, _ = ops.ce_upsampled.ce_fwd_plan(n, 120, 120, 124, 4, 132)
+        assert lib.ce_fwd_blocks_per_sm(124, 4, tw, 0) == lib.ce_fwd_blocks_per_sm(124, 4, tw, 1) == 4

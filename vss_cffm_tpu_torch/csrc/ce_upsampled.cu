@@ -31,17 +31,13 @@
 // The per-pixel pair does the same exps and writes 12 B per output pixel
 // (nll, pred, lse; ~22 MB at the train step), reading lse and g back in the
 // backward: still bound by the exps.
-// Forward design: one warp walks one output row; each lane holds the
-// classes lane + 32*j in registers.
-// The row-lerped logits of three neighbouring source columns stay in
-// registers as the warp slides along the row, so each source value is
-// loaded about twice per output row that uses it (from L1/L2), and the
-// column phases of one source column share them. Max, sum of exp and the
-// label pick are warp shuffles; each lane adds only its own classes.
-// Forward: per-warp partial (img_w * sum, count) pairs, reduced by one
-// torch.sum outside; no atomics, so the result is the same run to run.
-// The per-pixel forward keeps each of 32 consecutive pixels' results in the
-// lane of its column and writes them as one coalesced store per map.
+// Forward (rows 12 and 14): each output pixel's softmax is computed once,
+// by G = 8 lanes of 16 contiguous classes at C 124, in units of (frame, band
+// of 32 / G output rows, strip of source columns), the window's row-lerped
+// columns in registers; see ce_fwd_kernel below. The loss writes per-warp
+// (img_w * sum, count) partials, reduced by one torch.sum outside; the maps
+// are staged in shared memory and written as 16-byte stores. No atomics, so
+// the results are the same run to run.
 // Backward (rows 13 and 17): each output pixel's softmax is computed once
 // for its strip of source columns (a recompute of s/2 output columns at each
 // strip edge only, ~1.06x at the train step), by G = 8 lanes (16 classes a
@@ -56,10 +52,7 @@
 namespace {
 
 using vss::ce::clampi;
-using vss::ce::class_max;
-using vss::ce::softmax_stats;
 
-constexpr int kWarps = 4;
 constexpr int kMaxScale = 8;
 
 struct Coeffs {
@@ -74,155 +67,6 @@ struct Coeffs {
     }
   }
 };
-
-// xh[j] = x0[c]*(1 - fh) + x1[c]*fh at column v, class c = lane + 32 j
-template <int CPL>
-__device__ __forceinline__ void load_row_lerp(const __nv_bfloat16* x0, const __nv_bfloat16* x1,
-                                              int v, int C, float fh, int lane, float* xh) {
-  const __nv_bfloat16* p0 = x0 + (long long)v * C;
-  const __nv_bfloat16* p1 = x1 + (long long)v * C;
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int c = lane + 32 * j;
-    xh[j] = c < C ? __bfloat162float(p0[c]) * (1.f - fh) + __bfloat162float(p1[c]) * fh : 0.f;
-  }
-}
-
-// up = column lerp of the window (xl, xc, xr) for a column phase (dw, fw)
-template <int CPL>
-__device__ __forceinline__ void col_lerp(const float* xl, const float* xc, const float* xr,
-                                         int dw, float fw, float* up) {
-  if (dw < 0) {
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) up[j] = xl[j] * (1.f - fw) + xc[j] * fw;
-  } else {
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) up[j] = xc[j] * (1.f - fw) + xr[j] * fw;
-  }
-}
-
-// the smallest class whose up equals the maximum m (torch's argmax tie order)
-template <int CPL>
-__device__ __forceinline__ int first_argmax(const float* up, float m, int C, int lane) {
-  int best = 0x7fffffff;
-#pragma unroll
-  for (int j = CPL - 1; j >= 0; --j)
-    if (lane + 32 * j < C && up[j] == m) best = lane + 32 * j;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) best = min(best, __shfl_xor_sync(0xffffffffu, best, o));
-  return best;
-}
-
-template <int CPL>
-__device__ __forceinline__ void shift_window(float* xl, float* xc, float* xr) {
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    xl[j] = xc[j];
-    xc[j] = xr[j];
-  }
-}
-
-// one warp per (frame n, output row Y); partial[2*(n*H + Y)] = (img_w * sum, count)
-template <int CPL, typename L>
-__global__ void __launch_bounds__(32 * kWarps) ce_fwd_kernel(
-    const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
-    float* __restrict__ partial, int N, int h, int w, int C, int s, float img_w,
-    int count_acc) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int H = h * s, W = w * s;
-  if (row >= (long long)N * H) return;
-  const Coeffs cf(s);
-  const int n = (int)(row / H), Y = (int)(row % H);
-  const int k = Y / s, ph = Y % s;
-  const float fh = cf.f[ph];
-  const __nv_bfloat16* x0 = x + ((long long)n * h + clampi(k + cf.delta[ph], 0, h - 1)) * w * C;
-  const __nv_bfloat16* x1 =
-      x + ((long long)n * h + clampi(k + cf.delta[ph] + 1, 0, h - 1)) * w * C;
-  const L* lrow = labels + row * W;
-
-  float xl[CPL], xc[CPL], xr[CPL], up[CPL];
-  load_row_lerp<CPL>(x0, x1, 0, C, fh, lane, xc);
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) xl[j] = xc[j];
-  load_row_lerp<CPL>(x0, x1, min(1, w - 1), C, fh, lane, xr);
-  float tot = 0.f, cor = 0.f;
-  for (int v = 0; v < w; ++v) {
-    for (int pw = 0; pw < s; ++pw) {
-      const int label = (int)lrow[v * s + pw];
-      const bool valid = label >= 0 && label < C;
-      col_lerp<CPL>(xl, xc, xr, cf.delta[pw], cf.f[pw], up);
-      const float m = class_max<CPL>(up, C, lane);
-      float sum, picked;
-      softmax_stats<CPL>(up, m, C, lane, valid ? label : 0, sum, picked);
-      if (valid) {
-        tot += (m + logf(sum)) - picked;
-        if (count_acc && picked == m) cor += 1.f;
-      }
-    }
-    shift_window<CPL>(xl, xc, xr);
-    load_row_lerp<CPL>(x0, x1, min(v + 2, w - 1), C, fh, lane, xr);
-  }
-  if (lane == 0) {
-    partial[2 * row] = tot * img_w;
-    partial[2 * row + 1] = cor;
-  }
-}
-
-// one warp per (frame n, output row Y): the row's nll, pred and lse
-template <int CPL, typename L>
-__global__ void __launch_bounds__(32 * kWarps) ce_nll_fwd_kernel(
-    const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels, float* __restrict__ nll,
-    int* __restrict__ pred, float* __restrict__ lse, int N, int h, int w, int C, int s) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int H = h * s, W = w * s;
-  if (row >= (long long)N * H) return;
-  const Coeffs cf(s);
-  const int n = (int)(row / H), Y = (int)(row % H);
-  const int k = Y / s, ph = Y % s;
-  const float fh = cf.f[ph];
-  const __nv_bfloat16* x0 = x + ((long long)n * h + clampi(k + cf.delta[ph], 0, h - 1)) * w * C;
-  const __nv_bfloat16* x1 =
-      x + ((long long)n * h + clampi(k + cf.delta[ph] + 1, 0, h - 1)) * w * C;
-  const L* lrow = labels + row * W;
-  const long long orow = row * W;
-
-  float xl[CPL], xc[CPL], xr[CPL], up[CPL];
-  load_row_lerp<CPL>(x0, x1, 0, C, fh, lane, xc);
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) xl[j] = xc[j];
-  load_row_lerp<CPL>(x0, x1, min(1, w - 1), C, fh, lane, xr);
-  float my_nll = 0.f, my_lse = 0.f;
-  int my_pred = 0;
-  for (int v = 0; v < w; ++v) {
-    for (int pw = 0; pw < s; ++pw) {
-      const int X = v * s + pw;
-      int label = (int)lrow[X];
-      if (label < 0 || label >= C) label = 0;
-      col_lerp<CPL>(xl, xc, xr, cf.delta[pw], cf.f[pw], up);
-      const float m = class_max<CPL>(up, C, lane);
-      const int am = first_argmax<CPL>(up, m, C, lane);
-      float sum, picked;
-      softmax_stats<CPL>(up, m, C, lane, label, sum, picked);
-      if (lane == (X & 31)) {
-        my_lse = m + logf(sum);
-        my_nll = my_lse - picked;
-        my_pred = am;
-      }
-      if ((X & 31) == 31 || X == W - 1) {
-        const int c0 = X & ~31;
-        if (c0 + lane <= X) {
-          nll[orow + c0 + lane] = my_nll;
-          lse[orow + c0 + lane] = my_lse;
-          pred[orow + c0 + lane] = my_pred;
-        }
-      }
-    }
-    shift_window<CPL>(xl, xc, xr);
-    load_row_lerp<CPL>(x0, x1, min(v + 2, w - 1), C, fh, lane, xr);
-  }
-}
 
 // ---- the backward: strips of source columns, each output row once ---------
 //
@@ -262,8 +106,7 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// xh[j] = x0[c]*(1 - fh) + x1[c]*fh at column v, class c = gl + G j (the
-// forward's row lerp, load_row_lerp, with G lanes a pixel)
+// xh[j] = x0[c]*(1 - fh) + x1[c]*fh at column v, class c = gl + G j
 template <int G, int CPL>
 __device__ __forceinline__ void lerp_cols(const __nv_bfloat16* x0, const __nv_bfloat16* x1,
                                           int v, int C, float fh, int gl, float* xh) {
@@ -554,64 +397,477 @@ inline bool bwd_plan_ok(int h, int C, int tw, int nseg, int cs, const void* part
          cs >= cp;
 }
 
-template <typename L>
-int launch_fwd(const void* x, const void* labels, void* partial, int N, int h, int w, int C,
-               int s, float img_w, int count_acc, cudaStream_t st) {
-  const long long rows = (long long)N * h * s;
-  const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* lb = static_cast<const L*>(labels);
-  auto* pb = static_cast<float*>(partial);
-  const int cpl = (C + 31) / 32;
-#define VSS_CE_FWD(K) \
-  ce_fwd_kernel<K, L><<<blocks, 32 * kWarps, 0, st>>>(xb, lb, pb, N, h, w, C, s, img_w, count_acc)
-  if (cpl <= 1) VSS_CE_FWD(1);
-  else if (cpl <= 2) VSS_CE_FWD(2);
-  else if (cpl <= 4) VSS_CE_FWD(4);
-  else if (cpl <= 8) VSS_CE_FWD(8);
-  else return (int)cudaErrorInvalidValue;
+// ---- the forward: bands of output rows, strips of source columns -----------
+//
+// A unit is one warp's work: frame n, a band of NG = 32 / G consecutive output
+// rows [Y0, Y0 + NG) and a strip [v0, v1) of source columns, whose output
+// columns [s*v0, s*v1) it computes: every output pixel belongs to exactly one
+// unit, so each softmax is computed once. The warp first copies what the
+// unit reads into its share of shared memory, with every load in flight at
+// once (cp.async): the source rows the band's output rows lerp from (clamped
+// to the map), each at the columns max(v0 - 1, 0) .. min(v1, w - 1) as the
+// one contiguous run it is in device memory, and the band's labels as int16
+// (-1 outside [0, C)). So each source element is read from device memory once
+// per band, and the loop below reads nothing from device memory. (Copied
+// pixel by pixel into a padded layout, the copy took as long as the loop.)
+// Lane group gi takes output row Y0 + gi (a row past H, in a frame's ragged
+// last band, computes its clamped twin and keeps nothing); its G lanes hold
+// the classes gl*CPL .. gl*CPL + CPL - 1, so the max and the sum take log2(G)
+// shuffles. The groups walk the strip's output columns in lockstep, at one
+// column phase: each keeps the row-lerped logits of its window's two source
+// columns and their difference in registers and, when the window slides,
+// lerps the next column from shared memory, a class past C read as -2^99. So
+// no max, exp or sum needs a mask: exp(up - m) is exactly 0 for it. The owner
+// of the label's class (one lane of the group) takes up[label] by a select
+// tree and stages (m, sum, up[label]) and, for the maps, the group's first
+// maximum (torch's argmax tie order); the unit's logs are then taken all
+// lanes at once: lse = m + log(sum). The loss (PIXEL = false):
+// the warp's (img_w * sum of lse - up[label], count of up[label] == m) over
+// its valid pixels goes to partial[2 * unit], no atomics, one torch.sum
+// outside. The maps (PIXEL = true): nll, pred and lse, written with 16-byte
+// stores.
+//
+// Every loop over a lane's classes has a constant count at every level (the
+// trees are template recursions): a tree written as a loop over levels was
+// not unrolled, and its array went to local memory on every pixel.
+
+constexpr int kFwdWarps = 4;
+constexpr int kFwdMaxStrip = 15;             // ops/ce_upsampled.py _CE_FWD_STRIPS[0]
+constexpr unsigned kPad = 0xF100u;           // bf16 -2^99: the logit of a class past C
+
+// Shared memory of one warp, in bytes (ops/ce_upsampled.py ce_fwd_smem has the
+// same layout): the source rows, bf16 [fwd_rows][fwd_row_len] (a row's tw + 2
+// columns of C classes, rounded up to 16 bytes); the staged per-pixel values,
+// f32 / int32 [3 or 4][ng][s * tw] (m, sum, up[label], and for the maps
+// pred); the labels, int16 [ng][s * tw]; rounded up to 16.
+__host__ __device__ constexpr int fwd_rows(int ng, int s) { return (ng + s - 2) / s + 2; }
+__host__ __device__ constexpr int fwd_row_len(int C, int tw) { return ((tw + 2) * C + 7) / 8 * 8; }
+__host__ __device__ constexpr int fwd_stage_at(int ng, int C, int s, int tw) {
+  return fwd_rows(ng, s) * fwd_row_len(C, tw) * 2;
+}
+__host__ __device__ constexpr int fwd_labels_at(int ng, int C, int s, int tw, bool pixel) {
+  return fwd_stage_at(ng, C, s, tw) + (pixel ? 4 : 3) * ng * s * tw * 4;
+}
+__host__ __device__ constexpr int fwd_warp_bytes(int ng, int C, int s, int tw, bool pixel) {
+  return (fwd_labels_at(ng, C, s, tw, pixel) + ng * s * tw * 2 + 15) / 16 * 16;
+}
+
+// 2^x on the MUFU (ex2.approx.ftz: relative error about 2^-22, results below
+// 2^-126 flushed to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(vss::smem_addr(dst)), "l"(src));
+}
+
+// the classes c0 .. c0 + CPL - 1 of the source pixel at p (its class 0, in
+// shared memory) as raw bf16 pairs, class c0 + 2i in the low half of raw[i],
+// a class past C as -2^99; vec: C % 4 == 0, so every 4 classes are one 8-byte
+// load
+template <int CPL>
+__device__ __forceinline__ void classes_smem(const unsigned short* p, int c0, int C, bool vec,
+                                             unsigned (&raw)[CPL / 2]) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < CPL / 4; ++q) {
+      uint2 u = make_uint2(kPad | kPad << 16, kPad | kPad << 16);
+      if (c0 + 4 * q < C) u = *reinterpret_cast<const uint2*>(p + c0 + 4 * q);
+      raw[2 * q] = u.x;
+      raw[2 * q + 1] = u.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < CPL / 2; ++i) {
+      const int c = c0 + 2 * i;
+      raw[i] = (c < C ? p[c] : kPad) | (c + 1 < C ? p[c + 1] : kPad) << 16;
+    }
+  }
+}
+
+// xh = x0 + fh * (x1 - x0) for a lane's CPL classes of the source pixels at
+// a (row r0) and b (row r1)
+template <int CPL>
+__device__ __forceinline__ void lerp_smem(const unsigned short* a, const unsigned short* b,
+                                          int c0, int C, bool vec, float fh, float* xh) {
+  unsigned ra[CPL / 2], rb[CPL / 2];
+  classes_smem<CPL>(a, c0, C, vec, ra);
+  classes_smem<CPL>(b, c0, C, vec, rb);
+#pragma unroll
+  for (int i = 0; i < CPL / 2; ++i) {
+    const float a0 = __uint_as_float(ra[i] << 16), a1 = __uint_as_float(ra[i] & 0xffff0000u);
+    const float b0 = __uint_as_float(rb[i] << 16), b1 = __uint_as_float(rb[i] & 0xffff0000u);
+    xh[2 * i] = fmaf(fh, b0 - a0, a0);
+    xh[2 * i + 1] = fmaf(fh, b1 - a1, a1);
+  }
+}
+
+// The trees over a lane's values, level by level at compile-time widths W:
+// t[i] op= t[i + W] for i < W, then W / 2 (a fixed order: deterministic).
+template <int W>
+__device__ __forceinline__ void select_levels(float* t, int j) {
+  if constexpr (W >= 1) {
+    const bool hi = (j & W) != 0;
+#pragma unroll
+    for (int i = 0; i < W; ++i) t[i] = hi ? t[i + W] : t[i];
+    select_levels<W / 2>(t, j);
+  }
+}
+template <int W>
+__device__ __forceinline__ void max_levels(float* t) {
+  if constexpr (W >= 1) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) t[i] = fmaxf(t[i], t[i + W]);
+    max_levels<W / 2>(t);
+  }
+}
+template <int W>
+__device__ __forceinline__ void sum_levels(float* t) {
+  if constexpr (W >= 1) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) t[i] += t[i + W];
+    sum_levels<W / 2>(t);
+  }
+}
+template <int W>
+__device__ __forceinline__ void min_levels(int* t) {
+  if constexpr (W >= 1) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) t[i] = min(t[i], t[i + W]);
+    min_levels<W / 2>(t);
+  }
+}
+
+// v[j] for a runtime j in [0, CPL) (a runtime index into a register array would
+// go through local memory)
+template <int CPL>
+__device__ __forceinline__ float select_class(const float (&v)[CPL], int j) {
+  float t[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) t[i] = v[i];
+  select_levels<CPL / 2>(t, j);
+  return t[0];
+}
+template <int CPL>
+__device__ __forceinline__ float lane_max(const float (&v)[CPL]) {
+  float t[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) t[i] = v[i];
+  max_levels<CPL / 2>(t);
+  return t[0];
+}
+template <int CPL>
+__device__ __forceinline__ float lane_sum(const float (&v)[CPL]) {
+  float t[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) t[i] = v[i];
+  sum_levels<CPL / 2>(t);
+  return t[0];
+}
+// the smallest class c0 + j whose v[j] equals m, or INT_MAX
+template <int CPL>
+__device__ __forceinline__ int lane_first(const float (&v)[CPL], float m, int c0) {
+  int t[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) t[i] = v[i] == m ? c0 + i : 0x7fffffff;
+  min_levels<CPL / 2>(t);
+  return t[0];
+}
+
+template <int G>
+__device__ __forceinline__ int group_min(int v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// PIXEL = false: the loss, partial[2 * unit] = (img_w * sum, count) over the
+// unit's valid pixels. PIXEL = true: the maps nll, pred, lse.
+template <int G, int CPL, typename L, bool PIXEL>
+__global__ void __launch_bounds__(32 * kFwdWarps, 4) ce_fwd_kernel(
+    const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
+    float* __restrict__ partial, float* __restrict__ nll, int* __restrict__ pred,
+    float* __restrict__ lse, int N, int h, int w, int C, int s, float img_w, int count_acc,
+    int tw) {
+  constexpr int NG = 32 / G;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  __shared__ float sf[kMaxScale];
+  __shared__ int sd[kMaxScale];
+  if (threadIdx.x < s) {  // Coeffs of phase threadIdx.x, with no array in local memory
+    const double d = (threadIdx.x + 0.5) / s - 0.5;
+    sd[threadIdx.x] = d < 0.0 ? -1 : 0;
+    sf[threadIdx.x] = (float)(d - sd[threadIdx.x]);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gi = lane / G, gl = lane % G, c0 = gl * CPL;
+  const int H = h * s, W = w * s;
+  const int nband = (H + NG - 1) / NG, nstrip = (w + tw - 1) / tw;
+  const long long unit = (long long)blockIdx.x * kFwdWarps + warp;
+  if (unit >= (long long)N * nband * nstrip) return;
+  const int band = (int)(unit % nband), strip = (int)(unit / nband % nstrip);
+  const int n = (int)(unit / nband / nstrip);
+  const int v0 = strip * tw, v1 = min(v0 + tw, w);
+  const int xa = s * v0, cnt = s * (v1 - v0), srow = s * tw;
+  const int Y0 = band * NG, live = min(NG, H - Y0);  // the band's output rows in the map
+  const int Yc = Y0 + min(gi, live - 1);
+  const int ph = Yc % s;
+  const float fh = sf[ph];
+
+  // the unit's source rows (clamped rows rr0 .. rr1, each at the clamped
+  // columns cc0 .. cc1) and labels
+  unsigned char* wsm = fwd_smem + (size_t)warp * fwd_warp_bytes(NG, C, s, tw, PIXEL);
+  unsigned short* xs = reinterpret_cast<unsigned short*>(wsm);
+  float* stage = reinterpret_cast<float*>(wsm + fwd_stage_at(NG, C, s, tw));
+  short* lab_s = reinterpret_cast<short*>(wsm + fwd_labels_at(NG, C, s, tw, PIXEL));
+  const int Yl = Y0 + live - 1;
+  const int rr0 = clampi(Y0 / s + sd[Y0 % s], 0, h - 1);
+  const int rr1 = clampi(Yl / s + sd[Yl % s] + 1, 0, h - 1);
+  const int cc0 = max(v0 - 1, 0), run = (min(v1, w - 1) - cc0 + 1) * C;
+  const int rlen = fwd_row_len(C, tw);
+  const bool vec = (C & 3) == 0;
+  for (int r = rr0; r <= rr1; ++r) {
+    const __nv_bfloat16* src = x + (((long long)n * h + r) * w + cc0) * C;
+    unsigned short* dst = xs + (r - rr0) * rlen;
+    if (vec) {
+      for (int e = 4 * lane; e < run; e += 128) cp_async8(dst + e, src + e);
+    } else {
+      const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
+      for (int e = lane; e < run; e += 32) dst[e] = __ldg(s16 + e);
+    }
+  }
+  vss::cp_async_commit();
+  for (int g = 0; g < NG; ++g) {
+    const L* lr = labels + ((long long)n * H + Y0 + min(g, live - 1)) * W + xa;
+    for (int i = lane; i < cnt; i += 32) {
+      const int lb = (int)lr[i];
+      lab_s[g * srow + i] = (short)(lb >= 0 && lb < C ? lb : -1);
+    }
+  }
+  vss::cp_async_wait<0>();
+  __syncwarp();
+
+  // the group's two source rows, and its window: row-lerped raw source
+  // columns wc (xl) and wc + 1 (xr), dd = xr - xl; raw column col of a
+  // staged row lies at (clamp(col) - cc0) * C
+  const int k = Yc / s;
+  const unsigned short* xr0 = xs + (clampi(k + sd[ph], 0, h - 1) - rr0) * rlen - cc0 * C;
+  const unsigned short* xr1 = xs + (clampi(k + sd[ph] + 1, 0, h - 1) - rr0) * rlen - cc0 * C;
+  float xl[CPL], xr[CPL], dd[CPL], up[CPL];
+  int wc = v0 + sd[0];
+  int cl = clampi(wc, 0, w - 1) * C, cr = clampi(wc + 1, 0, w - 1) * C;
+  lerp_smem<CPL>(xr0 + cl, xr1 + cl, c0, C, vec, fh, xl);
+  lerp_smem<CPL>(xr0 + cr, xr1 + cr, c0, C, vec, fh, xr);
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) dd[j] = xr[j] - xl[j];
+
+  const short* my_lab = lab_s + gi * srow;
+  float* st_m = stage + gi * srow;  // [map][gi][column]: m, sum, up[label], pred
+  int pw = 0, v = v0;
+  for (int jx = 0; jx < cnt; ++jx) {
+    const int lab = my_lab[jx];
+    const float fw = sf[pw];
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) up[j] = fmaf(fw, dd[j], xl[j]);
+    const int cls = lab >= 0 ? lab : 0;  // the maps' safe label
+    const bool owner = (PIXEL || lab >= 0) && gi < live && cls / CPL == gl;
+    const float picked = select_class<CPL>(up, cls & (CPL - 1));
+    const float m = group_max<G>(lane_max<CPL>(up));
+    int am = 0;
+    if constexpr (PIXEL) am = group_min<G>(lane_first<CPL>(up, m, c0));
+    // exp(up - m) = 2^(up log2 e - m log2 e), the argument one fma: its
+    // rounding (|up - m| log2 e 2^-24) and the MUFU's keep each term within
+    // ~1e-6 relative for the logits' spread; expf's range reduction took 8
+    // instructions a class more and the kernel 17 % longer
+    const float ml = m * 1.4426950408889634f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) up[j] = ex2(fmaf(up[j], 1.4426950408889634f, -ml));
+    const float sum = group_sum<G>(lane_sum<CPL>(up));
+    if (owner) {
+      st_m[jx] = m;
+      st_m[NG * srow + jx] = sum;
+      st_m[2 * NG * srow + jx] = picked;
+      if constexpr (PIXEL) st_m[3 * NG * srow + jx] = __int_as_float(am);
+    }
+    // the next column phase; the window slides when its first column moves
+    int pwn = pw + 1, vn = v;
+    if (pwn == s) {
+      pwn = 0;
+      ++vn;
+    }
+    if (jx + 1 < cnt && vn + sd[pwn] > wc) {
+      ++wc;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) xl[j] = xr[j];
+      cr = clampi(wc + 1, 0, w - 1) * C;
+      lerp_smem<CPL>(xr0 + cr, xr1 + cr, c0, C, vec, fh, xr);
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) dd[j] = xr[j] - xl[j];
+    }
+    pw = pwn;
+    v = vn;
+  }
+  __syncwarp();
+
+  // the logs, all lanes at once over the unit's staged pixels
+  const float* sm = stage;
+  const float* ss = stage + NG * srow;
+  const float* sp = stage + 2 * NG * srow;
+  if constexpr (PIXEL) {
+    const float* sa = stage + 3 * NG * srow;
+    for (int g = 0; g < live; ++g) {
+      const long long o = ((long long)n * H + Y0 + g) * W + xa;
+      const int b = g * srow;
+      // pixels [0, head) and [head + 4 * nv, cnt) one a lane, the rest four a
+      // lane as 16-byte stores
+      const int head = min(cnt, (int)((4 - (o & 3)) & 3)), nv = (cnt - head) >> 2;
+      for (int i = lane; i < cnt; i += 32) {
+        if (i < head || i >= head + 4 * nv) {
+          const float ls = sm[b + i] + logf(ss[b + i]);
+          nll[o + i] = ls - sp[b + i];
+          pred[o + i] = __float_as_int(sa[b + i]);
+          lse[o + i] = ls;
+        }
+      }
+      for (int q = lane; q < nv; q += 32) {
+        const int i = b + head + 4 * q;
+        float l4[4], n4[4];
+        int p4[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          l4[e] = sm[i + e] + logf(ss[i + e]);
+          n4[e] = l4[e] - sp[i + e];
+          p4[e] = __float_as_int(sa[i + e]);
+        }
+        const long long oq = o + head + 4 * q;
+        *reinterpret_cast<float4*>(nll + oq) = make_float4(n4[0], n4[1], n4[2], n4[3]);
+        *reinterpret_cast<int4*>(pred + oq) = make_int4(p4[0], p4[1], p4[2], p4[3]);
+        *reinterpret_cast<float4*>(lse + oq) = make_float4(l4[0], l4[1], l4[2], l4[3]);
+      }
+    }
+  } else {
+    float tot = 0.f, cor = 0.f;
+    for (int i = lane; i < live * cnt; i += 32) {
+      const int g = i / cnt, b = g * srow + (i - g * cnt);
+      if (lab_s[b] >= 0) {
+        tot += (sm[b] + logf(ss[b])) - sp[b];
+        if (count_acc && sp[b] == sm[b]) cor += 1.f;
+      }
+    }
+    tot = vss::warp_sum(tot);
+    cor = vss::warp_sum(cor);
+    if (lane == 0) {
+      partial[2 * unit] = tot * img_w;
+      partial[2 * unit + 1] = cor;
+    }
+  }
+}
+
+template <int G, int CPL, typename L, bool PIXEL>
+int launch_fwd_gc(const void* x, const void* labels, void* partial, void* nll, void* pred,
+                  void* lse, int N, int h, int w, int C, int s, float img_w, int count_acc, int tw,
+                  cudaStream_t st) {
+  constexpr int NG = 32 / G;
+  const long long units = (long long)N * ((h * s + NG - 1) / NG) * ((w + tw - 1) / tw);
+  const unsigned blocks = (unsigned)((units + kFwdWarps - 1) / kFwdWarps);
+  const size_t bytes = (size_t)kFwdWarps * fwd_warp_bytes(NG, C, s, tw, PIXEL);
+  static bool attr = false;  // one instance per template: set its limit once
+  if (!attr) {
+    cudaError_t e = cudaFuncSetAttribute(ce_fwd_kernel<G, CPL, L, PIXEL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  ce_fwd_kernel<G, CPL, L, PIXEL><<<blocks, 32 * kFwdWarps, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const L*>(labels),
+      static_cast<float*>(partial), static_cast<float*>(nll), static_cast<int*>(pred),
+      static_cast<float*>(lse), N, h, w, C, s, img_w, count_acc, tw);
+  return (int)cudaGetLastError();
+}
+
+// the band 32 / G of the table below
+inline int fwd_ng(int C) { return C <= 32 ? 8 : C <= 128 ? 4 : 2; }
+
+// the backward's table of (G, CPL) (ops/ce_upsampled.py ce_bwd_groups)
+template <typename L, bool PIXEL>
+int launch_fwd(const void* x, const void* labels, void* partial, void* nll, void* pred, void* lse,
+               int N, int h, int w, int C, int s, float img_w, int count_acc, int tw,
+               cudaStream_t st) {
+#define VSS_CE_FWD(G, K) \
+  return launch_fwd_gc<G, K, L, PIXEL>(x, labels, partial, nll, pred, lse, N, h, w, C, s, img_w, \
+                                       count_acc, tw, st)
+  if (C <= 32) VSS_CE_FWD(4, 8);
+  if (C <= 64) VSS_CE_FWD(8, 8);
+  if (C <= 128) VSS_CE_FWD(8, 16);
+  if (C <= 256) VSS_CE_FWD(16, 16);
 #undef VSS_CE_FWD
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
-template <typename L>
-int launch_nll_fwd(const void* x, const void* labels, void* nll, void* pred, void* lse, int N,
-                   int h, int w, int C, int s, cudaStream_t st) {
-  const long long rows = (long long)N * h * s;
-  const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* lb = static_cast<const L*>(labels);
-  auto* nb = static_cast<float*>(nll);
-  auto* pb = static_cast<int*>(pred);
-  auto* sb = static_cast<float*>(lse);
-  const int cpl = (C + 31) / 32;
-#define VSS_CE_NLL(K) \
-  ce_nll_fwd_kernel<K, L><<<blocks, 32 * kWarps, 0, st>>>(xb, lb, nb, pb, sb, N, h, w, C, s)
-  if (cpl <= 1) VSS_CE_NLL(1);
-  else if (cpl <= 2) VSS_CE_NLL(2);
-  else if (cpl <= 4) VSS_CE_NLL(4);
-  else if (cpl <= 8) VSS_CE_NLL(8);
-  else return (int)cudaErrorInvalidValue;
-#undef VSS_CE_NLL
-  return (int)cudaGetLastError();
+// blocks of an instance one SM holds with `bytes` of dynamic shared memory
+template <int G, int CPL, bool PIXEL>
+int fwd_occupancy(size_t bytes) {
+  auto* kernel = ce_fwd_kernel<G, CPL, unsigned char, PIXEL>;
+  int b = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, 32 * kFwdWarps, bytes) !=
+          cudaSuccess)
+    return -1;
+  return b;
 }
 
+// the plan's checks: a strip of 1..kFwdMaxStrip columns whose block fits the
+// shared memory the launch allows (ops/ce_upsampled.py ce_fwd_plan keeps 4
+// blocks an SM where it can)
+inline bool fwd_plan_ok(int C, int s, int tw) {
+  return tw >= 1 && tw <= kFwdMaxStrip &&
+         kFwdWarps * fwd_warp_bytes(fwd_ng(C), C, s, tw, true) <= 200 * 1024;
+}
 
 }  // namespace
 
 // logits (N, h, w, C) bf16; labels (N, h*s, w*s) uint8 (labels_i32 = 0) or
-// int32; partial (N*h*s, 2) f32 receives (img_w * row sum, row count) per
-// output row. C <= 256, 1 <= s <= 8. Returns a cudaError_t.
+// int32; in strips of tw (1..15) source columns (ops/ce_upsampled.py
+// ce_fwd_plan), partial (units, 2) f32 receives (img_w * sum, count) per unit
+// (ce_fwd_units). C <= 256, 1 <= s <= 8. Returns a cudaError_t.
 VSS_EXPORT int ce_fwd_loss(const void* logits, const void* labels, void* partial, int N, int h,
-                           int w, int C, int s, int labels_i32, float img_w, int count_acc,
+                           int w, int C, int s, int labels_i32, float img_w, int count_acc, int tw,
                            int device, void* stream) {
   vss::use_device(device);
   if ((long long)N * h * w == 0) return 0;
-  if (s < 1 || s > kMaxScale || C < 1) return (int)cudaErrorInvalidValue;
+  if (s < 1 || s > kMaxScale || C < 1 || C > 256 || !fwd_plan_ok(C, s, tw))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return labels_i32 ? launch_fwd<int>(logits, labels, partial, N, h, w, C, s, img_w, count_acc, st)
-                    : launch_fwd<unsigned char>(logits, labels, partial, N, h, w, C, s, img_w,
-                                                count_acc, st);
+  return labels_i32 ? launch_fwd<int, false>(logits, labels, partial, nullptr, nullptr, nullptr, N,
+                                             h, w, C, s, img_w, count_acc, tw, st)
+                    : launch_fwd<unsigned char, false>(logits, labels, partial, nullptr, nullptr,
+                                                       nullptr, N, h, w, C, s, img_w, count_acc,
+                                                       tw, st);
+}
+
+// Bytes of dynamic shared memory a block of ce_fwd_loss (pixel = 0) or
+// ce_fwd_nll (pixel = 1) takes at C classes, scale s and strips of tw.
+VSS_EXPORT int ce_fwd_smem_bytes(int C, int s, int tw, int pixel) {
+  return kFwdWarps * fwd_warp_bytes(fwd_ng(C), C, s, tw, pixel != 0);
+}
+
+// Blocks of ce_fwd_loss (pixel = 0) or ce_fwd_nll (pixel = 1) one SM holds at
+// C classes, scale s and strips of tw (the CUDA occupancy query, uint8
+// labels); -1 on an error.
+VSS_EXPORT int ce_fwd_blocks_per_sm(int C, int s, int tw, int pixel) {
+  const size_t bytes = (size_t)kFwdWarps * fwd_warp_bytes(fwd_ng(C), C, s, tw, pixel != 0);
+#define VSS_CE_OCC(G, K) \
+  return pixel ? fwd_occupancy<G, K, true>(bytes) : fwd_occupancy<G, K, false>(bytes)
+  if (C <= 32) VSS_CE_OCC(4, 8);
+  if (C <= 64) VSS_CE_OCC(8, 8);
+  if (C <= 128) VSS_CE_OCC(8, 16);
+  if (C <= 256) VSS_CE_OCC(16, 16);
+#undef VSS_CE_OCC
+  return -1;
 }
 
 // dlogits (N, h, w, C) bf16 for the cotangent g[0] (f32, on the device) of
@@ -636,17 +892,20 @@ VSS_EXPORT int ce_bwd_loss(const void* logits, const void* labels, const void* g
 
 // The per-pixel maps of logits (N, h, w, C) bf16 against labels (N, h*s,
 // w*s) uint8 (labels_i32 = 0) or int32: nll and lse f32, pred int32, each
-// (N, h*s, w*s). C <= 256, 1 <= s <= 8. Returns a cudaError_t.
+// (N, h*s, w*s), in strips of tw (1..15) source columns (ce_fwd_plan).
+// C <= 256, 1 <= s <= 8. Returns a cudaError_t.
 VSS_EXPORT int ce_fwd_nll(const void* logits, const void* labels, void* nll, void* pred,
-                          void* lse, int N, int h, int w, int C, int s, int labels_i32,
+                          void* lse, int N, int h, int w, int C, int s, int labels_i32, int tw,
                           int device, void* stream) {
   vss::use_device(device);
   if ((long long)N * h * w == 0) return 0;
-  if (s < 1 || s > kMaxScale || C < 1) return (int)cudaErrorInvalidValue;
+  if (s < 1 || s > kMaxScale || C < 1 || C > 256 || !fwd_plan_ok(C, s, tw))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return labels_i32 ? launch_nll_fwd<int>(logits, labels, nll, pred, lse, N, h, w, C, s, st)
-                    : launch_nll_fwd<unsigned char>(logits, labels, nll, pred, lse, N, h, w, C,
-                                                    s, st);
+  return labels_i32 ? launch_fwd<int, true>(logits, labels, nullptr, nll, pred, lse, N, h, w, C, s,
+                                            0.f, 0, tw, st)
+                    : launch_fwd<unsigned char, true>(logits, labels, nullptr, nll, pred, lse, N,
+                                                      h, w, C, s, 0.f, 0, tw, st);
 }
 
 // dlogits (N, h, w, C) bf16 for the per-pixel cotangent g_nll (N, h*s, w*s)

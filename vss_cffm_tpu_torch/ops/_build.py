@@ -62,9 +62,11 @@ _SIGNATURES = {
         "attention_bwd_blocks_per_sm": "iiii",
     },
     "ce_upsampled": {
-        "ce_fwd_loss": "pppiiiiiifiip",
+        "ce_fwd_loss": "pppiiiiiifiiip",
         "ce_bwd_loss": "pppppiiiiiifiiiip",
-        "ce_fwd_nll": "pppppiiiiiiip",
+        "ce_fwd_nll": "pppppiiiiiiiip",
+        "ce_fwd_smem_bytes": "iiii",
+        "ce_fwd_blocks_per_sm": "iiii",
         "ce_bwd_nll": "ppppppiiiiiiiiiip",
     },
     "gemm_tn": {

@@ -18,6 +18,9 @@ Its CUDA kernels (``csrc/ce_upsampled.cu``) replace the TPU kernels
 and ``_ce_bwd_loss_pallas5`` (``_bwd_loss_kernel5``): neither writes anything
 the size of the upsampled map. The JAX package feeds them labels in phase
 layouts, which answered TPU tiling questions; the port takes natural labels.
+The forward (and the per-pixel one below) runs on a plan of strips of source
+columns and bands of output rows (``ce_fwd_plan``, its units
+``ce_fwd_units``): each output pixel's softmax is computed exactly once.
 The backward (and the per-pixel one below) runs on a plan of strips of
 source columns and segments of source rows (``ce_bwd_plan``, its units
 ``ce_bwd_units``, the exps they execute ``ce_bwd_exps``): each output
@@ -83,10 +86,13 @@ __all__ = ["ce_upsampled_loss", "ce_upsampled_loss_bwd", "ce_upsampled_loss_torc
            "ce_upsampled_nll_torch", "ce_upsampled_nll_bwd_torch", "valid_safe",
            "labels_to_phase", "labels_to_phase_w", "phase_to_natural", "ce_bwd_loss_v2",
            "ce_fwd_loss_v5", "ce_fwd_loss_v3", "ce_bwd_loss_v3", "phase_labels_u8",
-           "ce_bwd_groups", "ce_bwd_plan", "ce_bwd_units", "ce_bwd_exps"]
+           "ce_bwd_groups", "ce_bwd_plan", "ce_bwd_units", "ce_bwd_exps", "ce_fwd_plan",
+           "ce_fwd_units", "ce_fwd_smem"]
 
 # classes one warp lane holds: a warp covers up to 32·CPL classes
 _MAX_CLASSES = 256
+# the kernels' largest upsampling factor
+_MAX_SCALE = 8
 
 
 def _check_shapes(logits: torch.Tensor, labels: torch.Tensor, s: int, op: str) -> None:
@@ -256,6 +262,85 @@ def ce_bwd_exps(live: torch.Tensor, c: int, s: int, plan: tuple, pixel: bool) ->
     return c * int((live.cpu().long().sum(dim=(0, 1)) * mult).sum())
 
 
+# ---- the forward's plan (csrc/ce_upsampled.cu ce_fwd_kernel) ----------------
+#
+# A unit (one warp) is a frame, a band of 32 / G consecutive output rows (one
+# a lane group) and a strip [v0, v1) of source columns: it computes its rows'
+# pixels at the output columns [s·v0, s·v1), each output pixel in exactly one
+# unit. No halo: the forward has no adjoint to gather, so the recompute
+# factor is 1.
+
+# units (warps) a block; blocks an SM holds at most (its launch bounds: 128
+# registers)
+CE_FWD_WARPS = 4
+_CE_FWD_BLOCKS_PER_SM = 4
+# strip widths tried, widest first (the kernel takes 1..15)
+_CE_FWD_STRIPS = (15, 12, 10, 8, 6, 5, 4, 3, 2, 1)
+# the dynamic shared memory a block of the kernel may take
+_CE_FWD_SMEM = 200 * 1024
+
+
+def ce_fwd_smem(c: int, s: int, tw: int, pixel: bool = True) -> int:
+    """Bytes of dynamic shared memory a block of the forward takes (the
+    kernel's ``fwd_warp_bytes``, four warps): each warp's source rows, bf16
+    [rows][(tw + 2)·C rounded up to 8] (rows = ⌈(band − 1) / s⌉ + 2), its
+    staged per-pixel values, 4 B [3, or 4 for the maps][band][s·tw], and its
+    labels, int16 [band][s·tw], rounded up to 16."""
+    band = 32 // ce_bwd_groups(c)[0]
+    rows = (band + s - 2) // s + 2
+    at = (rows * -(-(tw + 2) * c // 8) * 8 * 2 + (4 if pixel else 3) * band * s * tw * 4
+          + band * s * tw * 2)
+    return CE_FWD_WARPS * (-(-at // 16) * 16)
+
+
+@functools.lru_cache(maxsize=None)
+def ce_fwd_plan(n: int, h: int, w: int, c: int, s: int, sms: int) -> tuple[int, int]:
+    """(tw, band) of the forward: strips of tw source columns and bands of
+    ``band`` = 32 / G output rows. tw takes the least time in waves of warps
+    (the card's ``sms`` SMs holding up to 4 blocks of 4 warps, as their
+    shared memory allows: the maps' at the widest), a unit costing its
+    columns plus two (its copy into shared memory and its epilogue, which
+    clock counters on the H100 put at about two columns' time); ties go to
+    the wider strip."""
+    band = 32 // ce_bwd_groups(c)[0]
+    nband = -(-h * s // band)
+    best = None
+    for tw in _CE_FWD_STRIPS:
+        smem = ce_fwd_smem(c, s, tw)
+        if smem > _CE_FWD_SMEM:
+            continue
+        slots = sms * min(_CE_FWD_BLOCKS_PER_SM, SMEM_LIMIT // (smem + 1024)) * CE_FWD_WARPS
+        units = n * nband * -(-w // tw)
+        cost = -(-units // slots) * (min(tw, w) + 2)
+        if best is None or cost < best[0]:
+            best = (cost, tw)
+    return best[1], band
+
+
+def ce_fwd_units(n: int, h: int, w: int, c: int, s: int, plan: tuple) -> list:
+    """Each unit of the forward in the kernel's order, as it derives them from
+    its warp index (bands fastest, so that a block's warps share a strip's
+    source rows): (frame, y0, y1, v0, v1), computing output rows [y0, y1)
+    (fewer than ``band`` only in a frame's ragged last band) at output
+    columns [s·v0, s·v1)."""
+    tw, band = plan
+    hh = h * s
+    nband, nstrip = -(-hh // band), -(-w // tw)
+    units = []
+    for u in range(n * nband * nstrip):
+        b, strip, f = u % nband, u // nband % nstrip, u // nband // nstrip
+        units.append((f, b * band, min(b * band + band, hh), strip * tw,
+                      min(strip * tw + tw, w)))
+    return units
+
+
+def _fwd_plan(logits: torch.Tensor, s: int) -> tuple[int, int]:
+    """(tw, units) of a forward launch."""
+    n, h, w, c = logits.shape
+    tw, band = ce_fwd_plan(n, h, w, c, s, sm_count(logits))
+    return tw, n * -(-h * s // band) * -(-w // tw)
+
+
 def _kernel_inputs(logits: torch.Tensor, labels: torch.Tensor, s: int, op: str):
     require(logits.is_cuda and labels.is_cuda, op, "a CPU tensor")
     require(logits.dtype == torch.bfloat16, op, f"logits of dtype {logits.dtype} (bf16 only)")
@@ -263,7 +348,7 @@ def _kernel_inputs(logits: torch.Tensor, labels: torch.Tensor, s: int, op: str):
             f"labels of dtype {labels.dtype} (uint8 or int32)")
     c = logits.shape[-1]
     require(c <= _MAX_CLASSES, op, f"{c} classes (at most {_MAX_CLASSES})")
-    require(s >= 1, op, f"scale {s}")
+    require(1 <= s <= _MAX_SCALE, op, f"scale {s} (1 to {_MAX_SCALE})")
     return logits.contiguous(), labels.contiguous(), int(labels.dtype == torch.int32)
 
 
@@ -271,12 +356,12 @@ def _ce_fwd_launch(logits, labels, s: int, img_w: float, count_acc: bool):
     op = "ce_upsampled_loss"
     logits, labels, lbl32 = _kernel_inputs(logits, labels, s, op)
     n, h, w, c = logits.shape
-    rows = n * h * s
-    partial = torch.empty((rows, 2), device=logits.device, dtype=torch.float32)
+    tw, units = _fwd_plan(logits, s)
+    partial = torch.empty((units, 2), device=logits.device, dtype=torch.float32)
     dev, stream = stream_of(logits)
     rc = _build.library("ce_upsampled").ce_fwd_loss(
         ptr(logits, op), ptr(labels, op), ptr(partial, op), n, h, w, c, s, lbl32,
-        float(img_w), int(count_acc), dev, stream)
+        float(img_w), int(count_acc), tw, dev, stream)
     _build.check(rc, op)
     sums = partial.sum(dim=0)
     return sums[0], sums[1]
@@ -390,10 +475,11 @@ def _nll_fwd_launch(logits, labels, s: int):
     nll = torch.empty(labels.shape, device=logits.device, dtype=torch.float32)
     lse = torch.empty_like(nll)
     pred = torch.empty(labels.shape, device=logits.device, dtype=torch.int32)
+    tw, _ = _fwd_plan(logits, s)
     dev, stream = stream_of(logits)
     rc = _build.library("ce_upsampled").ce_fwd_nll(
         ptr(logits, op), ptr(labels, op), ptr(nll, op), ptr(pred, op), ptr(lse, op), n, h, w, c,
-        s, lbl32, dev, stream)
+        s, lbl32, tw, dev, stream)
     _build.check(rc, op)
     return nll, pred, lse
 
