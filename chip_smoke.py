@@ -98,7 +98,8 @@ of the two rows' kernels by name: launches, ms a step, µs a launch; the block
 pair's GEMM runs as a Fwd and a Bwd instance); then ``[row14]`` lines (rows 14
 and 12 alone at N 8 and N 2: device µs, exp bound and its share, the library
 calls' µs), ``[row17]`` lines (rows 17 and 13 alone at N 8 and N 2: device
-µs, exp bound, recompute factor) and
+µs, exp bound, recompute factor), ``[row15]`` and ``[row19]`` lines (the
+phase-layout backwards on row 17's kernel, alike) and
 ``[gemm]`` lines (every block_gemm launch of a default step and a clip: device
 µs, bytes bound, share of 3.35 TB/s, torch.matmul's µs on the same operands).
 
@@ -1254,7 +1255,7 @@ CE_F32_REL = 2.0 ** -14
 CE_BENCH_KERNELS = {
     "ce_upsampled_loss": dict(bench="v2 fwd", case=_ce_bench_fwd_case),
     "ce_bwd_loss_v2": dict(
-        sources=["vss_cffm_tpu_torch/csrc/ce_phase.cu"],
+        sources=["vss_cffm_tpu_torch/csrc/ce_upsampled.cu"],
         replaces="vss_cffm_tpu/ops/ce_upsampled.py:470",  # _bwd_loss_kernel, called at :599
         bench="v2 bwd", rel_tol=CE_F32_REL, case=_ce_bench_bwd_case),
     "ce_fwd_loss_v5": dict(
@@ -1268,7 +1269,7 @@ CE_BENCH_KERNELS = {
         replaces="vss_cffm_tpu/ops/ce_upsampled.py:917",  # _fwd_loss_kernel3, called at :999
         bench="v3 fwd", case=_ce_bench_fwd_case),
     "ce_bwd_loss_v3": dict(
-        sources=["vss_cffm_tpu_torch/csrc/ce_phase.cu"],
+        sources=["vss_cffm_tpu_torch/csrc/ce_upsampled.cu"],
         replaces="vss_cffm_tpu/ops/ce_upsampled.py:1020",  # _bwd_loss_kernel3, called at :1148
         bench="v3 bwd", rel_tol=CE_F32_REL, case=_ce_bench_bwd_case),
 }
@@ -1350,7 +1351,8 @@ def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> None:
 def row_splits() -> None:
     """``[row14]``: rows 14 and 12 alone at N 8 and N 2 (device µs, exp
     bound, its share, the library calls' µs; ``tools/bench_ce_fwd.py``);
-    ``[row17]``: rows 17 and 13 alone at N 8 and N 2 (device µs, exp
+    ``[row17]``: rows 17 and 13 alone at N 8 and N 2, then ``[row15]`` and
+    ``[row19]``: the phase-layout backwards at the same inputs (device µs, exp
     bound, recompute factor; ``tools/bench_ce_bwd.py``); ``[gemm]``: each
     block_gemm launch of a default step and a clip (device µs, bytes bound,
     share of 3.35 TB/s, torch.matmul's µs; ``tools/bench_gemm.py``)."""
@@ -1413,6 +1415,14 @@ def attention_resources(build) -> None:
             print(f"[occupancy] ce_fwd (row {row}) N={n} C={NUM_CLASSES} s=4: strips of {tw}, "
                   f"bands of {band}, {lib.ce_fwd_smem_bytes(NUM_CLASSES, 4, tw, pixel)} B dynamic "
                   f"smem, {lib.ce_fwd_blocks_per_sm(NUM_CLASSES, 4, tw, pixel)} blocks per SM",
+                  flush=True)
+        # the loss backward (row 17) and the phase-layout backwards on its kernel
+        tw, nseg, cs = ce.ce_bwd_plan(n, 120, 120, NUM_CLASSES, 4, torch.cuda
+                                      .get_device_properties(0).multi_processor_count)
+        for layout, row in ((0, 17), (1, 15), (2, 19)):
+            print(f"[occupancy] ce_bwd (row {row}) N={n} C={NUM_CLASSES} s=4: strips of {tw}, "
+                  f"{nseg} segments, {ce.CE_BWD_WARPS * 2 * tw * cs * 4} B dynamic smem, "
+                  f"{lib.ce_bwd_blocks_per_sm(NUM_CLASSES, tw, cs, layout)} blocks per SM",
                   flush=True)
     sra = build.library("sra_attention_bwd")
     for n, hd in ((225, 64), (225, 32)):  # the MiT stages at 480² (B1: heads of 64; B0: 32)

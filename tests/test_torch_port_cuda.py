@@ -1128,3 +1128,66 @@ def test_ce_fwd_smem_is_the_kernels(dev):
     for n in (8, 2):
         tw, _ = ops.ce_upsampled.ce_fwd_plan(n, 120, 120, 124, 4, 132)
         assert lib.ce_fwd_blocks_per_sm(124, 4, tw, 0) == lib.ce_fwd_blocks_per_sm(124, 4, tw, 1) == 4
+
+
+# (N, h, w, C, s, rows, plan): rows 15 and 19 at the bench's two batches,
+# ragged maps at s 2 and 4 (row 19, the runtime loop, also at s 3 and 8), C
+# 19 / 40 / 124 / 256, and forced plans (strips of 3 and 1 column, segments
+# of 2 rows: partials at every segment boundary)
+CE_PHASE_BWD_CASES = [
+    (8, 120, 120, 124, 4, (15, 19), None), (2, 120, 120, 124, 4, (15, 19), None),
+    (2, 37, 53, 19, 2, (15, 19), None), (1, 37, 53, 124, 4, (15, 19), None),
+    (1, 37, 53, 40, 3, (19,), None), (1, 37, 53, 256, 8, (19,), None),
+    (3, 13, 7, 124, 4, (15, 19), (3, 6)), (2, 9, 10, 19, 2, (15, 19), (1, 4)),
+    (1, 12, 9, 256, 4, (15, 19), (1, 3)),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,s,rows,plan", CE_PHASE_BWD_CASES)
+def test_ce_phase_bwd_redesign_matches_plain(dev, monkeypatch, n, h, w, c, s, rows, plan):
+    """Rows 15 (h-major labels) and 19 (w-major) on the loss backward's kernel
+    against their plain versions: f32 dlogits to 2^-14 of the largest (f32
+    sums of the same terms in other orders, the lerp rounded as
+    F.interpolate rounds it), with a band of output rows whose labels are all
+    ignored (C < 256: uint8 labels hold no ignored value at C 256); two runs
+    bitwise equal; at s 4, where both coefficient rules agree, each rounded
+    to bf16 is row 17's result on the same natural labels bit for bit."""
+    ce = ops.ce_upsampled
+    if plan is not None:
+        g_, cpl = ce.ce_bwd_groups(c)
+        monkeypatch.setattr(ce, "ce_bwd_plan", lambda *a: (plan[0], plan[1], g_ * cpl + 1))
+    rng = np.random.RandomState(90 + c + s)
+    x = _rand(rng, n, h, w, c, scale=2.0, dev=dev)
+    if c < 256:
+        lab = _labels(rng, n, h * s, w * s, c, torch.uint8, dev)
+        lab[:, s: 3 * s] = 255  # every label of two source rows' output rows ignored
+    else:
+        lab = torch.from_numpy(rng.randint(0, 256, (n, h * s, w * s)).astype(np.uint8)).to(dev)
+    img_w, g = 0.5 / lab.numel(), torch.tensor(1.3, device=dev)
+    ops_by_row = {15: (ops.ce_bwd_loss_v2, ops.labels_to_phase(lab, s).contiguous()),
+                  19: (ops.ce_bwd_loss_v3, ops.labels_to_phase_w(lab, s).contiguous())}
+    row17 = ops.ce_upsampled_loss_bwd(x, lab, g, s, img_w, force="kernel") if s == 4 else None
+    ops.reset_launches()
+    for row in rows:
+        op, labels = ops_by_row[row]
+        got = op(x, labels, g, s, img_w, force="kernel")
+        assert got.dtype == torch.float32
+        _close(got, op(x, labels, g, s, img_w, force="torch"), 2.0 ** -14)
+        again = op(x, labels, g, s, img_w, force="kernel")
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), row
+        if row17 is not None:
+            assert torch.equal(got.to(torch.bfloat16), row17), row
+    assert {k: v for k, v in ops.launches().items() if v} == {
+        {15: "ce_bwd_loss_v2", 19: "ce_bwd_loss_v3"}[r]: 2 for r in rows}
+
+
+def test_ce_phase_bwd_occupancy_is_row17s(dev):
+    """Rows 15 and 19 keep row 17's blocks an SM at the bench's plans (the
+    label addressing and the f32 stores cost no occupancy): 3, the launch
+    bounds' cap."""
+    from vss_cffm_tpu_torch.ops import _build
+    lib = _build.library("ce_upsampled")
+    for n in (8, 2):
+        tw, _, cs = ops.ce_upsampled.ce_bwd_plan(n, 120, 120, 124, 4, 132)
+        assert [lib.ce_bwd_blocks_per_sm(124, tw, cs, layout) for layout in (0, 1, 2)] == [3] * 3

@@ -28,46 +28,13 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from torch_port_common import (ce_bwd_plans, ce_inputs, close_to_largest, col_shares,
+                               phase_coeff, replay, row_shares, unit_rows)
 
 from vss_cffm_tpu.ops import ce_upsampled as jax_ce
 from vss_cffm_tpu_torch.ops import ce_upsampled as ce
 from vss_cffm_tpu_torch.ops import stage_block as sb
 from vss_cffm_tpu_torch.ops._dispatch import SMEM_LIMIT
-
-
-def _phase(p: int, s: int) -> tuple[int, np.float32]:
-    """(delta, f) of output phase p, as the kernels' Coeffs compute them."""
-    d = (p + 0.5) / s - 0.5
-    delta = -1 if d < 0 else 0
-    return delta, np.float32(d - delta)
-
-
-def _col_shares(x: int, s: int, w: int) -> list[tuple[int, np.float32]]:
-    """The source columns output column x adds to and its weights, the
-    kernel's way: at the image edge both shares go to the edge column."""
-    v, pw = divmod(x, s)
-    delta, f = _phase(pw, s)
-    c0, wl = v + delta, np.float32(1) - f
-    if c0 < 0:
-        return [(0, wl + f)]
-    if c0 + 1 >= w:
-        return [(c0, wl + f)]
-    return [(c0, wl), (c0 + 1, f)]
-
-
-def _row_shares(y: int, s: int, h: int) -> list[tuple[int, np.float32]]:
-    k, ph = divmod(y, s)
-    delta, f = _phase(ph, s)
-    clamp = lambda r: min(max(r, 0), h - 1)
-    return [(clamp(k + delta), np.float32(1) - f), (clamp(k + delta + 1), f)]
-
-
-def _unit_rows(k_lo: int, k_hi: int, h: int) -> tuple[list[int], list[int], list[int]]:
-    """(rows written whole, top partial rows, bottom partial rows) of a unit."""
-    rows = list(range(max(k_lo - 1, 0), min(k_hi, h - 1) + 1))
-    top = [r for r in rows if k_lo > 0 and r <= k_lo]
-    bottom = [r for r in rows if k_hi < h and r >= k_hi - 1]
-    return [r for r in rows if r not in top and r not in bottom], top, bottom
 
 
 PLAN_CASES = [(37, 53, 124, 4, 8), (37, 53, 19, 2, 2), (37, 53, 150, 8, 1), (13, 7, 40, 4, 3),
@@ -96,23 +63,23 @@ def test_ce_bwd_plan_adds_every_share_once(h, w, c, s, n):
             owner[s * k_lo:s * k_hi, v0:v1] += 1
             if k_lo == 0:  # one segment row: the column shares of each strip
                 for x in range(xa, xb):
-                    for col, wt in _col_shares(x, s, w):
+                    for col, wt in col_shares(x, s, w):
                         if v0 <= col < v1 and wt != 0:
                             col_share[x, col] += 1
-            rows, top, bottom = _unit_rows(k_lo, k_hi, h)
+            rows, top, bottom = unit_rows(k_lo, k_hi, h)
             whole[rows, v0:v1] += 1
             for side, b, rs in ((1, k_lo, top), (0, k_hi, bottom)):
                 for r in rs:
                     parts.setdefault((r, b), []).append((side, v0, v1))
             # the output rows' row shares land in the unit's rows
             for y in range(s * k_lo, s * k_hi):
-                for r, wt in _row_shares(y, s, h):
+                for r, wt in row_shares(y, s, h):
                     assert wt == 0 or max(k_lo - 1, 0) <= r <= min(k_hi, h - 1)
         assert (owner == 1).all()
         # every nonzero column share of every output column added exactly once
         need = np.zeros((ww, w), np.int32)
         for x in range(ww):
-            for col, wt in _col_shares(x, s, w):
+            for col, wt in col_shares(x, s, w):
                 need[x, col] = int(wt != 0)
         assert (col_share == need).all()
         # a source pixel: whole once, or the two partials of one boundary
@@ -137,7 +104,7 @@ def _lockstep_flushes(unit, c: int, s: int, w: int) -> list[list[int]]:
     for gi in range(ng):
         xg = xa + gi * run
         v, pw = divmod(min(xg, W - 1), s)
-        groups.append(dict(x=xg, v=v, pw=pw, wc=v + _phase(pw, s)[0], active=xg < xb))
+        groups.append(dict(x=xg, v=v, pw=pw, wc=v + phase_coeff(pw, s)[0], active=xg < xb))
     steps = []
     for jx in range(run):
         step = []
@@ -146,7 +113,7 @@ def _lockstep_flushes(unit, c: int, s: int, w: int) -> list[list[int]]:
             if pwn == s:
                 vn, pwn = vn + 1, 0
             more = jx + 1 < run and gr["x"] + 1 < W
-            if more and vn + _phase(pwn, s)[0] > gr["wc"]:
+            if more and vn + phase_coeff(pwn, s)[0] > gr["wc"]:
                 if gr["active"] and v0 <= gr["wc"] < v1:
                     step.append(gr["wc"])
                 gr["wc"] += 1
@@ -166,89 +133,16 @@ def test_ce_bwd_lane_groups_never_flush_one_column_at_once(h, w, c, s, n):
             assert len(step) == len(set(step)), (unit, step)
 
 
-def _terms(logits, labels, s, g, img_w=None, lse=None):
-    """(N, H, W, C) f32 terms whose upsample adjoint is dlogits: the loss's
-    img_w·g·(softmax − onehot) on valid pixels (img_w given), or the per-pixel
-    g·(exp(up − lse) − onehot(safe label))."""
-    n, h, w, c = logits.shape
-    up = F.interpolate(logits.permute(0, 3, 1, 2), size=(h * s, w * s), mode="bilinear",
-                       align_corners=False).permute(0, 2, 3, 1)
-    valid, safe = ce.valid_safe(labels, c)
-    onehot = F.one_hot(safe, c).float()
-    if lse is None:
-        t = (torch.softmax(up, dim=-1) - onehot) * (g * img_w)
-        return torch.where(valid[..., None], t, 0.0)
-    return (torch.exp(up - lse[..., None]) - onehot) * g[..., None]
-
-
-def replay(logits, labels, s, plan, **kw) -> torch.Tensor:
-    """f32 dlogits built unit by unit as the kernel builds them: each unit's
-    column and row shares (``_col_shares`` restricted to its strip,
-    ``_row_shares``), rows written whole or kept as partials, then each
-    boundary's two partials added, upper first."""
-    n, h, w, c = logits.shape
-    t = _terms(logits, labels, s, **kw)
-    out = torch.full((n, h, w, c), float("nan"))
-    parts: dict = {}
-    for f0, k_lo, k_hi, v0, v1, xa, xb, _ in ce.ce_bwd_units(n, h, w, c, s, plan):
-        r_lo, r_hi = max(k_lo - 1, 0), min(k_hi, h - 1)
-        ys = range(s * k_lo, s * k_hi)
-        mr = torch.zeros(len(ys), r_hi - r_lo + 1)
-        for i, y in enumerate(ys):
-            for r, wt in _row_shares(y, s, h):
-                mr[i, r - r_lo] += float(wt)
-        mc = torch.zeros(xb - xa, v1 - v0)
-        for i, x in enumerate(range(xa, xb)):
-            for col, wt in _col_shares(x, s, w):
-                if v0 <= col < v1:
-                    mc[i, col - v0] += float(wt)
-        acc = torch.einsum("yr,yxc,xv->rvc", mr, t[f0, s * k_lo:s * k_hi, xa:xb], mc)
-        rows, top, bottom = _unit_rows(k_lo, k_hi, h)
-        for r in rows:
-            out[f0, r, v0:v1] = acc[r - r_lo]
-        for side, b, rs in ((1, k_lo, top), (0, k_hi, bottom)):
-            for r in rs:
-                parts.setdefault((f0, b, r, side), torch.zeros(w, c))[v0:v1] = acc[r - r_lo]
-    for (f0, b, r, side), p in parts.items():
-        if side == 0:
-            out[f0, r] = p + parts[(f0, b, r, 1)]
-    assert torch.isfinite(out).all()
-    return out
-
-
-def _close(got, want, rel=1e-5):
-    g, w_ = np.asarray(got, np.float32), np.asarray(want, np.float32)
-    assert g.shape == w_.shape
-    err = np.abs(g - w_).max()
-    assert err <= rel * np.abs(w_).max(), (err, np.abs(w_).max())
-
-
-def _inputs(n, h, w, c, s, seed):
-    rng = np.random.RandomState(seed)
-    logits = (rng.randn(n, h, w, c) * 2).astype(np.float32)
-    labels = rng.randint(0, c, (n, h * s, w * s)).astype(np.uint8)
-    labels[rng.rand(*labels.shape) < 0.1] = 255
-    return logits, labels, rng
-
-
-# the plan the card takes (one segment a frame at this size), strips of 3
-# columns in segments of 2 rows (a ragged last strip, partials at every
-# boundary), and strips of one column
-def _plans(n, h, w, c, s):
-    g, cpl = ce.ce_bwd_groups(c)
-    return [ce.ce_bwd_plan(n, h, w, c, s, 132), (3, h // 2, g * cpl + 1), (1, 2, g * cpl + 1)]
-
-
 def test_replay_matches_the_loss_backward_pallas_interpret():
     """Row 17's decomposition against ``_ce_bwd_loss_pallas5`` (f32)."""
     n, h, w, c, s = 1, 6, 10, 19, 4
-    logits, labels, _ = _inputs(n, h, w, c, s, 1)
+    logits, labels, _ = ce_inputs(n, h, w, c, s, 1)
     img_w, g = 1.0 / labels.size, 1.3
     want = np.asarray(jax_ce._ce_bwd_loss_pallas5(
         jnp.asarray(logits), jax_ce.labels_to_phase_w(jnp.asarray(labels), s),
         jnp.asarray(g, jnp.float32), s, c, img_w, interpret=True))
-    for plan in _plans(n, h, w, c, s):
-        _close(replay(torch.from_numpy(logits), torch.from_numpy(labels), s, plan, g=g,
+    for plan in ce_bwd_plans(n, h, w, c, s):
+        close_to_largest(replay(torch.from_numpy(logits), torch.from_numpy(labels), s, plan, g=g,
                       img_w=img_w), want)
 
 
@@ -257,15 +151,15 @@ def test_replay_matches_the_per_pixel_backward_pallas_interpret():
     same lse (the plain forward's), with a per-pixel cotangent that is 0 on a
     share of the pixels."""
     n, h, w, c, s = 1, 6, 10, 19, 4
-    logits, labels, rng = _inputs(n, h, w, c, s, 2)
+    logits, labels, rng = ce_inputs(n, h, w, c, s, 2)
     g = (rng.randn(*labels.shape) * (rng.rand(*labels.shape) < 0.7)).astype(np.float32)
     lse = ce.ce_upsampled_nll_torch(torch.from_numpy(logits), torch.from_numpy(labels), s)[2]
     want = np.asarray(jax_ce._ce_bwd_pallas(
         jnp.asarray(logits), jax_ce.labels_to_phase(jnp.asarray(labels), s),
         jax_ce.labels_to_phase(jnp.asarray(lse.numpy()), s),
         jax_ce.labels_to_phase(jnp.asarray(g), s), s, c, interpret=True))
-    for plan in _plans(n, h, w, c, s):
-        _close(replay(torch.from_numpy(logits), torch.from_numpy(labels), s, plan,
+    for plan in ce_bwd_plans(n, h, w, c, s):
+        close_to_largest(replay(torch.from_numpy(logits), torch.from_numpy(labels), s, plan,
                       g=torch.from_numpy(g), lse=lse), want)
 
 
@@ -274,7 +168,7 @@ def test_replay_matches_the_plain_backward_at_ragged_maps(s):
     """At 13×11 (ragged strips and segments) and s 2, 8: the decomposition of
     both rows against the port's plain backwards in f32."""
     n, h, w, c = 2, 13, 11, 23
-    logits, labels, rng = _inputs(n, h, w, c, s, 3 + s)
+    logits, labels, rng = ce_inputs(n, h, w, c, s, 3 + s)
     x, lab = torch.from_numpy(logits), torch.from_numpy(labels)
     img_w = 0.5 / labels.size
     want17 = ce._loss_bwd_f32(x, lab, torch.tensor(0.9), s, img_w)
@@ -282,9 +176,9 @@ def test_replay_matches_the_plain_backward_at_ragged_maps(s):
                                         mode="bilinear", align_corners=False), dim=1)
     g = torch.from_numpy(rng.randn(*labels.shape).astype(np.float32))
     want13 = ce.ce_upsampled_nll_bwd_torch(x, lab, lse, g, s)
-    for plan in _plans(n, h, w, c, s):
-        _close(replay(x, lab, s, plan, g=0.9, img_w=img_w), want17)
-        _close(replay(x, lab, s, plan, g=g, lse=lse), want13)
+    for plan in ce_bwd_plans(n, h, w, c, s):
+        close_to_largest(replay(x, lab, s, plan, g=0.9, img_w=img_w), want17)
+        close_to_largest(replay(x, lab, s, plan, g=g, lse=lse), want13)
 
 
 def test_recompute_factor_at_the_train_step():

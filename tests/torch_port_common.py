@@ -15,11 +15,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from vss_cffm_tpu.models.segmentor import CFFMSegmentor as JaxSegmentor
 from vss_cffm_tpu.models.segmentor import build_model_config as jax_build_model_config
 from vss_cffm_tpu_torch import config as pcfg
 from vss_cffm_tpu_torch.models import CFFMSegmentor
+from vss_cffm_tpu_torch.ops import ce_upsampled as ce
 from vss_cffm_tpu_torch.utils import state_dict_from_jax
 
 
@@ -197,3 +199,125 @@ def assert_bf16_rounded_alike(got: torch.Tensor, want, label: str) -> None:
     w = np.asarray(jnp.asarray(want).astype(jnp.float32))
     assert np.mean(g == w) >= 0.99, (label, np.mean(g == w))
     assert np.abs(g - w).max() <= 2.0 ** -8 * np.abs(w).max(), label
+
+
+# ---- the upsampled-CE backward's decomposition (csrc/ce_upsampled.cu) --------
+
+
+def phase_coeff(p: int, s: int, loop: bool = False) -> tuple[int, np.float32]:
+    """(delta, f) of output phase p as the backward's kernel takes them: d =
+    (p + 0.5)/s − 0.5 in double, f rounded once to f32 (its Coeffs), or with
+    ``loop`` every step in f32 (the runtime phase loop's rule, row 19)."""
+    if loop:
+        d = (np.float32(p) + np.float32(0.5)) / np.float32(s) - np.float32(0.5)
+        delta = -1 if d < 0 else 0
+        return delta, np.float32(d - np.float32(delta))
+    d = (p + 0.5) / s - 0.5
+    delta = -1 if d < 0 else 0
+    return delta, np.float32(d - delta)
+
+
+def col_shares(x: int, s: int, w: int) -> list[tuple[int, np.float32]]:
+    """The source columns output column x adds to and its weights, the
+    kernel's way: at the image edge both shares go to the edge column."""
+    v, pw = divmod(x, s)
+    delta, f = phase_coeff(pw, s)
+    c0, wl = v + delta, np.float32(1) - f
+    if c0 < 0:
+        return [(0, wl + f)]
+    if c0 + 1 >= w:
+        return [(c0, wl + f)]
+    return [(c0, wl), (c0 + 1, f)]
+
+
+def row_shares(y: int, s: int, h: int) -> list[tuple[int, np.float32]]:
+    k, ph = divmod(y, s)
+    delta, f = phase_coeff(ph, s)
+    clamp = lambda r: min(max(r, 0), h - 1)
+    return [(clamp(k + delta), np.float32(1) - f), (clamp(k + delta + 1), f)]
+
+
+def unit_rows(k_lo: int, k_hi: int, h: int) -> tuple[list[int], list[int], list[int]]:
+    """(rows written whole, top partial rows, bottom partial rows) of a unit."""
+    rows = list(range(max(k_lo - 1, 0), min(k_hi, h - 1) + 1))
+    top = [r for r in rows if k_lo > 0 and r <= k_lo]
+    bottom = [r for r in rows if k_hi < h and r >= k_hi - 1]
+    return [r for r in rows if r not in top and r not in bottom], top, bottom
+
+
+def ce_terms(logits, labels, s, g, img_w=None, lse=None):
+    """(N, H, W, C) f32 terms whose upsample adjoint is dlogits: the loss's
+    img_w·g·(softmax − onehot) on valid pixels (img_w given), or the per-pixel
+    g·(exp(up − lse) − onehot(safe label))."""
+    n, h, w, c = logits.shape
+    up = F.interpolate(logits.permute(0, 3, 1, 2), size=(h * s, w * s), mode="bilinear",
+                       align_corners=False).permute(0, 2, 3, 1)
+    valid, safe = ce.valid_safe(labels, c)
+    onehot = F.one_hot(safe, c).float()
+    if lse is None:
+        t = (torch.softmax(up, dim=-1) - onehot) * (g * img_w)
+        return torch.where(valid[..., None], t, 0.0)
+    return (torch.exp(up - lse[..., None]) - onehot) * g[..., None]
+
+
+def replay(logits, labels, s, plan, **kw) -> torch.Tensor:
+    """f32 dlogits built unit by unit as the kernel builds them: each unit's
+    column and row shares (``col_shares`` restricted to its strip,
+    ``row_shares``), rows written whole or kept as partials, then each
+    boundary's two partials added, upper first. ``labels`` natural (N, H, W);
+    the coefficients of rows 13, 15 and 17 (row 19's equal them at s 1, 2, 4
+    and 8)."""
+    n, h, w, c = logits.shape
+    t = ce_terms(logits, labels, s, **kw)
+    out = torch.full((n, h, w, c), float("nan"))
+    parts: dict = {}
+    for f0, k_lo, k_hi, v0, v1, xa, xb, _ in ce.ce_bwd_units(n, h, w, c, s, plan):
+        r_lo, r_hi = max(k_lo - 1, 0), min(k_hi, h - 1)
+        ys = range(s * k_lo, s * k_hi)
+        mr = torch.zeros(len(ys), r_hi - r_lo + 1)
+        for i, y in enumerate(ys):
+            for r, wt in row_shares(y, s, h):
+                mr[i, r - r_lo] += float(wt)
+        mc = torch.zeros(xb - xa, v1 - v0)
+        for i, x in enumerate(range(xa, xb)):
+            for col, wt in col_shares(x, s, w):
+                if v0 <= col < v1:
+                    mc[i, col - v0] += float(wt)
+        acc = torch.einsum("yr,yxc,xv->rvc", mr, t[f0, s * k_lo:s * k_hi, xa:xb], mc)
+        rows, top, bottom = unit_rows(k_lo, k_hi, h)
+        for r in rows:
+            out[f0, r, v0:v1] = acc[r - r_lo]
+        for side, b, rs in ((1, k_lo, top), (0, k_hi, bottom)):
+            for r in rs:
+                parts.setdefault((f0, b, r, side), torch.zeros(w, c))[v0:v1] = acc[r - r_lo]
+    for (f0, b, r, side), p in parts.items():
+        if side == 0:
+            out[f0, r] = p + parts[(f0, b, r, 1)]
+    assert torch.isfinite(out).all()
+    return out
+
+
+def ce_bwd_plans(n, h, w, c, s):
+    """The plan the card takes, strips of 3 columns in segments of 2 rows (a
+    ragged last strip, partials at every boundary), and strips of one column."""
+    g, cpl = ce.ce_bwd_groups(c)
+    return [ce.ce_bwd_plan(n, h, w, c, s, 132), (3, h // 2, g * cpl + 1), (1, 2, g * cpl + 1)]
+
+
+def close_to_largest(got, want, rel=1e-5):
+    """|got − want| ≤ rel of want's largest magnitude (f32 sums of the same
+    terms in another order)."""
+    g, w_ = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert g.shape == w_.shape
+    err = np.abs(g - w_).max()
+    assert err <= rel * np.abs(w_).max(), (err, np.abs(w_).max())
+
+
+def ce_inputs(n, h, w, c, s, seed):
+    """f32 logits (N, h, w, C) ·2, uint8 natural labels with ~10 % ignored
+    (255), and the generator for more."""
+    rng = np.random.RandomState(seed)
+    logits = (rng.randn(n, h, w, c) * 2).astype(np.float32)
+    labels = rng.randint(0, c, (n, h * s, w * s)).astype(np.uint8)
+    labels[rng.rand(*labels.shape) < 0.1] = 255
+    return logits, labels, rng

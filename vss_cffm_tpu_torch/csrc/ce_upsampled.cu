@@ -14,7 +14,12 @@
 //       weights, whose per-pixel weights the caller applies;
 //   _ce_bwd_pallas (_bwd_kernel): dlogits = the adjoint of the upsample
 //       applied to g[p] * (exp(up - lse[p]) - onehot(safe label)) with a
-//       per-pixel cotangent g and the forward's lse.
+//       per-pixel cotangent g and the forward's lse;
+//   _ce_bwd_loss_pallas (_bwd_loss_kernel) and _ce_bwd_loss_pallas3
+//       (_bwd_loss_kernel3): the loss's backward with f32 dlogits and uint8
+//       labels in the TPU kernels' phase layouts, h-major (N, h, s*s, w) and
+//       w-major (N, h, w, s*s), the latter's phase coefficients in f32 from the
+//       phase index (its runtime phase loop's _phase_coeff_dyn).
 // In the loss pair a label is valid when 0 <= label < C; the per-pixel pair
 // picks class 0 for a label outside [0, C) (the safe label) and leaves its
 // weight to the caller's g, as the TPU kernels do. Output row Y = s*k + p of the
@@ -38,14 +43,15 @@
 // (img_w * sum, count) partials, reduced by one torch.sum outside; the maps
 // are staged in shared memory and written as 16-byte stores. No atomics, so
 // the results are the same run to run.
-// Backward (rows 13 and 17): each output pixel's softmax is computed once
-// for its strip of source columns (a recompute of s/2 output columns at each
-// strip edge only, ~1.06x at the train step), by G = 8 lanes (16 classes a
-// lane at C 124), so the max and the sum take 3 shuffles; the column adjoint
-// stays in registers and the row adjoint in two f32 shared-memory rows per
-// warp; segments of source rows meet in f32 partials summed in a fixed
-// order. The softmax's division is vss::div_rn (the `/` operator's rounding
-// without its slow-path branch). See ce_bwd_kernel below.
+// Backward (rows 13 and 17; rows 15 and 19, the same kernel with phase
+// labels and f32 out): each output pixel's softmax is computed once for its
+// strip of source columns (a recompute of s/2 output columns at each strip
+// edge only, ~1.06x at the train step), by G = 8 lanes (16 classes a lane at
+// C 124), so the max and the sum take 3 shuffles; the column adjoint stays
+// in registers and the row adjoint in two f32 shared-memory rows per warp;
+// segments of source rows meet in f32 partials summed in a fixed order. The
+// softmax's division is vss::div_rn (the `/` operator's rounding without its
+// slow-path branch). See ce_bwd_kernel below.
 #include "ce_common.cuh"
 #include "mma_sync.cuh"
 
@@ -84,10 +90,13 @@ struct Coeffs {
 // two f32 column accumulators (the column adjoint) in registers; when its
 // window slides, the finished column goes, times the two row weights, into
 // the warp's shared-memory rows (two live source rows, f32, the row
-// adjoint). A finished source row is written once: in bf16 to dlogits, or,
-// for the two rows at each segment boundary that the neighbouring segment
-// also reaches, in f32 to a partial buffer, added in a fixed order (upper
-// segment, then lower) by ce_bwd_combine_kernel. No atomics.
+// adjoint). A finished source row is written once: to dlogits (bf16, or f32
+// for rows 15 and 19), or, for the two rows at each segment boundary that the
+// neighbouring segment also reaches, in f32 to a partial buffer, added in a
+// fixed order (upper segment, then lower) by ce_bwd_combine_kernel. No
+// atomics. Rows 15 and 19 differ from row 17 only in where a pixel's label
+// lies (phase_row, phase_col) and in the output's type, so rounded to bf16
+// they are row 17's result bit for bit at the same labels and coefficients.
 
 constexpr int kBwdWarps = 4;
 
@@ -119,6 +128,31 @@ __device__ __forceinline__ void lerp_cols(const __nv_bfloat16* x0, const __nv_bf
   }
 }
 
+// The labels' layouts: natural (N, H, W), and the TPU kernels' phase layouts
+// h-major (N, h, s*s, w) and w-major (N, h, w, s*s), where the label of output
+// pixel (s k + ph, s v + pw) is at [n, k, ph s + pw, v] and [n, k, v, ph s + pw].
+enum LabelLayout { kNatural = 0, kHMajor = 1, kWMajor = 2 };
+
+// Output row Y = s k + ph's labels in a phase layout: the row's base, and the
+// offset of output column s v + pw from it (v clamped to the map, so that
+// the look-ahead past a run's end stays inside it)
+template <int LAYOUT>
+__device__ __forceinline__ long long phase_row(int n, int h, int w, int s, int k, int ph) {
+  return LAYOUT == kHMajor ? (((long long)n * h + k) * s * s + ph * s) * w
+                           : ((long long)n * h + k) * w * s * s + ph * s;
+}
+template <int LAYOUT>
+__device__ __forceinline__ int phase_col(int v, int pw, int w, int s) {
+  v = min(v, w - 1);
+  return LAYOUT == kHMajor ? pw * w + v : v * s * s + pw;
+}
+
+// a finished dlogits value in the output's type
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+
 // PIXEL = false: the loss's backward, t = img_w * g[0] * (softmax(up) -
 // onehot) on the valid pixels. PIXEL = true: the per-pixel backward, t =
 // g[p] * (exp(up - lse[p]) - onehot(safe label)) on every pixel whose g is
@@ -126,13 +160,17 @@ __device__ __forceinline__ void lerp_cols(const __nv_bfloat16* x0, const __nv_bf
 // all of a lane's classes, masked by a product with 0 or 1 past C, its
 // argument clamped to <= 0 (a no-op for a class in [0, C): up <= max <= lse):
 // written as `c < C ? expf(..) : 0` each exp sat in its own branch and the
-// 16 of a lane could not overlap.
-template <int G, int CPL, typename L, bool PIXEL>
+// 16 of a lane could not overlap. LAYOUT: the labels' layout (a phase layout
+// only for the loss); O: dlogits' type, bf16 (rows 13, 17) or f32 (rows 15,
+// 19). loop_coeffs: the phase coefficients in f32 from the phase index, as
+// the TPU's runtime phase loop takes them (row 19), else Coeffs.
+template <int G, int CPL, typename L, bool PIXEL, int LAYOUT, typename O>
 __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
     const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
-    const float* __restrict__ g, const float* __restrict__ lse, __nv_bfloat16* __restrict__ out,
+    const float* __restrict__ g, const float* __restrict__ lse, O* __restrict__ out,
     float* __restrict__ part, int N, int h, int w, int C, int s, float img_w, int tw, int nseg,
-    int cs) {
+    int cs, int loop_coeffs) {
+  static_assert(LAYOUT == kNatural || !PIXEL, "phase labels: the loss's backward only");
   constexpr int NG = 32 / G;
   extern __shared__ float acc_all[];
   __shared__ float sf[kMaxScale];
@@ -140,8 +178,14 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
   if (threadIdx.x == 0) {
     const Coeffs cf(s);
     for (int p = 0; p < s; ++p) {
-      sf[p] = cf.f[p];
-      sd[p] = cf.delta[p];
+      if (loop_coeffs) {
+        const float d = ((float)p + 0.5f) / (float)s - 0.5f;
+        sd[p] = d < 0.f ? -1 : 0;
+        sf[p] = d - (float)sd[p];
+      } else {
+        sf[p] = cf.f[p];
+        sd[p] = cf.delta[p];
+      }
     }
   }
   __syncthreads();
@@ -178,9 +222,9 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
       for (int col = 0; col < v1 - v0; ++col)
         for (int c = lane; c < C; c += 32) pp[col * C + c] = As[col * cs + c];
     } else {
-      __nv_bfloat16* o = out + xn + ((long long)r * w + v0) * C;
+      O* o = out + xn + ((long long)r * w + v0) * C;
       for (int col = 0; col < v1 - v0; ++col)
-        for (int c = lane; c < C; c += 32) o[col * C + c] = __float2bfloat16_rn(As[col * cs + c]);
+        for (int c = lane; c < C; c += 32) store_out(o + col * C + c, As[col * cs + c]);
     }
     __syncwarp();
     for (int i = lane; i < tw * cs; i += 32) As[i] = 0.f;
@@ -212,7 +256,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
     const __nv_bfloat16* x0 = x + xn + (long long)r0 * w * C;
     const __nv_bfloat16* x1 = x + xn + (long long)r1 * w * C;
     const long long prow = ((long long)n * H + Y) * W;
-    const L* lrow = labels + prow;
+    const L* lrow = labels + (LAYOUT == kNatural ? prow : phase_row<LAYOUT>(n, h, w, s, k, ph));
     int X = xg, v = min(X, W - 1) / s, pw = min(X, W - 1) % s;
     int wc = v + sd[pw];  // the window: raw source columns wc, wc + 1
     lerp_cols<G, CPL>(x0, x1, clampi(wc, 0, w - 1), C, fh, gl, xw0);
@@ -220,7 +264,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
 #pragma unroll
     for (int j = 0; j < CPL; ++j) acc0[j] = acc1[j] = 0.f;
     const int Xl = min(X, W - 1);
-    int lab = (int)lrow[Xl];
+    int lab = (int)lrow[LAYOUT == kNatural ? Xl : phase_col<LAYOUT>(v, pw, w, s)];
     float gp = PIXEL ? g[prow + Xl] : ct, ls = PIXEL ? lse[prow + Xl] : 0.f;
     for (int jx = 0; jx < run; ++jx, ++X) {
       // the next pixel's column phase and inputs, and the window's next
@@ -233,7 +277,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
       const bool more = jx + 1 < run && X + 1 < W;
       const bool slide = more && vn + sd[pwn] > wc;
       const int Xn = more ? X + 1 : min(X, W - 1);
-      const int lab_n = (int)lrow[Xn];
+      const int lab_n = (int)lrow[LAYOUT == kNatural ? Xn : phase_col<LAYOUT>(vn, pwn, w, s)];
       const float gp_n = PIXEL ? g[prow + Xn] : ct, ls_n = PIXEL ? lse[prow + Xn] : 0.f;
       if (slide) {
         const __nv_bfloat16* p0 = x0 + (long long)clampi(wc + 2, 0, w - 1) * C;
@@ -327,10 +371,11 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
 }
 
 // dlogits rows b - 1 and b of each segment boundary b: the upper segment's
-// partial plus the lower one's, in that order, rounded to bf16
-__global__ void ce_bwd_combine_kernel(const float* __restrict__ part,
-                                      __nv_bfloat16* __restrict__ out, int N, int h, int w, int C,
-                                      int nseg) {
+// partial plus the lower one's, in that order, stored as O (bf16 rounded, or
+// f32 as it is)
+template <typename O>
+__global__ void ce_bwd_combine_kernel(const float* __restrict__ part, O* __restrict__ out, int N,
+                                      int h, int w, int C, int nseg) {
   const long long row = (long long)w * C;
   const long long total = (long long)N * (nseg - 1) * 2 * row;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
@@ -339,54 +384,76 @@ __global__ void ce_bwd_combine_kernel(const float* __restrict__ part,
     const int rr = (int)(t % 2), j = (int)(t / 2 % (nseg - 1)), n = (int)(t / 2 / (nseg - 1));
     const int b = (int)((long long)(j + 1) * h / nseg);
     const float* p = part + (((long long)n * (nseg - 1) + j) * 4 + rr) * row + e;
-    out[((long long)n * h + b - 1 + rr) * row + e] = __float2bfloat16_rn(p[0] + p[2 * row]);
+    store_out(out + ((long long)n * h + b - 1 + rr) * row + e, p[0] + p[2 * row]);
   }
 }
 
-template <int G, int CPL, typename L, bool PIXEL>
+template <int G, int CPL, typename L, bool PIXEL, int LAYOUT, typename O>
 int launch_bwd_gc(const void* x, const void* labels, const void* g, const void* lse, void* out,
                   void* part, int N, int h, int w, int C, int s, float img_w, int tw, int nseg,
-                  int cs, cudaStream_t st) {
+                  int cs, int loop_coeffs, cudaStream_t st) {
   const long long units = (long long)N * nseg * ((w + tw - 1) / tw);
   const unsigned blocks = (unsigned)((units + kBwdWarps - 1) / kBwdWarps);
   const size_t bytes = (size_t)kBwdWarps * 2 * tw * cs * sizeof(float);
   static bool attr = false;  // one instance per template: set its limit once
   if (!attr) {
-    cudaError_t e = cudaFuncSetAttribute(ce_bwd_kernel<G, CPL, L, PIXEL>,
+    cudaError_t e = cudaFuncSetAttribute(ce_bwd_kernel<G, CPL, L, PIXEL, LAYOUT, O>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
-  auto* ob = static_cast<__nv_bfloat16*>(out);
+  auto* ob = static_cast<O*>(out);
   auto* pb = static_cast<float*>(part);
-  ce_bwd_kernel<G, CPL, L, PIXEL><<<blocks, 32 * kBwdWarps, bytes, st>>>(
+  ce_bwd_kernel<G, CPL, L, PIXEL, LAYOUT, O><<<blocks, 32 * kBwdWarps, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const L*>(labels),
       static_cast<const float*>(g), static_cast<const float*>(lse), ob, pb, N, h, w, C, s, img_w,
-      tw, nseg, cs);
+      tw, nseg, cs, loop_coeffs);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || nseg < 2) return (int)e;
   const long long total = (long long)N * (nseg - 1) * 2 * w * C;
   const long long cblocks = (total + 255) / 256;
   const unsigned cb = (unsigned)(cblocks < 132 * 16 ? cblocks : 132 * 16);
-  ce_bwd_combine_kernel<<<cb, 256, 0, st>>>(pb, ob, N, h, w, C, nseg);
+  ce_bwd_combine_kernel<O><<<cb, 256, 0, st>>>(pb, ob, N, h, w, C, nseg);
   return (int)cudaGetLastError();
 }
 
 // classes: G lanes a pixel, CPL classes a lane (ops/ce_upsampled.py
 // ce_bwd_groups has the same table)
-template <typename L, bool PIXEL>
+template <typename L, bool PIXEL, int LAYOUT = kNatural, typename O = __nv_bfloat16>
 int launch_bwd(const void* x, const void* labels, const void* g, const void* lse, void* out,
                void* part, int N, int h, int w, int C, int s, float img_w, int tw, int nseg,
-               int cs, cudaStream_t st) {
+               int cs, cudaStream_t st, int loop_coeffs = 0) {
 #define VSS_CE_BWD(G, K) \
-  return launch_bwd_gc<G, K, L, PIXEL>(x, labels, g, lse, out, part, N, h, w, C, s, img_w, tw, \
-                                       nseg, cs, st)
+  return launch_bwd_gc<G, K, L, PIXEL, LAYOUT, O>(x, labels, g, lse, out, part, N, h, w, C, s, \
+                                                  img_w, tw, nseg, cs, loop_coeffs, st)
   if (C <= 32) VSS_CE_BWD(4, 8);
   if (C <= 64) VSS_CE_BWD(8, 8);
   if (C <= 128) VSS_CE_BWD(8, 16);
   if (C <= 256) VSS_CE_BWD(16, 16);
 #undef VSS_CE_BWD
   return (int)cudaErrorInvalidValue;
+}
+
+// blocks of a backward instance one SM holds with `bytes` of dynamic shared
+// memory; bwd_occupancy: the loss's, uint8 labels in `layout` (bf16 out for
+// natural labels, f32 for phase labels)
+template <typename Kernel>
+int bwd_blocks(Kernel kernel, size_t bytes) {
+  int b = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, 32 * kBwdWarps, bytes) !=
+          cudaSuccess)
+    return -1;
+  return b;
+}
+template <int G, int CPL>
+int bwd_occupancy(size_t bytes, int layout) {
+  if (layout == kHMajor)
+    return bwd_blocks(ce_bwd_kernel<G, CPL, unsigned char, false, kHMajor, float>, bytes);
+  if (layout == kWMajor)
+    return bwd_blocks(ce_bwd_kernel<G, CPL, unsigned char, false, kWMajor, float>, bytes);
+  return bwd_blocks(ce_bwd_kernel<G, CPL, unsigned char, false, kNatural, __nv_bfloat16>, bytes);
 }
 
 // the plan's checks: a strip of 1..64 columns, segments of at least 2 rows
@@ -888,6 +955,42 @@ VSS_EXPORT int ce_bwd_loss(const void* logits, const void* labels, const void* g
                                              s, img_w, tw, nseg, cs, st)
                     : launch_bwd<unsigned char, false>(logits, labels, g, nullptr, out, part, N,
                                                        h, w, C, s, img_w, tw, nseg, cs, st);
+}
+
+// dlogits (N, h, w, C) f32 of ce_bwd_loss's function with uint8 labels in a
+// TPU phase layout: h-major (N, h, s*s, w) (w_major = 0, row 15) or w-major
+// (N, h, w, s*s) (w_major = 1, row 19); loop_coeffs: the phase coefficients
+// in f32 from the phase index (row 19's runtime phase loop), else in double
+// as ce_bwd_loss takes them. The plan and part as for ce_bwd_loss.
+VSS_EXPORT int ce_bwd_loss_phase(const void* logits, const void* labels, const void* g,
+                                 void* out, void* part, int N, int h, int w, int C, int s,
+                                 int w_major, int loop_coeffs, float img_w, int tw, int nseg,
+                                 int cs, int device, void* stream) {
+  vss::use_device(device);
+  if ((long long)N * h * w == 0) return 0;
+  if (s < 1 || s > kMaxScale || C < 1 || !bwd_plan_ok(h, C, tw, nseg, cs, part))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return w_major ? launch_bwd<unsigned char, false, kWMajor, float>(
+                       logits, labels, g, nullptr, out, part, N, h, w, C, s, img_w, tw, nseg, cs,
+                       st, loop_coeffs)
+                 : launch_bwd<unsigned char, false, kHMajor, float>(
+                       logits, labels, g, nullptr, out, part, N, h, w, C, s, img_w, tw, nseg, cs,
+                       st, loop_coeffs);
+}
+
+// Blocks of the loss's backward one SM holds at C classes with the plan's
+// tw and cs (the CUDA occupancy query, uint8 labels): natural labels and bf16
+// out (layout 0, row 17), h-major or w-major labels and f32 out (1, 2: rows
+// 15, 19); -1 on an error.
+VSS_EXPORT int ce_bwd_blocks_per_sm(int C, int tw, int cs, int layout) {
+  if (layout < kNatural || layout > kWMajor) return -1;
+  const size_t bytes = (size_t)kBwdWarps * 2 * tw * cs * sizeof(float);
+  if (C <= 32) return bwd_occupancy<4, 8>(bytes, layout);
+  if (C <= 64) return bwd_occupancy<8, 8>(bytes, layout);
+  if (C <= 128) return bwd_occupancy<8, 16>(bytes, layout);
+  if (C <= 256) return bwd_occupancy<16, 16>(bytes, layout);
+  return -1;
 }
 
 // The per-pixel maps of logits (N, h, w, C) bf16 against labels (N, h*s,

@@ -64,6 +64,8 @@ _SIGNATURES = {
     "ce_upsampled": {
         "ce_fwd_loss": "pppiiiiiifiiip",
         "ce_bwd_loss": "pppppiiiiiifiiiip",
+        "ce_bwd_loss_phase": "pppppiiiiiiifiiiip",
+        "ce_bwd_blocks_per_sm": "iiii",
         "ce_fwd_nll": "pppppiiiiiiiip",
         "ce_fwd_smem_bytes": "iiii",
         "ce_fwd_blocks_per_sm": "iiii",
@@ -83,7 +85,6 @@ _SIGNATURES = {
     },
     "ce_phase": {
         "ce_phase_fwd_loss": "pppiiiiiifiip",
-        "ce_phase_bwd_loss": "ppppiiiiiiifip",
     },
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong, "f": ctypes.c_float}

@@ -62,11 +62,16 @@ w-major (N, h, w, s²) (``labels_to_phase_w``), and are not differentiable:
   (``_ce_fwd_loss_pallas3`` / ``_ce_bwd_loss_pallas3``, ``_fwd_loss_kernel3``
   / ``_bwd_loss_kernel3``).
 
-Their CUDA kernels are in ``csrc/ce_phase.cu`` and read uint8 labels (the
-bench's and the train batch's); labels of any other integer dtype are first
-mapped by ``phase_labels_u8`` (outside [0, C) → 255, ignored as before), as
-the JAX kernels take any integer labels; the unrolled ones take s in {2, 4}, the
-runtime loops 1 ≤ s ≤ 8. Their plain versions are the loss
+The two backwards run on the loss backward's kernel (``ce_bwd_loss_phase`` in
+``csrc/ce_upsampled.cu``) and its plan: only where a pixel's label lies
+(``ce_label_index``) and the output's dtype differ from
+``ce_upsampled_loss_bwd``, and ``ce_bwd_loss_v3`` takes the phase coefficients
+in f32 from the phase index as the TPU's runtime loop does (``ce_bwd_coeffs``).
+The two forwards are in ``csrc/ce_phase.cu``. The kernels read uint8 labels
+(the bench's and the train batch's); labels of any other integer dtype are
+first mapped by ``phase_labels_u8`` (outside [0, C) → 255, ignored as
+before), as the JAX kernels take any integer labels; the unrolled ones take s
+in {2, 4}, the runtime loops 1 ≤ s ≤ 8. Their plain versions are the loss
 pair's, applied after the labels are put back in natural layout
 (``phase_to_natural``), the backward's result kept in f32.
 """
@@ -86,8 +91,8 @@ __all__ = ["ce_upsampled_loss", "ce_upsampled_loss_bwd", "ce_upsampled_loss_torc
            "ce_upsampled_nll_torch", "ce_upsampled_nll_bwd_torch", "valid_safe",
            "labels_to_phase", "labels_to_phase_w", "phase_to_natural", "ce_bwd_loss_v2",
            "ce_fwd_loss_v5", "ce_fwd_loss_v3", "ce_bwd_loss_v3", "phase_labels_u8",
-           "ce_bwd_groups", "ce_bwd_plan", "ce_bwd_units", "ce_bwd_exps", "ce_fwd_plan",
-           "ce_fwd_units", "ce_fwd_smem"]
+           "ce_bwd_groups", "ce_bwd_plan", "ce_bwd_units", "ce_bwd_exps", "ce_bwd_coeffs",
+           "ce_label_index", "ce_fwd_plan", "ce_fwd_units", "ce_fwd_smem"]
 
 # classes one warp lane holds: a warp covers up to 32·CPL classes
 _MAX_CLASSES = 256
@@ -260,6 +265,45 @@ def ce_bwd_exps(live: torch.Tensor, c: int, s: int, plan: tuple, pixel: bool) ->
         if f == 0 and k0 == 0:            # one row of strips: every strip once
             mult[xa:xb] += 1
     return c * int((live.cpu().long().sum(dim=(0, 1)) * mult).sum())
+
+
+def ce_bwd_coeffs(s: int, loop: bool = False) -> list[tuple[int, float]]:
+    """(delta, f) of each output phase p < s as the backward's shared-memory
+    fill takes them (output row s·k + p lerps source rows k + delta and
+    k + delta + 1 with weights 1 − f, f): d = (p + 0.5)/s − 0.5 in double,
+    f rounded once to f32 (rows 13, 15, 17), or with ``loop`` every step in
+    f32 from the phase index, as the TPU's runtime phase loop computes them
+    (row 19; ``_phase_coeff_dyn``). The two agree at s 1, 2, 4 and 8."""
+    out = []
+    for p in range(s):
+        if loop:
+            d = (torch.tensor(float(p), dtype=torch.float32) + 0.5) / s - 0.5
+            delta = -1 if d < 0 else 0
+            out.append((delta, float(d - delta)))
+        else:
+            d = (p + 0.5) / s - 0.5
+            delta = -1 if d < 0 else 0
+            out.append((delta, float(torch.tensor(d - delta, dtype=torch.float32))))
+    return out
+
+
+def ce_label_index(layout: str, n: int, h: int, w: int, s: int) -> torch.Tensor:
+    """int64 (N, h·s, w·s): where the backward reads the label of each output
+    pixel (Y = s·k + ph, X = s·v + pw) in flat labels of ``layout``, as its
+    row base plus column offset: "natural" (N, H, W) (n·H + Y)·W + X;
+    "h-major" (N, h, s², w) ((n·h + k)·s² + ph·s)·w + pw·w + v; "w-major"
+    (N, h, w, s²) (n·h + k)·w·s² + ph·s + v·s² + pw."""
+    f = torch.arange(n)[:, None, None]
+    y = torch.arange(h * s)[None, :, None]
+    x = torch.arange(w * s)[None, None, :]
+    k, ph, v, pw = y // s, y % s, x // s, x % s
+    if layout == "natural":
+        return (f * h * s + y) * (w * s) + x
+    if layout == "h-major":
+        return ((f * h + k) * s * s + ph * s) * w + (pw * w + v)
+    if layout == "w-major":
+        return (f * h + k) * w * s * s + ph * s + (v * s * s + pw)
+    raise ValueError(f"label layout {layout!r} (natural, h-major or w-major)")
 
 
 # ---- the forward's plan (csrc/ce_upsampled.cu ce_fwd_kernel) ----------------
@@ -627,15 +671,18 @@ def _phase_fwd_launch(logits, labels, s: int, img_w: float, count_acc: bool, unr
 
 def _phase_bwd_launch(logits, labels, ct: torch.Tensor, s: int, img_w: float, w_major: bool,
                       unrolled: bool, op: str) -> torch.Tensor:
+    """The loss backward's kernel with phase labels and f32 out; the runtime
+    loop's variant (not ``unrolled``) takes its coefficients in f32."""
     logits, labels = _phase_inputs(logits, labels, s, unrolled, op)
     require(ct.numel() == 1, op, f"a cotangent of shape {tuple(ct.shape)} (one value)")
     n, h, w, c = logits.shape
     g = ct.detach().to(device=logits.device, dtype=torch.float32).reshape(1).contiguous()
     out = torch.empty(logits.shape, device=logits.device, dtype=torch.float32)
+    (tw, nseg, cs), part = _bwd_plan(logits, s)
     dev, stream = stream_of(logits)
-    rc = _build.library("ce_phase").ce_phase_bwd_loss(
-        ptr(logits, op), ptr(labels, op), ptr(g, op), ptr(out, op), n, h, w, c, s,
-        int(w_major), int(unrolled), float(img_w), dev, stream)
+    rc = _build.library("ce_upsampled").ce_bwd_loss_phase(
+        ptr(logits, op), ptr(labels, op), ptr(g, op), ptr(out, op), ptr(part, op), n, h, w, c, s,
+        int(w_major), int(not unrolled), float(img_w), tw, nseg, cs, dev, stream)
     _build.check(rc, op)
     return out
 

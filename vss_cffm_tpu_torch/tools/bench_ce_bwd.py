@@ -1,4 +1,4 @@
-"""The CE backwards of the train step, timed alone on the card: ``python -m
+"""The CE backwards, timed alone on the card: ``python -m
 vss_cffm_tpu_torch.tools.bench_ce_bwd [--iters 5]``.
 
 Row 17 (``ce_upsampled_loss_bwd``, the default loss) and row 13
@@ -7,18 +7,26 @@ branches: logits (N, 120, 120, 124) bf16 for N 8 (the clip's frames) and
 N 2 (its last frames), ×4 to 480², uint8 labels uniform in [0, 124) with 5 %
 ignored (255), as the train batch; row 13 with the plain forward's lse and a
 cotangent of class weights in [0.5, 1.5] over the valid count, 0 on ignored
-pixels. One line each: device µs per call (torch.profiler over ``--iters``
-calls: the kernel and its boundary pass), the bound (C exps per valid pixel,
-or per pixel with g ≠ 0, at the MUFU rate of 16 a clock on 132 SMs at 1.98
-GHz), and, where the tree has the strip plan (``ce_bwd_plan``), the
-recompute factor: the exps the kernel executes over C × those pixels. Uses
-only what older trees of the port also have, so the same file times an
-older checkout (``PYTHONPATH=<checkout> python .../bench_ce_bwd.py``).
+pixels. Then the CE microbench's phase-layout backwards at the same inputs,
+row 15 (``ce_bwd_loss_v2``, the labels h-major from ``labels_to_phase``) and
+row 19 (``ce_bwd_loss_v3``, w-major from ``labels_to_phase_w``), f32 out. One
+line each (``[row17]`` for rows 17 and 13, ``[row15]``, ``[row19]``): device
+µs per call (torch.profiler over ``--iters`` calls: the kernel and its
+boundary pass), the bound (C exps per valid pixel, or per pixel with g ≠ 0,
+at the MUFU rate of 16 a clock on 132 SMs at 1.98 GHz), and, where the
+tree's kernel runs on the strip plan (``ce_bwd_plan``; for rows 15 and 19
+the trees with ``ce_label_index``), the recompute factor: the exps the kernel
+executes over C × those pixels; and a digest of the row's dlogits (for rows
+15 and 19 also of their bf16 rounding, which is row 17's result at these
+inputs), so that two trees' outputs compare bit for bit. Uses only what
+older trees of the port also have, so the same file times an older checkout
+(``PYTHONPATH=<checkout> python .../bench_ce_bwd.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib
 
 import numpy as np
@@ -65,27 +73,44 @@ def _device_us(fn, iters: int) -> float:
     return best
 
 
+ROWS = (17, 13, 15, 19)
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def measure(n: int, iters: int = 5) -> list[dict]:
-    """[{row, n, us, bound_us, factor or None}] of rows 17 and 13 at N n."""
+    """[{row, n, us, bound_us, factor or None, digest, bf16_digest or None}] of
+    rows 17, 13, 15 and 19 at N n."""
     ops = importlib.import_module("vss_cffm_tpu_torch.ops")
     ce = importlib.import_module("vss_cffm_tpu_torch.ops.ce_upsampled")
     inp = make_inputs(n)
-    x, lab = inp["logits"], inp["labels"]
+    x, lab, g, img_w = inp["logits"], inp["labels"], inp["g"], inp["img_w"]
     lse = ops.ce_upsampled_nll(x, lab, S, force="torch")[2].contiguous()
-    live = {17: inp["valid"], 13: inp["g_nll"] != 0}
-    calls = {17: lambda: ops.ce_upsampled_loss_bwd(x, lab, inp["g"], S, inp["img_w"]),
-             13: lambda: ops.ce_upsampled_nll_bwd(x, lab, lse, inp["g_nll"], S)}
+    ph = ops.labels_to_phase(lab, S).contiguous()
+    phw = ops.labels_to_phase_w(lab, S).contiguous()
+    live = {17: inp["valid"], 13: inp["g_nll"] != 0, 15: inp["valid"], 19: inp["valid"]}
+    calls = {17: lambda: ops.ce_upsampled_loss_bwd(x, lab, g, S, img_w),
+             13: lambda: ops.ce_upsampled_nll_bwd(x, lab, lse, inp["g_nll"], S),
+             15: lambda: ops.ce_bwd_loss_v2(x, ph, g, S, img_w),
+             19: lambda: ops.ce_bwd_loss_v3(x, phw, g, S, img_w)}
+    # the trees whose kernel for the row runs on the strip plan
+    planned = {17: hasattr(ce, "ce_bwd_plan"), 13: hasattr(ce, "ce_bwd_plan"),
+               15: hasattr(ce, "ce_label_index"), 19: hasattr(ce, "ce_label_index")}
     rows = []
-    for row in (17, 13):
+    for row in ROWS:
         factor = None
-        if hasattr(ce, "ce_bwd_plan"):
+        if planned[row]:
             plan = ce.ce_bwd_plan(n, *HW, C, S, torch.cuda.get_device_properties(0)
                                   .multi_processor_count)
             exps = ce.ce_bwd_exps(live[row] if row == 13 else lab, C, S, plan, row == 13)
             factor = exps / (C * int(live[row].sum()))
+        out = calls[row]()
         rows.append(dict(row=row, n=n, us=_device_us(calls[row], iters),
                          bound_us=C * int(live[row].sum()) / MUFU_EXP_PER_S * 1e6,
-                         factor=factor))
+                         factor=factor, digest=_digest(out),
+                         bf16_digest=_digest(out.to(torch.bfloat16)) if row in (15, 19) else None))
     return rows
 
 
@@ -93,7 +118,13 @@ def format_row(r: dict) -> str:
     fac = "n/a" if r["factor"] is None else f"{r['factor']:.4f}"
     return (f"row {r['row']} N={r['n']} logits({r['n']}, {HW[0]}, {HW[1]}, {C}) s={S}: "
             f"{r['us']:.1f} us (exp bound {r['bound_us']:.1f} us, {r['us'] / r['bound_us']:.1f}x); "
-            f"exps executed / (C x {'valid' if r['row'] == 17 else 'g != 0'} pixels) {fac}")
+            f"exps executed / (C x {'g != 0' if r['row'] == 13 else 'valid'} pixels) {fac}; "
+            f"dlogits digest {r['digest']}"
+            + (f", bf16 {r['bf16_digest']}" if r["bf16_digest"] else ""))
+
+
+# the line's tag: rows 17 and 13 share row 17's code and tag
+TAGS = {17: 17, 13: 17, 15: 15, 19: 19}
 
 
 def main(argv=None) -> list[dict]:
@@ -105,7 +136,7 @@ def main(argv=None) -> list[dict]:
     out = []
     for n in (8, 2):
         for r in measure(n, opts.iters):
-            print(f"[row17] {format_row(r)}", flush=True)
+            print(f"[row{TAGS[r['row']]}] {format_row(r)}", flush=True)
             out.append(r)
     return out
 
