@@ -97,8 +97,10 @@ From the default step's table it prints ``[row6]`` and ``[row7]`` lines (each
 of the two rows' kernels by name: launches, ms a step, µs a launch; the block
 pair's GEMM runs as a Fwd and a Bwd instance); then ``[row14]`` lines (rows 14
 and 12 alone at N 8 and N 2: device µs, exp bound and its share, the library
-calls' µs), ``[row17]`` lines (rows 17 and 13 alone at N 8 and N 2: device
-µs, exp bound, recompute factor), ``[row15]`` and ``[row19]`` lines (the
+calls' µs, a digest of the output), ``[row16]`` and ``[row18]`` lines (the
+phase-layout forwards on row 14's kernel, alike), ``[row17]`` lines (rows 17
+and 13 alone at N 8 and N 2: device µs, exp bound, recompute factor),
+``[row15]`` and ``[row19]`` lines (the
 phase-layout backwards on row 17's kernel, alike) and
 ``[gemm]`` lines (every block_gemm launch of a default step and a clip: device
 µs, bytes bound, share of 3.35 TB/s, torch.matmul's µs on the same operands).
@@ -1259,13 +1261,13 @@ CE_BENCH_KERNELS = {
         replaces="vss_cffm_tpu/ops/ce_upsampled.py:470",  # _bwd_loss_kernel, called at :599
         bench="v2 bwd", rel_tol=CE_F32_REL, case=_ce_bench_bwd_case),
     "ce_fwd_loss_v5": dict(
-        sources=["vss_cffm_tpu_torch/csrc/ce_phase.cu"],
+        sources=["vss_cffm_tpu_torch/csrc/ce_upsampled.cu"],
         replaces="vss_cffm_tpu/ops/ce_upsampled.py:671",  # _fwd_loss_kernel5, called at :743
         bench="v5 fwd", case=_ce_bench_fwd_case),
     # bf16 dlogits, as in the train step: one ulp
     "ce_upsampled_loss_bwd": dict(bench="v5 bwd", rel_tol=2.0 ** -7, case=_ce_bench_bwd_case),
     "ce_fwd_loss_v3": dict(
-        sources=["vss_cffm_tpu_torch/csrc/ce_phase.cu"],
+        sources=["vss_cffm_tpu_torch/csrc/ce_upsampled.cu"],
         replaces="vss_cffm_tpu/ops/ce_upsampled.py:917",  # _fwd_loss_kernel3, called at :999
         bench="v3 fwd", case=_ce_bench_fwd_case),
     "ce_bwd_loss_v3": dict(
@@ -1349,8 +1351,10 @@ def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> None:
 
 
 def row_splits() -> None:
-    """``[row14]``: rows 14 and 12 alone at N 8 and N 2 (device µs, exp
-    bound, its share, the library calls' µs; ``tools/bench_ce_fwd.py``);
+    """``[row14]``: rows 14 and 12 alone at N 8 and N 2, then ``[row16]`` and
+    ``[row18]``: the phase-layout forwards at the same inputs (device µs, exp
+    bound, its share, the library calls' µs, a digest of the output;
+    ``tools/bench_ce_fwd.py``);
     ``[row17]``: rows 17 and 13 alone at N 8 and N 2, then ``[row15]`` and
     ``[row19]``: the phase-layout backwards at the same inputs (device µs, exp
     bound, recompute factor; ``tools/bench_ce_bwd.py``); ``[gemm]``: each
@@ -1411,11 +1415,13 @@ def attention_resources(build) -> None:
     for n in (8, 2):  # the upsampled-CE forward (rows 14, 12) at the train step's two branches
         tw, band = ce.ce_fwd_plan(n, 120, 120, NUM_CLASSES, 4, torch.cuda.get_device_properties(0)
                                   .multi_processor_count)
-        for pixel, row in ((0, 14), (1, 12)):
+        # and the phase-layout forwards on its kernel (rows 16, 18: w-major labels)
+        for pixel, row in ((0, 14), (1, 12), (0, 16), (0, 18)):
+            blocks = (lib.ce_fwd_phase_blocks_per_sm(NUM_CLASSES, 4, tw) if row in (16, 18)
+                      else lib.ce_fwd_blocks_per_sm(NUM_CLASSES, 4, tw, pixel))
             print(f"[occupancy] ce_fwd (row {row}) N={n} C={NUM_CLASSES} s=4: strips of {tw}, "
                   f"bands of {band}, {lib.ce_fwd_smem_bytes(NUM_CLASSES, 4, tw, pixel)} B dynamic "
-                  f"smem, {lib.ce_fwd_blocks_per_sm(NUM_CLASSES, 4, tw, pixel)} blocks per SM",
-                  flush=True)
+                  f"smem, {blocks} blocks per SM", flush=True)
         # the loss backward (row 17) and the phase-layout backwards on its kernel
         tw, nseg, cs = ce.ce_bwd_plan(n, 120, 120, NUM_CLASSES, 4, torch.cuda
                                       .get_device_properties(0).multi_processor_count)

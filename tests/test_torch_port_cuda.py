@@ -8,7 +8,9 @@ block form, with OHEM and class weights, and with the CFM attention's
 backward from probabilities, whose gradients go through the kernels; B0 clip
 inference with the fused FFN; the redesigned block_gemm (rows 1, 6-11), CE
 backward (rows 17, 13) and CE forward (rows 14, 12) at the path's shapes and
-at ragged ones, with forced plans, two runs bitwise equal.
+at ragged ones, with forced plans, two runs bitwise equal, and the CE
+microbench's phase-layout backwards and forwards on those two templates
+(rows 15, 19 and 16, 18), pinned to rows 17 and 14 bit for bit.
 
 Marked ``cuda`` and skipped where no CUDA device is present. On a machine
 with one, from the repository root::
@@ -1191,3 +1193,68 @@ def test_ce_phase_bwd_occupancy_is_row17s(dev):
     for n in (8, 2):
         tw, _, cs = ops.ce_upsampled.ce_bwd_plan(n, 120, 120, 124, 4, 132)
         assert [lib.ce_bwd_blocks_per_sm(124, tw, cs, layout) for layout in (0, 1, 2)] == [3] * 3
+
+
+# (N, h, w, C, s, rows, forced strip width): rows 16 and 18 at the bench's two
+# batches, ragged maps at s 2 and 4 (row 18, the runtime loop, also at s 3
+# and 8), C 19 / 40 / 124 / 256, and forced strips of 3 and 1 columns (ragged
+# last strips)
+CE_PHASE_FWD_CASES = [
+    (8, 120, 120, 124, 4, (16, 18), None), (2, 120, 120, 124, 4, (16, 18), None),
+    (2, 37, 53, 19, 2, (16, 18), None), (1, 37, 53, 124, 4, (16, 18), None),
+    (1, 37, 53, 40, 3, (18,), None), (1, 37, 53, 256, 8, (18,), None),
+    (3, 13, 7, 124, 4, (16, 18), 3), (2, 9, 10, 19, 2, (16, 18), 1),
+    (1, 12, 9, 256, 4, (16, 18), 3),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,s,rows,tw", CE_PHASE_FWD_CASES)
+def test_ce_phase_fwd_redesign_matches_plain(dev, monkeypatch, n, h, w, c, s, rows, tw):
+    """Rows 16 and 18 (w-major labels) on the loss forward's kernel against
+    their plain versions, at row 14's tolerances: wsum to 1e-4 relative, the
+    correct count within 1e-4 of the valid pixels (at least 1: a near-tie may
+    count either way); with the first output rows of every frame all ignored
+    (C < 256: uint8 labels hold no ignored value at C 256); two calls bitwise
+    equal; where both coefficient rules agree (s 2, 4 and 8), each equal to
+    row 14's (wsum, corr) on the same natural labels bit for bit."""
+    ce = ops.ce_upsampled
+    if tw is not None:
+        band = 32 // ce.ce_bwd_groups(c)[0]
+        monkeypatch.setattr(ce, "ce_fwd_plan", lambda *a: (tw, band))
+    rng = np.random.RandomState(110 + c + s)
+    x = _rand(rng, n, h, w, c, scale=2.0, dev=dev)
+    if c < 256:
+        lab = _labels(rng, n, h * s, w * s, c, torch.uint8, dev)
+        lab[:, :8] = 255  # a band of output rows whose labels are all ignored
+    else:
+        lab = torch.from_numpy(rng.randint(0, 256, (n, h * s, w * s)).astype(np.uint8)).to(dev)
+    phw = ops.labels_to_phase_w(lab, s).contiguous()
+    img_w = 0.5 / lab.numel()
+    n_valid = int((lab.long() < c).sum())
+    row14 = ops.ce_upsampled_loss(x, lab, s, img_w, force="kernel") if s != 3 else None
+    ops.reset_launches()
+    op_of = {16: ops.ce_fwd_loss_v5, 18: ops.ce_fwd_loss_v3}
+    for row in rows:
+        op = op_of[row]
+        got = op(x, phw, s, img_w, force="kernel")
+        want = op(x, phw, s, img_w, force="torch")
+        torch.cuda.synchronize()
+        assert abs(got[0].item() - want[0].item()) <= 1e-4 * abs(want[0].item()), row
+        assert abs(got[1].item() - want[1].item()) <= max(1.0, 1e-4 * n_valid), row
+        again = op(x, phw, s, img_w, force="kernel")
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), row
+        if row14 is not None:
+            assert torch.equal(got[0], row14[0]) and torch.equal(got[1], row14[1]), row
+    assert {k: v for k, v in ops.launches().items() if v} == {
+        {16: "ce_fwd_loss_v5", 18: "ce_fwd_loss_v3"}[r]: 2 for r in rows}
+
+
+def test_ce_phase_fwd_occupancy_is_row14s(dev):
+    """Rows 16 and 18 keep row 14's blocks an SM at the bench's plans (the
+    label addressing costs no occupancy): 4, the launch bounds' cap."""
+    from vss_cffm_tpu_torch.ops import _build
+    lib = _build.library("ce_upsampled")
+    for n in (8, 2):
+        tw, _ = ops.ce_upsampled.ce_fwd_plan(n, 120, 120, 124, 4, 132)
+        assert lib.ce_fwd_phase_blocks_per_sm(124, 4, tw) == lib.ce_fwd_blocks_per_sm(
+            124, 4, tw, 0) == 4

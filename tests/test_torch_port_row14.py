@@ -25,69 +25,17 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_common import pixel_stats, replay_loss
+
 from vss_cffm_tpu.ops import ce_upsampled as jax_ce
 from vss_cffm_tpu_torch.ops import ce_upsampled as ce
 from vss_cffm_tpu_torch.ops._dispatch import SMEM_LIMIT
 
 
-def _phase_table(size: int, s: int, n_src: int) -> tuple[torch.Tensor, torch.Tensor,
-                                                          torch.Tensor]:
-    """(source index a, source index b, f) of each output index, the kernel's
-    Coeffs: up = x[a] + f·(x[b] − x[a]), the indices clamped at the edges."""
-    a, b, f = [], [], []
-    for y in range(size):
-        k, p = divmod(y, s)
-        d = (p + 0.5) / s - 0.5
-        delta = -1 if d < 0 else 0
-        a.append(min(max(k + delta, 0), n_src - 1))
-        b.append(min(max(k + delta + 1, 0), n_src - 1))
-        f.append(np.float32(d - delta))
-    return torch.tensor(a), torch.tensor(b), torch.tensor(f)
-
-
-def kernel_up(logits: torch.Tensor, s: int) -> torch.Tensor:
-    """(N, H, W, C) f32: the upsample the kernel's way, rows lerped first
-    (x0 + fh·(x1 − x0)), then columns (xl + fw·(xr − xl))."""
-    n, h, w, c = logits.shape
-    x = logits.float()
-    r0, r1, fh = _phase_table(h * s, s, h)
-    xh = x[:, r0] + fh[None, :, None, None] * (x[:, r1] - x[:, r0])
-    c0, c1, fw = _phase_table(w * s, s, w)
-    return xh[:, :, c0] + fw[None, None, :, None] * (xh[:, :, c1] - xh[:, :, c0])
-
-
-def _pixel_stats(logits, labels, s):
-    up = kernel_up(logits, s)
-    m = up.amax(dim=-1)
-    lse = m + torch.log(torch.exp(up - m[..., None]).sum(dim=-1))
-    valid, safe = ce.valid_safe(labels, logits.shape[-1])
-    picked = up.gather(-1, safe[..., None])[..., 0]
-    return up, m, lse, valid, picked
-
-
-def replay_loss(logits, labels, s, img_w, plan, count_acc=True):
-    """(wsum, corr) as the kernel forms them: a partial per unit, over its
-    pixels, summed in the units' order; each pixel counted once."""
-    n, h, w, c = logits.shape
-    _, m, lse, valid, picked = _pixel_stats(logits, labels, s)
-    terms = torch.where(valid, lse - picked, 0.0)
-    hits = (valid & (picked == m)).float()
-    seen = torch.zeros(labels.shape, dtype=torch.int32)
-    parts = []
-    for f, y0, y1, v0, v1 in ce.ce_fwd_units(n, h, w, c, s, plan):
-        sl = (f, slice(y0, y1), slice(s * v0, s * v1))
-        seen[sl] += 1
-        parts.append(torch.stack([terms[sl].sum() * img_w,
-                                  hits[sl].sum() if count_acc else torch.tensor(0.0)]))
-    assert (seen == 1).all()
-    total = torch.stack(parts).sum(dim=0)
-    return total[0], total[1]
-
-
 def replay_nll(logits, labels, s, plan):
     """(nll, pred, lse) maps, written unit by unit; pred the first maximum."""
     n, h, w, c = logits.shape
-    up, m, lse, _, picked = _pixel_stats(logits, labels, s)
+    up, m, lse, _, picked = pixel_stats(logits, labels, s)
     first = torch.where(up == m[..., None], torch.arange(c), c).amin(dim=-1).int()
     out = [torch.full(labels.shape, float("nan")), torch.full(labels.shape, -1, dtype=torch.int32),
            torch.full(labels.shape, float("nan"))]

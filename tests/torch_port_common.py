@@ -321,3 +321,68 @@ def ce_inputs(n, h, w, c, s, seed):
     labels = rng.randint(0, c, (n, h * s, w * s)).astype(np.uint8)
     labels[rng.rand(*labels.shape) < 0.1] = 255
     return logits, labels, rng
+
+
+# ---- the upsampled-CE forward's decomposition (csrc/ce_upsampled.cu) ---------
+
+
+def phase_table(size: int, s: int, n_src: int, loop: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(source index a, source index b, f) of each output index, the kernel's
+    Coeffs: up = x[a] + f·(x[b] − x[a]), the indices clamped at the edges;
+    with ``loop`` the coefficients of the runtime phase loop (row 18:
+    ``ce_bwd_coeffs(s, loop=True)``)."""
+    coeffs = ce.ce_bwd_coeffs(s, loop=True) if loop else None
+    a, b, f = [], [], []
+    for y in range(size):
+        k, p = divmod(y, s)
+        if loop:
+            delta, fp = coeffs[p]
+        else:
+            d = (p + 0.5) / s - 0.5
+            delta = -1 if d < 0 else 0
+            fp = np.float32(d - delta)
+        a.append(min(max(k + delta, 0), n_src - 1))
+        b.append(min(max(k + delta + 1, 0), n_src - 1))
+        f.append(np.float32(fp))
+    return torch.tensor(a), torch.tensor(b), torch.tensor(f)
+
+
+def kernel_up(logits: torch.Tensor, s: int, loop: bool = False) -> torch.Tensor:
+    """(N, H, W, C) f32: the upsample the kernel's way, rows lerped first
+    (x0 + fh·(x1 − x0)), then columns (xl + fw·(xr − xl))."""
+    n, h, w, c = logits.shape
+    x = logits.float()
+    r0, r1, fh = phase_table(h * s, s, h, loop)
+    xh = x[:, r0] + fh[None, :, None, None] * (x[:, r1] - x[:, r0])
+    c0, c1, fw = phase_table(w * s, s, w, loop)
+    return xh[:, :, c0] + fw[None, None, :, None] * (xh[:, :, c1] - xh[:, :, c0])
+
+
+def pixel_stats(logits, labels, s, loop: bool = False):
+    up = kernel_up(logits, s, loop)
+    m = up.amax(dim=-1)
+    lse = m + torch.log(torch.exp(up - m[..., None]).sum(dim=-1))
+    valid, safe = ce.valid_safe(labels, logits.shape[-1])
+    picked = up.gather(-1, safe[..., None])[..., 0]
+    return up, m, lse, valid, picked
+
+
+def replay_loss(logits, labels, s, img_w, plan, count_acc=True, loop: bool = False):
+    """(wsum, corr) as the kernel forms them: a partial per unit, over its
+    pixels, summed in the units' order; each pixel counted once. ``labels``
+    natural (N, H, W)."""
+    n, h, w, c = logits.shape
+    _, m, lse, valid, picked = pixel_stats(logits, labels, s, loop)
+    terms = torch.where(valid, lse - picked, 0.0)
+    hits = (valid & (picked == m)).float()
+    seen = torch.zeros(labels.shape, dtype=torch.int32)
+    parts = []
+    for f, y0, y1, v0, v1 in ce.ce_fwd_units(n, h, w, c, s, plan):
+        sl = (f, slice(y0, y1), slice(s * v0, s * v1))
+        seen[sl] += 1
+        parts.append(torch.stack([terms[sl].sum() * img_w,
+                                  hits[sl].sum() if count_acc else torch.tensor(0.0)]))
+    assert (seen == 1).all()
+    total = torch.stack(parts).sum(dim=0)
+    return total[0], total[1]

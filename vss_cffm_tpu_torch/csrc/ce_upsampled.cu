@@ -19,7 +19,11 @@
 //       (_bwd_loss_kernel3): the loss's backward with f32 dlogits and uint8
 //       labels in the TPU kernels' phase layouts, h-major (N, h, s*s, w) and
 //       w-major (N, h, w, s*s), the latter's phase coefficients in f32 from the
-//       phase index (its runtime phase loop's _phase_coeff_dyn).
+//       phase index (its runtime phase loop's _phase_coeff_dyn);
+//   _ce_fwd_loss_pallas5 (_fwd_loss_kernel5) and _ce_fwd_loss_pallas3
+//       (_fwd_loss_kernel3): the loss's forward with uint8 labels in the
+//       w-major phase layout, the phases unrolled (s 2 or 4) or a runtime
+//       loop (s 1..8, coefficients in f32 from the phase index).
 // In the loss pair a label is valid when 0 <= label < C; the per-pixel pair
 // picks class 0 for a label outside [0, C) (the safe label) and leaves its
 // weight to the caller's g, as the TPU kernels do. Output row Y = s*k + p of the
@@ -36,13 +40,17 @@
 // The per-pixel pair does the same exps and writes 12 B per output pixel
 // (nll, pred, lse; ~22 MB at the train step), reading lse and g back in the
 // backward: still bound by the exps.
-// Forward (rows 12 and 14): each output pixel's softmax is computed once,
-// by G = 8 lanes of 16 contiguous classes at C 124, in units of (frame, band
-// of 32 / G output rows, strip of source columns), the window's row-lerped
-// columns in registers; see ce_fwd_kernel below. The loss writes per-warp
-// (img_w * sum, count) partials, reduced by one torch.sum outside; the maps
-// are staged in shared memory and written as 16-byte stores. No atomics, so
-// the results are the same run to run.
+// Forward (rows 12 and 14; rows 16 and 18, the same kernel with w-major
+// labels): each output pixel's softmax is computed once, by G = 8 lanes of
+// 16 contiguous classes at C 124, in units of (frame, band of 32 / G output
+// rows, strip of source columns), the window's row-lerped columns in
+// registers; see ce_fwd_kernel below. The loss writes per-warp (img_w * sum,
+// count) partials, reduced by one torch.sum outside; the maps are staged in
+// shared memory and written as 16-byte stores. No atomics, so the results
+// are the same run to run. Rows 16 and 18 differ from row 14 only in where
+// the band's labels are read from as they are staged (phase_row, phase_col)
+// and, for row 18, in the phase coefficients' rule, so at s 2 and 4 they
+// give row 14's (wsum, corr) bit for bit on the same labels.
 // Backward (rows 13 and 17; rows 15 and 19, the same kernel with phase
 // labels and f32 out): each output pixel's softmax is computed once for its
 // strip of source columns (a recompute of s/2 output columns at each strip
@@ -52,12 +60,12 @@
 // segments of source rows meet in f32 partials summed in a fixed order. The
 // softmax's division is vss::div_rn (the `/` operator's rounding without its
 // slow-path branch). See ce_bwd_kernel below.
-#include "ce_common.cuh"
+#include "common.cuh"
 #include "mma_sync.cuh"
 
 namespace {
 
-using vss::ce::clampi;
+__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
 constexpr int kMaxScale = 8;
 
@@ -474,7 +482,10 @@ inline bool bwd_plan_ok(int h, int C, int tw, int nseg, int cs, const void* part
 // once (cp.async): the source rows the band's output rows lerp from (clamped
 // to the map), each at the columns max(v0 - 1, 0) .. min(v1, w - 1) as the
 // one contiguous run it is in device memory, and the band's labels as int16
-// (-1 outside [0, C)). So each source element is read from device memory once
+// (-1 outside [0, C)), read in natural layout as one run a row, or in the
+// w-major phase layout (rows 16 and 18) at each row's base plus each
+// column's offset, runs of s bytes s*s apart, as the backward reads them
+// (phase_row, phase_col). So each source element is read from device memory once
 // per band, and the loop below reads nothing from device memory. (Copied
 // pixel by pixel into a padded layout, the copy took as long as the loop.)
 // Lane group gi takes output row Y0 + gi (a row past H, in a frame's ragged
@@ -652,21 +663,33 @@ __device__ __forceinline__ int group_min(int v) {
 }
 
 // PIXEL = false: the loss, partial[2 * unit] = (img_w * sum, count) over the
-// unit's valid pixels. PIXEL = true: the maps nll, pred, lse.
-template <int G, int CPL, typename L, bool PIXEL>
+// unit's valid pixels. PIXEL = true: the maps nll, pred, lse. LAYOUT: the
+// labels' layout (w-major only for the loss). loop_coeffs: the phase
+// coefficients in f32 from the phase index, as the TPU's runtime phase loop
+// takes them (row 18), else Coeffs' rule.
+template <int G, int CPL, typename L, bool PIXEL, int LAYOUT>
 __global__ void __launch_bounds__(32 * kFwdWarps, 4) ce_fwd_kernel(
     const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
     float* __restrict__ partial, float* __restrict__ nll, int* __restrict__ pred,
     float* __restrict__ lse, int N, int h, int w, int C, int s, float img_w, int count_acc,
-    int tw) {
+    int tw, int loop_coeffs) {
+  static_assert(LAYOUT == kNatural || (LAYOUT == kWMajor && !PIXEL),
+                "phase labels: w-major, the loss only");
   constexpr int NG = 32 / G;
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   __shared__ float sf[kMaxScale];
   __shared__ int sd[kMaxScale];
-  if (threadIdx.x < s) {  // Coeffs of phase threadIdx.x, with no array in local memory
-    const double d = (threadIdx.x + 0.5) / s - 0.5;
-    sd[threadIdx.x] = d < 0.0 ? -1 : 0;
-    sf[threadIdx.x] = (float)(d - sd[threadIdx.x]);
+  if (threadIdx.x < s) {  // the coefficients of phase p, with no array in local memory
+    const int p = threadIdx.x;
+    if (loop_coeffs) {
+      const float d = ((float)p + 0.5f) / (float)s - 0.5f;
+      sd[p] = d < 0.f ? -1 : 0;
+      sf[p] = d - (float)sd[p];
+    } else {
+      const double d = (p + 0.5) / s - 0.5;
+      sd[p] = d < 0.0 ? -1 : 0;
+      sf[p] = (float)(d - sd[p]);
+    }
   }
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -707,11 +730,31 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 4) ce_fwd_kernel(
     }
   }
   vss::cp_async_commit();
+  // a phase read's (i / s, i % s) at i = lane, and their step as i goes on by
+  // 32 (a division a label took the kernel ~2 % longer at N 8 on the H100)
+  const int lane_q = lane / s, lane_r = lane - lane_q * s;
+  const int step_q = 32 / s, step_r = 32 - step_q * s;
   for (int g = 0; g < NG; ++g) {
-    const L* lr = labels + ((long long)n * H + Y0 + min(g, live - 1)) * W + xa;
-    for (int i = lane; i < cnt; i += 32) {
-      const int lb = (int)lr[i];
-      lab_s[g * srow + i] = (short)(lb >= 0 && lb < C ? lb : -1);
+    const int Y = Y0 + min(g, live - 1);
+    if constexpr (LAYOUT == kNatural) {
+      const L* lr = labels + ((long long)n * H + Y) * W + xa;
+      for (int i = lane; i < cnt; i += 32) {
+        const int lb = (int)lr[i];
+        lab_s[g * srow + i] = (short)(lb >= 0 && lb < C ? lb : -1);
+      }
+    } else {  // output column xa + i = s (v0 + q) + r, (q, r) = (i / s, i % s) stepped with i
+      const L* lr = labels + phase_row<LAYOUT>(n, h, w, s, Y / s, Y % s);
+      int q = lane_q, r = lane_r;
+      for (int i = lane; i < cnt; i += 32) {
+        const int lb = (int)lr[phase_col<LAYOUT>(v0 + q, r, w, s)];
+        lab_s[g * srow + i] = (short)(lb >= 0 && lb < C ? lb : -1);
+        q += step_q;
+        r += step_r;
+        if (r >= s) {
+          r -= s;
+          ++q;
+        }
+      }
     }
   }
   vss::cp_async_wait<0>();
@@ -833,25 +876,25 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 4) ce_fwd_kernel(
   }
 }
 
-template <int G, int CPL, typename L, bool PIXEL>
+template <int G, int CPL, typename L, bool PIXEL, int LAYOUT>
 int launch_fwd_gc(const void* x, const void* labels, void* partial, void* nll, void* pred,
                   void* lse, int N, int h, int w, int C, int s, float img_w, int count_acc, int tw,
-                  cudaStream_t st) {
+                  int loop_coeffs, cudaStream_t st) {
   constexpr int NG = 32 / G;
   const long long units = (long long)N * ((h * s + NG - 1) / NG) * ((w + tw - 1) / tw);
   const unsigned blocks = (unsigned)((units + kFwdWarps - 1) / kFwdWarps);
   const size_t bytes = (size_t)kFwdWarps * fwd_warp_bytes(NG, C, s, tw, PIXEL);
   static bool attr = false;  // one instance per template: set its limit once
   if (!attr) {
-    cudaError_t e = cudaFuncSetAttribute(ce_fwd_kernel<G, CPL, L, PIXEL>,
+    cudaError_t e = cudaFuncSetAttribute(ce_fwd_kernel<G, CPL, L, PIXEL, LAYOUT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
-  ce_fwd_kernel<G, CPL, L, PIXEL><<<blocks, 32 * kFwdWarps, bytes, st>>>(
+  ce_fwd_kernel<G, CPL, L, PIXEL, LAYOUT><<<blocks, 32 * kFwdWarps, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const L*>(labels),
       static_cast<float*>(partial), static_cast<float*>(nll), static_cast<int*>(pred),
-      static_cast<float*>(lse), N, h, w, C, s, img_w, count_acc, tw);
+      static_cast<float*>(lse), N, h, w, C, s, img_w, count_acc, tw, loop_coeffs);
   return (int)cudaGetLastError();
 }
 
@@ -859,13 +902,13 @@ int launch_fwd_gc(const void* x, const void* labels, void* partial, void* nll, v
 inline int fwd_ng(int C) { return C <= 32 ? 8 : C <= 128 ? 4 : 2; }
 
 // the backward's table of (G, CPL) (ops/ce_upsampled.py ce_bwd_groups)
-template <typename L, bool PIXEL>
+template <typename L, bool PIXEL, int LAYOUT = kNatural>
 int launch_fwd(const void* x, const void* labels, void* partial, void* nll, void* pred, void* lse,
                int N, int h, int w, int C, int s, float img_w, int count_acc, int tw,
-               cudaStream_t st) {
+               cudaStream_t st, int loop_coeffs = 0) {
 #define VSS_CE_FWD(G, K) \
-  return launch_fwd_gc<G, K, L, PIXEL>(x, labels, partial, nll, pred, lse, N, h, w, C, s, img_w, \
-                                       count_acc, tw, st)
+  return launch_fwd_gc<G, K, L, PIXEL, LAYOUT>(x, labels, partial, nll, pred, lse, N, h, w, C, s, \
+                                               img_w, count_acc, tw, loop_coeffs, st)
   if (C <= 32) VSS_CE_FWD(4, 8);
   if (C <= 64) VSS_CE_FWD(8, 8);
   if (C <= 128) VSS_CE_FWD(8, 16);
@@ -875,9 +918,10 @@ int launch_fwd(const void* x, const void* labels, void* partial, void* nll, void
 }
 
 // blocks of an instance one SM holds with `bytes` of dynamic shared memory
-template <int G, int CPL, bool PIXEL>
+// (uint8 labels)
+template <int G, int CPL, bool PIXEL, int LAYOUT = kNatural>
 int fwd_occupancy(size_t bytes) {
-  auto* kernel = ce_fwd_kernel<G, CPL, unsigned char, PIXEL>;
+  auto* kernel = ce_fwd_kernel<G, CPL, unsigned char, PIXEL, LAYOUT>;
   int b = 0;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024) !=
           cudaSuccess ||
@@ -916,6 +960,23 @@ VSS_EXPORT int ce_fwd_loss(const void* logits, const void* labels, void* partial
                                                        tw, st);
 }
 
+// ce_fwd_loss's function with uint8 labels in the TPU kernels' w-major phase
+// layout (N, h, w, s*s), the label of output pixel (s k + ph, s v + pw) at
+// [n, k, v, ph s + pw] (rows 16 and 18); loop_coeffs: the phase coefficients
+// in f32 from the phase index (row 18's runtime phase loop), else in double
+// as ce_fwd_loss takes them. The plan and partial as for ce_fwd_loss.
+VSS_EXPORT int ce_fwd_loss_phase(const void* logits, const void* labels, void* partial, int N,
+                                 int h, int w, int C, int s, int loop_coeffs, float img_w,
+                                 int count_acc, int tw, int device, void* stream) {
+  vss::use_device(device);
+  if ((long long)N * h * w == 0) return 0;
+  if (s < 1 || s > kMaxScale || C < 1 || C > 256 || !fwd_plan_ok(C, s, tw))
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd<unsigned char, false, kWMajor>(
+      logits, labels, partial, nullptr, nullptr, nullptr, N, h, w, C, s, img_w, count_acc, tw,
+      reinterpret_cast<cudaStream_t>(stream), loop_coeffs);
+}
+
 // Bytes of dynamic shared memory a block of ce_fwd_loss (pixel = 0) or
 // ce_fwd_nll (pixel = 1) takes at C classes, scale s and strips of tw.
 VSS_EXPORT int ce_fwd_smem_bytes(int C, int s, int tw, int pixel) {
@@ -934,6 +995,17 @@ VSS_EXPORT int ce_fwd_blocks_per_sm(int C, int s, int tw, int pixel) {
   if (C <= 128) VSS_CE_OCC(8, 16);
   if (C <= 256) VSS_CE_OCC(16, 16);
 #undef VSS_CE_OCC
+  return -1;
+}
+
+// Blocks of ce_fwd_loss_phase one SM holds at C classes, scale s and strips
+// of tw (the CUDA occupancy query); -1 on an error.
+VSS_EXPORT int ce_fwd_phase_blocks_per_sm(int C, int s, int tw) {
+  const size_t bytes = (size_t)kFwdWarps * fwd_warp_bytes(fwd_ng(C), C, s, tw, false);
+  if (C <= 32) return fwd_occupancy<4, 8, false, kWMajor>(bytes);
+  if (C <= 64) return fwd_occupancy<8, 8, false, kWMajor>(bytes);
+  if (C <= 128) return fwd_occupancy<8, 16, false, kWMajor>(bytes);
+  if (C <= 256) return fwd_occupancy<16, 16, false, kWMajor>(bytes);
   return -1;
 }
 

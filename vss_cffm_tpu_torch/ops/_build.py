@@ -31,7 +31,7 @@ __all__ = ["library", "build_all", "check", "ptxas_usage", "SOURCES", "BUILD_DIR
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("dwconv", "attention", "block_gemm", "attention_bwd", "ce_upsampled", "gemm_tn",
-           "block_bwd", "sra_attention_bwd", "ce_phase")
+           "block_bwd", "sra_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -63,12 +63,14 @@ _SIGNATURES = {
     },
     "ce_upsampled": {
         "ce_fwd_loss": "pppiiiiiifiiip",
+        "ce_fwd_loss_phase": "pppiiiiiifiiip",
         "ce_bwd_loss": "pppppiiiiiifiiiip",
         "ce_bwd_loss_phase": "pppppiiiiiiifiiiip",
         "ce_bwd_blocks_per_sm": "iiii",
         "ce_fwd_nll": "pppppiiiiiiiip",
         "ce_fwd_smem_bytes": "iiii",
         "ce_fwd_blocks_per_sm": "iiii",
+        "ce_fwd_phase_blocks_per_sm": "iii",
         "ce_bwd_nll": "ppppppiiiiiiiiiip",
     },
     "gemm_tn": {
@@ -82,9 +84,6 @@ _SIGNATURES = {
         "sra_attention_bwd": "pppppppiiiiiifiip",
         "sra_attention_bwd_smem_bytes": "ii",
         "sra_attention_bwd_blocks_per_sm": "iii",
-    },
-    "ce_phase": {
-        "ce_phase_fwd_loss": "pppiiiiiifiip",
     },
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong, "f": ctypes.c_float}

@@ -65,9 +65,12 @@ w-major (N, h, w, s²) (``labels_to_phase_w``), and are not differentiable:
 The two backwards run on the loss backward's kernel (``ce_bwd_loss_phase`` in
 ``csrc/ce_upsampled.cu``) and its plan: only where a pixel's label lies
 (``ce_label_index``) and the output's dtype differ from
-``ce_upsampled_loss_bwd``, and ``ce_bwd_loss_v3`` takes the phase coefficients
-in f32 from the phase index as the TPU's runtime loop does (``ce_bwd_coeffs``).
-The two forwards are in ``csrc/ce_phase.cu``. The kernels read uint8 labels
+``ce_upsampled_loss_bwd``. The two forwards run on the loss forward's kernel
+(``ce_fwd_loss_phase``) and its plan (``ce_fwd_plan``): only where a pixel's
+label lies differs from ``ce_upsampled_loss``. The runtime loops
+(``ce_fwd_loss_v3``, ``ce_bwd_loss_v3``) take the phase coefficients in f32
+from the phase index as the TPU's runtime loop does (``ce_bwd_coeffs``; equal
+to the double rule at s 1, 2, 4 and 8). The kernels read uint8 labels
 (the bench's and the train batch's); labels of any other integer dtype are
 first mapped by ``phase_labels_u8`` (outside [0, C) → 255, ignored as
 before), as the JAX kernels take any integer labels; the unrolled ones take s
@@ -657,13 +660,17 @@ def _phase_inputs(logits, labels, s: int, unrolled: bool, op: str):
 
 def _phase_fwd_launch(logits, labels, s: int, img_w: float, count_acc: bool, unrolled: bool,
                       op: str):
+    """The loss forward's kernel with w-major labels on ``_fwd_plan``'s plan;
+    the runtime loop's variant (not ``unrolled``) takes its coefficients in
+    f32."""
     logits, labels = _phase_inputs(logits, labels, s, unrolled, op)
     n, h, w, c = logits.shape
-    partial = torch.empty((n * h * -(-w // 32), 2), device=logits.device, dtype=torch.float32)
+    tw, units = _fwd_plan(logits, s)
+    partial = torch.empty((units, 2), device=logits.device, dtype=torch.float32)
     dev, stream = stream_of(logits)
-    rc = _build.library("ce_phase").ce_phase_fwd_loss(
-        ptr(logits, op), ptr(labels, op), ptr(partial, op), n, h, w, c, s, int(unrolled),
-        float(img_w), int(count_acc), dev, stream)
+    rc = _build.library("ce_upsampled").ce_fwd_loss_phase(
+        ptr(logits, op), ptr(labels, op), ptr(partial, op), n, h, w, c, s, int(not unrolled),
+        float(img_w), int(count_acc), tw, dev, stream)
     _build.check(rc, op)
     sums = partial.sum(dim=0)
     return sums[0], sums[1]
