@@ -53,6 +53,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      end-to-end frames/s of both paths, ROUNDS rounds of TIMED_CLIPS clips
      each, alternating (default, fused, fused, default, ...), every round
      printed, the median of each, and peak memory;
+  4c. ``[eval]``: CFFM-B1 evaluation of a synthetic 32-frame 480x853 video
+     (network at 480x864, ``eval_phase``): rows 1-3 at the inputs of one
+     plain forward there, the key-tiled attention at TTA's key counts (920,
+     1269, 2048; bitwise against the resident one at 405), the streamed
+     evaluation (launches held per target frame, logits against the plain
+     path and the clip path, the confusion's total), the clip and streamed
+     masks (held in f32 with the plain ops), eval frames/s of both, slide
+     and TTA on 2 frames each (TTA's key-tiled launches held);
   5. the train phase, once per block form (``TRAIN_FORMS``): a synthetic
      uint8 batch (2, 4, 480, 480, 3) with labels in [0, 124), ~5 % ignored
      (255); the inputs of the form's kernels captured from one plain
@@ -1318,7 +1326,431 @@ ROW7_KERNELS = ("sra_attention_bwd_kernel", "gemm_tn_kernel", "dz_dhid_kernel",
 ROW6_KERNELS = ("::Fwd", "attention_fwd_kernel<64, false>", "dwconv3x3_kernel<float>")
 
 
-def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> None:
+# ---- the eval phase: video evaluation at VSPW's eval geometry ----------------
+
+EVAL_FRAMES = 32
+EVAL_HW = (480, 853)           # a VSPW 480p frame
+EVAL_SCALE = (853, 480)        # img_scale: the network sees 480x864
+EVAL_INPUT_HW = (480, 864)
+EVAL_CROP, EVAL_STRIDE, EVAL_SLIDE_CROPS = (480, 480), (320, 320), 3
+EVAL_ROUNDS = 3
+EVAL_CLIP_TARGET = 9           # the first target frame past the early schedules
+EVAL_SLIDE_FRAMES = (9, 10)
+EVAL_TTA_FRAMES = (9, 10)
+# the key-tiled attention's cases: (N, C, heads, query rows a frame, what);
+# 4 frames a clip
+TILED_CASES = ((920, 128, 2, 92 * 160, "stage 2 at TTA 1.5x (736x1280)"),
+               (1269, 128, 2, 108 * 188, "stage 2 at TTA 1.75x (864x1504)"),
+               (1269, 320, 5, 54 * 94, "stage 3 at TTA 1.75x"),
+               (2048, 320, 5, 4 * 2048, "stage 3 widths at the fused block's limit"))
+# where both instances run: stage 2 at 480x864
+TILED_RESIDENT_CASE = (405, 128, 2, 60 * 108, "stage 2 at 480x864")
+
+
+def _synthetic_video(seed: int):
+    """One video of EVAL_FRAMES frames of 480x853 uint8 BGR in memory, with
+    the VSPW test dataset's interface (``VSPWVideoDataset``'s samplers and
+    items; frames and labels read from memory): a pattern that moves from
+    frame to frame, so that the frames and their masks differ, with noise;
+    labels in [0, 124) laid over the same pattern, ~5 % ignored (255)."""
+    from vss_cffm_tpu_torch.data.vspw import VSPWVideoDataset
+
+    class SyntheticVideo(VSPWVideoDataset):
+        def __init__(self):
+            self.split, self.dilation, self.img_scale = "val", [-9, -6, -3], EVAL_SCALE
+            self.reduce_zero, self.img_suffix, self.seg_suffix = True, ".jpg", ".png"
+            names = [f"{i:08d}.jpg" for i in range(EVAL_FRAMES)]
+            self.videos, self.frames = ["synthetic"], {"synthetic": names}
+            self.frame_index = [("synthetic", f) for f in names]
+            rng = np.random.RandomState(seed)
+            y, x = np.mgrid[0:EVAL_HW[0], 0:EVAL_HW[1]].astype(np.float32)
+            self.imgs, self.labels = [], []
+            for t in range(EVAL_FRAMES):
+                xs, ys = x + 11.0 * t, y - 6.0 * t
+                chans = [np.sin(xs / (37.0 + 9 * c)) * np.cos(ys / (53.0 - 7 * c)) for c in range(3)]
+                img = 128.0 + 90.0 * np.stack(chans, -1) + rng.randint(-20, 21, (*EVAL_HW, 3))
+                self.imgs.append(np.clip(img, 0, 255).astype(np.uint8))
+                lab = ((xs // 71).astype(np.int64) + 13 * (ys // 59).astype(np.int64)) % NUM_CLASSES
+                lab[rng.rand(*EVAL_HW) < 0.05] = 255
+                self.labels.append(lab.astype(np.uint8))
+
+        def read_frame(self, video, frame):
+            return self.imgs[self.frames[video].index(frame)]
+
+        def load_gt(self, idx):
+            return self.labels[idx]
+
+    return SyntheticVideo()
+
+
+def _tiled_case(ops, args):
+    """The key-tiled attention (row 1's SRA attention with the scale folded
+    into K) on random bf16 inputs at a TTA shape, against the plain attention."""
+    cfm = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")
+    q, k, v, nh = args
+    g, lq, c = q.shape
+    n, hd = k.shape[1], c // nh
+    ks = cfm.scale_in(torch.bfloat16, hd ** -0.5)
+    # a score, its exp once, the softmax's max / sum / division and P·V's
+    # input rounding as f32 operations
+    bound = _bound_ms(_nbytes(q, k, v) + q.numel() * 2, 2 * 2 * g * nh * lq * n * hd,
+                      g * nh * lq * n * 5, g * nh * lq * n)
+    heads = lambda t: t.view(g, -1, nh, hd).transpose(1, 2)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(heads(q), heads(k),
+                                                                       heads(v))
+
+    def call(force):
+        if force == "torch":
+            return cfm.attention_torch(q, k, v, None, None, nh, 1.0, ks)
+        return cfm.attention_launch(q, k, v, None, None, nh, 1.0, ks, "attention_fwd_tiled",
+                                    tiled=True)
+
+    return dict(call=call, bound=bound, library=library,
+                shape=f"q{tuple(q.shape)} N={n} nh={nh}")
+
+
+EVAL_KERNELS = {
+    "attention_fwd_tiled": dict(
+        sources=["vss_cffm_tpu_torch/csrc/attention.cu"],
+        # row 1's attention step at TTA's key counts: _kernel of mit_block_fused
+        replaces="vss_cffm_tpu/ops/stage_block.py:106",
+        # as the resident instance: P and the output may each flip one bf16 ulp
+        rel_tol=2.0 ** -6, case=_tiled_case),
+}
+
+
+def _tiled_inputs(seed: int, n: int, c: int, nh: int, lq: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)
+    return r(4, lq, c), r(4, n, c), r(4, n, c), nh
+
+
+def _launch_deltas(ops, names=("mit_block_fused", "cfm_attention", "dwconv3x3",
+                               "attention_fwd_tiled")):
+    """A callback for ``on_pred`` that records each frame's launches (the
+    counts read after its mask, less the counts after the previous one)."""
+    seen, last = [], [dict(ops.launches())]
+
+    def on_pred(meta, _mask):
+        now = ops.launches()
+        seen.append((meta["index"], {k: now[k] - last[0][k] for k in names}))
+        last[0] = dict(now)
+
+    return seen, on_pred
+
+
+def _expected_launches(video, per_clip: dict, index: int) -> dict:
+    """Launches of one target frame: the backbone once (the whole clip in one
+    batch, or the new frame streamed), the CFM decoder only on a clip of
+    num_clips frames (frames 0-2 have clips of one)."""
+    t = len(video.sample_test_clip(index).frame_indices)
+    return {"mit_block_fused": per_clip["mit_block_fused"], "dwconv3x3": per_clip["dwconv3x3"],
+            "cfm_attention": per_clip["cfm_attention"] if t == 4 else 0,
+            "attention_fwd_tiled": 0}
+
+
+def _tta_tiled_expected(model, ori, scales) -> int:
+    """Key-tiled launches of one TTA prediction, from its views' geometry:
+    each fused block whose attention has more keys than the resident
+    instance holds (K and V in one block's shared memory) and at most the
+    fused block's limit."""
+    from vss_cffm_tpu_torch.data.transforms import aligned_size, rescale_size
+    from vss_cffm_tpu_torch.models.mit import FUSED_MAX_KV
+    from vss_cffm_tpu_torch.ops import _build
+    from vss_cffm_tpu_torch.ops._dispatch import SMEM_LIMIT
+
+    lib = _build.library("attention")
+    n = 0
+    for scale in scales:
+        h, w = aligned_size(rescale_size(ori, scale))
+        for s in (1, 2, 3, 4):  # each patch embed: a stride of 4, then 2, padded
+            div = 4 if s == 1 else 2
+            h, w = -(-h // div), -(-w // div)
+            for blk in getattr(model.backbone, f"block{s}"):
+                kv = blk.n_kv(torch.empty(1, h, w, 1))
+                hd = blk.attn.dim // blk.attn.num_heads
+                if (blk.fused and kv <= FUSED_MAX_KV
+                        and lib.attention_fwd_smem_bytes(kv, hd, 0) > SMEM_LIMIT):
+                    n += 1
+    return n
+
+
+def _logits_recorder(model):
+    """Record every ``predict_from_features`` output (the target frames'
+    logits) while the returned list lives; ``restore()`` removes the hook."""
+    seen, real = [], model.predict_from_features
+
+    def wrapped(fused):
+        out = real(fused)
+        seen.append(out.detach().clone())
+        return out
+
+    model.predict_from_features = wrapped
+    return seen, lambda: model.__dict__.pop("predict_from_features")
+
+
+def _f32_agreement(model, video) -> tuple[float, bool]:
+    """(share of mask pixels, confusion equal) of the clip and the streamed
+    evaluation with every op's plain version in f32 compute on the card."""
+    from vss_cffm_tpu_torch.eval import ClipEvaluator, StreamingVideoEvaluator
+    from vss_cffm_tpu_torch.models import set_force
+    from vss_cffm_tpu_torch.models.segmentor import set_compute_dtype
+
+    masks = {"clip": {}, "streamed": {}}
+    set_force(model, "torch")
+    set_compute_dtype(model, torch.float32)
+    try:
+        clip = ClipEvaluator(model, NUM_CLASSES, device="cuda")
+        clip.run((video.get_test_item(i) for i in range(len(video))), dataset=video,
+                 on_pred=lambda m, p: masks["clip"].__setitem__(m["index"], p))
+        stream = StreamingVideoEvaluator(model, NUM_CLASSES, device="cuda")
+        stream.run_streaming(video, on_pred=lambda m, p: masks["streamed"].__setitem__(
+            m["index"], p))
+    finally:
+        set_compute_dtype(model, torch.bfloat16)
+        set_force(model, None)
+    same = sum(int((masks["clip"][i] == masks["streamed"][i]).sum()) for i in masks["clip"])
+    total = sum(m.size for m in masks["clip"].values())
+    return same / total, bool(np.array_equal(clip.confusion, stream.confusion))
+
+
+def eval_phase(apis, ops, opts, root, kind, smi) -> tuple[dict, dict]:
+    """``[eval]``: CFFM-B1 (random weights from SEED, bf16) on a synthetic
+    VSPW video of EVAL_FRAMES frames at 480x853 (the network at 480x864):
+    rows 1-3 at the inputs of one plain forward there, the key-tiled
+    attention at TTA's key counts, the streamed evaluation (launches per
+    target frame, logits against the plain path, the confusion's total),
+    the clip evaluation against it, frames/s of both, slide on 2 frames,
+    TTA on 2 frames (the key-tiled launches counted). Returns (kernel stats
+    at this geometry, launch counts by path)."""
+    from vss_cffm_tpu_torch.eval import ClipEvaluator, StreamingVideoEvaluator
+    from vss_cffm_tpu_torch.eval.inference import slide_grid
+    from vss_cffm_tpu_torch.models import set_force
+
+    bundle = apis.init_segmentor("b1", device="cuda", dtype=torch.bfloat16, seed=SEED,
+                                 img_scale=EVAL_SCALE)
+    model = bundle.model
+    video = _synthetic_video(SEED + 2)
+    valid = sum(int((lab < NUM_CLASSES).sum()) for lab in video.labels)
+    print(f"[eval] synthetic video: {EVAL_FRAMES} frames {EVAL_HW[0]}x{EVAL_HW[1]} uint8 BGR, "
+          f"img_scale={EVAL_SCALE}, {valid} valid GT pixels", flush=True)
+    clip_ev = ClipEvaluator(model, NUM_CLASSES, device="cuda")
+    stream_ev = StreamingVideoEvaluator(model, NUM_CLASSES, device="cuda")
+    item = video.get_test_item(EVAL_CLIP_TARGET)
+    x = clip_ev._input(item["imgs"], item["img_scale"])
+    print(f"[eval] network input {tuple(x.shape)}", flush=True)
+    if tuple(x.shape[2:4]) != EVAL_INPUT_HW:
+        raise RuntimeError(f"eval geometry {tuple(x.shape)}, expected {EVAL_INPUT_HW}")
+
+    # rows 1-3 at the inputs of one plain forward at 480x864
+    stats = {f"{name} (480x864)": st for name, st in check_kernels(
+        ops, _capture_main_path_inputs(model, x), KERNELS, opts.profile).items()}
+    # the key-tiled attention at TTA's keys, and against the resident one where both run
+    caught = {"attention_fwd_tiled": [_tiled_inputs(i, *case[:4])
+                                      for i, case in enumerate(TILED_CASES)]}
+    stats.update(check_kernels(ops, caught, EVAL_KERNELS, opts.profile))
+    del caught
+    cfm = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")
+    q, k, v, nh = _tiled_inputs(9, *TILED_RESIDENT_CASE[:4])
+    ks = cfm.scale_in(torch.bfloat16, (q.shape[-1] // nh) ** -0.5)
+    tiled = cfm.attention_launch(q, k, v, None, None, nh, 1.0, ks, "eval", tiled=True)
+    resident = cfm.attention_launch(q, k, v, None, None, nh, 1.0, ks, "eval", tiled=False)
+    plain = cfm.attention_torch(q, k, v, None, None, nh, 1.0, ks)
+    torch.cuda.synchronize()
+    err = (tiled.float() - plain.float()).abs().max().item()
+    tol = 2.0 ** -6 * plain.float().abs().max().item()
+    same = torch.equal(tiled, resident)
+    print(f"[eval] attention N=405 ({TILED_RESIDENT_CASE[4]}): key-tiled vs resident "
+          f"{'bitwise equal' if same else 'DIFFER'}; key-tiled vs plain max_abs_err={err:.3e} "
+          f"tol={tol:.3e}", flush=True)
+    if not same or not err <= tol:
+        raise RuntimeError("key-tiled attention at N 405 disagrees with the resident instance "
+                           "or the plain version")
+    del q, k, v, tiled, resident, plain
+    torch.cuda.empty_cache()
+
+    # the streamed evaluation: counted, masks and logits kept; warm-up first
+    per_clip = {"mit_block_fused": 4, "cfm_attention": 2, "dwconv3x3": 4}
+    stream_ev.run_streaming(video)
+    stream_ev.reset()
+    torch.cuda.synchronize()
+    counts = {}
+    stream_masks, clip_masks = {}, {}
+    logits, restore = _logits_recorder(model)
+    ops.reset_launches()
+    deltas, on_pred = _launch_deltas(ops)
+    stream_ev.run_streaming(video, on_pred=lambda m, p: (stream_masks.__setitem__(m["index"], p),
+                                                          on_pred(m, p)))
+    torch.cuda.synchronize()
+    counts["eval_streamed"] = ops.launches()
+    restore()
+    for index, got in deltas:
+        want = _expected_launches(video, per_clip, index)
+        if got != want:
+            raise RuntimeError(f"streamed frame {index}: launches {got}, expected {want}")
+    steady = [d for i, d in deltas if i >= 9]
+    print(f"[eval] streamed launches over {EVAL_FRAMES} target frames: "
+          f"{ {k: counts['eval_streamed'][k] for k in deltas[0][1]} }; per target frame from "
+          f"frame 9 on: {steady[0]} (all {len(steady)} alike)", flush=True)
+    if any(d != {**per_clip, "attention_fwd_tiled": 0} for d in steady):
+        raise RuntimeError("streamed launches per target frame are not 4 / 2 / 4")
+    cm_stream = stream_ev.confusion
+    if int(cm_stream.sum()) != valid:
+        raise RuntimeError(f"streamed confusion counts {int(cm_stream.sum())} pixels, the GT "
+                           f"has {valid} valid ones")
+    set_force(model, "torch")
+    plain_logits, restore = _logits_recorder(model)
+    plain_ev = StreamingVideoEvaluator(model, NUM_CLASSES, device="cuda")
+    plain_ev.run_streaming(video)
+    restore()
+    set_force(model, None)
+    worst = 0.0
+    for t, (got, want) in enumerate(zip(logits, plain_logits)):
+        if not torch.isfinite(got.float()).all():
+            raise RuntimeError(f"non-finite streamed logits at frame {t}")
+        e = (got.float() - want.float()).abs().max().item()
+        s = want.float().abs().max().item()
+        worst = max(worst, e / s)
+        if e > 0.05 * s:
+            raise RuntimeError(f"streamed logits of frame {t} disagree with the plain path: "
+                               f"{e} > {0.05 * s}")
+    print(f"[eval] streamed logits {tuple(logits[0].shape)} of {len(logits)} target frames vs "
+          f"the plain path: worst max_abs_err / max|ref| = {worst:.4f} (limit 0.05); "
+          f"confusion total {int(cm_stream.sum())} = valid GT pixels", flush=True)
+    del plain_logits, plain_ev
+
+    # the clip evaluation on the same video and weights, counted, its logits kept
+    clip_logits = []
+    hook = model.register_forward_hook(lambda mod, a, out: clip_logits.append(out.clone()))
+    ops.reset_launches()
+    deltas, on_pred = _launch_deltas(ops)
+    clip_ev.run((video.get_test_item(i) for i in range(len(video))), dataset=video,
+                on_pred=lambda m, p: (clip_masks.__setitem__(m["index"], p), on_pred(m, p)))
+    torch.cuda.synchronize()
+    counts["eval_clip"] = ops.launches()
+    hook.remove()
+    for index, got in deltas:
+        want = _expected_launches(video, per_clip, index)
+        if got != want:
+            raise RuntimeError(f"clip frame {index}: launches {got}, expected {want}")
+    cm_clip = clip_ev.confusion
+    same_px = sum(int((stream_masks[i] == clip_masks[i]).sum()) for i in stream_masks)
+    share = same_px / sum(m.size for m in stream_masks.values())
+    print(f"[eval] clip evaluation: launches {counts['eval_clip']['mit_block_fused']} / "
+          f"{counts['eval_clip']['cfm_attention']} / {counts['eval_clip']['dwconv3x3']}; masks "
+          f"agree with the streamed ones on {share:.6f} of the pixels; confusion "
+          f"{'exactly equal' if np.array_equal(cm_clip, cm_stream) else 'not equal'} "
+          f"(sum |diff| {int(np.abs(cm_clip - cm_stream).sum())}); mIoU streamed "
+          f"{stream_ev.summary()['mIoU']:.5f} clip {clip_ev.summary()['mIoU']:.5f}", flush=True)
+    # bf16 through library convolutions and GEMMs that round a batch of 4
+    # frames and a batch of 1 differently (from the third patch embed on):
+    # the logits are held as [main] holds the kernel path against the plain
+    # one; random weights leave the logits near-tied (a top-2 margin of one
+    # bf16 ulp at the flipped pixels), so the mask agreement is printed here
+    # and held in f32 below, where rounding cannot flip it
+    worst = 0.0
+    for t, (got, want) in enumerate(zip(logits, clip_logits)):
+        e = (got.float() - want.float()).abs().max().item()
+        s = want.float().abs().max().item()
+        worst = max(worst, e / s)
+        if e > 0.05 * s:
+            raise RuntimeError(f"streamed logits of frame {t} disagree with the clip path's: "
+                               f"{e} > {0.05 * s}")
+    print(f"[eval] streamed vs clip logits, bf16 kernel paths: worst max_abs_err / max|clip| "
+          f"= {worst:.4f} (limit 0.05)", flush=True)
+    del logits, clip_logits
+    share32, exact32 = _f32_agreement(model, video)
+    print(f"[eval] f32 plain paths (force='torch', f32 compute, same weights): clip and streamed "
+          f"masks agree on {share32:.6f} of the pixels; confusion "
+          f"{'exactly equal' if exact32 else 'not equal'}", flush=True)
+    if share32 < 0.999:
+        raise RuntimeError(f"clip and streamed masks agree on {share32} < 0.999 of the pixels "
+                           "in f32")
+
+    # frames/s of both, EVAL_ROUNDS rounds each in alternating order
+    from vss_cffm_tpu_torch.data import iterate_eval
+
+    runs = {"streamed": lambda: stream_ev.run_streaming(video),
+            "per clip": lambda: clip_ev.run(iterate_eval(video, num_workers=2), dataset=video)}
+    rates = {name: [] for name in runs}
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(EVAL_ROUNDS):
+        for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            ev = stream_ev if name == "streamed" else clip_ev
+            ev.reset()
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            rates[name].append(EVAL_FRAMES / (time.perf_counter() - ts))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for name, rs in rates.items():
+        fps = float(np.median(rs))
+        print(f"[eval] CFFM-B1 {EVAL_HW[0]}x{EVAL_HW[1]} video, {name}: {fps:.3f} eval frames/s, "
+              f"median of "
+              f"{EVAL_ROUNDS} rounds of {EVAL_FRAMES} frames ({', '.join(f'{x:.3f}' for x in rs)}); "
+              f"{1e3 / fps:.3f} ms per frame", flush=True)
+    print(f"[eval] peak memory of both {peak:.1f} MiB", flush=True)
+    if opts.profile:
+        for name, fname in (("streamed", "profile_eval_streamed.txt"),
+                            ("per clip", "profile_eval_clip.txt")):
+            busy = _profile(runs[name], f"eval {name}, {EVAL_FRAMES} frames", fname, root, kind,
+                            smi)
+            print(f"[eval] device busy per target frame, {name}: {busy / EVAL_FRAMES:.3f} ms",
+                  flush=True)
+
+    # slide: 3 crops of 480x480 a frame
+    grid = slide_grid(EVAL_INPUT_HW, EVAL_CROP, EVAL_STRIDE)
+    if len(grid) != EVAL_SLIDE_CROPS:
+        raise RuntimeError(f"slide grid {grid}, expected {EVAL_SLIDE_CROPS} crops")
+    slide_ev = ClipEvaluator(model, NUM_CLASSES, mode="slide", crop_size=EVAL_CROP,
+                             stride=EVAL_STRIDE, device="cuda")
+    slide_ev.predict(video.get_test_item(EVAL_SLIDE_FRAMES[0]))  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ts = time.perf_counter()
+    slide_ev.run((video.get_test_item(i) for i in EVAL_SLIDE_FRAMES), dataset=video)
+    torch.cuda.synchronize()
+    slide_s = (time.perf_counter() - ts) / len(EVAL_SLIDE_FRAMES)
+    counts["eval_slide"] = ops.launches()
+    want = {k: EVAL_SLIDE_CROPS * n * len(EVAL_SLIDE_FRAMES) for k, n in per_clip.items()}
+    if {k: counts["eval_slide"][k] for k in want} != want:
+        raise RuntimeError(f"slide launches {counts['eval_slide']}, expected {want}")
+    print(f"[eval] slide (crops of {EVAL_CROP} at {grid}, stride {EVAL_STRIDE}) on "
+          f"{len(EVAL_SLIDE_FRAMES)} frames: "
+          f"{slide_s:.4f} s a frame; launches {want}", flush=True)
+
+    # TTA: 6 ratios x flip, the key-tiled instance at 1.5x and 1.75x
+    tta_items = [video.get_test_item_tta(i) for i in EVAL_TTA_FRAMES]
+    expected_tiled = sum(_tta_tiled_expected(model, it["ori_shape"], it["scales"])
+                         for it in tta_items)
+    clip_ev.predict_tta(tta_items[0])  # warm-up at the views' shapes
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ts = time.perf_counter()
+    tta_masks = [clip_ev.predict_tta(it) for it in tta_items]
+    torch.cuda.synchronize()
+    tta_s = (time.perf_counter() - ts) / len(tta_items)
+    counts["eval_tta"] = ops.launches()
+    n_tiled = counts["eval_tta"]["attention_fwd_tiled"]
+    print(f"[eval] TTA ({len(tta_items[0]['scales'])} views a frame: img_scale "
+          f"{sorted(set(tta_items[0]['scales']))}, flipped and not) on {len(tta_items)} frames: "
+          f"{tta_s:.4f} s a frame; launches "
+          f"{ {k: v for k, v in counts['eval_tta'].items() if v} }; key-tiled {n_tiled}, "
+          f"expected {expected_tiled} from the views' keys; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    if not 0 < n_tiled == expected_tiled:
+        raise RuntimeError(f"TTA launched the key-tiled attention {n_tiled} times, expected "
+                           f"{expected_tiled} (> 0)")
+    for m in tta_masks:
+        if m.shape != EVAL_HW or m.min() < 0 or m.max() >= NUM_CLASSES:
+            raise RuntimeError(f"TTA mask of shape {m.shape}, range [{m.min()}, {m.max()}]")
+    del bundle, model, clip_ev, stream_ev, slide_ev, video
+    torch.cuda.empty_cache()
+    return stats, counts
+
+
+def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> float:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1348,6 +1780,7 @@ def _profile(fn, what: str, fname: str, root: str, kind: str, smi: str) -> None:
     with open(os.path.join(root, "chiprun_out", fname), "w") as fh:
         fh.write(f"{kind} | {smi}\n{line}\n{table}\n")
     print("\n".join(table.splitlines()[:25]), flush=True)
+    return busy
 
 
 def row_splits() -> None:
@@ -1612,6 +2045,9 @@ def main() -> int:
     del bundle, bundle_f, model, caught, caught_f, outs
     torch.cuda.empty_cache()
 
+    # ---- 4c. video evaluation at VSPW's eval geometry -------------------------
+    eval_stats, eval_counts = eval_phase(apis, ops, opts, root, kind, smi)
+
     # ---- 5. the train step, in each block form ------------------------------
     train_stats, train_counts = {}, {}
     for form, spec in TRAIN_FORMS.items():
@@ -1642,19 +2078,23 @@ def main() -> int:
              for n, spec in TRAIN_FORMS[form]["kernels"].items() if "sources" in spec]
     rows += [(n, spec, ce_stats[n], "ce_bench") for n, spec in CE_BENCH_KERNELS.items()
              if "sources" in spec]
+    rows += [(n, spec, eval_stats[n], "eval_tta") for n, spec in EVAL_KERNELS.items()]
     for name, spec, st, path in rows:
         cn = spec.get("counter", name)
         by_path = {"inference": counts[cn], "inference_ffn": counts_f[cn],
                    "mixffn": counts_mix[cn], **{f: c[cn] for f, c in train_counts.items()},
-                   "ce_bench": ce_counts[cn]}
-        kernels.append({"name": name, "route": "cuda", "source": spec["sources"][0],
-                        "sources": spec["sources"],
-                        "replaces": spec["replaces"], "launches": by_path[path], "path": path,
-                        "launches_by_path": by_path,
-                        "max_abs_err": st["max_abs_err"], "ms": st["ms"],
-                        "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-                        "bound_by": st["bound_by"], "library_ms": st["library_ms"],
-                        "device_ms": st["device_ms"]})
+                   "ce_bench": ce_counts[cn], **{p: c[cn] for p, c in eval_counts.items()}}
+        row = {"name": name, "route": "cuda", "source": spec["sources"][0],
+               "sources": spec["sources"],
+               "replaces": spec["replaces"], "launches": by_path[path], "path": path,
+               "launches_by_path": by_path,
+               "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+               "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+               "bound_by": st["bound_by"], "library_ms": st["library_ms"],
+               "device_ms": st["device_ms"]}
+        if f"{name} (480x864)" in eval_stats:  # rows 1-3 at the eval geometry too
+            row["eval_480x864"] = eval_stats[f"{name} (480x864)"]
+        kernels.append(row)
     print(f"[done] {time.perf_counter() - t0:.1f} s; kernels checked: "
           f"{', '.join(k['name'] for k in kernels)}", flush=True)
     print(json.dumps({"kernels": kernels}))

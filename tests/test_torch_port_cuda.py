@@ -104,6 +104,8 @@ def test_cfm_attention_kernel_matches_plain(dev, nw, area, nh, hd, gsizes):
     ((1, 17, 9, 128), 512, 15, 2),  # heads of 64, more rows than one attention row tile
     ((1, 30, 30, 64), 256, 225, 1),   # the spatial-reduction attention of B1 stage 3's
     ((1, 30, 32, 128), 512, 225, 2),  # geometry: Lq 900 / 960, N 225, heads of 64
+    ((1, 23, 40, 128), 512, 920, 2),  # test-time augmentation's keys at stage 2 (1.5x):
+    ((1, 27, 47, 320), 1280, 1269, 5),  # the key-tiled attention; stage 3 at 1.75x
 ])
 def test_mit_block_kernel_matches_plain(dev, shape, ch, s, nh):
     """The whole block, with weights scaled so that the attention and FFN
@@ -1258,3 +1260,85 @@ def test_ce_phase_fwd_occupancy_is_row14s(dev):
         tw, _ = ops.ce_upsampled.ce_fwd_plan(n, 120, 120, 124, 4, 132)
         assert lib.ce_fwd_phase_blocks_per_sm(124, 4, tw) == lib.ce_fwd_blocks_per_sm(
             124, 4, tw, 0) == 4
+
+
+# ---- the key-tiled attention (row 1 at test-time augmentation's key counts) ----
+
+
+def _attention_inputs(rng, g, lq, n, nh, hd, bm, dev):
+    """q, K, V (bf16) and, with ``bm``, bias and a mask of -100 on a fifth of
+    the keys, for ``attention_launch``."""
+    c = nh * hd
+    q, k, v = (_rand(rng, g, lq, c, dev=dev), _rand(rng, g, n, c, dev=dev),
+               _rand(rng, g, n, c, dev=dev))
+    if not bm:
+        return q, k, v, None, None
+    bias = _rand(rng, nh, lq, n, dtype=torch.float32, dev=dev)
+    mask = torch.from_numpy(np.where(rng.rand(g, n) < 0.2, -100.0, 0.0)
+                            .astype(np.float32)).to(dev)
+    return q, k, v, bias, mask
+
+
+def _attention_scales(hd, bm):
+    """(q_scale, k_scale) as the two callers pass them: the CFM attention
+    scales q, the MiT block folds the scale into K."""
+    from vss_cffm_tpu_torch.ops.cfm_attention import scale_in
+
+    s = scale_in(torch.bfloat16, hd ** -0.5)
+    return (s, 1.0) if bm else (1.0, s)
+
+
+@pytest.mark.parametrize("bm", [False, True], ids=["sra", "bias_mask"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("n", [405, 920, 1269, 2048])
+def test_attention_tiled_matches_plain(dev, n, hd, bm):
+    """The key-tiled instance at the MiT stages' key counts at 480x864 (405)
+    and in multi-scale test-time augmentation (920 at 1.5x, 1269 at 1.75x),
+    and at the fused block's limit (2048), against the plain attention, with
+    100 query rows (a ragged 64-row tile): 2^-6 of the largest output, as the
+    resident instance is held; each call counts one launch."""
+    from vss_cffm_tpu_torch.ops.cfm_attention import attention_launch, attention_torch
+
+    rng = np.random.RandomState(31)
+    nh = 2
+    q, k, v, bias, mask = _attention_inputs(rng, 3, 100, n, nh, hd, bm, dev)
+    qs, ks = _attention_scales(hd, bm)
+    before = ops.attention_fwd_tiled.launches
+    got = attention_launch(q, k, v, bias, mask, nh, qs, ks, "test", tiled=True)
+    assert ops.attention_fwd_tiled.launches == before + 1
+    _close(got, attention_torch(q, k, v, bias, mask, nh, qs, ks), 2.0 ** -6)
+
+
+@pytest.mark.parametrize("n,hd,bm", [(37, 32, True), (289, 32, True), (405, 64, False),
+                                     (896, 64, True), (1808, 32, False)])
+def test_attention_tiled_equals_resident(dev, n, hd, bm):
+    """Where both instances run (up to 896 keys at head dim 64 and 1808 at
+    32, the resident instance's limits), the key-tiled one gives the same
+    bits: the same 16-key steps in the same order."""
+    from vss_cffm_tpu_torch.ops.cfm_attention import attention_launch
+
+    rng = np.random.RandomState(32)
+    q, k, v, bias, mask = _attention_inputs(rng, 2, 130, n, 2, hd, bm, dev)
+    qs, ks = _attention_scales(hd, bm)
+    tiled = attention_launch(q, k, v, bias, mask, 2, qs, ks, "test", tiled=True)
+    resident = attention_launch(q, k, v, bias, mask, 2, qs, ks, "test", tiled=False)
+    torch.cuda.synchronize()
+    assert torch.equal(tiled, resident)
+
+
+def test_attention_picks_its_instance_by_keys(dev):
+    """The wrapper's choice: resident up to the keys whose K and V fit one
+    block's shared memory (896 at head dim 64), key-tiled beyond; the
+    probabilities output stays resident-only and keeps its refusal."""
+    from vss_cffm_tpu_torch.ops.cfm_attention import attention_launch
+
+    rng = np.random.RandomState(33)
+    for n, tiled in ((896, 0), (897, 1), (1269, 1)):
+        q, k, v, _, _ = _attention_inputs(rng, 1, 64, n, 1, 64, False, dev)
+        before = ops.attention_fwd_tiled.launches
+        attention_launch(q, k, v, None, None, 1, 1.0, 0.125, "test")
+        assert ops.attention_fwd_tiled.launches == before + tiled, n
+    q, k, v, bias, mask = _attention_inputs(rng, 1, 49, 1269, 1, 64, True, dev)
+    probs = torch.empty((1, 1, 49, 1269), device=dev)
+    with pytest.raises(ValueError, match="exceed"):
+        attention_launch(q, k, v, bias, mask, 1, 0.125, 1.0, "test", probs=probs)

@@ -386,3 +386,34 @@ def replay_loss(logits, labels, s, img_w, plan, count_acc=True, loop: bool = Fal
     assert (seen == 1).all()
     total = torch.stack(parts).sum(dim=0)
     return total[0], total[1]
+
+
+# ---- evaluation --------------------------------------------------------------
+
+# the fake VSPW tree of the eval tests: frames of (64, 96) with img_scale
+# (96, 64), so that neither pipeline resizes (factor 1, /32 multiples)
+EVAL_HW, EVAL_SCALE, EVAL_CLASSES = (64, 96), (96, 64), 5
+
+
+def eval_models(seed: int = 0):
+    """(JAX B0 segmentor at decoder depth 1, its variables, the port model on
+    the same weights in eval mode): the port's init perturbed with numpy
+    noise, carried to JAX (``to_jax_tree``) and back (``state_dict_from_jax``)."""
+    jcfg = jax_config("b0", num_classes=EVAL_CLASSES, depth=1)
+    pm = CFFMSegmentor(port_config(jcfg))
+    pm.init_weights(torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed + 1)
+    with torch.no_grad():
+        for p in pm.parameters():
+            p += torch.from_numpy(0.02 * rng.standard_normal(p.shape).astype(np.float32))
+    variables = to_jax_tree(pm, {}, jcfg)
+    port = CFFMSegmentor(port_config(jcfg))
+    port.load_state_dict(state_dict_from_jax(variables, jcfg), strict=True)
+    return JaxSegmentor(jcfg), variables, port.eval()
+
+
+def mask_agreement(want: dict, got: dict) -> float:
+    """Share of pixels on which two {frame index: mask} dicts agree."""
+    assert sorted(want) == sorted(got)
+    same = sum(int((np.asarray(want[i]) == np.asarray(got[i])).sum()) for i in want)
+    return same / sum(np.asarray(want[i]).size for i in want)

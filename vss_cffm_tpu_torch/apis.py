@@ -1,16 +1,23 @@
 """Clip inference API of the port.
 
 - ``init_segmentor(model_config_or_variant, state_dict=None, device="cuda",
-  dtype=torch.bfloat16, img_scale=(853, 480), seed=0)`` builds a
-  ``CFFMSegmentor``. Without a ``state_dict`` the weights are random, drawn
-  from ``seed``; with one, it is loaded strictly (reference PyTorch names).
-  It runs on the card unless ``device="cpu"`` is asked for, and raises when
-  no CUDA device is present.
+  dtype=torch.bfloat16, img_scale=(853, 480), seed=0, checkpoint=None)``
+  builds a ``CFFMSegmentor``. Without a ``state_dict`` or ``checkpoint`` the
+  weights are random, drawn from ``seed``; a ``state_dict`` is loaded
+  strictly (reference PyTorch names). ``checkpoint`` (as
+  ``vss_cffm_tpu/apis.py:38-58``) is a reference ``.pth`` / ``.pt`` (the
+  port's names are the reference's: every weight of the model must be in
+  it, keys the model lacks, such as mmseg's unused ``conv_seg``, are
+  ignored) or a ``CheckpointManager`` directory (its latest step overlaid on
+  the random init). It runs on the card unless ``device="cpu"`` is asked
+  for, and raises when no CUDA device is present.
 - ``inference_segmentor(bundle, frames)`` takes a clip (a list of HWC uint8
   BGR frames, numpy arrays or tensors; the last is the target frame) or one
   frame, runs the eval pipeline (aligned rescale to /32 multiples, normalise)
   and returns the (H, W) int64 mask of the target frame at its original size:
   logits → resize to the network input → resize to the original → argmax.
+- ``show_result(img, seg, palette=VSPW_PALETTE, opacity=0.5)``: the mask's
+  colours blended over the BGR frame (reference ``base.py:241-303``).
 """
 
 from __future__ import annotations
@@ -22,11 +29,13 @@ import numpy as np
 import torch
 
 from .config import SegmentorConfig, build_model_config
+from .data.palette import VSPW_PALETTE
 from .data.transforms import aligned_resize_clip, normalize_clip
 from .models.segmentor import CFFMSegmentor
 from .ops.resize import resize_bilinear
 
-__all__ = ["SegmentorBundle", "init_segmentor", "inference_segmentor", "clip_logits"]
+__all__ = ["SegmentorBundle", "init_segmentor", "inference_segmentor", "clip_logits",
+           "show_result"]
 
 
 @dataclasses.dataclass
@@ -42,7 +51,7 @@ def init_segmentor(model_config_or_variant: SegmentorConfig | str = "b1",
                    device: str | torch.device = "cuda",
                    dtype: torch.dtype = torch.bfloat16,
                    img_scale: tuple[int, int] = (853, 480),
-                   seed: int = 0) -> SegmentorBundle:
+                   seed: int = 0, checkpoint: str | None = None) -> SegmentorBundle:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_segmentor: no CUDA device is present; pass device='cpu' "
@@ -50,11 +59,25 @@ def init_segmentor(model_config_or_variant: SegmentorConfig | str = "b1",
     cfg = model_config_or_variant
     if isinstance(cfg, str):
         cfg = build_model_config(cfg)
+    if state_dict is not None and checkpoint is not None:
+        raise ValueError("init_segmentor: a state_dict or a checkpoint, not both")
     model = CFFMSegmentor(cfg, dtype=dtype)
     if state_dict is None:
         model.init_weights(torch.Generator().manual_seed(seed))
     else:
         model.load_state_dict(state_dict, strict=True)
+    if checkpoint is not None and checkpoint.endswith((".pth", ".pt")):
+        from .utils.weights import load_torch_state_dict
+
+        missing = model.load_state_dict(load_torch_state_dict(checkpoint),
+                                        strict=False).missing_keys
+        if missing:
+            raise KeyError(f"init_segmentor: {checkpoint} lacks {len(missing)} weights of the "
+                           f"model, e.g. {missing[:3]}")
+    elif checkpoint is not None:
+        from .train.checkpoint import CheckpointManager
+
+        CheckpointManager(checkpoint).load_params(model)
     model.to(device).eval()
     return SegmentorBundle(model, cfg, device, tuple(img_scale))
 
@@ -82,3 +105,18 @@ def clip_logits(bundle: SegmentorBundle, frames) -> tuple[torch.Tensor, tuple[in
 def inference_segmentor(bundle: SegmentorBundle, frames) -> torch.Tensor:
     logits, ori = clip_logits(bundle, frames)
     return resize_bilinear(logits, ori).argmax(dim=-1)[0]
+
+
+def show_result(img, seg, palette=VSPW_PALETTE, opacity: float = 0.5) -> np.ndarray:
+    """(H, W, 3) uint8 BGR: the mask's palette colours (given as RGB) blended
+    over ``img``, a BGR array or an image path (reference ``base.py:241-303``)."""
+    if isinstance(img, str):
+        from .data.vspw import load_image
+
+        img = load_image(img)
+    seg = np.asarray(seg.cpu() if isinstance(seg, torch.Tensor) else seg)
+    color = np.zeros((*seg.shape, 3), np.uint8)
+    for cls, rgb in enumerate(palette):
+        color[seg == cls] = rgb[::-1]  # BGR
+    out = np.asarray(img) * (1 - opacity) + color * opacity
+    return out.astype(np.uint8)

@@ -41,6 +41,17 @@
 // slower). wgmma is not
 // used: at head dim 32 and 49 queries the products are not the limit, and
 // 64-row warpgroup tiles would only add padding.
+//
+// Key-tiled instance (attention_fwd_tiled): for N whose K and V do not fit
+// one block's shared memory (multi-scale test-time augmentation gives the
+// MiT stages 920-1269 keys at head dim 64; the resident instance stops at
+// 896). The same block, warps, q fragments and 16-key steps, but K and V
+// stream through a two-stage ring of 64-key tiles (cp.async, the next tile
+// in flight while this one is used): pass 1 reads the K tiles for each
+// row's running max and sum of exps in f32, pass 2 reads the K and V tiles
+// again for the normalised p and P·V. Every step computes what the resident
+// instance computes, in the same order, so the two give the same bits where
+// both run. No probabilities output.
 #include "common.cuh"
 #include "mma_sync.cuh"
 
@@ -249,6 +260,198 @@ __global__ void __launch_bounds__(32 * kWarps, HD == 32 ? 5 : 3) attention_fwd_k
   }
 }
 
+// ---- the key-tiled instance -------------------------------------------------
+
+constexpr int kTileKeys = 64;  // keys of one K or V tile
+
+// dynamic shared memory of the key-tiled instance: two stages of a K and a V
+// tile, (64, HD) bf16 each
+__host__ __device__ inline size_t tiled_smem_bytes(int hd) {
+  return (size_t)2 * 2 * kTileKeys * hd * 2;
+}
+
+// Keys [t0, t0 + 64) of one (group, head) slice into a swizzled tile, as
+// cp.async copies; the rows from N up to the step grid (round16(N)) zeroed
+template <int HD>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           int t0, int N, int C, int tid) {
+  constexpr int CH = HD / 8;
+  const int rows = min(kTileKeys, round16(N) - t0);
+  for (int c = tid; c < rows * CH; c += 32 * kWarps) {
+    const int r = c / CH, d = (c % CH) * 8, n = t0 + r;
+    if (n < N)
+      vss::cp_async16(dst + vss::swz<HD>(r, d), src + (long long)n * C + d);
+    else
+      vss::zero16(dst + vss::swz<HD>(r, d));
+  }
+}
+
+// K·scale rounded to bf16 in a landed tile, as the resident instance scales
+// its K (the block path folds the attention scale into K)
+template <int HD>
+__device__ __forceinline__ void scale_tile(__nv_bfloat16* Ks, int rows, float k_scale,
+                                           int tid) {
+  constexpr int CH = HD / 8;
+  for (int c = tid; c < rows * CH; c += 32 * kWarps) {
+    __nv_bfloat16* p = Ks + vss::swz<HD>(c / CH, (c % CH) * 8);
+    float f[8];
+    vss::load8(p, f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = f[i] * k_scale;
+    vss::store8(p, f);
+  }
+}
+
+template <int HD, bool BM>
+__global__ void __launch_bounds__(32 * kWarps, HD == 32 ? 5 : 3) attention_fwd_tiled_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const float* __restrict__ mask, __nv_bfloat16* __restrict__ out, int Lq, int N, int C,
+    float q_scale, float k_scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int TILE = kTileKeys * HD;  // elements of one tile
+  __nv_bfloat16* Kb = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][TILE]
+  __nv_bfloat16* Vb = Kb + 2 * TILE;                            // [2][TILE]
+  const int Np = round16(N), nt = (Np + kTileKeys - 1) / kTileKeys;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.y;
+  const long long g = blockIdx.z;
+  const int t2 = (lane & 3) * 2;
+  const __nv_bfloat16* kg = k + g * N * C + h * HD;
+  const __nv_bfloat16* vg = v + g * N * C + h * HD;
+
+  stage_tile<HD>(Kb, kg, 0, N, C, tid);
+  vss::cp_async_commit();
+
+  const int r_lo = blockIdx.x * kRows + warp * 16 + (lane >> 2), r_hi = r_lo + 8;
+  const __nv_bfloat16* qg = q + g * Lq * C + h * HD;
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    qa[kk][0] = q_pair(qg, r_lo, Lq, C, kk * 16 + t2, q_scale);
+    qa[kk][1] = q_pair(qg, r_hi, Lq, C, kk * 16 + t2, q_scale);
+    qa[kk][2] = q_pair(qg, r_lo, Lq, C, kk * 16 + 8 + t2, q_scale);
+    qa[kk][3] = q_pair(qg, r_hi, Lq, C, kk * 16 + 8 + t2, q_scale);
+  }
+  const float* b_lo = BM ? bias + ((long long)h * Lq + min(r_lo, Lq - 1)) * N : nullptr;
+  const float* b_hi = BM ? bias + ((long long)h * Lq + min(r_hi, Lq - 1)) * N : nullptr;
+  const float* mrow = BM ? mask + g * N : nullptr;
+
+  // ---- pass 1: the K tiles; each row's max and sum of exps -----------------
+  float mx[2] = {-3.402823466e38f, -3.402823466e38f}, sm[2] = {0.f, 0.f};
+  float b[8] = {}, m[4] = {}, bn[8] = {}, mn[4] = {};
+  if constexpr (BM) {
+    vss::load_bias(bn, b_lo, b_hi, 0, t2, N);
+    vss::load_mask(mn, mrow, 0, t2, N);
+  }
+  for (int t = 0; t < nt; ++t) {
+    const int t0 = t * kTileKeys, t1 = min(t0 + kTileKeys, Np);
+    if (t + 1 < nt) {  // the next tile into the other stage, freed by the last barrier
+      stage_tile<HD>(Kb + ((t + 1) & 1) * TILE, kg, t0 + kTileKeys, N, C, tid);
+      vss::cp_async_commit();
+      vss::cp_async_wait<1>();
+    } else {
+      vss::cp_async_wait<0>();
+    }
+    __syncthreads();
+    __nv_bfloat16* Ks = Kb + (t & 1) * TILE;
+    if (k_scale != 1.f) {
+      scale_tile<HD>(Ks, t1 - t0, k_scale, tid);
+      __syncthreads();
+    }
+    for (int n0 = t0; n0 < t1; n0 += 16) {
+      float s[2][4];
+      next_bias_mask<BM>(b, m, bn, mn, b_lo, b_hi, mrow, n0, t2, N);
+      vss::mma_xt<HD>(s, qa, Ks, n0 - t0, lane);
+      vss::add_bias_mask<BM>(s, b, m, n0, t2, N);
+      vss::softmax_step(mx, sm, s);
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  vss::softmax_rows(mx, sm);
+  const float inv[2] = {vss::recip(sm[0]), vss::recip(sm[1])};
+
+  // ---- pass 2: the K and V tiles; out += bf16(exp(s - max) / sum) V ---------
+  float o[HD / 8][4];
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  if constexpr (BM) {
+    vss::load_bias(bn, b_lo, b_hi, 0, t2, N);
+    vss::load_mask(mn, mrow, 0, t2, N);
+  }
+  stage_tile<HD>(Kb, kg, 0, N, C, tid);
+  stage_tile<HD>(Vb, vg, 0, N, C, tid);
+  vss::cp_async_commit();
+  for (int t = 0; t < nt; ++t) {
+    const int t0 = t * kTileKeys, t1 = min(t0 + kTileKeys, Np);
+    if (t + 1 < nt) {
+      stage_tile<HD>(Kb + ((t + 1) & 1) * TILE, kg, t0 + kTileKeys, N, C, tid);
+      stage_tile<HD>(Vb + ((t + 1) & 1) * TILE, vg, t0 + kTileKeys, N, C, tid);
+      vss::cp_async_commit();
+      vss::cp_async_wait<1>();
+    } else {
+      vss::cp_async_wait<0>();
+    }
+    __syncthreads();
+    __nv_bfloat16* Ks = Kb + (t & 1) * TILE;
+    const __nv_bfloat16* Vs = Vb + (t & 1) * TILE;
+    if (k_scale != 1.f) {
+      scale_tile<HD>(Ks, t1 - t0, k_scale, tid);
+      __syncthreads();
+    }
+    for (int n0 = t0; n0 < t1; n0 += 16) {
+      float s[2][4];
+      next_bias_mask<BM>(b, m, bn, mn, b_lo, b_hi, mrow, n0, t2, N);
+      vss::mma_xt<HD>(s, qa, Ks, n0 - t0, lane);
+      vss::add_bias_mask<BM>(s, b, m, n0, t2, N);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = vss::div_rn(expf(s[j][e] - mx[e >> 1]), sm[e >> 1], inv[e >> 1]);
+      const uint32_t a[4] = {vss::pack_bf16(s[0][0], s[0][1]), vss::pack_bf16(s[0][2], s[0][3]),
+                             vss::pack_bf16(s[1][0], s[1][1]), vss::pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+      for (int d = 0; d < HD; d += 16) {
+        uint32_t bv[4];
+        vss::load_b<HD>(bv, Vs, n0 - t0, d, lane);
+        vss::mma16816(o[d / 8], a, bv[0], bv[1]);
+        vss::mma16816(o[d / 8 + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  __nv_bfloat16* og = out + g * Lq * C + h * HD;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    if (r_lo < Lq)
+      *reinterpret_cast<uint32_t*>(og + (long long)r_lo * C + d * 8 + t2) =
+          vss::pack_bf16(o[d][0], o[d][1]);
+    if (r_hi < Lq)
+      *reinterpret_cast<uint32_t*>(og + (long long)r_hi * C + d * 8 + t2) =
+          vss::pack_bf16(o[d][2], o[d][3]);
+  }
+}
+
+template <int HD, bool BM>
+int launch_tiled(const void* q, const void* k, const void* v, const void* bias,
+                 const void* mask, void* out, int G, int Lq, int N, int nh, int C,
+                 float q_scale, float k_scale, cudaStream_t s) {
+  const size_t bytes = tiled_smem_bytes(HD);
+  cudaError_t e = cudaFuncSetAttribute(attention_fwd_tiled_kernel<HD, BM>,
+                                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Lq + kRows - 1) / kRows, nh, G);
+  attention_fwd_tiled_kernel<HD, BM><<<grid, 32 * kWarps, bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(out), Lq, N, C, q_scale,
+      k_scale);
+  return (int)cudaGetLastError();
+}
+
 // the kernel's shared memory, and the largest carveout of the SM for it, so
 // that as many blocks as the occupancy calculator counts share an SM
 template <int HD, bool BM>
@@ -324,6 +527,30 @@ VSS_EXPORT int attention_fwd(const void* q, const void* k, const void* v, const 
 #undef VSS_FWD
   return (int)cudaErrorInvalidValue;
 }
+
+// The key-tiled instance: the arguments of attention_fwd without the
+// probabilities; any N >= 1, K and V streamed through shared memory in 64-key
+// tiles. Returns a cudaError_t.
+VSS_EXPORT int attention_fwd_tiled(const void* q, const void* k, const void* v,
+                                   const void* bias, const void* mask, void* out, int G, int Lq,
+                                   int N, int nh, int hd, int C, float q_scale, float k_scale,
+                                   int device, void* stream) {
+  vss::use_device(device);
+  if (G == 0 || Lq == 0) return 0;
+  if (N < 1 || (bias == nullptr) != (mask == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define VSS_FWD(HD, BM) \
+  return launch_tiled<HD, BM>(q, k, v, bias, mask, out, G, Lq, N, nh, C, q_scale, k_scale, s)
+  if (hd == 32 && bias) VSS_FWD(32, true);
+  if (hd == 32) VSS_FWD(32, false);
+  if (hd == 64 && bias) VSS_FWD(64, true);
+  if (hd == 64) VSS_FWD(64, false);
+#undef VSS_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one block of the key-tiled instance at head dim hd.
+VSS_EXPORT int attention_fwd_tiled_smem_bytes(int hd) { return (int)tiled_smem_bytes(hd); }
 
 // Dynamic shared memory of one block at N keys and head dim hd, writing
 // probabilities or not: the wrapper's gate against the card's limit.

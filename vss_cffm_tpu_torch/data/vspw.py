@@ -1,0 +1,190 @@
+"""VSPW video dataset, test side: directory scan, clip samplers, items.
+
+The port's copy of the test half of ``vss_cffm_tpu/data/vspw.py``
+(reference ``mmseg/datasets/custom.py:1959-2713``, ``vspw.py:151-294``).
+Tree layout::
+
+    data_root/
+      train.txt / val.txt / test.txt       (one video name per line)
+      data/<video>/origin/*.jpg            (frames)
+      data/<video>/mask/*.png              (palette PNG annotations)
+
+- **test** clips (``prepare_test_img2:2355-2445``): one clip per frame, the
+  dilations that fall outside the video dropped, and the schedules of
+  target frames 3 to 8 for ``dilation == [-9, -6, -3]`` (``:2376-2388``);
+- **prototype** clips (``prepare_train_val:2458-2522``): 10 evenly spaced
+  frames per video over the train, val and test lists;
+- labels are palette PNGs read as they are; ``reduce_zero_label`` maps 0 to
+  255 (ignore) and k to k − 1 (``loading.py:205-214``).
+
+Frames are decoded to uint8 BGR at their original size: the evaluator
+resizes (AlignedResize to /32) and normalises them on the device through
+``data/transforms.py``, so an item carries the ``img_scale`` of each of its
+views. PIL decodes, imported inside the reading functions (it is not needed
+to import the package). The train side (``sample_train_clip``,
+``get_train_item`` and its transforms) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Sequence
+
+import numpy as np
+
+__all__ = ["VSPWVideoDataset", "ClipSample", "load_label", "reduce_zero_label"]
+
+# reduce_zero_label as a 256-entry table: 0 → 255, k → k − 1, 255 stays 255
+_LUT_REDUCE = np.where(np.arange(256) == 0, 255, np.arange(256) - 1)
+_LUT_REDUCE = np.where(_LUT_REDUCE == 254, 255, _LUT_REDUCE).astype(np.uint8)
+
+
+def reduce_zero_label(seg: np.ndarray) -> np.ndarray:
+    """0 → 255 (ignore), k → k − 1 (reference ``loading.py:205-214``)."""
+    return _LUT_REDUCE[np.asarray(seg, np.uint8)]
+
+
+def load_label(path: str, reduce_zero: bool = True) -> np.ndarray:
+    """(H, W) uint8 label of a palette PNG (its indices, not its colours)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        seg = np.array(im)
+    return reduce_zero_label(seg) if reduce_zero else seg
+
+
+def load_image(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 BGR, as cv2.imread gives it."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        rgb = np.asarray(im.convert("RGB"))
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+@dataclasses.dataclass
+class ClipSample:
+    video: str
+    frame_indices: list[int]
+    target_frame: str  # filename of the target (last) frame
+
+
+class VSPWVideoDataset:
+    """Scans the VSPW tree and yields test and prototype clips."""
+
+    def __init__(
+        self,
+        data_root: str,
+        split: str = "val",
+        dilation: Sequence[int] = (-9, -6, -3),
+        img_scale: tuple[int, int] = (853, 480),
+        reduce_zero: bool = True,
+        img_suffix: str = ".jpg",
+        seg_suffix: str = ".png",
+    ):
+        self.data_root = data_root
+        self.split = split
+        self.dilation = list(dilation)
+        self.img_scale = tuple(img_scale)
+        self.reduce_zero = reduce_zero
+        self.img_suffix = img_suffix
+        self.seg_suffix = seg_suffix
+        parts = ("train", "val", "test") if split == "train_val_generate_prototype" else (split,)
+        names = []
+        for part in parts:
+            with open(os.path.join(data_root, part + ".txt")) as f:
+                names += [ln.rstrip("\n") for ln in f if ln.strip()]
+        self.videos = names
+        self.frames = {
+            v: sorted(os.listdir(os.path.join(data_root, "data", v, "origin")))
+            for v in names
+        }
+        self.frame_index = [(v, f) for v in names for f in self.frames[v]]
+
+    def __len__(self) -> int:
+        if self.split in ("train", "train_val_generate_prototype"):
+            return len(self.videos)
+        return len(self.frame_index)
+
+    # ------------------------------------------------------------- samplers
+    def sample_test_clip(self, idx: int) -> ClipSample:
+        video, frame = self.frame_index[idx]
+        frames = self.frames[video]
+        t = frames.index(frame)
+        indices = [t + d for d in self.dilation if 0 <= t + d < len(frames)]
+        indices.append(t)
+        if self.dilation == [-9, -6, -3]:
+            special = {
+                3: [0, 1, 2, 3], 4: [0, 2, 3, 4], 5: [0, 2, 4, 5],
+                6: [0, 2, 4, 6], 7: [0, 3, 5, 7], 8: [0, 3, 6, 8],
+            }
+            if t in special:
+                indices = special[t]
+        return ClipSample(video, indices, frame)
+
+    def sample_prototype_clip(self, idx: int, num_frames: int = 10) -> ClipSample:
+        video = self.videos[idx]
+        frames = self.frames[video]
+        interval = len(frames) // num_frames
+        indices = [int((i + 0.5) * interval) for i in range(num_frames)]
+        return ClipSample(video, indices, frames[indices[-1]])
+
+    # ------------------------------------------------------------------- IO
+    def _img_path(self, video: str, frame: str) -> str:
+        return os.path.join(self.data_root, "data", video, "origin", frame)
+
+    def _seg_path(self, video: str, frame: str) -> str:
+        return os.path.join(
+            self.data_root, "data", video, "mask",
+            frame.replace(self.img_suffix, self.seg_suffix),
+        )
+
+    def read_frame(self, video: str, frame: str) -> np.ndarray:
+        """One frame, (H, W, 3) uint8 BGR at its original size."""
+        return load_image(self._img_path(video, frame))
+
+    def _clip(self, sample: ClipSample) -> np.ndarray:
+        frames = self.frames[sample.video]
+        return np.stack([self.read_frame(sample.video, frames[i])
+                         for i in sample.frame_indices])
+
+    # ------------------------------------------------------------- assembly
+    def get_test_item(self, idx: int) -> dict:
+        """The test clip of frame ``idx``: imgs (T, H, W, 3) uint8 BGR at the
+        original size, the ``img_scale`` the evaluator resizes them to, and
+        the target frame's meta."""
+        sample = self.sample_test_clip(idx)
+        imgs = self._clip(sample)
+        return {
+            "imgs": imgs,
+            "img_scale": self.img_scale,
+            "ori_shape": tuple(imgs.shape[1:3]),
+            "video": sample.video,
+            "frame": sample.target_frame,
+            "index": idx,
+        }
+
+    def get_test_item_tta(
+        self,
+        idx: int,
+        ratios: Sequence[float] = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75),
+        flip: bool = True,
+    ) -> dict:
+        """Multi-scale (+ flip) views of the test clip of frame ``idx``
+        (``MultiScaleFlipAug``, ``tools/test.py --aug-test``): one img_scale a
+        ratio, each also flipped; the frames are decoded once and the
+        evaluator resizes them for each view."""
+        item = self.get_test_item(idx)
+        scales, flips = [], []
+        for r in ratios:
+            scale = (int(self.img_scale[0] * r), int(self.img_scale[1] * r))
+            scales += [scale, scale] if flip else [scale]
+            flips += [False, True] if flip else [False]
+        del item["img_scale"]
+        return {**item, "scales": scales, "flips": flips}
+
+    def load_gt(self, idx: int) -> np.ndarray:
+        """Ground-truth mask of the target frame of test item ``idx``."""
+        video, frame = self.frame_index[idx]
+        return load_label(self._seg_path(video, frame), self.reduce_zero)

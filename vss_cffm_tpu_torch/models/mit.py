@@ -11,8 +11,10 @@ statistics and softmax, like the JAX modules' ``dtype`` plan.
 
 Per stage, ``MiTConfig.block_impl`` picks the block form at inference:
 "fused" runs LN1 and the spatial-reduced K/V here and the rest of the block
-through ``ops.mit_block_fused``; None runs the composed block, whose
-depthwise conv goes through ``ops.dwconv3x3``, or with
+through ``ops.mit_block_fused`` where the attention has at most
+``FUSED_MAX_KV`` (2048) keys, and composed above, as the JAX block does;
+None runs the composed block, whose depthwise conv goes through
+``ops.dwconv3x3``, or with
 ``MiTConfig.dwconv_impl="fused"`` its FFN half ``x + FFN(LN2 x)`` through
 ``ops.block_ffn_fused`` (the JAX order: the whole-block kernel first, then
 the training forms, then the fused FFN). ``MixFFN`` in eval mode with
@@ -47,6 +49,10 @@ from ..config import TRAIN_BLOCK_IMPLS, MiTConfig
 from ..ops import (block_ffn_fused, block_ffn_train, block_ffn_train_fits, dwconv3x3,
                    mit_block_fused, mit_block_train, mit_block_train_fits, mixffn_fused)
 from ..ops.cfm_attention import scale_in
+
+# the most keys of the spatial-reduced attention that the inference block
+# form takes; above, the block runs composed, as the JAX block does
+FUSED_MAX_KV = 2048
 
 __all__ = ["MiT", "MiTBlock", "OverlapPatchEmbed", "SRAttention", "MixFFN", "dense_t",
            "linear", "layer_norm", "conv2d_nhwc", "derived", "drop_path", "keep_mask",
@@ -288,17 +294,21 @@ class MiTBlock(nn.Module):
         return (self.norm2.weight, self.norm2.bias, m.fc1.weight.t(), m.fc1.bias,
                 m.dwconv.kernel(), m.dwconv.dwconv.bias, m.fc2.weight.t(), m.fc2.bias)
 
+    def n_kv(self, x: torch.Tensor) -> int:
+        """Keys of the spatial-reduced attention for input x (B, H, W, C)."""
+        _, h, w, _ = x.shape
+        sr = self.attn.sr_ratio
+        return (h // sr) * (w // sr) if sr > 1 else h * w
+
     def _pair_fits(self, x: torch.Tensor) -> bool:
         _, h, w, c = x.shape
-        sr = self.attn.sr_ratio
-        n_kv = (h // sr) * (w // sr) if sr > 1 else h * w
         return mit_block_train_fits(h, w, c, self.mlp.fc1.out_features, self.attn.num_heads,
-                                    n_kv)
+                                    self.n_kv(x))
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         dt = self.compute_dtype
-        if self.fused and not self.training:
+        if self.fused and not self.training and self.n_kv(x) <= FUSED_MAX_KV:
             args, kw = self.fused_args(x)
             return mit_block_fused(*args, **kw, force=self.force)
         rate = self.drop_path_rate if train else 0.0

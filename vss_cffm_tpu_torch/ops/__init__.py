@@ -7,7 +7,7 @@ from .ce_upsampled import (ce_bwd_loss_v2, ce_bwd_loss_v3, ce_fwd_loss_v3, ce_fw
                            ce_upsampled_nll, ce_upsampled_nll_bwd, ce_upsampled_nll_bwd_torch,
                            ce_upsampled_nll_torch, labels_to_phase, labels_to_phase_w,
                            phase_labels_u8, phase_to_natural)
-from .cfm_attention import (cfm_attention, cfm_attention_bwd, cfm_attention_bwd_probs,
+from .cfm_attention import (attention_fwd_tiled, cfm_attention, cfm_attention_bwd, cfm_attention_bwd_probs,
                             cfm_attention_bwd_probs_torch, cfm_attention_bwd_torch,
                             cfm_attention_probs, cfm_attention_probs_torch, cfm_attention_torch)
 from .dwconv import dwconv3x3, dwconv3x3_bwd_torch, dwconv3x3_torch
@@ -22,7 +22,7 @@ from .stage_block import (mit_block_fused, mit_block_step_errors, mit_block_torc
 __all__ = [
     "cfm_attention", "cfm_attention_torch", "cfm_attention_bwd", "cfm_attention_bwd_torch",
     "cfm_attention_probs", "cfm_attention_probs_torch", "cfm_attention_bwd_probs",
-    "cfm_attention_bwd_probs_torch",
+    "cfm_attention_bwd_probs_torch", "attention_fwd_tiled",
     "dwconv3x3", "dwconv3x3_torch", "dwconv3x3_bwd_torch",
     "ce_upsampled_loss", "ce_upsampled_loss_torch", "ce_upsampled_loss_bwd",
     "ce_upsampled_loss_bwd_torch", "ce_upsampled_nll", "ce_upsampled_nll_torch",
@@ -41,6 +41,7 @@ __all__ = [
 
 # the ops whose wrappers launch a CUDA kernel of this package
 KERNEL_OPS = {"mit_block_fused": mit_block_fused, "cfm_attention": cfm_attention,
+              "attention_fwd_tiled": attention_fwd_tiled,
               "dwconv3x3": dwconv3x3, "cfm_attention_bwd": cfm_attention_bwd,
               "cfm_attention_bwd_probs": cfm_attention_bwd_probs,
               "ce_upsampled_loss": ce_upsampled_loss,

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "attention": {
         "attention_fwd": "pppppppiiiiiiiffip",
         "attention_fwd_smem_bytes": "iii",
+        "attention_fwd_tiled": "ppppppiiiiiiffip",
+        "attention_fwd_tiled_smem_bytes": "i",
         "attention_fwd_blocks_per_sm": "iiiii",
         "attention_div_check": "ppppiip",
     },

@@ -49,6 +49,13 @@ on, as in the recompute backward.
 
 ``attention_launch`` launches the forward kernel without counting; the
 whole-block path (``ops/stage_block.py``) uses it for its attention step.
+It chooses between the kernel's two instances by N: the resident one (K and
+V of a (group, head) in shared memory) wherever they fit, the key-tiled one
+(``attention_fwd_tiled``: K and V streamed through shared memory in 64-key
+tiles, the same steps in the same order, so the same bits) beyond, which
+multi-scale test-time augmentation reaches in the MiT stages (920 and 1269
+keys at head dim 64, where the resident one stops at 896). The key-tiled
+instance writes no probabilities, and counts its own launches.
 The wrappers' gates ask the libraries for a block's shared memory
 (``attention_fwd_smem_bytes``, ``attention_bwd_smem_bytes``), and
 ``blocks_per_sm`` gives the blocks one SM holds (the backward's window
@@ -68,7 +75,7 @@ from ._dispatch import SMEM_LIMIT, ptr, require, stream_of, use_kernel
 __all__ = ["cfm_attention", "cfm_attention_torch", "cfm_attention_bwd",
            "cfm_attention_bwd_torch", "cfm_attention_probs", "cfm_attention_probs_torch",
            "cfm_attention_bwd_probs", "cfm_attention_bwd_probs_torch", "attention_launch",
-           "blocks_per_sm", "scale_in"]
+           "attention_fwd_tiled", "attention_torch", "blocks_per_sm", "scale_in"]
 
 # the backward of cfm_attention: "recompute" (the softmax recomputed from q
 # and K) or "kernel" (the forward saves p, the backward reads it)
@@ -149,13 +156,16 @@ def blocks_per_sm(kind: str, n: int, hd: int, device: int, mode: int = 0) -> int
 def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor | None, mask: torch.Tensor | None, nh: int,
                      q_scale: float, k_scale: float, op: str,
-                     probs: torch.Tensor | None = None) -> torch.Tensor:
+                     probs: torch.Tensor | None = None,
+                     tiled: bool | None = None) -> torch.Tensor:
     """Launch the attention kernel: q (G, Lq, C), k/v (G, N, C) bf16 → bf16.
 
     bias (nh, Lq, N) and mask (G, N) are f32 or None; q_scale / k_scale
     multiply q / K, rounding to bf16, before the scores. ``probs``, when
-    given, (G, nh, Lq, N) f32 or bf16, receives the normalised softmax. No
-    count."""
+    given, (G, nh, Lq, N) f32 or bf16, receives the normalised softmax.
+    ``tiled``: None picks the resident instance where K and V fit one
+    block's shared memory and the key-tiled one beyond; True / False ask for
+    one. No count, but the key-tiled instance's own (``attention_fwd_tiled``)."""
     require(q.is_cuda, op, "a CPU tensor")
     for name, t in (("q", q), ("k", k), ("v", v)):
         require(t.dtype == torch.bfloat16, op, lambda: f"{name} of dtype {t.dtype} (bf16 only)")
@@ -183,7 +193,14 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(g <= 65535 and nh <= 65535, op,
             lambda: f"{g} groups of {nh} heads (at most 65535 each)")
     lib = _build.library("attention")
-    require(lib.attention_fwd_smem_bytes(n, hd, int(probs is not None)) <= SMEM_LIMIT, op,
+    resident = lib.attention_fwd_smem_bytes(n, hd, int(probs is not None)) <= SMEM_LIMIT
+    if tiled is None:
+        tiled = not resident and probs is None
+    if tiled:
+        require(probs is None, op, "probabilities from the key-tiled instance (the resident "
+                                   "instance alone writes them)")
+        return attention_fwd_tiled(q, k, v, bias, mask, nh, q_scale, k_scale, op)
+    require(resident, op,
             lambda: f"{n} keys at head dim {hd}: K and V exceed {SMEM_LIMIT} bytes of "
                     "shared memory")
     out = torch.empty_like(q)
@@ -194,6 +211,42 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            nh, hd, c, q_scale, k_scale, dev, stream)
     _build.check(rc, op)
     return out
+
+
+def attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor | None, mask: torch.Tensor | None, nh: int,
+                    q_scale: float, k_scale: float) -> torch.Tensor:
+    """The plain version of ``attention_launch`` (either instance): q·q_scale
+    and K·k_scale rounded to their dtype, f32 scores (+ bias, + mask), f32
+    softmax, p rounded to q's dtype, f32 P·V, one cast."""
+    dt = q.dtype
+    qh = _heads(q * q_scale if q_scale != 1.0 else q, nh).float()
+    kh = _heads(k * k_scale if k_scale != 1.0 else k, nh).float()
+    s = qh @ kh.transpose(-1, -2)
+    if bias is not None:
+        s = s + bias.float()[None]
+        s = s + mask.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    return _merge((p.to(dt).float() @ _heads(v, nh).float()).to(dt))
+
+
+def attention_fwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor | None, mask: torch.Tensor | None, nh: int,
+                        q_scale: float, k_scale: float, op: str) -> torch.Tensor:
+    """The key-tiled instance on inputs ``attention_launch`` has checked;
+    counted here (``attention_fwd_tiled.launches``)."""
+    out = torch.empty_like(q)
+    g, lq, c = q.shape
+    dev, stream = stream_of(q)
+    rc = _build.library("attention").attention_fwd_tiled(
+        ptr(q, op), ptr(k, op), ptr(v, op), ptr(bias, op), ptr(mask, op), ptr(out, op), g, lq,
+        k.shape[1], nh, c // nh, c, q_scale, k_scale, dev, stream)
+    _build.check(rc, op)
+    attention_fwd_tiled.launches += 1
+    return out
+
+
+attention_fwd_tiled.launches = 0
 
 
 def _heads(t: torch.Tensor, nh: int) -> torch.Tensor:

@@ -25,7 +25,19 @@ import torch
 
 from ..config import SegmentorConfig
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "load_torch_state_dict"]
+
+
+def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A reference PyTorch checkpoint (``.pth`` / ``.pt``) as a flat
+    ``state_dict`` on the CPU: the ``state_dict`` entry of an mmcv checkpoint
+    (``{"state_dict": ..., "meta": ...}``) or the file's dict itself, with the
+    ``module.`` prefix of a DataParallel / DDP save taken off (the port's copy
+    of ``vss_cffm_tpu/utils/torch_convert.py:load_torch_state_dict``, which
+    returns numpy arrays instead)."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
+    return {k.removeprefix("module."): torch.as_tensor(v) for k, v in sd.items()}
 
 
 def _t(a: Any) -> torch.Tensor:
