@@ -1838,6 +1838,12 @@ def attention_resources(build) -> None:
                   f"{fwd.attention_fwd_smem_bytes(n, hd, int(probs))} B dynamic smem, "
                   f"{cfm.blocks_per_sm('fwd', n, hd, 0, with_bias + 2 * probs)} blocks per SM",
                   flush=True)
+    for hd in (64, 32):  # the key-tiled instance (TTA's keys: stages 2, 3 at heads of 64)
+        for with_bias in (0, 1):
+            print(f"[occupancy] attention_fwd_tiled hd={hd}{' with bias and mask' if with_bias else ''}"
+                  f": {fwd.attention_fwd_tiled_smem_bytes(hd)} B dynamic smem, "
+                  f"{fwd.attention_fwd_tiled_blocks_per_sm(hd, with_bias, 0)} blocks per SM "
+                  f"of {cfm.TILED_ROWS} query rows", flush=True)
     for n, hd, _, _ in ATTENTION_SHAPES:
         for mode, label in ((0, "recompute"), (1, "f32 p"), (2, "bf16 p")):
             print(f"[occupancy] attention_bwd N={n} hd={hd} {label}: "

@@ -1342,3 +1342,115 @@ def test_attention_picks_its_instance_by_keys(dev):
     probs = torch.empty((1, 1, 49, 1269), device=dev)
     with pytest.raises(ValueError, match="exceed"):
         attention_launch(q, k, v, bias, mask, 1, 0.125, 1.0, "test", probs=probs)
+
+
+# ---- the key-tiled instance's edges (TMA ring, wgmma, K scaled once) --------
+
+
+@pytest.mark.parametrize("n", [16, 17, 64, 65, 2048])
+@pytest.mark.parametrize("lq", [1, 63, 129, 5076])
+def test_attention_tiled_ragged(dev, lq, n):
+    """Ragged query tiles (one row, a half warpgroup, one row past a 128-row
+    block, stage 3's 5076 rows at 1.75x) and key counts at the edges of the
+    16-key groups and the 64-key tiles (TMA zero-fills the last tile's rows
+    past N), up to the fused block's 2048: 2^-6 of the largest output."""
+    from vss_cffm_tpu_torch.ops.cfm_attention import attention_launch, attention_torch
+
+    rng = np.random.RandomState(40)
+    q, k, v, _, _ = _attention_inputs(rng, 2, lq, n, 2, 64, False, dev)
+    qs, ks = _attention_scales(64, False)
+    got = attention_launch(q, k, v, None, None, 2, qs, ks, "test", tiled=True)
+    _close(got, attention_torch(q, k, v, None, None, 2, qs, ks), 2.0 ** -6)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_attention_tiled_smem_is_the_plan(dev, hd):
+    """The library's shared memory of a key-tiled block is the Python
+    mirror's (``tiled_plan``: two rings of 64-key tiles, two mbarriers a
+    stage, the alignment), and a block of either instance fits an SM."""
+    from vss_cffm_tpu_torch.ops import _build
+    from vss_cffm_tpu_torch.ops.cfm_attention import tiled_plan
+
+    lib = _build.library("attention")
+    assert lib.attention_fwd_tiled_smem_bytes(hd) == tiled_plan(1269, hd)["smem_bytes"]
+    for bm in (0, 1):
+        assert lib.attention_fwd_tiled_blocks_per_sm(hd, bm, 0) >= 1
+
+
+def test_attention_tiled_is_deterministic(dev):
+    """Two launches at stage 3's TTA shape give the same bits."""
+    from vss_cffm_tpu_torch.ops.cfm_attention import attention_launch
+
+    rng = np.random.RandomState(41)
+    q, k, v, _, _ = _attention_inputs(rng, 2, 5076, 1269, 5, 64, False, dev)
+    qs, ks = _attention_scales(64, False)
+    a = attention_launch(q, k, v, None, None, 5, qs, ks, "test", tiled=True)
+    b = attention_launch(q, k, v, None, None, 5, qs, ks, "test", tiled=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("where", ["q_scale", "k_scale"])
+def test_attention_tiled_scale_placements(dev, where):
+    """The scale on q (rounded in the kernel's q fragments) or on K (rounded
+    once by the wrapper, then launched with k_scale 1): against the plain
+    version, and K scaled by the wrapper equal bit for bit to K scaled
+    before the call."""
+    from vss_cffm_tpu_torch.ops.cfm_attention import attention_launch, attention_torch, scale_in
+
+    rng = np.random.RandomState(42)
+    q, k, v, _, _ = _attention_inputs(rng, 2, 300, 920, 2, 32, False, dev)
+    s = scale_in(torch.bfloat16, 32 ** -0.5)
+    qs, ks = (s, 1.0) if where == "q_scale" else (1.0, s)
+    got = attention_launch(q, k, v, None, None, 2, qs, ks, "test", tiled=True)
+    _close(got, attention_torch(q, k, v, None, None, 2, qs, ks), 2.0 ** -6)
+    pre = attention_launch(q, k * ks if ks != 1.0 else k, v, None, None, 2, qs, 1.0, "test",
+                           tiled=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pre)
+
+
+def test_attention_tiled_counts_its_launches(dev):
+    """One count a call, on its own counter alone, with K scaled by the
+    wrapper or not."""
+    from vss_cffm_tpu_torch.ops.cfm_attention import attention_launch
+
+    rng = np.random.RandomState(43)
+    q, k, v, _, _ = _attention_inputs(rng, 1, 64, 920, 1, 64, False, dev)
+    before = ops.launches()
+    attention_launch(q, k, v, None, None, 1, 1.0, 0.125, "test", tiled=True)
+    attention_launch(q, k, v, None, None, 1, 1.0, 1.0, "test", tiled=True)
+    after = ops.launches()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {
+        "attention_fwd_tiled": 2}
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_wgmma_products_against_mma_sync(dev, hd):
+    """The diagnostic of one tile: S = q Kᵀ (64 rows x 64 keys, four 16-key
+    steps) and O = p V (64 x hd) through wgmma, as the key-tiled instance
+    computes them, and through mma.sync m16n8k16, as the resident one does,
+    from the same bf16 inputs. Prints the share of bitwise-equal f32 elements
+    and the largest difference in f32 ulps; the two key-tiled / resident
+    bitwise checks rest on them being equal."""
+    from vss_cffm_tpu_torch.ops import _build
+    from vss_cffm_tpu_torch.ops._dispatch import ptr, stream_of
+
+    rng = np.random.RandomState(44)
+    q, k, v = (_rand(rng, 64, hd, dev=dev), _rand(rng, 64, hd, dev=dev),
+               _rand(rng, 64, hd, dev=dev))
+    p = torch.softmax(_rand(rng, 64, 64, scale=3.0, dtype=torch.float32, dev=dev), -1).to(
+        torch.bfloat16)
+    outs = [torch.empty(64, w, device=dev) for w in (64, 64, hd, hd)]
+    devi, stream = stream_of(q)
+    _build.check(_build.library("attention").attention_mma_check(
+        *(ptr(t, "test") for t in (q, k, p, v, *outs)), hd, devi, stream), "attention_mma_check")
+    torch.cuda.synchronize()
+    report = []
+    for what, a, b in (("S", outs[0], outs[1]), ("O", outs[2], outs[3])):
+        ai, bi = a.view(torch.int32).long(), b.view(torch.int32).long()
+        report.append((what, (ai == bi).float().mean().item(), (ai - bi).abs().max().item()))
+    print(f"[wgmma vs mma.sync] hd={hd}: " + "; ".join(
+        f"{w} {eq:.6f} of the elements bitwise equal, at most {ulp} f32 ulps apart"
+        for w, eq, ulp in report))
+    assert all(eq == 1.0 for _, eq, _ in report), report

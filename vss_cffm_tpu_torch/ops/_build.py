@@ -50,6 +50,8 @@ _SIGNATURES = {
         "attention_fwd_smem_bytes": "iii",
         "attention_fwd_tiled": "ppppppiiiiiiffip",
         "attention_fwd_tiled_smem_bytes": "i",
+        "attention_fwd_tiled_blocks_per_sm": "iii",
+        "attention_mma_check": "ppppppppiip",
         "attention_fwd_blocks_per_sm": "iiiii",
         "attention_div_check": "ppppiip",
     },

@@ -51,11 +51,19 @@ on, as in the recompute backward.
 whole-block path (``ops/stage_block.py``) uses it for its attention step.
 It chooses between the kernel's two instances by N: the resident one (K and
 V of a (group, head) in shared memory) wherever they fit, the key-tiled one
-(``attention_fwd_tiled``: K and V streamed through shared memory in 64-key
-tiles, the same steps in the same order, so the same bits) beyond, which
-multi-scale test-time augmentation reaches in the MiT stages (920 and 1269
-keys at head dim 64, where the resident one stops at 896). The key-tiled
-instance writes no probabilities, and counts its own launches.
+(``attention_fwd_tiled``) beyond, which multi-scale test-time augmentation
+reaches in the MiT stages (920 and 1269 keys at head dim 64, where the
+resident one stops at 896). The key-tiled instance writes no probabilities,
+and counts its own launches. It replaces row 1's attention step at those
+keys (``vss_cffm_tpu/ops/stage_block.py``, ``_kernel`` of
+``mit_block_fused``) and is bound by the special-function units and the
+tensor cores of two passes over the keys (the reference normalises p before
+rounding it, so the statistics come first): its wrapper scales K once (a
+bf16 elementwise pass, as the JAX block scales K outside its kernel), and
+the kernel streams 64-key K and V tiles by TMA through a ring of
+``TILED_STAGES`` stages with mbarriers into blocks of 128 query rows (two
+warpgroups, ``wgmma`` for q·Kᵀ and P·V), in the resident instance's order of
+arithmetic. ``tiled_plan`` mirrors its ring and shared memory.
 The wrappers' gates ask the libraries for a block's shared memory
 (``attention_fwd_smem_bytes``, ``attention_bwd_smem_bytes``), and
 ``blocks_per_sm`` gives the blocks one SM holds (the backward's window
@@ -75,7 +83,7 @@ from ._dispatch import SMEM_LIMIT, ptr, require, stream_of, use_kernel
 __all__ = ["cfm_attention", "cfm_attention_torch", "cfm_attention_bwd",
            "cfm_attention_bwd_torch", "cfm_attention_probs", "cfm_attention_probs_torch",
            "cfm_attention_bwd_probs", "cfm_attention_bwd_probs_torch", "attention_launch",
-           "attention_fwd_tiled", "attention_torch", "blocks_per_sm", "scale_in"]
+           "attention_fwd_tiled", "attention_torch", "blocks_per_sm", "scale_in", "tiled_plan"]
 
 # the backward of cfm_attention: "recompute" (the softmax recomputed from q
 # and K) or "kernel" (the forward saves p, the backward reads it)
@@ -234,19 +242,46 @@ def attention_fwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: torch.Tensor | None, mask: torch.Tensor | None, nh: int,
                         q_scale: float, k_scale: float, op: str) -> torch.Tensor:
     """The key-tiled instance on inputs ``attention_launch`` has checked;
-    counted here (``attention_fwd_tiled.launches``)."""
-    out = torch.empty_like(q)
+    counted here (``attention_fwd_tiled.launches``). K·k_scale is rounded to
+    bf16 here, once (the bits the kernel's own scaling gave), and the kernel
+    takes K as it comes."""
     g, lq, c = q.shape
+    require(c * 2 % 16 == 0, op, lambda: f"C={c}: TMA needs rows of a multiple of 16 bytes")
+    if k_scale != 1.0:
+        k = k * k_scale
+    out = torch.empty_like(q)
     dev, stream = stream_of(q)
     rc = _build.library("attention").attention_fwd_tiled(
         ptr(q, op), ptr(k, op), ptr(v, op), ptr(bias, op), ptr(mask, op), ptr(out, op), g, lq,
-        k.shape[1], nh, c // nh, c, q_scale, k_scale, dev, stream)
+        k.shape[1], nh, c // nh, c, q_scale, 1.0, dev, stream)
     _build.check(rc, op)
     attention_fwd_tiled.launches += 1
     return out
 
 
 attention_fwd_tiled.launches = 0
+
+# the key-tiled instance's constants (csrc/attention.cu)
+TILED_WGS = 2         # consumer warpgroups of a block, 64 query rows each
+TILED_ROWS = 64 * TILED_WGS
+TILED_KEYS = 64       # keys of a K or V tile
+TILED_STAGES = 4      # stages of the ring
+
+
+def tiled_plan(n: int, hd: int) -> dict:
+    """The key-tiled instance's ring at N keys and head dim hd, as the kernel
+    lays it out: ``tiles`` of 64 keys (the last zero-filled past N by TMA),
+    ``entries`` (pass, tile, stage, round) in the order the producer loads
+    them (pass 1: K; pass 2: K and V; round = the stage's use, its barriers'
+    parity), ``tile_bytes``, ``swizzle`` (bytes: the rows' width), and
+    ``smem_bytes``: the K and V rings, a full and an empty mbarrier a stage
+    and 1024 bytes to align the base (``attention_fwd_tiled_smem_bytes``)."""
+    tiles = -(-n // TILED_KEYS)
+    entries = [(1 + i // tiles, i % tiles, i % TILED_STAGES, i // TILED_STAGES)
+               for i in range(2 * tiles)]
+    tile_bytes = TILED_KEYS * hd * 2
+    return dict(tiles=tiles, entries=entries, tile_bytes=tile_bytes, swizzle=hd * 2,
+                smem_bytes=2 * TILED_STAGES * tile_bytes + 2 * TILED_STAGES * 8 + 1024)
 
 
 def _heads(t: torch.Tensor, nh: int) -> torch.Tensor:

@@ -11,11 +11,23 @@ branches are O(1). One line per case: the wrapper's ms per call (CUDA
 events over ``--iters`` calls), the kernels' device µs per call
 (torch.profiler, the larger of two windows) and a digest of the output, so
 that two trees that launch the same kernels on the same inputs print the
-same digest. The key-tiled lines (``attention_launch(..., tiled=True)``)
-appear only where the tree has that instance. The tool uses only what every
-tree of the port since its first slice has, so the same file times an older
-checkout: ``PYTHONPATH=<checkout> python .../bench_attention.py``; compare
-trees inside one chip call, in ABBA order.
+same digest.
+
+The key-tiled lines (``attention_launch(..., tiled=True)``, row 1's
+attention step with the scale folded into K, 4 frames) come at
+``chip_smoke.py``'s four ``TILED_CASES`` (920 and 1269 keys at TTA's 1.5x
+and 1.75x, 2048 at the fused block's limit), then the key-tiled and the
+resident instance side by side at 225 and 405 keys (stages 2 and 3 at
+480×480 and 480×864, where both run); each adds ``bound_ms`` (the largest
+of the bytes over 3.35 TB/s, one pass of tensor work over 989 TFLOP/s, five
+f32 operations a score over 67 TFLOP/s and one exp a score over the MUFU
+rate: chip_smoke's ``_tiled_case`` bound), the bound's share of the device
+time, and ``sdpa_ms`` (``scaled_dot_product_attention`` on the same q, K, V,
+timed as a yardstick). The key-tiled lines appear only where the tree has
+that instance. The tool uses only what every tree of the port since its
+first slice has, so the same file times an older checkout:
+``PYTHONPATH=<checkout> python .../bench_attention.py``; compare trees
+inside one chip call, in ABBA order.
 """
 
 from __future__ import annotations
@@ -37,10 +49,31 @@ ROW1 = (("stage 2, 480x480", 4, 60, 60, 128, 225, 2, 512),
 # (what, windows) of row 2's launches; the B1 decoder's K/V groups
 ROW2 = (("480x480", 81), ("480x864", 144))
 GROUPS = (49, 132, 25, 49, 25, 9)
-# (what, frames, query rows a frame, C, keys, heads) of the key-tiled attention
+# (what, frames, query rows a frame, C, keys, heads) of the key-tiled attention:
+# chip_smoke.py's TILED_CASES
 TILED = (("stage 2 at TTA 1.5x", 4, 92 * 160, 128, 920, 2),
-         ("stage 3 at TTA 1.75x", 4, 54 * 94, 320, 1269, 5))
+         ("stage 2 at TTA 1.75x", 4, 108 * 188, 128, 1269, 2),
+         ("stage 3 at TTA 1.75x", 4, 54 * 94, 320, 1269, 5),
+         ("stage 3 widths at the fused block's limit", 4, 4 * 2048, 320, 2048, 5))
+# where both instances run: row 1's attention at 480x480 and 480x864
+BOTH = (("stage 2, 480x480", 4, 60 * 60, 128, 225, 2),
+        ("stage 3, 480x480", 4, 30 * 30, 320, 225, 5),
+        ("stage 2, 480x864", 4, 60 * 108, 128, 405, 2),
+        ("stage 3, 480x864", 4, 30 * 54, 320, 405, 5))
+# H100 SXM data-sheet peaks at 700 W (chip_smoke.py's)
+HBM_BYTES_PER_S, BF16_TENSOR_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+MUFU_EXP_PER_S = 16 * 132 * 1.98e9
 
+
+def _tiled_bound_ms(g: int, lq: int, n: int, c: int, nh: int) -> float:
+    """chip_smoke.py's bound of one key-tiled call: q, K, V read and out
+    written once; one pass of tensor work; five f32 operations and one exp a
+    score."""
+    scores = g * nh * lq * n
+    t_bytes = (2 * g * lq * c + 2 * g * n * c) * 2 / HBM_BYTES_PER_S
+    t_ops = max(2 * 2 * scores * (c // nh) / BF16_TENSOR_FLOPS, scores * 5 / F32_FLOPS,
+                scores / MUFU_EXP_PER_S)
+    return max(t_bytes, t_ops) * 1e3
 
 def _device_us(fn, iters: int) -> float:
     from torch.autograd import DeviceType
@@ -119,22 +152,36 @@ def main(argv=None) -> list[dict]:
                       lambda q=q, ks=ks, vs=vs, bias=bias, mask=mask, nh=nh:
                       ops.cfm_attention(q, ks, vs, bias, mask, nh, force="kernel")))
     if hasattr(cfm, "attention_fwd_tiled"):
-        for i, (what, g, lq, c, n, nh) in enumerate(TILED):
+        inputs = [(what, case, ("key-tiled",)) for what, *case in TILED]
+        inputs += [(what, case, ("key-tiled", "resident")) for what, *case in BOTH]
+        for i, (what, (g, lq, c, n, nh), labels) in enumerate(inputs):
             gen = torch.Generator(device="cuda").manual_seed(20 + i)
             r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(torch.bfloat16)
             q, k, v = r(g, lq, c), r(g, n, c), r(g, n, c)
             ks = cfm.scale_in(torch.bfloat16, (c // nh) ** -0.5)
-            cases.append((f"key-tiled attention {what} q{tuple(q.shape)} N={n} nh={nh}",
-                          lambda q=q, k=k, v=v, nh=nh, ks=ks: cfm.attention_launch(
-                              q, k, v, None, None, nh, 1.0, ks, "bench", tiled=True)))
+            heads = lambda t, nh=nh: t.view(t.shape[0], t.shape[1], nh, -1).transpose(1, 2)
+            sdpa = lambda q=q, k=k, v=v, heads=heads: \
+                torch.nn.functional.scaled_dot_product_attention(heads(q), heads(k), heads(v))
+            for label in labels:
+                cases.append((f"{label} attention {what} q{tuple(q.shape)} N={n} nh={nh}",
+                              lambda q=q, k=k, v=v, nh=nh, ks=ks, t=label == "key-tiled":
+                              cfm.attention_launch(q, k, v, None, None, nh, 1.0, ks, "bench",
+                                                   tiled=t),
+                              dict(bound=_tiled_bound_ms(g, lq, n, c, nh), sdpa=sdpa)))
     out = []
     with torch.no_grad():
-        for name, fn in cases:
+        for name, fn, *extra in cases:
             digest = _digest(fn())
             ms, us = _ms(fn, opts.iters), _device_us(fn, max(opts.iters // 4, 2))
-            print(f"[bench_attention] {name}: ms={ms:.4f} device_us={us:.1f} digest={digest}",
-                  flush=True)
-            out.append(dict(name=name, ms=ms, device_us=us, digest=digest))
+            line = f"ms={ms:.4f} device_us={us:.1f}"
+            row = dict(name=name, ms=ms, device_us=us, digest=digest)
+            if extra:
+                bound, sdpa_ms = extra[0]["bound"], _ms(extra[0]["sdpa"], opts.iters)
+                line += (f" bound_ms={bound:.4f} bound/device={bound * 1e3 / us:.3f} "
+                         f"sdpa_ms={sdpa_ms:.4f}")
+                row.update(bound_ms=bound, sdpa_ms=sdpa_ms)
+            print(f"[bench_attention] {name}: {line} digest={digest}", flush=True)
+            out.append(row)
     return out
 
 
