@@ -88,6 +88,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      held to the form's launches per step and a finite loss; then ms per
      step, train frames/s (B·T frames per step) over the form's rounds of
      TRAIN_STEPS steps, every round printed, and peak memory;
+  5b. ``[train_cli]``: the train CLI (``vss_cffm_tpu_torch.tools.train``) from
+     ``vss_cffm_tpu_torch/configs/cffm_b1_vspw_160k.py`` at full B1 widths,
+     batch 2, on an in-memory VSPW train set (2 videos of 24 frames of
+     480x853 through the real train transforms, crops of 480x480): the
+     loader's clips/s with 4 workers; run A (2 steps) and run B (resumed
+     from A's checkpoint to step 4) with the launches per step held to the
+     default form's plan, the metrics finite, the resumed lr equal to the
+     schedule's, checkpoints 2 and 4 holding the config; a run of 14 steps
+     with the CLI's profiler window (host ms a step, device busy a step);
+     step 5 with and without the decoder remat (``use_checkpoint``), row 2
+     launched 4 and 2 times, held as the train forms' gradients are;
   6. the CE microbench: ``bench_ce.main`` at N 8 (the step's frames) with
      the counts set to 0 before it and held after (each of its six kernels
      launched warm-up + timed times), then each of the six kernels held
@@ -1223,6 +1234,243 @@ def train_phase(apis, ops, opts, root, kind, smi, form: str) -> tuple[dict, dict
     return stats, counts
 
 
+# ---- [train_cli]: the train CLI from the B1 config at VSPW's train geometry --
+
+CLI_VIDEOS, CLI_FRAMES = 2, 24
+CLI_HW = (480, 853)            # VSPW 480p frames; img_scale (853, 480), crops 480x480
+CLI_OPTIONS = ["data.batch_size=2", "log_interval=1", "checkpoint_interval=2"]
+CLI_LOADER_BATCHES = 8
+CLI_PROFILE_STEPS = 14         # the CLI's --profile-dir traces iterations 10-13
+
+
+def _synthetic_train_videos(seed: int):
+    """CLI_VIDEOS videos of CLI_FRAMES frames of 480x853 uint8 BGR in memory, with
+    the VSPW train dataset's interface (``VSPWVideoDataset``: its train sampler
+    and the real train transforms; frames and labels read from memory): each
+    video a pattern moving its own way, with noise; labels in [0, 124) over
+    the pattern, ~5 % ignored (255)."""
+    from vss_cffm_tpu_torch.data.vspw import VSPWVideoDataset
+
+    class SyntheticTrainVideos(VSPWVideoDataset):
+        def __init__(self):
+            self.split, self.dilation = "train", [-9, -6, -3]
+            self.crop_size, self.img_scale, self.flip_video = (480, 480), (853, 480), True
+            self.reduce_zero, self.img_suffix, self.seg_suffix = True, ".jpg", ".png"
+            self.videos = [f"synthetic_{v}" for v in range(CLI_VIDEOS)]
+            names = [f"{i:08d}.jpg" for i in range(CLI_FRAMES)]
+            self.frames = {v: names for v in self.videos}
+            self.frame_index = [(v, f) for v in self.videos for f in names]
+            rng = np.random.RandomState(seed)
+            y, x = np.mgrid[0:CLI_HW[0], 0:CLI_HW[1]].astype(np.float32)
+            self.imgs, self.labels = {}, {}
+            for v, video in enumerate(self.videos):
+                for t, name in enumerate(names):
+                    xs, ys = x + (11.0 - 19 * v) * t, y + (5.0 * v - 6.0) * t
+                    chans = [np.sin(xs / (37.0 + 9 * c + 5 * v)) * np.cos(ys / (53.0 - 7 * c))
+                             for c in range(3)]
+                    img = 128.0 + 90.0 * np.stack(chans, -1) + rng.randint(-20, 21, (*CLI_HW, 3))
+                    self.imgs[video, name] = np.clip(img, 0, 255).astype(np.uint8)
+                    lab = ((xs // (71 - 20 * v)).astype(np.int64)
+                           + 13 * (ys // 59).astype(np.int64)) % NUM_CLASSES
+                    lab[rng.rand(*CLI_HW) < 0.05] = 255
+                    self.labels[video, name] = lab.astype(np.uint8)
+
+        def read_frame(self, video, frame):
+            return self.imgs[video, frame]
+
+        def read_label(self, video, frame):
+            return self.labels[video, frame]
+
+    return SyntheticTrainVideos()
+
+
+def _cli_launches_held(counts: dict, steps: int, what: str, plan: dict) -> None:
+    print(f"[train_cli] {what}: launches over {steps} steps: {counts}", flush=True)
+    for name, n in plan.items():
+        if counts[name] != n * steps:
+            raise RuntimeError(f"train CLI, {what}: {name} launched {counts[name]} times, "
+                               f"expected {n} x {steps}")
+
+
+def _cli_steps_held(out: dict, first: int, last: int, what: str) -> None:
+    steps = [s["step"] for s in out["steps"]]
+    if steps != list(range(first + 1, last + 1)) or out["state"].step != last:
+        raise RuntimeError(f"train CLI, {what}: steps {steps}, state at {out['state'].step}; "
+                           f"expected {first + 1}..{last}")
+    for s in out["steps"]:
+        print(f"[train_cli] {what} step {s['step']}: loss_seg {s['loss_seg']:.6f} acc_seg "
+              f"{s['acc_seg']:.4f} grad_norm {s['grad_norm']:.6f} lr {s['lr']:.6e}", flush=True)
+        if not all(np.isfinite(s[k]) for k in ("loss_seg", "acc_seg", "grad_norm")):
+            raise RuntimeError(f"train CLI, {what}: non-finite metrics {s}")
+
+
+def _cli_checkpoint_held(ckpt_dir: str, step: int, cfg) -> None:
+    meta_path = os.path.join(ckpt_dir, f"metadata_{step}.json")
+    if not (os.path.exists(os.path.join(ckpt_dir, f"ckpt_{step}.pt"))
+            and os.path.exists(meta_path)):
+        raise RuntimeError(f"train CLI: no checkpoint at step {step} in {ckpt_dir}")
+    with open(meta_path) as fh:
+        meta = json.load(fh)
+    if (meta["config"]["model"]["backbone"] != cfg.model.backbone
+            or meta["config"]["optim"]["max_iters"] != step
+            or len(meta["classes"]) != NUM_CLASSES):
+        raise RuntimeError(f"train CLI: the metadata of step {step} does not hold the config")
+
+
+def train_cli_phase(ops, root: str, smi: str) -> dict:
+    """``[train_cli]``: ``tools.train`` from ``configs/cffm_b1_vspw_160k.py`` at
+    full B1 widths (``CLI_OPTIONS``: batch 2, a log line a step, a checkpoint
+    every 2) on an in-memory VSPW train set (2 videos of 24 frames of 480x853:
+    the real transforms at VSPW's geometry, crops of 480x480): the loader's
+    clips/s with the config's 4 workers; run A, 2 steps; run B, resumed from
+    A's checkpoints to step 4 (the schedule's lr at step 2); launches per step
+    held to the default train form's plan, metrics finite, checkpoints 2 and 4
+    with the config; a profiled run of CLI_PROFILE_STEPS steps (host ms a
+    step, device busy a step over the CLI's traced iterations); then step 5
+    with and without the decoder remat from B's checkpoint, same batch and
+    generator seed: row 2 launched 4 times with remat, loss, gradient norm and
+    gradients held as the train forms hold theirs. Returns runs A and B's
+    launch counts."""
+    import shutil
+    import tempfile
+
+    from vss_cffm_tpu_torch.config import apply_overrides, load_config
+    from vss_cffm_tpu_torch.data import TrainLoader
+    from vss_cffm_tpu_torch.data.loader import _sample_rng
+    from vss_cffm_tpu_torch.tools import train as train_cli
+    from vss_cffm_tpu_torch.train import poly_schedule
+
+    path = os.path.join(root, "vss_cffm_tpu_torch", "configs", "cffm_b1_vspw_160k.py")
+    base = apply_overrides(load_config(path), CLI_OPTIONS)
+    if base.model.backbone != "mit_b1" or base.model.head.decoder.depth != 2:
+        raise RuntimeError(f"[train_cli] the B1 config gave {base.model.backbone}")
+    t0 = time.perf_counter()
+    ds = _synthetic_train_videos(SEED + 5)
+    print(f"[train_cli] {path}, options {CLI_OPTIONS}: {base.model.backbone} widths "
+          f"{base.model.backbone_config.embed_dims}, decoder depth {base.model.head.decoder.depth}; "
+          f"dataset {len(ds)} videos of {CLI_FRAMES} frames of {CLI_HW[0]}x{CLI_HW[1]}, "
+          f"img_scale {ds.img_scale}, crop {ds.crop_size} (made in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # the loader alone: one item on the caller's thread, then clips/s with the
+    # config's workers, batches copied to the card
+    t0 = time.perf_counter()
+    for i in range(4):
+        ds.get_train_item(i % len(ds), _sample_rng(SEED, 0, i), normalize=False)
+    item_ms = (time.perf_counter() - t0) * 1e3 / 4
+    loader = TrainLoader(ds, base.data.batch_size, seed=SEED, num_workers=base.data.num_workers,
+                         device_normalize=True, device="cuda")
+    batches = iter(loader)
+    next(batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CLI_LOADER_BATCHES):
+        batch = next(batches)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    batches.close()
+    if batch["imgs"].shape != (2, 4, 480, 480, 3) or batch["imgs"].dtype != torch.uint8:
+        raise RuntimeError(f"[train_cli] loader batch {tuple(batch['imgs'].shape)}")
+    print(f"[train_cli] loader at 480x853 -> 480x480 crops: "
+          f"{CLI_LOADER_BATCHES * base.data.batch_size / dt:.3f} clips/s with "
+          f"{loader.num_workers} workers ({CLI_LOADER_BATCHES} batches of "
+          f"{base.data.batch_size} after one); {item_ms:.1f} host ms a clip on one thread; "
+          f"host {os.cpu_count()} cores | {smi}", flush=True)
+    del batch, batches, loader
+
+    plan = TRAIN_FORMS["train"]["per_step"]
+    work = tempfile.mkdtemp(prefix="train_cli_")
+    try:
+        # run A, then run B resumed from its checkpoints
+        cfg_a = apply_overrides(base, ["optim.max_iters=2"])
+        ops.reset_launches()
+        out_a = train_cli.train(cfg_a, work_dir=os.path.join(work, "a"), device="cuda",
+                                dataset=ds)
+        torch.cuda.synchronize()
+        counts_a = ops.launches()
+        _cli_launches_held(counts_a, 2, "run A", plan)
+        _cli_steps_held(out_a, 0, 2, "run A")
+        ckpt_dir = os.path.join(work, "a", "ckpt")
+        _cli_checkpoint_held(ckpt_dir, 2, cfg_a)
+        del out_a
+
+        cfg_b = apply_overrides(base, ["optim.max_iters=4"])
+        ops.reset_launches()
+        out_b = train_cli.train(cfg_b, work_dir=os.path.join(work, "a"), device="cuda",
+                                resume_from=ckpt_dir, dataset=ds)
+        torch.cuda.synchronize()
+        counts_b = ops.launches()
+        _cli_launches_held(counts_b, 2, "run B", plan)
+        _cli_steps_held(out_b, 2, 4, "run B")
+        want_lr = poly_schedule(cfg_b.optim)(2)
+        lr = out_b["steps"][0]["lr"]
+        print(f"[train_cli] run B resumed at step 2: lr {lr:.9e}, poly_schedule(2) "
+              f"{want_lr:.9e}", flush=True)
+        if abs(lr - want_lr) > 1e-12 * want_lr:
+            raise RuntimeError(f"[train_cli] resumed lr {lr} != poly_schedule(2) {want_lr}")
+        _cli_checkpoint_held(ckpt_dir, 2, cfg_a)
+        _cli_checkpoint_held(ckpt_dir, 4, cfg_b)
+        del out_b
+
+        # a profiled run: host ms a step, device busy a step (CLI --profile-dir)
+        cfg_c = apply_overrides(base, [f"optim.max_iters={CLI_PROFILE_STEPS}",
+                                       "checkpoint_interval=100000"])
+        prof_dir = os.path.join(work, "profile")
+        out_c = train_cli.train(cfg_c, work_dir=os.path.join(work, "c"), device="cuda",
+                                profile_dir=prof_dir, dataset=ds)
+        _cli_steps_held(out_c, 0, CLI_PROFILE_STEPS, "profiled run")
+        # host ms of the steps before the traced window (the first two
+        # warm up), and of the traced ones (the profiler adds host time)
+        steady = out_c["iter_ms"][2:train_cli.PROFILE_FIRST]
+        traced = out_c["iter_ms"][train_cli.PROFILE_FIRST:]
+        prof = out_c["profile"]
+        busy = prof["device_busy_ms"] / prof["iterations"]
+        host = float(np.median(steady))
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        shutil.copy(os.path.join(prof_dir, "key_averages.txt"),
+                    os.path.join(root, "chiprun_out", "profile_train_cli.txt"))
+        print(f"[train_cli] CFFM-B1 480x480 B=2 clip-4 bf16, the CLI's loop: {host:.3f} host ms "
+              f"a step (median of steps 3-{train_cli.PROFILE_FIRST}: "
+              f"{', '.join(f'{t:.1f}' for t in steady)}; traced steps "
+              f"{', '.join(f'{t:.1f}' for t in traced)}); device busy {busy:.3f} ms a step "
+              f"(torch.profiler over iterations {train_cli.PROFILE_FIRST}-"
+              f"{train_cli.PROFILE_LAST}), idle share {1 - busy / host:.3f} of the untraced "
+              f"steps | {smi}", flush=True)
+        del out_c
+
+        # step 5 with and without the decoder remat, from B's state
+        runs = {}
+        for remat in (False, True):
+            cfg_r = apply_overrides(base, ["optim.max_iters=5", "checkpoint_interval=100000",
+                                           f"model.head.decoder.use_checkpoint={remat}"])
+            ops.reset_launches()
+            out_r = train_cli.train(cfg_r, work_dir=os.path.join(work, f"r{int(remat)}"),
+                                    device="cuda", resume_from=ckpt_dir, dataset=ds)
+            torch.cuda.synchronize()
+            counts_r = ops.launches()
+            _cli_launches_held(counts_r, 1, f"step 5, remat={remat}",
+                               {**plan, "cfm_attention": 4 if remat else 2})
+            _cli_steps_held(out_r, 4, 5, f"step 5, remat={remat}")
+            model = out_r["state"].model
+            runs[remat] = (out_r["steps"][0],
+                           torch.cat([p.grad.float().reshape(-1) for p in model.parameters()]))
+            del out_r, model
+        (s0, g0), (s1, g1) = runs[False], runs[True]
+        cos = torch.nn.functional.cosine_similarity(g1.double(), g0.double(), dim=0).item()
+        rl = abs(s1["loss_seg"] - s0["loss_seg"]) / abs(s0["loss_seg"])
+        rn = abs(s1["grad_norm"] - s0["grad_norm"]) / s0["grad_norm"]
+        print(f"[train_cli] decoder remat, step 5: loss {s1['loss_seg']:.6f} vs "
+              f"{s0['loss_seg']:.6f} (rel {rl:.3e}); grad norm {s1['grad_norm']:.6f} vs "
+              f"{s0['grad_norm']:.6f} (rel {rn:.3e}); cosine of all gradients {cos:.6f}; "
+              f"bitwise equal: {torch.equal(g0, g1)}", flush=True)
+        if not (rl <= 1e-2 and rn <= 1e-2 and cos >= 0.999):
+            raise RuntimeError("the decoder remat's step disagrees with the plain step")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {name: counts_a[name] + counts_b[name] for name in counts_a}
+
+
 # ---- the CE microbench: its six kernels at its own inputs --------------------
 
 CE_BENCH_N = (8, 2)  # the train step's frames, and one clip's branch
@@ -2061,6 +2309,9 @@ def main() -> int:
             train_stats[form], train_counts[form] = train_phase(apis, ops, opts, root, kind, smi,
                                                                 form)
 
+    # ---- 5b. the train CLI from the B1 config, resumed, with the decoder remat --
+    cli_counts = train_cli_phase(ops, root, smi)
+
     # ---- 6. the CE microbench and its six kernels ----------------------------
     _clocks("after the train phase")
     ce_stats, ce_counts = ce_bench_phase(ops, opts)
@@ -2071,7 +2322,7 @@ def main() -> int:
     # launches: each kernel's count on its own path (the inference clips for
     # the inference kernels, the fused-FFN clips for block_ffn_fused, the
     # MixFFN module for mixffn_fused, the counted steps of the default train
-    # form for the train ones, of the "ffn" form for the block-FFN pair, of
+    # form for the train ones (train_cli: the CLI's runs A and B, 4 steps), of the "ffn" form for the block-FFN pair, of
     # the "ohem" form for the per-pixel CE pair, of "train_probs" for the
     # probabilities pair (its forward counts as cfm_attention), the CE
     # microbench for the four layout variants); launches_by_path gives every
@@ -2089,7 +2340,7 @@ def main() -> int:
         cn = spec.get("counter", name)
         by_path = {"inference": counts[cn], "inference_ffn": counts_f[cn],
                    "mixffn": counts_mix[cn], **{f: c[cn] for f, c in train_counts.items()},
-                   "ce_bench": ce_counts[cn], **{p: c[cn] for p, c in eval_counts.items()}}
+                   "train_cli": cli_counts[cn], "ce_bench": ce_counts[cn], **{p: c[cn] for p, c in eval_counts.items()}}
         row = {"name": name, "route": "cuda", "source": spec["sources"][0],
                "sources": spec["sources"],
                "replaces": spec["replaces"], "launches": by_path[path], "path": path,

@@ -121,13 +121,13 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)  # defines only; its main runs under __main__
 bad = sorted(n for n in sys.modules
-             if n in ("jax", "flax", "vss_cffm_tpu")
-             or n.startswith(("jax.", "flax.", "vss_cffm_tpu.")))
+             if n in ("jax", "flax", "vss_cffm_tpu", "cv2")
+             or n.startswith(("jax.", "flax.", "vss_cffm_tpu.", "cv2.")))
 tree = ast.parse(open(sys.argv[1]).read())
 for node in ast.walk(tree):
     names = ([a.name for a in node.names] if isinstance(node, ast.Import)
              else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
-    bad += [n for n in names if n.split(".")[0] in ("jax", "flax", "vss_cffm_tpu")]
+    bad += [n for n in names if n.split(".")[0] in ("jax", "flax", "vss_cffm_tpu", "cv2")]
 print("BAD", bad)
 """
 
@@ -142,5 +142,6 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "BAD []" in r.stdout, r.stdout
     walked = r.stdout.split("WALKED", 1)[1].split()
     for name in ("models.losses", "train.optim", "train.state", "train.step",
-                 "ops.ce_upsampled"):
+                 "ops.ce_upsampled", "tools.train", "data.loader",
+                 "configs.cffm_b1_vspw_160k", "configs.cffm_b0_vspw_gene_prototype"):
         assert f"vss_cffm_tpu_torch.{name}" in walked, name

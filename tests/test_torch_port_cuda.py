@@ -1454,3 +1454,50 @@ def test_wgmma_products_against_mma_sync(dev, hd):
         f"{w} {eq:.6f} of the elements bitwise equal, at most {ulp} f32 ulps apart"
         for w, eq, ulp in report))
     assert all(eq == 1.0 for _, eq, _ in report), report
+
+
+def test_decoder_remat_step_on_the_card(dev):
+    """The decoder remat (``use_checkpoint``) on the card: one B0 train
+    forward/backward at 64² in bf16 with decoder drop path 0.3, against the
+    same without remat from the same weights, batch and generator seed. The
+    recompute launches the CFM attention forward once more a block. The
+    forward is deterministic, so the loss agrees to 1e-5; the backward is
+    not (``F.interpolate``'s backward adds with atomics), so the plain step
+    is run twice and the remat step's gradients are held to 1e-5 of their
+    norm plus three times the plain step's own run-to-run difference. A
+    recompute that drew other masks would miss by O(1)."""
+    import dataclasses
+
+    from vss_cffm_tpu_torch import config as pcfg
+    from vss_cffm_tpu_torch.models.losses import clip_ce_loss
+    from vss_cffm_tpu_torch.train.step import device_normalize
+
+    head = pcfg.build_model_config("b0", num_classes=11).head
+    rng = np.random.RandomState(21)
+    imgs = device_normalize(torch.from_numpy(
+        rng.randint(0, 256, (1, 4, 64, 64, 3)).astype(np.uint8)).to(dev), torch.bfloat16)
+    lab = _labels(rng, 4, 64, 64, 11, torch.uint8, dev).reshape(1, 4, 64, 64)
+    runs = []
+    for remat in (False, False, True):
+        dec = dataclasses.replace(head.decoder, drop_path=0.3, use_checkpoint=remat)
+        model = _b0_model(dev, head=dataclasses.replace(head, decoder=dec)).train()
+        ops.reset_launches()
+        out = model(imgs, train=True, generator=torch.Generator(dev).manual_seed(3))
+        loss = clip_ce_loss(out, lab)["loss_seg"]
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.item(), ops.launches(),
+                     {n: p.grad.float().clone() for n, p in model.named_parameters()}))
+    (l0, c0, g0), (l0b, _, g0b), (l1, c1, g1) = runs
+    depth = dec.depth
+    assert c0["cfm_attention"] == depth and c1["cfm_attention"] == 2 * depth, (c0, c1)
+    assert c1["cfm_attention_bwd"] == c0["cfm_attention_bwd"] == depth
+    assert l0b == l0 and abs(l1 - l0) <= 1e-5 * abs(l0), (l0, l0b, l1)
+    flat = lambda g: torch.cat([v.reshape(-1) for v in g.values()]).double()
+    a, b, r = flat(g0), flat(g0b), flat(g1)
+    noise, err = (b - a).norm().item(), (r - a).norm().item()
+    worst = sorted(((g1[n] - g0[n]).abs().max().item(), (g0b[n] - g0[n]).abs().max().item(), n)
+                   for n in g0)[-3:]
+    print(f"remat vs plain: |dg| {err:.3e}, plain vs plain {noise:.3e}, |g| {a.norm().item():.3e};"
+          f" largest element differences (remat, plain): {worst}")
+    assert err <= 1e-5 * a.norm().item() + 3 * noise, (err, noise)

@@ -100,6 +100,17 @@ def jax_and_port(variant="b0", hw=(112, 112), depth=1, num_classes=7, seed=0,
     return jmodel, variables, pmodel.eval(), clip
 
 
+@pytest.fixture(scope="module")
+def few_threads():
+    """At most 2 torch threads for a module's tests, restored after: the
+    suite runs several workers on a few cores, where every worker's full
+    thread pool contends (a CPU train step took 10-40× its time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
 def to_np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().float().numpy()
 

@@ -3,8 +3,11 @@
 Plain dataclasses mirroring the JAX package's model configs (MiT variants,
 the CFFM focal decoder, the CFFM clip head and the segmentor), restricted to
 the fields that clip inference and the train step read, plus the loss and
-optimizer configs. Nothing here imports a framework, so the configs can be
-built, compared and overridden anywhere.
+optimizer configs, and the experiment config of the train CLI
+(``ExperimentConfig``: model, optimizer, data, CFFM++ prototypes, the run's
+intervals) with ``load_config``, which reads it from a Python config file
+(``vss_cffm_tpu_torch/configs/``). Nothing here imports a framework, so the
+configs can be built, compared and overridden anywhere.
 
 ``apply_overrides`` takes dotted ``key=value`` pairs like the JAX package's
 CLI overrides, with one deliberate difference: a value for a tuple field must
@@ -15,6 +18,9 @@ tuple is rejected rather than silently collapsed.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+import os
+import sys
 from typing import Any
 
 __all__ = [
@@ -27,6 +33,10 @@ __all__ = [
     "TestConfig",
     "SegmentorConfig",
     "build_model_config",
+    "DataConfig",
+    "ProtoConfig",
+    "ExperimentConfig",
+    "load_config",
     "apply_overrides",
 ]
 
@@ -97,6 +107,8 @@ class CFFMDecoderConfig:
     drop: float = 0.0
     attn_drop: float = 0.0
     drop_path: float = 0.0
+    # recompute each block's forward in the backward (torch.utils.checkpoint)
+    use_checkpoint: bool = False
     norm_eps: float = 1e-5
 
 
@@ -199,6 +211,69 @@ def build_model_config(variant: str = "b1", num_classes: int = 124,
         decoder=CFFMDecoderConfig(dim=256, depth=depths),
     )
     return SegmentorConfig(backbone=backbone, head=head)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    data_root: str = "data/vspw/VSPW_480p"
+    crop_size: tuple[int, int] = (480, 480)
+    img_scale: tuple[int, int] = (853, 480)
+    dilation: tuple[int, ...] = (-9, -6, -3)
+    batch_size: int = 8  # global (2 clips/GPU × 4 GPUs in the reference)
+    num_workers: int = 4
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtoConfig:
+    """CFFM++ phase-A prototype generation (the ``_gene_prototype`` configs,
+    reference ``cffm.bX...vspw2_gene_prototype.py``): k-means over fused 1/8
+    features of ``num_frames`` uniformly sampled frames per video."""
+
+    n_clusters: int = 100
+    num_frames: int = 10
+    kmeans_iters: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    model: SegmentorConfig = dataclasses.field(default_factory=lambda: build_model_config("b1"))
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    proto: ProtoConfig = dataclasses.field(default_factory=ProtoConfig)
+    work_dir: str = "work_dirs/default"
+    log_interval: int = 50
+    checkpoint_interval: int = 4000
+    load_from: str | None = None
+    resume_from: str | None = None
+    cluster_dir: str = "./cluster_centers"
+    seed: int = 0
+    bf16: bool = True
+
+
+def load_config(path: str) -> ExperimentConfig:
+    """The ``ExperimentConfig`` that the Python file at ``path`` returns from
+    its ``config()``. The file's directory is on ``sys.path`` while it loads,
+    so that a user's config can import a sibling file by its bare name (the
+    configs in ``vss_cffm_tpu_torch/configs`` import their base by the
+    package path instead)."""
+    cfg_dir = os.path.dirname(os.path.abspath(path))
+    added = cfg_dir not in sys.path
+    if added:
+        sys.path.insert(0, cfg_dir)
+    try:
+        spec = importlib.util.spec_from_file_location("user_config", path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["user_config"] = mod
+        spec.loader.exec_module(mod)
+        cfg = mod.config()
+    finally:
+        if added:
+            sys.path.remove(cfg_dir)
+    if not isinstance(cfg, ExperimentConfig):
+        raise TypeError(f"{path}: config() returned {type(cfg).__name__}, expected the port's "
+                        "ExperimentConfig")
+    return cfg
 
 
 def _coerce(value: str, current: Any) -> Any:

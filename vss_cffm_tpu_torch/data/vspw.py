@@ -1,14 +1,17 @@
-"""VSPW video dataset, test side: directory scan, clip samplers, items.
+"""VSPW video dataset: directory scan, clip samplers, train and test items.
 
-The port's copy of the test half of ``vss_cffm_tpu/data/vspw.py``
-(reference ``mmseg/datasets/custom.py:1959-2713``, ``vspw.py:151-294``).
-Tree layout::
+The port's copy of ``vss_cffm_tpu/data/vspw.py`` (reference
+``mmseg/datasets/custom.py:1959-2713``, ``vspw.py:151-294``). Tree layout::
 
     data_root/
       train.txt / val.txt / test.txt       (one video name per line)
       data/<video>/origin/*.jpg            (frames)
       data/<video>/mask/*.png              (palette PNG annotations)
 
+- **train** clips (``prepare_train_img2:2242-2324``): one a video an epoch;
+  the whole video reversed with probability 0.5; a target drawn from the
+  frames that admit the full dilation window; frames ``target + dilation``
+  then ``target`` (default dilation ``[-9, -6, -3]``);
 - **test** clips (``prepare_test_img2:2355-2445``): one clip per frame, the
   dilations that fall outside the video dropped, and the schedules of
   target frames 3 to 8 for ``dilation == [-9, -6, -3]`` (``:2376-2388``);
@@ -17,12 +20,14 @@ Tree layout::
 - labels are palette PNGs read as they are; ``reduce_zero_label`` maps 0 to
   255 (ignore) and k to k − 1 (``loading.py:205-214``).
 
-Frames are decoded to uint8 BGR at their original size: the evaluator
-resizes (AlignedResize to /32) and normalises them on the device through
-``data/transforms.py``, so an item carries the ``img_scale`` of each of its
-views. PIL decodes, imported inside the reading functions (it is not needed
-to import the package). The train side (``sample_train_clip``,
-``get_train_item`` and its transforms) is not ported yet.
+A train item runs the host pipeline of ``data/transforms.py`` (scale,
+crop, flip, photometric distortion, pad) with cv2's bits, the crop box drawn
+from the nearest-resized last label and only the crop window of each frame
+resized. Test frames are decoded to uint8 BGR at their original size: the
+evaluator resizes (AlignedResize to /32) and normalises them on the device,
+so a test item carries the ``img_scale`` of each of its views. PIL decodes,
+imported inside the reading functions (it is not needed to import the
+package).
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import os
 from typing import Sequence
 
 import numpy as np
+
+from . import transforms as T
 
 __all__ = ["VSPWVideoDataset", "ClipSample", "load_label", "reduce_zero_label"]
 
@@ -71,14 +78,16 @@ class ClipSample:
 
 
 class VSPWVideoDataset:
-    """Scans the VSPW tree and yields test and prototype clips."""
+    """Scans the VSPW tree and yields train, test and prototype clips."""
 
     def __init__(
         self,
         data_root: str,
-        split: str = "val",
+        split: str = "train",
         dilation: Sequence[int] = (-9, -6, -3),
+        crop_size: tuple[int, int] = (480, 480),
         img_scale: tuple[int, int] = (853, 480),
+        flip_video: bool = True,
         reduce_zero: bool = True,
         img_suffix: str = ".jpg",
         seg_suffix: str = ".png",
@@ -86,7 +95,9 @@ class VSPWVideoDataset:
         self.data_root = data_root
         self.split = split
         self.dilation = list(dilation)
+        self.crop_size = tuple(crop_size)
         self.img_scale = tuple(img_scale)
+        self.flip_video = flip_video
         self.reduce_zero = reduce_zero
         self.img_suffix = img_suffix
         self.seg_suffix = seg_suffix
@@ -108,6 +119,28 @@ class VSPWVideoDataset:
         return len(self.frame_index)
 
     # ------------------------------------------------------------- samplers
+    def sample_train_clip(self, idx: int, rng: np.random.RandomState
+                          ) -> tuple[ClipSample, list[str]]:
+        """The clip of video ``idx`` and the video's frame names in the order
+        drawn. A video shorter than the dilation window cannot hold a clip:
+        the reference returns None and its loader draws another video
+        (``custom.py:2260-2262``); so does this, up to 100 times."""
+        for _ in range(100):
+            video = self.videos[idx]
+            frames = self.frames[video]
+            if len(frames) + self.dilation[0] >= 1:
+                break
+            idx = rng.randint(0, len(self.videos))
+        else:
+            raise RuntimeError(f"no video admits the dilation window {self.dilation} "
+                               f"(all ≤ {-self.dilation[0]} frames)")
+        if self.flip_video and rng.rand() < 0.5:
+            frames = frames[::-1]
+        tail = len(frames) + self.dilation[0]  # frames that admit the full window
+        target = rng.randint(0, tail) - self.dilation[0]
+        indices = [target + d for d in self.dilation] + [target]
+        return ClipSample(video, indices, frames[target]), frames
+
     def sample_test_clip(self, idx: int) -> ClipSample:
         video, frame = self.frame_index[idx]
         frames = self.frames[video]
@@ -144,12 +177,52 @@ class VSPWVideoDataset:
         """One frame, (H, W, 3) uint8 BGR at its original size."""
         return load_image(self._img_path(video, frame))
 
+    def read_label(self, video: str, frame: str) -> np.ndarray:
+        """The (H, W) uint8 label of one frame (``reduce_zero`` applied)."""
+        return load_label(self._seg_path(video, frame), self.reduce_zero)
+
     def _clip(self, sample: ClipSample) -> np.ndarray:
         frames = self.frames[sample.video]
         return np.stack([self.read_frame(sample.video, frames[i])
                          for i in sample.frame_indices])
 
     # ------------------------------------------------------------- assembly
+    def get_train_item(self, idx: int, rng: np.random.RandomState,
+                       normalize: bool = True) -> dict:
+        """The train pipeline: imgs (T, H, W, 3), labels (T, H, W) int32 at
+        ``crop_size``. Draws in the reference's order: the clip, the scale
+        ratio, the crop box (on the last label, nearest-resized), the flip,
+        each frame's photometric distortion. Only the crop window of each
+        frame is resized. With ``normalize=False`` the images stay uint8 BGR,
+        normalised later on the device (``train.step.device_normalize``);
+        else they are RGB (x − mean) / std in f32 here."""
+        sample, frames = self.sample_train_clip(idx, rng)
+        names = [frames[i] for i in sample.frame_indices]
+        imgs = [self.read_frame(sample.video, n) for n in names]
+        segs = [self.read_label(sample.video, n) for n in names]
+        scale = T.draw_scale(rng, self.img_scale)
+        y1, y2, x1, x2 = T.sample_crop_box(T.imrescale(segs[-1], scale, nearest=True), rng,
+                                           self.crop_size)
+
+        def window(a: np.ndarray, resize) -> np.ndarray:
+            rh, rw = T.rescale_size(a.shape[:2], scale)
+            return resize(a, rh, rw, y1, x1, max(min(y2, rh) - y1, 0), max(min(x2, rw) - x1, 0))
+
+        imgs = [window(im, T.resize_window) for im in imgs]
+        segs = [window(s, T.label_window) for s in segs]
+        imgs, segs, _ = T.random_flip_clip(imgs, segs, rng)
+        imgs = T.photometric_distortion_clip(imgs, rng)
+        if normalize:
+            mean, std = np.array(T.IMG_MEAN, np.float32), np.array(T.IMG_STD, np.float32)
+            imgs = [(im[..., ::-1].astype(np.float32) - mean) / std for im in imgs]
+        imgs, segs = T.pad_clip(imgs, segs, self.crop_size)
+        return {
+            "imgs": np.stack(imgs),
+            "labels": np.stack(segs).astype(np.int32),
+            "video": sample.video,
+            "frame": sample.target_frame,
+        }
+
     def get_test_item(self, idx: int) -> dict:
         """The test clip of frame ``idx``: imgs (T, H, W, 3) uint8 BGR at the
         original size, the ``img_scale`` the evaluator resizes them to, and

@@ -9,7 +9,10 @@ frame (coarser with temporal distance), with four families of learned
 relative-position biases and additive −100 padding masks. Residual and MLP
 update the last frame only. ``forward(x, train=True, generator=g)`` adds the
 config's stochastic depth; dropout and attention dropout are 0 in every
-CFFM config and are not ported (a rate > 0 raises).
+CFFM config and are not ported (a rate > 0 raises). With
+``use_checkpoint`` each block runs under ``torch.utils.checkpoint`` (JAX:
+``nn.remat``) and is recomputed in the backward, with the same drop-path
+masks (``_checkpointed``).
 
 The roll / unfold / mask geometry is a set of static numpy index tables per
 (H, W) (``build_geometry``, a copy of the JAX package's); the attention itself
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import CFFMDecoderConfig
 from ..ops import cfm_attention, resize_bilinear
@@ -494,6 +498,35 @@ class CFFMDecoder(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        remat = self.cfg.use_checkpoint and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, train, generator)
+            x = _checkpointed(blk, x, train, generator) if remat else blk(x, train, generator)
         return x
+
+
+def _checkpointed(blk: CFFMBlock, x: torch.Tensor, train: bool,
+                  generator: torch.Generator | None) -> torch.Tensor:
+    """``blk(x, train, generator)`` under ``torch.utils.checkpoint``: its
+    activations are not kept, and the backward runs the block again.
+
+    ``checkpoint`` restores the global RNG states for the recompute, not a
+    ``torch.Generator`` object, which the recompute would draw on from where
+    the forward left it: other drop-path masks, wrong gradients. So each run
+    of the block draws from a generator of its own, started from the caller's
+    state before the block; after the forward the caller's generator takes
+    the state that run left, as if the block had drawn from it directly."""
+    if generator is None:
+        return checkpoint(blk, x, train, None, use_reentrant=False)
+    start = generator.get_state()
+    ends = []
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        g = torch.Generator(generator.device)
+        g.set_state(start)
+        out = blk(x, train, g)
+        ends.append(g.get_state())
+        return out
+
+    out = checkpoint(run, x, use_reentrant=False)
+    generator.set_state(ends[0])
+    return out

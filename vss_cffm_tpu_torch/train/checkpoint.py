@@ -93,11 +93,22 @@ class CheckpointManager:
 
     def restore(self, state: TrainState, step: int | None = None) -> TrainState:
         """Full resume into ``state`` (≙ ``--resume-from``): the model's
-        weights, the optimizer's moments, the schedule and its step."""
+        weights, the optimizer's moments and the step. As in the JAX package,
+        where the checkpoint holds the optimizer's state and count and the
+        schedule is the current config's, the hyperparameters stay those
+        ``state`` was built with (lr, betas, decay; the schedule's lr at the
+        restored step, e.g. after ``optim.max_iters`` is raised)."""
         ckpt = self._load(step)
         state.model.load_state_dict(ckpt["model"], strict=True)
-        state.optimizer.load_state_dict(ckpt["optimizer"])
-        state.scheduler.load_state_dict(ckpt["scheduler"])
+        opt, sched = state.optimizer, state.scheduler
+        hyper = [{k: v for k, v in g.items() if k != "params"} for g in opt.param_groups]
+        opt.load_state_dict(ckpt["optimizer"])
+        sched.load_state_dict(ckpt["scheduler"])
+        sched.base_lrs = [h["initial_lr"] for h in hyper]
+        for g, h, fn in zip(opt.param_groups, hyper, sched.lr_lambdas):
+            g.update(h)
+            g["lr"] = h["initial_lr"] * fn(sched.last_epoch)
+        sched._last_lr = [g["lr"] for g in opt.param_groups]
         return state
 
     def load_params(self, model: nn.Module, step: int | None = None) -> list[str]:
