@@ -99,6 +99,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      with the CLI's profiler window (host ms a step, device busy a step);
      step 5 with and without the decoder remat (``use_checkpoint``), row 2
      launched 4 and 2 times, held as the train forms' gradients are;
+  5c. ``[cffm_pp]``: CFFM++-B1 at full width. Phase A: a random CFFM-B1
+     checkpoint (``.pth``), then ``tools.generate_prototypes.run`` from
+     ``configs/cffm_b1_vspw_gene_prototype.py`` over the two ``[train_cli]``
+     videos and the ``[eval]`` video (10 frames each at 480x864, 100
+     centres, 10 iterations): launches held (4 / 0 / 4 a video), the card's
+     k-means against the CPU's from the same initial indices (labels on
+     ≥ 99.9 %, centres within 1e-3 of the largest), the written centres
+     against the card's k-means, ms a video of the features and of the
+     k-means. Phase B: ``tools.train`` on
+     ``configs/cffm_b1_vspw_finetune_40k.py`` (batch 2, no warmup, 14
+     steps) ``--load-from`` that checkpoint: launches a step held to the
+     finetune plan (row 6 6, row 3 2, rows 14 and 17 2 each, nothing else),
+     every frozen weight at w·Π(1 − lr_t·wd) or w by its group (2^-23), the
+     fuse BN's statistics as loaded, the cluster branch moved; host ms and
+     device busy a step. Evaluation with the store, streamed and per clip
+     on the ``[eval]`` video: each target frame's launches (4 / 2 / 4),
+     streamed logits against the clip path's and ``force="torch"`` within
+     5 %, eval frames/s, device busy a target frame (always profiled);
   6. the CE microbench: ``bench_ce.main`` at N 8 (the step's frames) with
      the counts set to 0 before it and held after (each of its six kernels
      launched warm-up + timed times), then each of the six kernels held
@@ -1471,6 +1489,315 @@ def train_cli_phase(ops, root: str, smi: str) -> dict:
     return {name: counts_a[name] + counts_b[name] for name in counts_a}
 
 
+# ---- [cffm_pp]: CFFM++ on the card: phase A, the finetune step, eval with the store
+
+PP_CLUSTERS, PP_FRAMES, PP_ITERS = 100, 10, 10   # the _gene_prototype configs' ProtoConfig
+PP_STEPS = 14                  # the CLI's --profile-dir traces iterations 10-13
+PP_OPTIONS = ["data.batch_size=2", "log_interval=1", "checkpoint_interval=100000",
+              f"optim.max_iters={PP_STEPS}", "optim.warmup_iters=0"]
+# k-means on the card against the CPU from the same initial indices: the
+# features' matmuls sum in other orders, so a near-tie may flip a label and
+# move its two centres by a point's share
+PP_LABEL_SHARE, PP_CENTRE_REL = 0.999, 1e-3
+
+
+class _PrototypeSet:
+    """The videos of several in-memory datasets as one prototype split: item
+    ``i`` is ``get_prototype_item`` of its dataset's video."""
+
+    def __init__(self, *sets):
+        self.items = [(ds, i) for ds in sets for i in range(len(ds.videos))]
+        self.videos = [ds.videos[i] for ds, i in self.items]
+
+    def __len__(self):
+        return len(self.items)
+
+    def get_prototype_item(self, idx: int, num_frames: int = 10) -> dict:
+        ds, i = self.items[idx]
+        return ds.get_prototype_item(i, num_frames)
+
+
+def _pp_phase_a(ops, root: str, work: str, smi: str) -> tuple[str, str, dict]:
+    """Phase A: a random CFFM-B1 checkpoint (``.pth``), then
+    ``tools.generate_prototypes.run`` from ``configs/cffm_b1_vspw_gene_prototype.py``
+    over the two train videos of ``[train_cli]`` and the ``[eval]`` video
+    (480x853, 10 frames each at 480x864): launches held (4 / 0 / 4 a video),
+    the written centres equal to the card's k-means of the features from
+    the first initial draw, that k-means against the CPU's from the same
+    indices, ms a video of the features and of the k-means. Returns (the
+    checkpoint, the cluster directory, the launch counts)."""
+    from vss_cffm_tpu_torch.apis import init_segmentor
+    from vss_cffm_tpu_torch.config import load_config
+    from vss_cffm_tpu_torch.ops.kmeans import kmeans_from, kmeans_init
+    from vss_cffm_tpu_torch.tools import generate_prototypes as proto_cli
+
+    cfg = load_config(os.path.join(root, "vss_cffm_tpu_torch", "configs",
+                                   "cffm_b1_vspw_gene_prototype.py"))
+    if (cfg.model.head.mode, cfg.proto.n_clusters, cfg.proto.num_frames,
+            cfg.proto.kmeans_iters) != ("cffm", PP_CLUSTERS, PP_FRAMES, PP_ITERS):
+        raise RuntimeError(f"[cffm_pp] the gene_prototype config gave {cfg.proto}")
+    ckpt = os.path.join(work, "cffm_b1.pth")
+    bundle = init_segmentor(cfg.model, device="cpu", dtype=torch.bfloat16, seed=SEED)
+    torch.save({"state_dict": bundle.model.state_dict()}, ckpt)
+    del bundle
+    videos = _PrototypeSet(_synthetic_train_videos(SEED + 5), _synthetic_video(SEED + 2))
+    cluster_dir = os.path.join(work, "clusters")
+    ops.reset_launches()
+    paths = proto_cli.run(cfg, ckpt, cluster_dir=cluster_dir, n_clusters=PP_CLUSTERS,
+                          num_frames=PP_FRAMES, device="cuda", dataset=videos)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    n = len(videos)
+    want = {name: 0 for name in counts}
+    want.update({"mit_block_fused": 4 * n, "dwconv3x3": 4 * n})
+    print(f"[cffm_pp] phase A: {n} videos {videos.videos}, {PP_FRAMES} frames each of "
+          f"{CLI_HW[0]}x{CLI_HW[1]} at img_scale {cfg.data.img_scale}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if counts != want:
+        raise RuntimeError(f"[cffm_pp] phase A launches {counts}, expected {want}")
+
+    # the written centres, the card's k-means and the CPU's, on video 0's features
+    bundle = init_segmentor(cfg.model, device="cuda", dtype=torch.bfloat16, seed=SEED,
+                            checkpoint=ckpt)
+    model = bundle.model
+    item = videos.get_prototype_item(0, PP_FRAMES)
+    imgs = torch.from_numpy(item["imgs"]).cuda()[None]
+    with torch.inference_mode():
+        feats = model.prototype_features(imgs)
+    if tuple(feats.shape) != (1, PP_FRAMES, 60, 108, 256):
+        raise RuntimeError(f"[cffm_pp] prototype features {tuple(feats.shape)}")
+    pts = feats.reshape(-1, 256)
+    first = kmeans_init(len(pts), PP_CLUSTERS, torch.Generator("cuda").manual_seed(0))
+    card_c, card_l = kmeans_from(pts, first, PP_ITERS)
+    saved = torch.from_numpy(np.load(paths[0])).cuda()
+    same_file = torch.equal(saved, card_c)
+    file_err = (saved - card_c).abs().max().item()
+    cpu_c, cpu_l = kmeans_from(pts.cpu(), first.cpu(), PP_ITERS)
+    share = (card_l.cpu() == cpu_l).float().mean().item()
+    err = (card_c.cpu() - cpu_c).abs().max().item()
+    scale = cpu_c.abs().max().item()
+    print(f"[cffm_pp] k-means of video 0 ({len(pts)} points x 256, {PP_CLUSTERS} centres, "
+          f"{PP_ITERS} iterations): card vs CPU from the same initial indices: labels equal on "
+          f"{share:.6f} (limit {PP_LABEL_SHARE}), centres max_abs_err={err:.3e} max|c|="
+          f"{scale:.3e} (limit {PP_CENTRE_REL} of it); the written file against the card's "
+          f"k-means: {'bitwise equal' if same_file else f'max_abs_err={file_err:.3e}'}",
+          flush=True)
+    if not (share >= PP_LABEL_SHARE and err <= PP_CENTRE_REL * scale
+            and file_err <= PP_CENTRE_REL * scale and torch.isfinite(card_c).all()):
+        raise RuntimeError("[cffm_pp] phase A's k-means disagrees")
+    for p in paths:
+        c = np.load(p)
+        if c.shape != (PP_CLUSTERS, 256) or c.dtype != np.float32 or not np.isfinite(c).all():
+            raise RuntimeError(f"[cffm_pp] {p}: centres {c.shape} {c.dtype}")
+    with torch.inference_mode():
+        feat_ms = _time_ms(lambda: model.prototype_features(imgs), iters=5, warmup=1)
+        km_ms = _time_ms(lambda: kmeans_from(pts, first, PP_ITERS), iters=5, warmup=1)
+    print(f"[cffm_pp] phase A a video: features {feat_ms:.3f} ms ({PP_FRAMES} frames 480x864), "
+          f"k-means {km_ms:.3f} ms (CUDA events over 5 calls after one) | {smi}", flush=True)
+    del bundle, model, feats, pts, imgs
+    torch.cuda.empty_cache()
+    return ckpt, cluster_dir, counts
+
+
+def _pp_phase_b(ops, root: str, work: str, ckpt: str, cluster_dir: str, smi: str):
+    """Phase B: ``tools.train.train`` on ``configs/cffm_b1_vspw_finetune_40k.py``
+    (``PP_OPTIONS``: batch 2, no warmup, so that the decay shows) ``--load-from``
+    phase A's checkpoint, the centres from its cluster directory, on
+    ``[train_cli]``'s in-memory videos: launches a step held to the finetune
+    plan, every frozen weight at its decay alone, the BN statistics as
+    loaded, the cluster branch moved off its init; host ms and device busy a
+    step (the CLI's profiler window). Returns (the trained model, counts)."""
+    import shutil
+
+    from vss_cffm_tpu_torch.config import apply_overrides, load_config
+    from vss_cffm_tpu_torch.models import CFFMSegmentor
+    from vss_cffm_tpu_torch.tools import train as train_cli
+    from vss_cffm_tpu_torch.train import poly_schedule
+    from vss_cffm_tpu_torch.train.optim import paramwise_multipliers
+
+    path = os.path.join(root, "vss_cffm_tpu_torch", "configs", "cffm_b1_vspw_finetune_40k.py")
+    cfg = apply_overrides(load_config(path), PP_OPTIONS + [f"cluster_dir={cluster_dir}"])
+    if (cfg.model.head.mode, cfg.model.backbone, cfg.optim.lr) != ("finetune", "mit_b1", 2e-4):
+        raise RuntimeError(f"[cffm_pp] the finetune config gave {cfg.model.head.mode}, "
+                           f"{cfg.model.backbone}, lr {cfg.optim.lr}")
+    plan = {name: 0 for name in ops.KERNEL_OPS}
+    plan.update({"mit_block_train": 6, "dwconv3x3": 2, "ce_upsampled_loss": 2,
+                 "ce_upsampled_loss_bwd": 2})
+    prof_dir = os.path.join(work, "profile_ft")
+    ops.reset_launches()
+    out = train_cli.train(cfg, work_dir=os.path.join(work, "ft"), device="cuda", load_from=ckpt,
+                          profile_dir=prof_dir, dataset=_synthetic_train_videos(SEED + 5))
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    print(f"[cffm_pp] finetune: launches over {PP_STEPS} steps "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if counts != {k: n * PP_STEPS for k, n in plan.items()}:
+        raise RuntimeError(f"[cffm_pp] finetune launches {counts}, expected {plan} a step")
+    _cli_steps_held(out, 0, PP_STEPS, "[cffm_pp] finetune")
+
+    model = out["state"].model
+    loaded = torch.load(ckpt)["state_dict"]
+    init = CFFMSegmentor(cfg.model)
+    init.init_weights(torch.Generator().manual_seed(cfg.seed))
+    init = init.state_dict()
+    sched, wd = poly_schedule(cfg.optim), cfg.optim.weight_decay
+    decayed_n = kept_n = 0
+    worst = 0.0
+    moved = set()
+    for name, p in model.named_parameters():
+        if name not in loaded:  # the cluster branch: trained from its init
+            if torch.equal(p.detach().cpu(), init[name]):
+                raise RuntimeError(f"[cffm_pp] {name} did not move")
+            moved.add(name.split(".")[1])
+            continue
+        mult, decayed = paramwise_multipliers(name, cfg.optim.head_lr_mult)
+        want = loaded[name].cuda()
+        if decayed:  # AdamW's p·(1 − lr·wd) a step, the lr of the group at step t
+            base = cfg.optim.lr * mult  # LambdaLR: the group's base lr times the schedule's factor
+            for t in range(PP_STEPS):
+                want = want * (1 - base * (sched(t) / cfg.optim.lr) * wd)
+            decayed_n += 1
+        else:
+            kept_n += 1
+        got = p.detach()
+        e = ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+        worst = max(worst, e)
+        if e > 2.0 ** -23 or (decayed and loaded[name].any()
+                              and torch.equal(got, loaded[name].cuda())):
+            raise RuntimeError(f"[cffm_pp] frozen {name}: rel err {e} against w(1 - lr wd)^t")
+    bn = "decode_head.linear_fuse.bn"
+    sd = model.state_dict()
+    bn_same = all(torch.equal(sd[f"{bn}.{s}"].cpu(), loaded[f"{bn}.{s}"])
+                  for s in ("running_mean", "running_var"))
+    print(f"[cffm_pp] finetune: {decayed_n} frozen tensors at w·Π(1 − lr_t·wd) and {kept_n} at w "
+          f"(worst relative error {worst:.3e}, limit 2^-23); trained from their init: "
+          f"{sorted(moved)}; fuse BN statistics {'as loaded' if bn_same else 'MOVED'}",
+          flush=True)
+    if moved != {"decoder_swin", "linear_pred3"} or not bn_same:
+        raise RuntimeError("[cffm_pp] the finetune step trained other parameters or moved the BN")
+    steady = out["iter_ms"][2:train_cli.PROFILE_FIRST]
+    prof = out["profile"]
+    busy = prof["device_busy_ms"] / prof["iterations"]
+    host = float(np.median(steady))
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    shutil.copy(os.path.join(prof_dir, "key_averages.txt"),
+                os.path.join(root, "chiprun_out", "profile_cffm_pp_train.txt"))
+    print(f"[cffm_pp] CFFM++-B1 finetune 480x480 B=2 clip-4 bf16, the CLI's loop: {host:.3f} host "
+          f"ms a step (median of steps 3-{train_cli.PROFILE_FIRST}: "
+          f"{', '.join(f'{t:.1f}' for t in steady)}); device busy {busy:.3f} ms a step "
+          f"(torch.profiler over iterations {train_cli.PROFILE_FIRST}-{train_cli.PROFILE_LAST}), "
+          f"idle share {1 - busy / host:.3f} | {smi}", flush=True)
+    return model, counts
+
+
+def _pp_phase_c(ops, root: str, kind: str, smi: str, model, cluster_dir: str) -> dict:
+    """Evaluation with the store: the finetuned model (bf16) streamed and per
+    clip on ``[eval]``'s video (480x853, the network at 480x864), each target
+    frame's launches held (4 / 2 / 4; 4 / 0 / 4 for the one-frame clips of
+    frames 0-2), streamed logits against the clip path's and against
+    ``force="torch"`` within 5 % of the largest logit, eval frames/s and
+    device busy a target frame. Returns the launch counts of both."""
+    from vss_cffm_tpu_torch.eval import ClipEvaluator, ClusterStore, StreamingVideoEvaluator
+    from vss_cffm_tpu_torch.models import set_force
+
+    model.eval()
+    video = _synthetic_video(SEED + 2)
+    store = ClusterStore(cluster_dir)
+    per_clip = {"mit_block_fused": 4, "cfm_attention": 2, "dwconv3x3": 4}
+    counts, logits = {}, {}
+    evs = {"streamed": StreamingVideoEvaluator(model, NUM_CLASSES, device="cuda",
+                                               cluster_store=store),
+           "per clip": ClipEvaluator(model, NUM_CLASSES, device="cuda", cluster_store=store)}
+    runs = {"streamed": lambda on_pred=None: evs["streamed"].run_streaming(video, on_pred=on_pred),
+            "per clip": lambda on_pred=None: evs["per clip"].run(
+                (video.get_test_item(i) for i in range(len(video))), dataset=video,
+                on_pred=on_pred)}
+    runs["streamed"]()  # warm-up
+    for name in runs:
+        evs[name].reset()
+        torch.cuda.synchronize()
+        if name == "streamed":
+            seen, restore = _logits_recorder(model)
+        else:
+            seen = []
+            hook = model.register_forward_hook(lambda mod, a, o: seen.append(o.detach().clone()))
+            restore = hook.remove
+        ops.reset_launches()
+        deltas, on_pred = _launch_deltas(ops)
+        m = runs[name](on_pred)
+        torch.cuda.synchronize()
+        counts[name] = ops.launches()
+        restore()
+        logits[name] = seen
+        for index, got in deltas:
+            want = _expected_launches(video, per_clip, index)
+            if got != want:
+                raise RuntimeError(f"[cffm_pp] eval {name}, frame {index}: launches {got}, "
+                                   f"expected {want}")
+        print(f"[cffm_pp] eval with the store, {name}: launches "
+              f"{ {k: counts[name][k] for k in per_clip} } over {EVAL_FRAMES} target frames "
+              f"(each frame held); mIoU {m['mIoU']:.5f}", flush=True)
+    set_force(model, "torch")
+    plain, restore = _logits_recorder(model)
+    StreamingVideoEvaluator(model, NUM_CLASSES, device="cuda",
+                            cluster_store=store).run_streaming(video)
+    restore()
+    set_force(model, None)
+    worst = {"per clip": 0.0, "plain": 0.0}
+    for t, got in enumerate(logits["streamed"]):
+        if not torch.isfinite(got.float()).all():
+            raise RuntimeError(f"[cffm_pp] non-finite streamed logits at frame {t}")
+        for ref_name, ref in (("per clip", logits["per clip"][t]), ("plain", plain[t])):
+            e = (got.float() - ref.float()).abs().max().item()
+            s = ref.float().abs().max().item()
+            worst[ref_name] = max(worst[ref_name], e / s)
+            if e > 0.05 * s:
+                raise RuntimeError(f"[cffm_pp] streamed logits of frame {t} disagree with the "
+                                   f"{ref_name} path: {e} > {0.05 * s}")
+    print(f"[cffm_pp] streamed logits {tuple(logits['streamed'][0].shape)} of "
+          f"{len(logits['streamed'])} target frames: worst max_abs_err / max|ref| "
+          f"{worst['per clip']:.4f} against the clip path, {worst['plain']:.4f} against "
+          f"force='torch' (limit 0.05)", flush=True)
+    del logits, plain
+    for name in runs:
+        rates = []
+        for _ in range(EVAL_ROUNDS):
+            evs[name].reset()
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            rates.append(EVAL_FRAMES / (time.perf_counter() - ts))
+        busy = _profile(runs[name], f"cffm_pp eval {name}, {EVAL_FRAMES} frames",
+                        f"profile_cffm_pp_eval_{name.replace(' ', '_')}.txt", root, kind, smi)
+        print(f"[cffm_pp] CFFM++-B1 {EVAL_HW[0]}x{EVAL_HW[1]} video with the store, {name}: "
+              f"{float(np.median(rates)):.3f} eval frames/s, median of {EVAL_ROUNDS} rounds "
+              f"({', '.join(f'{x:.3f}' for x in rates)}); device busy "
+              f"{busy / EVAL_FRAMES:.3f} ms a target frame | {smi}", flush=True)
+    return {f"cffm_pp_eval_{name.replace(' ', '_')}": c for name, c in counts.items()}
+
+
+def cffm_pp_phase(ops, root: str, kind: str, smi: str) -> dict:
+    """``[cffm_pp]``: CFFM++-B1 on the card, phase A (``_pp_phase_a``), the
+    finetune train CLI (``_pp_phase_b``) and evaluation with the cluster store
+    (``_pp_phase_c``). Returns the launch counts by path."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="cffm_pp_")
+    try:
+        ckpt, cluster_dir, counts_a = _pp_phase_a(ops, root, work, smi)
+        model, counts_b = _pp_phase_b(ops, root, work, ckpt, cluster_dir, smi)
+        counts = _pp_phase_c(ops, root, kind, smi, model, cluster_dir)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+    print(f"[cffm_pp] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"cffm_pp_phase_a": counts_a, "cffm_pp_finetune": counts_b, **counts}
+
+
 # ---- the CE microbench: its six kernels at its own inputs --------------------
 
 CE_BENCH_N = (8, 2)  # the train step's frames, and one clip's branch
@@ -1728,8 +2055,8 @@ def _logits_recorder(model):
     logits) while the returned list lives; ``restore()`` removes the hook."""
     seen, real = [], model.predict_from_features
 
-    def wrapped(fused):
-        out = real(fused)
+    def wrapped(fused, *args, **kwargs):
+        out = real(fused, *args, **kwargs)
         seen.append(out.detach().clone())
         return out
 
@@ -2312,6 +2639,9 @@ def main() -> int:
     # ---- 5b. the train CLI from the B1 config, resumed, with the decoder remat --
     cli_counts = train_cli_phase(ops, root, smi)
 
+    # ---- 5c. CFFM++: phase A, the finetune step, evaluation with the store ----
+    pp_counts = cffm_pp_phase(ops, root, kind, smi)
+
     # ---- 6. the CE microbench and its six kernels ----------------------------
     _clocks("after the train phase")
     ce_stats, ce_counts = ce_bench_phase(ops, opts)
@@ -2340,7 +2670,9 @@ def main() -> int:
         cn = spec.get("counter", name)
         by_path = {"inference": counts[cn], "inference_ffn": counts_f[cn],
                    "mixffn": counts_mix[cn], **{f: c[cn] for f, c in train_counts.items()},
-                   "train_cli": cli_counts[cn], "ce_bench": ce_counts[cn], **{p: c[cn] for p, c in eval_counts.items()}}
+                   "train_cli": cli_counts[cn], "ce_bench": ce_counts[cn],
+                   **{p: c[cn] for p, c in eval_counts.items()},
+                   **{p: c[cn] for p, c in pp_counts.items()}}
         row = {"name": name, "route": "cuda", "source": spec["sources"][0],
                "sources": spec["sources"],
                "replaces": spec["replaces"], "launches": by_path[path], "path": path,

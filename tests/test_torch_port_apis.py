@@ -143,5 +143,7 @@ def test_port_and_chip_smoke_import_no_jax():
     walked = r.stdout.split("WALKED", 1)[1].split()
     for name in ("models.losses", "train.optim", "train.state", "train.step",
                  "ops.ce_upsampled", "tools.train", "data.loader",
-                 "configs.cffm_b1_vspw_160k", "configs.cffm_b0_vspw_gene_prototype"):
+                 "configs.cffm_b1_vspw_160k", "configs.cffm_b0_vspw_gene_prototype",
+                 "configs.cffm_b1_vspw_finetune_40k", "ops.kmeans", "models.cluster_head",
+                 "eval.prototypes", "tools.generate_prototypes"):
         assert f"vss_cffm_tpu_torch.{name}" in walked, name

@@ -1501,3 +1501,31 @@ def test_decoder_remat_step_on_the_card(dev):
     print(f"remat vs plain: |dg| {err:.3e}, plain vs plain {noise:.3e}, |g| {a.norm().item():.3e};"
           f" largest element differences (remat, plain): {worst}")
     assert err <= 1e-5 * a.norm().item() + 3 * noise, (err, noise)
+
+
+@pytest.mark.parametrize("n,d,k", [(64_800, 256, 100), (3_000, 32, 17)])
+def test_kmeans_on_the_card_matches_the_cpu(dev, n, d, k):
+    """CFFM++'s k-means (plain PyTorch on both sides, f32 matmuls, TF32 off)
+    on the card against the CPU from the same initial indices, on points
+    drawn around k well-separated means (phase A's size first: 10 frames of
+    60×108 at 256 dims), one initial point in each: no cluster is split, so
+    no point lies near a tie that the matmuls' other order of summation
+    could flip. Labels equal; centres within 1e-5 of the largest |centre|;
+    two runs on the card bitwise equal (the one-hot update has no
+    atomics)."""
+    from vss_cffm_tpu_torch.ops.kmeans import kmeans_from
+
+    rng = np.random.RandomState(n % 97)
+    means = 6.0 * rng.randn(k, d)
+    which = rng.randint(0, k, n)
+    which[:k] = rng.permutation(k)  # every mean drawn at least once
+    pts = torch.from_numpy((means[which] + rng.randn(n, d)).astype(np.float32))
+    idx = torch.from_numpy(np.array([np.flatnonzero(which == j)[0] for j in range(k)]))
+    want_c, want_l = kmeans_from(pts, idx, 10)
+    got_c, got_l = kmeans_from(pts.to(dev), idx.to(dev), 10)
+    again_c, again_l = kmeans_from(pts.to(dev), idx.to(dev), 10)
+    torch.cuda.synchronize()
+    assert torch.equal(got_l.cpu(), want_l)
+    err = (got_c.cpu() - want_c).abs().max().item()
+    assert err <= 1e-5 * want_c.abs().max().item(), err
+    assert torch.equal(got_c, again_c) and torch.equal(got_l, again_l)

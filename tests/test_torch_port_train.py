@@ -27,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import (flat, perturbed_variables, to_jax_tree, to_np, train_batch,
-                               train_configs, train_patches)
+from torch_port_common import (flat, index_map, perturbed_variables, to_jax_tree, to_np,
+                               train_batch, train_configs, train_patches)
 from vss_cffm_tpu.models import losses as jax_losses
 from vss_cffm_tpu.models.losses import LossConfig as JaxLossConfig
 from vss_cffm_tpu.models.losses import make_clip_loss as jax_make_clip_loss
@@ -149,20 +149,6 @@ def test_batchnorm_running_stats_follow_flax(forward_backward):
                                fb["jstats"]["decode_head/decode/bn/var"], rtol=1e-5, atol=1e-6)
 
 
-def _index_map(pm, jcfg) -> dict:
-    """JAX parameter path → port parameter name: each port parameter filled
-    with its own index, converted, read back."""
-    names = [n for n, _ in pm.named_parameters()]
-    vals = {n: torch.full_like(p, float(i)) for i, (n, p) in enumerate(pm.named_parameters())}
-    tree = flat(to_jax_tree(pm, vals, jcfg)["params"])
-    out = {}
-    for path, leaf in tree.items():
-        assert np.all(leaf == leaf.flat[0]), path
-        out[path] = names[int(leaf.flat[0])]
-    assert sorted(out.values()) == sorted(names)
-    return out
-
-
 def test_paramwise_multipliers_match_jax():
     """Every parameter's (lr multiplier, decayed), from the reference names,
     equals mmcv's first-match rule as the JAX package applies it to its tree."""
@@ -170,7 +156,7 @@ def test_paramwise_multipliers_match_jax():
     lr_tree, wd_tree = jax_optim.paramwise_multipliers(variables["params"], 10.0)
     lr, wd = flat(lr_tree), flat(wd_tree)
     seen = set()
-    for path, name in _index_map(pm, jcfg).items():
+    for path, name in index_map(pm, jcfg).items():
         assert paramwise_multipliers(name, 10.0) == (lr[path], bool(wd[path])), (path, name)
         seen.add(paramwise_multipliers(name, 10.0))
     assert seen == {(10.0, True), (1.0, False), (1.0, True)}
@@ -182,7 +168,7 @@ def _adamw_steps_match_optax(ocfg: dict, scales=(1.0, 1.0, 1.0)) -> None:
     parameters after them agree as stated by the callers."""
     jcfg, _, variables, pm = _models()
     jtx = jax_optim.build_optimizer(variables["params"], jax_optim.OptimConfig(**ocfg))
-    names = _index_map(pm, jcfg)
+    names = index_map(pm, jcfg)
     params = {n: p for n, p in pm.named_parameters()}
     opt, sched = build_optimizer(pm, pcfg.OptimConfig(**ocfg))
     jparams = variables["params"]
@@ -273,7 +259,7 @@ def _one_step_matches_jax(loss: dict | None = None):
                                         "labels": jnp.asarray(labels).astype(jnp.int32)},
                                jax.random.PRNGKey(0))
         state = TrainState.create(pm, pcfg.OptimConfig(**ocfg))
-        names = _index_map(pm, jcfg)
+        names = index_map(pm, jcfg)
         before = flat(to_jax_tree(pm, {}, jcfg)["params"])
         step = make_train_step(pm, state.optimizer, state.scheduler)
         metrics = step({"imgs": torch.from_numpy(imgs), "labels": torch.from_numpy(labels)},

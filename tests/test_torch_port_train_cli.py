@@ -9,6 +9,12 @@ widths, head and decoder at 32 channels, decoder depth 1, frames of 64×96,
 - ``--load-from`` a ``.pth`` of the port's ``state_dict()`` and of a
   backbone alone without prefix (an ImageNet ``head.*`` dropped);
 - ``--device cuda`` without a card and ``--distributed`` raise;
+- CFFM++: ``tools.generate_prototypes`` (phase A) from a ``.pth`` of run A's
+  CFFM weights into a cluster directory, then 2 finetune steps
+  (``model.head.mode=finetune``) ``--load-from`` that ``.pth`` with the
+  val mIoU at step 2 through the cluster store: every frozen parameter at
+  its decay alone (w·Π(1 − lr_t·wd) or w by its group), the fuse BN's
+  statistics as loaded, the cluster branch moved;
 - the whole slice: the JAX variables carried into the port through a
   ``.pth`` (``state_dict_from_jax``), the first batch of each package's
   loader at one seed, and the port CLI's first step's loss against the JAX
@@ -27,9 +33,11 @@ import torch
 
 from fixtures import make_fake_vspw
 from torch_port_common import few_threads  # noqa: F401 (the module's fixture)
-from vss_cffm_tpu_torch.config import load_config
+from vss_cffm_tpu_torch.config import apply_overrides, load_config
+from vss_cffm_tpu_torch.tools import generate_prototypes as proto_cli
 from vss_cffm_tpu_torch.tools import train as train_cli
 from vss_cffm_tpu_torch.train import poly_schedule
+from vss_cffm_tpu_torch.train.optim import paramwise_multipliers
 
 pytestmark = pytest.mark.usefixtures("few_threads")
 
@@ -171,6 +179,63 @@ def test_no_card_and_distributed_raise(tree):
         train_cli.main([path, "--work-dir", os.path.join(work, "f"), "--device", "cuda"])
     with pytest.raises(NotImplementedError):
         train_cli.main([path, "--distributed", "--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def prototypes(run_a, tree):
+    """Phase A through the CLI: a ``.pth`` of run A's CFFM weights, 6 centres
+    of 4 frames a video written to a cluster directory."""
+    _, work, path = tree
+    ckpt = os.path.join(work, "cffm.pth")
+    torch.save({"state_dict": run_a[1]["state"].model.state_dict()}, ckpt)
+    cluster = os.path.join(work, "clusters")
+    paths = proto_cli.main([path, ckpt, "--cluster-dir", cluster, "--n-clusters", "6",
+                            "--num-frames", "4", "--device", "cpu"])
+    return ckpt, cluster, paths
+
+
+def test_generate_prototypes_cli_writes_each_videos_centres(prototypes, tree):
+    ckpt, cluster, paths = prototypes
+    # train (vid_a, vid_b), val (vid_a) and test (vid_b) lists
+    assert [os.path.relpath(p, cluster) for p in paths] == [
+        os.path.join(v, "centers.npy") for v in ("vid_a", "vid_b", "vid_a", "vid_b")]
+    for v in ("vid_a", "vid_b"):
+        c = np.load(os.path.join(cluster, v, "centers.npy"))
+        assert c.dtype == np.float32 and c.shape == (6, 32) and np.isfinite(c).all()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            proto_cli.main([tree[2], ckpt, "--cluster-dir", cluster])
+
+
+def test_two_finetune_steps_train_only_the_cluster_branch(prototypes, tree):
+    ckpt, cluster, _ = prototypes
+    _, work, path = tree
+    cfg = apply_overrides(load_config(path), ["model.head.mode=finetune",
+                                              f"cluster_dir={cluster}"])
+    loaded = torch.load(ckpt)["state_dict"]
+    out = train_cli.train(cfg, work_dir=os.path.join(work, "ft"), device="cpu",
+                          load_from=ckpt, eval_interval=2)
+    assert [s["step"] for s in out["steps"]] == [1, 2]
+    assert all(np.isfinite([s["loss_seg"], s["grad_norm"]]).all() for s in out["steps"])
+    [ev] = out["evals"]
+    assert 0.0 <= ev["mIoU"] <= 1.0
+    model = out["state"].model
+    sched, wd = poly_schedule(cfg.optim), cfg.optim.weight_decay
+    moved = set()
+    for name, p in model.named_parameters():
+        if name not in loaded:
+            assert name.startswith(("decode_head.decoder_swin.", "decode_head.linear_pred3."))
+            moved.add(name.split(".")[1])
+            continue
+        mult, decayed = paramwise_multipliers(name, cfg.optim.head_lr_mult)
+        factor = np.prod([1 - sched(t) * mult * wd for t in (0, 1)]) if decayed else 1.0
+        np.testing.assert_allclose(p.detach().numpy(), loaded[name].numpy() * factor,
+                                   rtol=1e-6, atol=1e-9, err_msg=name)
+    assert moved == {"decoder_swin", "linear_pred3"}
+    sd = model.state_dict()
+    for s in ("running_mean", "running_var"):
+        key = f"decode_head.linear_fuse.bn.{s}"
+        assert torch.equal(sd[key], loaded[key]), key
 
 
 def test_first_step_loss_matches_the_jax_step(tree, tmp_path):

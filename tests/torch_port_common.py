@@ -37,7 +37,8 @@ def jax_config(variant: str = "b0", num_classes: int = 7, depth: int = 1,
 
 
 def port_config(jcfg, block_impl=(None, "fused", "fused", None)) -> pcfg.SegmentorConfig:
-    """The port's config with the same fields as a JAX ``SegmentorConfig``; its
+    """The port's config with the same fields as a JAX ``SegmentorConfig`` (the
+    head's dropout, mode and cluster blend included); its
     ``train_block_impl`` and ``dwconv_impl`` are the JAX ones, the interpret
     modes mapped to the port's forms ("full-interpret" → "full",
     "ffn-interpret" → "ffn", "fused-interpret" → "fused")."""
@@ -49,7 +50,9 @@ def port_config(jcfg, block_impl=(None, "fused", "fused", None)) -> pcfg.Segment
         mlp_ratio=d.mlp_ratio, qkv_bias=d.qkv_bias, norm_eps=d.norm_eps)
     h = jcfg.head
     head = pcfg.CFFMHeadConfig(in_channels=tuple(h.in_channels), embed_dim=h.embed_dim,
-                               num_classes=h.num_classes, num_clips=h.num_clips, decoder=dec)
+                               num_classes=h.num_classes, num_clips=h.num_clips,
+                               dropout_ratio=h.dropout_ratio, decoder=dec, mode=h.mode,
+                               cluster_blend=h.cluster_blend)
     tbi = jcfg.train_block_impl
     form = lambda i: i.removesuffix("-interpret") if isinstance(i, str) else i
     tbi = tuple(map(form, tbi)) if isinstance(tbi, tuple) else form(tbi)
@@ -186,6 +189,20 @@ def to_jax_tree(model, values: dict, jcfg):
     sd = {k: to_np(v) for k, v in model.state_dict().items()}
     sd.update({k: to_np(v) for k, v in values.items()})
     return convert_segmentor(sd, jcfg)
+
+
+def index_map(pm, jcfg) -> dict:
+    """JAX parameter path → port parameter name: each port parameter filled
+    with its own index, converted, read back."""
+    names = [n for n, _ in pm.named_parameters()]
+    vals = {n: torch.full_like(p, float(i)) for i, (n, p) in enumerate(pm.named_parameters())}
+    tree = flat(to_jax_tree(pm, vals, jcfg)["params"])
+    out = {}
+    for path, leaf in tree.items():
+        assert np.all(leaf == leaf.flat[0]), path
+        out[path] = names[int(leaf.flat[0])]
+    assert sorted(out.values()) == sorted(names)
+    return out
 
 
 def flat(tree, prefix: str = "") -> dict:
@@ -421,6 +438,27 @@ def eval_models(seed: int = 0):
     port = CFFMSegmentor(port_config(jcfg))
     port.load_state_dict(state_dict_from_jax(variables, jcfg), strict=True)
     return JaxSegmentor(jcfg), variables, port.eval()
+
+
+def finetune_models(seed: int = 0, num_classes: int = EVAL_CLASSES):
+    """(JAX config, JAX B0 CFFM++ finetune segmentor at decoder depth 1 with
+    head dropout 0 and composed train blocks, its variables, the port model
+    on the same weights in eval mode): the port's init perturbed with numpy
+    noise, carried to JAX (``to_jax_tree``) and back
+    (``state_dict_from_jax``), as ``eval_models`` does."""
+    jcfg = jax_config("b0", num_classes=num_classes, depth=1)
+    jcfg = dataclasses.replace(jcfg, train_block_impl=None, head=dataclasses.replace(
+        jcfg.head, mode="finetune", dropout_ratio=0.0))
+    pm = CFFMSegmentor(port_config(jcfg))
+    pm.init_weights(torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed + 1)
+    with torch.no_grad():
+        for p in pm.parameters():
+            p += torch.from_numpy(0.02 * rng.standard_normal(p.shape).astype(np.float32))
+    variables = to_jax_tree(pm, {}, jcfg)
+    port = CFFMSegmentor(port_config(jcfg))
+    port.load_state_dict(state_dict_from_jax(variables, jcfg), strict=True)
+    return jcfg, JaxSegmentor(jcfg), variables, port.eval()
 
 
 def mask_agreement(want: dict, got: dict) -> float:

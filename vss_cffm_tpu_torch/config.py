@@ -126,16 +126,27 @@ class LossConfig:
     ohem_min_kept: int = 100000
 
 
+HEAD_MODES = ("cffm", "finetune")
+
+
 @dataclasses.dataclass(frozen=True)
 class CFFMHeadConfig:
     in_channels: tuple[int, ...] = (64, 128, 320, 512)
     embed_dim: int = 256
     num_classes: int = 124
     num_clips: int = 4
-    dropout_ratio: float = 0.1  # Dropout2d before linear_pred and linear_pred2
+    dropout_ratio: float = 0.1  # Dropout2d before linear_pred, linear_pred2, linear_pred3
     decoder: CFFMDecoderConfig = dataclasses.field(
         default_factory=lambda: CFFMDecoderConfig(dim=256, depth=2))
+    # 'cffm' | 'finetune': CFFM++ finetune adds the cluster cross-attention
+    # branch (decoder_swin, linear_pred3) and trains only it
+    mode: str = "cffm"
+    cluster_blend: float = 0.5  # eval output x2 + cluster_blend · x3 in finetune mode
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+
+    def __post_init__(self):
+        if self.mode not in HEAD_MODES:
+            raise ValueError(f"CFFMHeadConfig.mode={self.mode!r}: expected one of {HEAD_MODES}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,9 +209,10 @@ class SegmentorConfig:
                                    dwconv_impl=self.dwconv_impl)
 
 
-def build_model_config(variant: str = "b1", num_classes: int = 124,
-                       num_clips: int = 4) -> SegmentorConfig:
-    """CFFM-Bx: MiT-Bx backbone, CFFM head; decoder depth B0=1, B1/B2=2, B5=4."""
+def build_model_config(variant: str = "b1", num_classes: int = 124, num_clips: int = 4,
+                       mode: str = "cffm") -> SegmentorConfig:
+    """CFFM-Bx: MiT-Bx backbone, CFFM head; decoder depth B0=1, B1/B2=2, B5=4;
+    ``mode="finetune"`` is CFFM++'s head with the cluster branch."""
     depths = {"b0": 1, "b1": 2, "b2": 2, "b5": 4}[variant]
     backbone = f"mit_{variant}"
     head = CFFMHeadConfig(
@@ -209,6 +221,7 @@ def build_model_config(variant: str = "b1", num_classes: int = 124,
         num_classes=num_classes,
         num_clips=num_clips,
         decoder=CFFMDecoderConfig(dim=256, depth=depths),
+        mode=mode,
     )
     return SegmentorConfig(backbone=backbone, head=head)
 

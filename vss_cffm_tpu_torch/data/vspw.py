@@ -16,7 +16,9 @@ The port's copy of ``vss_cffm_tpu/data/vspw.py`` (reference
   dilations that fall outside the video dropped, and the schedules of
   target frames 3 to 8 for ``dilation == [-9, -6, -3]`` (``:2376-2388``);
 - **prototype** clips (``prepare_train_val:2458-2522``): 10 evenly spaced
-  frames per video over the train, val and test lists;
+  frames per video over the train, val and test lists
+  (``split="train_val_generate_prototype"``); ``get_prototype_item`` resizes
+  and normalises them on the host, with cv2's bits, as the JAX item does;
 - labels are palette PNGs read as they are; ``reduce_zero_label`` maps 0 to
   255 (ignore) and k to k − 1 (``loading.py:205-214``).
 
@@ -68,6 +70,12 @@ def load_image(path: str) -> np.ndarray:
     with Image.open(path) as im:
         rgb = np.asarray(im.convert("RGB"))
     return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def _resized(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, hw[::-1])`` bilinear, bit for bit (to the same size
+    it copies)."""
+    return img if tuple(hw) == img.shape[:2] else T.resize_window(img, *hw, 0, 0, *hw)
 
 
 @dataclasses.dataclass
@@ -256,6 +264,20 @@ class VSPWVideoDataset:
             flips += [False, True] if flip else [False]
         del item["img_scale"]
         return {**item, "scales": scales, "flips": flips}
+
+    def get_prototype_item(self, idx: int, num_frames: int = 10) -> dict:
+        """CFFM++ phase A's item of video ``idx`` (``sample_prototype_clip``):
+        imgs (T, H', W', 3) f32, each frame resized to ``img_scale`` and up
+        to multiples of 32 with cv2's bilinear bits (``AlignedResize``), then
+        RGB (x − mean) / std, as the JAX item; and the video's name."""
+        sample = self.sample_prototype_clip(idx, num_frames)
+        mean, std = np.array(T.IMG_MEAN, np.float32), np.array(T.IMG_STD, np.float32)
+        imgs = []
+        for im in self._clip(sample):
+            im = _resized(im, T.rescale_size(im.shape[:2], self.img_scale))
+            im = _resized(im, T.aligned_size(im.shape[:2]))
+            imgs.append((im[..., ::-1].astype(np.float32) - mean) / std)
+        return {"imgs": np.stack(imgs), "video": sample.video}
 
     def load_gt(self, idx: int) -> np.ndarray:
         """Ground-truth mask of the target frame of test item ``idx``."""

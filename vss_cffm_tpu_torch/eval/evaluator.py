@@ -23,8 +23,12 @@ The port's copy of ``vss_cffm_tpu/eval/evaluator.py`` (reference
   ``max_lag`` before the target, and a video's frames at its end, leave the
   cache. Only the frames not in the cache are decoded.
 
-Not ported yet: CFFM++'s ``cluster_store`` and the image models'
-single-frame branch; neither evaluator takes their arguments.
+CFFM++: with a ``cluster_store`` (``eval.prototypes.ClusterStore``) both
+evaluators hand the model each item's video centres and mask, in every mode
+(whole, slide, TTA, streamed); a video's centres go to the device once. The
+feature cache is unchanged: the centres enter only the head.
+
+Not ported yet: the image models' single-frame branch.
 """
 
 from __future__ import annotations
@@ -73,12 +77,13 @@ class ClipEvaluator:
 
     ``model``: a ``CFFMSegmentor`` (moved to ``device``, put in eval mode);
     ``mode``: 'whole' (the CFFM configs' ``test_cfg.mode``) or 'slide' with
-    ``crop_size`` / ``stride`` (reference ``encoder_decoder.py:457-500``).
+    ``crop_size`` / ``stride`` (reference ``encoder_decoder.py:457-500``);
+    ``cluster_store``: CFFM++'s per-video centres, for a finetune-mode model.
     """
 
     def __init__(self, model, num_classes: int, mode: str = "whole",
                  crop_size: tuple[int, int] = (480, 480), stride: tuple[int, int] = (320, 320),
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", cluster_store=None):
         if mode not in MODES:
             raise ValueError(f"mode {mode!r}: expected one of {MODES}")
         self.device = _device(device)
@@ -87,6 +92,7 @@ class ClipEvaluator:
         self.mode = mode
         self.crop_size = tuple(crop_size)
         self.stride = tuple(stride)
+        self.cluster_store = cluster_store
         self._confusion = torch.zeros((num_classes, num_classes), dtype=torch.int64,
                                       device=self.device)
         self._vc_preds: dict[str, list[np.ndarray]] = defaultdict(list)
@@ -113,20 +119,35 @@ class ClipEvaluator:
         logits = resize_bilinear(logits, tuple(input_hw))
         return resize_bilinear(logits, tuple(ori_shape)).argmax(dim=-1)[0]
 
+    def _centers(self, video: str):
+        """The video's (centres (1, n, C), mask (1, n)) on the device, or None
+        without a store."""
+        if self.cluster_store is None:
+            return None
+        return self.cluster_store.on_device([video], self.device)
+
+    def _logits_fn(self, video: str) -> Callable:
+        centers = self._centers(video)
+        if centers is None:
+            return self.model
+        return lambda clip: self.model(clip, cluster_centers=centers)
+
     @torch.inference_mode()
     def predict(self, item: dict) -> torch.Tensor:
         """The target frame's (H, W) int64 mask on the device, from a test item."""
         x = self._input(item["imgs"], item["img_scale"])
         ori = tuple(item["ori_shape"])
+        logits_fn = self._logits_fn(item["video"])
         if self.mode == "slide":
-            prob = slide_inference(self.model, x, ori, self.crop_size, self.stride)
+            prob = slide_inference(logits_fn, x, ori, self.crop_size, self.stride)
             return prob.argmax(dim=-1)[0]
-        return self._mask(self.model(x), x.shape[2:4], ori)
+        return self._mask(logits_fn(x), x.shape[2:4], ori)
 
     @torch.inference_mode()
     def _predict_tta(self, item: dict) -> torch.Tensor:
         views = [self._input(item["imgs"], scale) for scale in item["scales"]]
-        prob = tta_inference(self.model, views, item["flips"], tuple(item["ori_shape"]))
+        prob = tta_inference(self._logits_fn(item["video"]), views, item["flips"],
+                             tuple(item["ori_shape"]))
         return prob.argmax(dim=-1)[0]
 
     def predict_tta(self, item: dict) -> np.ndarray:
@@ -211,8 +232,8 @@ class StreamingVideoEvaluator(ClipEvaluator):
     """
 
     def __init__(self, model, num_classes: int, max_lag: int = 9,
-                 device: str | torch.device = "cuda"):
-        super().__init__(model, num_classes, device=device)
+                 device: str | torch.device = "cuda", cluster_store=None):
+        super().__init__(model, num_classes, device=device, cluster_store=cluster_store)
         self.max_lag = max_lag
 
     @torch.inference_mode()
@@ -243,7 +264,8 @@ class StreamingVideoEvaluator(ClipEvaluator):
                                                                                scale)[0])
             ori = tuple(img.shape[:2])
             fused = torch.stack([cache[(video, fi)][0] for fi in sample.frame_indices])[None]
-            logits = self.model.predict_from_features(fused)
+            logits = self.model.predict_from_features(fused,
+                                                      cluster_centers=self._centers(video))
             pred = self._mask(logits, aligned_size(rescale_size(ori, scale)), ori)
             self._record(video, frame, idx, pred, dataset.load_gt(idx), keep_for_vc, save_dir,
                          on_pred)

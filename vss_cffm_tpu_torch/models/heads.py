@@ -19,9 +19,22 @@ refined last frame. The fuse BatchNorm then normalises with the f32 batch
 statistics of the merged sum and updates its running statistics the flax
 way, Dropout2d (whole channels per sample) precedes ``linear_pred`` and
 ``linear_pred2``.
+
+In ``finetune`` mode (CFFM++, ``CFFMHeadConfig.mode``, the JAX head's
+``:200-277``) the head adds the cluster branch: ``decoder_swin`` (a
+``ClusterDecoder`` over the refined-input target features at 1/8 and the
+video's cluster centres), ``dropout3`` and ``linear_pred3``. Only that
+branch trains: the fused features are detached, the fuse BN normalises with
+its running statistics and does not update them, and the per-frame logits
+are computed without autograd. The focal decoder and ``linear_pred2`` do
+not run in finetune training (their output x2 is not in the training output
+``[x, x3]``; the JAX step's XLA drops that work too). In eval the output is
+``x2 + cluster_blend · x3``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -30,6 +43,7 @@ import torch.nn.functional as F
 from ..config import CFFMHeadConfig
 from ..ops import resize_bilinear
 from .cffm_transformer import CFFMDecoder
+from .cluster_head import ClusterDecoder
 from .mit import derived, keep_mask
 
 __all__ = ["CFFMHead", "dropout2d"]
@@ -81,6 +95,10 @@ class CFFMHead(nn.Module):
         self.linear_pred = nn.Conv2d(f, cfg.num_classes, 1)
         self.decoder_focal = CFFMDecoder(cfg.decoder)
         self.linear_pred2 = nn.Conv2d(2 * f, cfg.num_classes, 1)
+        self.finetune = cfg.mode == "finetune"
+        if self.finetune:
+            self.decoder_swin = ClusterDecoder(f, cfg.decoder.num_heads)
+            self.linear_pred3 = nn.Conv2d(f, cfg.num_classes, 1)
         self.compute_dtype = torch.float32
 
     def decode(self, feats: list[torch.Tensor], train: bool = False) -> torch.Tensor:
@@ -122,34 +140,60 @@ class CFFMHead(nn.Module):
         return torch.relu(z).to(dt)
 
     def forward_fused(self, _c: torch.Tensor, batch_size: int, num_clips: int,
-                      train: bool = False, generator: torch.Generator | None = None
-                      ) -> torch.Tensor:
+                      train: bool = False, generator: torch.Generator | None = None,
+                      cluster_centers=None) -> torch.Tensor:
         """Logits from per-frame fused features (B·T, h, w, f). Eval: the
         refined target-frame logits (B, h, w, classes), or, when the clip
         length is not ``num_clips``, the plain per-frame logits of the last
         frame. Train: (B, T+1, h, w, classes), every frame's plain logits and
-        the refined last frame."""
+        the refined last frame (in finetune mode the cluster branch's).
+        ``cluster_centers`` (B, K, f), or a ``(centers, mask)`` pair, is
+        required in finetune mode."""
         cfg = self.cfg
         dt = self.compute_dtype
         rate = cfg.dropout_ratio if train else 0.0
         h, w = _c.shape[1:3]
+        frozen = self.finetune and train
+        if self.finetune:
+            _c = _c.detach()
         if train or num_clips != cfg.num_clips:
-            x = _conv1x1(dropout2d(_c, rate, generator), self.linear_pred, dt)
+            with torch.no_grad() if frozen else contextlib.nullcontext():
+                x = _conv1x1(dropout2d(_c, rate, generator), self.linear_pred, dt)
             x = x.reshape(batch_size, num_clips, h, w, cfg.num_classes)
             if not train:
                 return x[:, -1]
         _c8 = resize_bilinear(_c.to(dt), (h // 2, w // 2))
         _c_further = _c8.reshape(batch_size, num_clips, h // 2, w // 2, cfg.embed_dim)
-        _c2 = self.decoder_focal(_c_further, train, generator)
-        fused_last = torch.cat([_c_further[:, -1], _c2[:, -1]], dim=-1)
-        x2 = _conv1x1(dropout2d(fused_last, rate, generator), self.linear_pred2, dt)
-        x2 = resize_bilinear(x2, (h, w))
+        if not frozen:
+            _c2 = self.decoder_focal(_c_further, train, generator)
+            fused_last = torch.cat([_c_further[:, -1], _c2[:, -1]], dim=-1)
+            x2 = _conv1x1(dropout2d(fused_last, rate, generator), self.linear_pred2, dt)
+            x2 = resize_bilinear(x2, (h, w))
+            if not self.finetune:
+                return x2 if not train else torch.cat([x, x2[:, None]], dim=1)
+        # ---- CFFM++: the cluster cross-attention branch
+        if cluster_centers is None:
+            raise ValueError("CFFMHead in finetune mode needs the video's cluster centres")
+        _c3 = self.decoder_swin(_c_further[:, -1], cluster_centers)
+        x3 = _conv1x1(dropout2d(_c3, rate, generator), self.linear_pred3, dt)
+        x3 = resize_bilinear(x3, (h, w))
         if not train:
-            return x2
-        return torch.cat([x, x2[:, None]], dim=1)
+            return x2 + cfg.cluster_blend * x3
+        return torch.cat([x, x3[:, None]], dim=1)
 
     def forward(self, feats: list[torch.Tensor], batch_size: int, num_clips: int,
-                train: bool = False, generator: torch.Generator | None = None
-                ) -> torch.Tensor:
-        return self.forward_fused(self.decode(feats, train), batch_size, num_clips, train,
-                                  generator)
+                train: bool = False, generator: torch.Generator | None = None,
+                cluster_centers=None) -> torch.Tensor:
+        # finetune mode: the fuse BN on its running statistics, not updated,
+        # and no gradient to the decode
+        with torch.no_grad() if train and self.finetune else contextlib.nullcontext():
+            _c = self.decode(feats, train and not self.finetune)
+        return self.forward_fused(_c, batch_size, num_clips, train, generator, cluster_centers)
+
+    def fused_features(self, feats: list[torch.Tensor]) -> torch.Tensor:
+        """Fused features at 1/8 (N, h/8, w/8, f) for CFFM++'s prototypes: the
+        per-frame decode (eval BN), resized to half its size (reference
+        ``cffm_head.py:267-284``)."""
+        _c = self.decode(feats, False)
+        h, w = _c.shape[1:3]
+        return resize_bilinear(_c, (h // 2, w // 2))

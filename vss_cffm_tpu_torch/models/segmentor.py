@@ -10,10 +10,17 @@ the compute dtype of every module; ``force`` is handed to every op with a
 kernel (see ``set_force``; the train step hands the model's ``force`` to the
 loss). ``init_weights(generator)`` draws random
 weights with the reference's initialisers from an explicit generator.
+
+CFFM++ (``head.mode="finetune"``): ``forward`` and ``predict_from_features``
+take the video's ``cluster_centers``; in finetune training the backbone
+keeps its train form (drop path) but runs without autograd, since only the
+head's cluster branch trains. ``prototype_features`` gives phase A's fused
+1/8 features.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -70,7 +77,7 @@ class CFFMSegmentor(nn.Module):
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.Conv2d):
-                if name.endswith(("linear_pred", "linear_pred2")):
+                if name.endswith(("linear_pred", "linear_pred2", "linear_pred3")):
                     m.weight.normal_(0.0, 0.01, generator=g)
                 elif name.endswith("linear_fuse.conv"):
                     # variance scaling (1, fan_out) truncated normal
@@ -95,23 +102,35 @@ class CFFMSegmentor(nn.Module):
                     _trunc_normal(p, 0.02, g)
 
     def forward(self, imgs: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                cluster_centers=None) -> torch.Tensor:
         """imgs (B, T, H, W, 3) normalised → refined target logits
         (B, H/4, W/4, K); with ``train`` (the model in ``train()`` mode),
         (B, T+1, H/4, W/4, K) with dropout and stochastic depth drawn from
-        ``generator``."""
+        ``generator``. ``cluster_centers``: the videos' centres (B, n, C) or a
+        ``(centers, mask)`` pair, required in finetune mode."""
         if train and not self.training:
             raise ValueError("forward(train=True) needs the model in train() mode")
         b, t, h, w, c = imgs.shape
-        feats = self.backbone(imgs.reshape(b * t, h, w, c), train, generator)
-        return self.decode_head(feats, b, t, train, generator)
+        frozen = train and self.decode_head.finetune
+        with torch.no_grad() if frozen else contextlib.nullcontext():
+            feats = self.backbone(imgs.reshape(b * t, h, w, c), train, generator)
+        return self.decode_head(feats, b, t, train, generator, cluster_centers)
 
     def frame_features(self, frames: torch.Tensor) -> torch.Tensor:
         """Per-frame fused 1/4 features (N, H/4, W/4, embed_dim) — the
         cacheable prefix of clip inference (backbone + per-frame decode)."""
         return self.decode_head.decode(self.backbone(frames))
 
-    def predict_from_features(self, fused: torch.Tensor) -> torch.Tensor:
+    def predict_from_features(self, fused: torch.Tensor, cluster_centers=None) -> torch.Tensor:
         """Eval logits from cached per-frame features (B, T, h, w, embed_dim)."""
         b, t = fused.shape[:2]
-        return self.decode_head.forward_fused(fused.reshape(b * t, *fused.shape[2:]), b, t)
+        return self.decode_head.forward_fused(fused.reshape(b * t, *fused.shape[2:]), b, t,
+                                              cluster_centers=cluster_centers)
+
+    def prototype_features(self, imgs: torch.Tensor) -> torch.Tensor:
+        """Fused 1/8 features of each frame for CFFM++'s phase-A k-means:
+        imgs (B, T, H, W, 3) → (B, T, H/8, W/8, embed_dim), in eval form."""
+        b, t, h, w, c = imgs.shape
+        fused = self.decode_head.fused_features(self.backbone(imgs.reshape(b * t, h, w, c)))
+        return fused.reshape(b, t, *fused.shape[1:])

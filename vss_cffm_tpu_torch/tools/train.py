@@ -27,7 +27,12 @@ for; without a card ``cuda`` raises). The loop:
   ``checkpoint_interval`` steps and at ``max_iters`` (``work_dir/ckpt``,
   with classes, palette and config in its metadata); the val mIoU every
   ``--eval-interval`` steps (``ClipEvaluator``); with ``--profile-dir``, a
-  ``torch.profiler`` trace of iterations 10-13.
+  ``torch.profiler`` trace of iterations 10-13;
+- CFFM++ finetune (``model.head.mode="finetune"``, the ``*_finetune_40k``
+  configs, ``--load-from`` a CFFM checkpoint): a ``ClusterStore`` of
+  ``cfg.cluster_dir`` (phase A's ``tools/generate_prototypes``) hands each
+  step the centres of its batch's videos, and the interval eval the
+  centres of each val video.
 
 The loader starts again from epoch 0 on resume, as the JAX loop does.
 ``train(...)`` is the loop without the argument parsing, for callers in
@@ -46,6 +51,7 @@ import torch
 from ..config import ExperimentConfig, apply_overrides, load_config
 from ..data import TrainLoader, VSPWVideoDataset, iterate_eval
 from ..data.palette import VSPW_CLASSES, VSPW_PALETTE
+from ..eval.prototypes import ClusterStore
 from ..models import CFFMSegmentor
 from ..train import CheckpointManager, TrainState, make_train_step, poly_schedule
 from ..utils.logging import get_logger
@@ -149,6 +155,7 @@ def train(cfg: ExperimentConfig, *, work_dir: str, device: str | torch.device = 
     loader = TrainLoader(dataset, cfg.data.batch_size, seed=seed,
                          num_workers=cfg.data.num_workers, device_normalize=True, device=device)
 
+    store = ClusterStore(cfg.cluster_dir) if cfg.model.head.mode == "finetune" else None
     model = CFFMSegmentor(cfg.model, dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
     model.init_weights(torch.Generator().manual_seed(seed))
     model.to(device).train()
@@ -180,6 +187,8 @@ def train(cfg: ExperimentConfig, *, work_dir: str, device: str | torch.device = 
     try:
         for it in range(start, cfg.optim.max_iters):
             batch = next(batches)
+            if store is not None:
+                batch["cluster_centers"] = store.on_device(batch["videos"], device)
             gen = torch.Generator(device).manual_seed(step_seed(seed, it))
             window.append((it, base_group["lr"], step_fn(batch, gen)))
 
@@ -227,7 +236,8 @@ def train(cfg: ExperimentConfig, *, work_dir: str, device: str | torch.device = 
                     val_ds = VSPWVideoDataset(cfg.data.data_root, "val",
                                               dilation=cfg.data.dilation,
                                               img_scale=cfg.data.img_scale)
-                    val_eval = ClipEvaluator(model, cfg.model.head.num_classes, device=device)
+                    val_eval = ClipEvaluator(model, cfg.model.head.num_classes, device=device,
+                                             cluster_store=store)
                 model.eval()
                 val_eval.reset()
                 m = val_eval.run(iterate_eval(val_ds, num_workers=cfg.data.num_workers),

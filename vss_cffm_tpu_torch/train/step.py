@@ -4,6 +4,12 @@ Port of ``vss_cffm_tpu/train/step.py``. Parameters stay f32; the modules
 compute in their ``compute_dtype`` (bf16 on the card) with f32 softmax,
 loss and BatchNorm statistics. Randomness (Dropout2d, stochastic depth)
 comes from the ``torch.Generator`` handed to each step.
+
+A parameter that the loss does not reach (in CFFM++ finetune mode all but
+the head's cluster branch) gets a zero gradient, as ``jax.grad`` gives it:
+AdamW then moves it by its weight decay alone, as optax's
+``add_decayed_weights`` does in the JAX step. (The reference's mmseg detaches
+these branches and leaves their gradients ``None``, which AdamW skips.)
 """
 
 from __future__ import annotations
@@ -33,7 +39,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     """Returns ``step(batch, generator) -> metrics``.
 
     ``batch`` = {"imgs": (B, T, H, W, 3) uint8 BGR or normalised float,
-    "labels": (B, T, H, W) uint8/int}; ``metrics`` = {"loss_seg", "acc_seg",
+    "labels": (B, T, H, W) uint8/int, and in CFFM++ finetune mode
+    "cluster_centers": the videos' (B, n, C) centres or a ``(centers, mask)``
+    pair}; ``metrics`` = {"loss_seg", "acc_seg",
     "grad_norm"} as 0-d tensors (the norm of the gradients before the
     optimizer's global-norm clip, ``OptimConfig.grad_clip``). The loss is
     built from ``loss_cfg``, by default the head's ``LossConfig``
@@ -43,17 +51,24 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         loss_cfg = model.config.head.loss
     loss_of = make_clip_loss(loss_cfg, ignore_index)
     params = [p for p in model.parameters() if p.requires_grad]
+    zeros: dict[int, torch.Tensor] = {}  # the zero gradients of the unreached ones, kept
 
     def step(batch: dict, generator: torch.Generator) -> dict[str, torch.Tensor]:
         imgs = batch["imgs"]
         if imgs.dtype == torch.uint8:
             imgs = device_normalize(imgs, model.backbone.compute_dtype)
         optimizer.zero_grad(set_to_none=True)
-        logits = model(imgs, train=True, generator=generator)
+        logits = model(imgs, train=True, generator=generator,
+                       cluster_centers=batch.get("cluster_centers"))
         losses = loss_of(logits, batch["labels"], force=model.force)
         losses["loss_seg"].backward()
         grads = [p.grad for p in params if p.grad is not None]
         norm = global_norm(grads)
+        for i, p in enumerate(params):
+            if p.grad is None:  # kept across steps: AdamW reads it, the clip scales 0
+                if i not in zeros:
+                    zeros[i] = torch.zeros_like(p)
+                p.grad = zeros[i]
         optimizer.step()
         scheduler.step()
         metrics = {k: v.detach() for k, v in losses.items()}

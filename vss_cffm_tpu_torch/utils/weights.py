@@ -3,8 +3,9 @@
 ``state_dict_from_jax(variables, config)`` takes the JAX segmentor's
 ``{"params", "batch_stats"}`` tree (numpy or array-like leaves) and returns
 the port's ``state_dict`` under the reference PyTorch names. It is the exact
-inverse of ``vss_cffm_tpu/utils/torch_convert.py:convert_segmentor`` in
-``cffm`` mode:
+inverse of ``vss_cffm_tpu/utils/torch_convert.py:convert_segmentor``, in
+``cffm`` mode and in ``finetune`` mode (CFFM++'s ``decoder_swin.blocks.0``
+and ``linear_pred3``, ``:178-190``):
 
   dense kernel (in, out)            → Linear weight (out, in)
   conv kernel (kh, kw, in, out)     → Conv2d weight (out, in, kh, kw)
@@ -128,4 +129,13 @@ def state_dict_from_jax(variables: Mapping, config: SegmentorConfig) -> dict[str
     w.conv(f"{h}.linear_pred2", head["linear_pred2"])
     for i in range(config.head.decoder.depth):
         _cffm_block(w, head["decoder_focal"][f"blocks_{i}"], f"{h}.decoder_focal.blocks.{i}")
+    if config.head.mode == "finetune":
+        sw, pre = head["decoder_swin"], f"{h}.decoder_swin.blocks.0"
+        w.norm(f"{pre}.norm1", sw["norm1"])
+        w.norm(f"{pre}.norm2", sw["norm2"])
+        for name in ("qkv", "qkv_cluster", "proj_cluster"):
+            w.linear(f"{pre}.attn.{name}", sw["attn"][name])
+        w.linear(f"{pre}.mlp.fc1", sw["mlp_fc1"])
+        w.linear(f"{pre}.mlp.fc2", sw["mlp_fc2"])
+        w.conv(f"{h}.linear_pred3", head["linear_pred3"])
     return w.sd
