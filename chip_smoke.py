@@ -61,6 +61,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      path and the clip path, the confusion's total), the clip and streamed
      masks (held in f32 with the plain ops), eval frames/s of both, slide
      and TTA on 2 frames each (TTA's key-tiled launches held);
+  4d. ``[image]``: SegFormer-B0 (``configs/segformer_b0_image.py``: MiT-B0
+     32/64/160/256, head 256 wide, 124 classes) through ``init_segmentor``
+     from its config, on ``[eval]``'s video one frame an item (network at
+     480x864, ``image_phase``): rows 1 and 3 at the inputs of one plain
+     forward there (B0's channel counts), ``inference_segmentor`` on one
+     frame against ``force="torch"``, the whole-mode ``ClipEvaluator`` with
+     each target frame's launches held (4 / 0 / 4) and the confusion's
+     total, eval frames/s and device busy a target frame, slide on 2 frames,
+     and a streamed evaluator refused;
   5. the train phase, once per block form (``TRAIN_FORMS``): a synthetic
      uint8 batch (2, 4, 480, 480, 3) with labels in [0, 124), ~5 % ignored
      (255); the inputs of the form's kernels captured from one plain
@@ -117,6 +126,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      on the ``[eval]`` video: each target frame's launches (4 / 2 / 4),
      streamed logits against the clip path's and ``force="torch"`` within
      5 %, eval frames/s, device busy a target frame (always profiled);
+  5d. ``[test_cli]``: ``tools.test.main`` as a user runs it, on VSPW trees
+     written to disk with PIL (2 videos of 10 JPEG frames of 480x853 with PNG
+     masks; one video of 2 frames): the CFFM-B1 config on ``[train_cli]``'s
+     checkpoint directory, ``--streaming --vc --out m.json`` and per clip,
+     each confusion equal to the direct evaluator's, VC8 finite; the
+     CFFM++-B1 finetune config on ``[cffm_pp]``'s checkpoint and cluster
+     directory with ``--aug-test`` on the 2-frame video (rows 1, 1′, 2, 3
+     launches held); the SegFormer-B0 config on a random ``.pth`` with
+     ``--format-only --show`` (a PNG and an overlay a frame); host ms a
+     frame of each run (``test_cli_phase``). The artefacts of 5b and 5c are
+     kept for it in one temporary directory, removed at its end;
   6. the CE microbench: ``bench_ce.main`` at N 8 (the step's frames) with
      the counts set to 0 before it and held after (each of its six kernels
      launched warm-up + timed times), then each of the six kernels held
@@ -159,8 +179,10 @@ import dataclasses
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -321,9 +343,11 @@ def _block_case(ops, args_kw):
 
 
 def _capture_main_path_inputs(model, clip):
-    """One plain forward; pre-hooks record each kernel's arguments at its
-    main-path call sites (stage-1/-4 FFNs, stage-2/-3 blocks, decoder block)."""
+    """One plain forward of the target frame's logits; pre-hooks record each
+    kernel's arguments at its main-path call sites (stage-1/-4 FFNs,
+    stage-2/-3 blocks, and a clip model's decoder block)."""
     from vss_cffm_tpu_torch.models import set_force
+    from vss_cffm_tpu_torch.models.segmentor import target_logits
 
     caught = {"dwconv3x3": [], "mit_block_fused": [], "cfm_attention": []}
     hooks = []
@@ -336,13 +360,14 @@ def _capture_main_path_inputs(model, clip):
         blk = getattr(bb, f"block{s}")[0]
         hooks.append(blk.register_forward_pre_hook(
             lambda mod, a: caught["mit_block_fused"].append(mod.fused_args(a[0]))))
-    attn = model.decode_head.decoder_focal.blocks[0].attn
-    hooks.append(attn.register_forward_pre_hook(
-        lambda mod, a: caught["cfm_attention"].append(mod.attention_inputs(*a))))
+    if model.config.arch == "cffm":
+        attn = model.decode_head.decoder_focal.blocks[0].attn
+        hooks.append(attn.register_forward_pre_hook(
+            lambda mod, a: caught["cfm_attention"].append(mod.attention_inputs(*a))))
     set_force(model, "torch")
     try:
         with torch.inference_mode():
-            model(clip)
+            target_logits(model, clip)
     finally:
         set_force(model, None)
         for hk in hooks:
@@ -1335,7 +1360,7 @@ def _cli_checkpoint_held(ckpt_dir: str, step: int, cfg) -> None:
         raise RuntimeError(f"train CLI: the metadata of step {step} does not hold the config")
 
 
-def train_cli_phase(ops, root: str, smi: str) -> dict:
+def train_cli_phase(ops, root: str, smi: str, work_root: str) -> tuple[dict, str]:
     """``[train_cli]``: ``tools.train`` from ``configs/cffm_b1_vspw_160k.py`` at
     full B1 widths (``CLI_OPTIONS``: batch 2, a log line a step, a checkpoint
     every 2) on an in-memory VSPW train set (2 videos of 24 frames of 480x853:
@@ -1347,10 +1372,10 @@ def train_cli_phase(ops, root: str, smi: str) -> dict:
     step, device busy a step over the CLI's traced iterations); then step 5
     with and without the decoder remat from B's checkpoint, same batch and
     generator seed: row 2 launched 4 times with remat, loss, gradient norm and
-    gradients held as the train forms hold theirs. Returns runs A and B's
-    launch counts."""
-    import shutil
-    import tempfile
+    gradients held as the train forms hold theirs. Everything is written
+    under ``work_root``. Returns runs A and B's launch counts and the
+    checkpoint directory of runs A and B (its latest step 4), which
+    ``[test_cli]`` evaluates."""
 
     from vss_cffm_tpu_torch.config import apply_overrides, load_config
     from vss_cffm_tpu_torch.data import TrainLoader
@@ -1397,7 +1422,7 @@ def train_cli_phase(ops, root: str, smi: str) -> dict:
     del batch, batches, loader
 
     plan = TRAIN_FORMS["train"]["per_step"]
-    work = tempfile.mkdtemp(prefix="train_cli_")
+    work = os.path.join(work_root, "train_cli")
     try:
         # run A, then run B resumed from its checkpoints
         cfg_a = apply_overrides(base, ["optim.max_iters=2"])
@@ -1484,9 +1509,11 @@ def train_cli_phase(ops, root: str, smi: str) -> dict:
         if not (rl <= 1e-2 and rn <= 1e-2 and cos >= 0.999):
             raise RuntimeError("the decoder remat's step disagrees with the plain step")
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        # the other runs' directories: [test_cli] reads only runs A and B's checkpoints
+        for name in ("c", "profile", "r0", "r1"):
+            shutil.rmtree(os.path.join(work, name), ignore_errors=True)
     torch.cuda.empty_cache()
-    return {name: counts_a[name] + counts_b[name] for name in counts_a}
+    return {name: counts_a[name] + counts_b[name] for name in counts_a}, ckpt_dir
 
 
 # ---- [cffm_pp]: CFFM++ on the card: phase A, the finetune step, eval with the store
@@ -1607,8 +1634,6 @@ def _pp_phase_b(ops, root: str, work: str, ckpt: str, cluster_dir: str, smi: str
     plan, every frozen weight at its decay alone, the BN statistics as
     loaded, the cluster branch moved off its init; host ms and device busy a
     step (the CLI's profiler window). Returns (the trained model, counts)."""
-    import shutil
-
     from vss_cffm_tpu_torch.config import apply_overrides, load_config
     from vss_cffm_tpu_torch.models import CFFMSegmentor
     from vss_cffm_tpu_torch.tools import train as train_cli
@@ -1777,25 +1802,356 @@ def _pp_phase_c(ops, root: str, kind: str, smi: str, model, cluster_dir: str) ->
     return {f"cffm_pp_eval_{name.replace(' ', '_')}": c for name, c in counts.items()}
 
 
-def cffm_pp_phase(ops, root: str, kind: str, smi: str) -> dict:
+def cffm_pp_phase(ops, root: str, kind: str, smi: str, work_root: str) -> tuple[dict, str, str]:
     """``[cffm_pp]``: CFFM++-B1 on the card, phase A (``_pp_phase_a``), the
     finetune train CLI (``_pp_phase_b``) and evaluation with the cluster store
-    (``_pp_phase_c``). Returns the launch counts by path."""
-    import shutil
-    import tempfile
-
+    (``_pp_phase_c``), everything written under ``work_root``. Returns the
+    launch counts by path, the finetune's checkpoint directory and the
+    cluster directory, which ``[test_cli]`` evaluates."""
     t0 = time.perf_counter()
-    work = tempfile.mkdtemp(prefix="cffm_pp_")
-    try:
-        ckpt, cluster_dir, counts_a = _pp_phase_a(ops, root, work, smi)
-        model, counts_b = _pp_phase_b(ops, root, work, ckpt, cluster_dir, smi)
-        counts = _pp_phase_c(ops, root, kind, smi, model, cluster_dir)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    work = os.path.join(work_root, "cffm_pp")
+    os.makedirs(work)
+    ckpt, cluster_dir, counts_a = _pp_phase_a(ops, root, work, smi)
+    model, counts_b = _pp_phase_b(ops, root, work, ckpt, cluster_dir, smi)
+    counts = _pp_phase_c(ops, root, kind, smi, model, cluster_dir)
     del model
     torch.cuda.empty_cache()
     print(f"[cffm_pp] done in {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"cffm_pp_phase_a": counts_a, "cffm_pp_finetune": counts_b, **counts}
+    return ({"cffm_pp_phase_a": counts_a, "cffm_pp_finetune": counts_b, **counts},
+            os.path.join(work, "ft", "ckpt"), cluster_dir)
+
+
+# ---- [image]: SegFormer-B0 at VSPW's eval geometry ---------------------------
+
+IMAGE_CONFIG = os.path.join("vss_cffm_tpu_torch", "configs", "segformer_b0_image.py")
+# an image model's launches a target frame: rows 1 and 3 at stages 2-3 and
+# 1, 4; no CFM decoder, no key-tiled attention at 480x864
+IMAGE_PER_FRAME = {"mit_block_fused": 4, "cfm_attention": 0, "dwconv3x3": 4,
+                   "attention_fwd_tiled": 0}
+
+
+def _launches_held(counts: dict, want: dict, what: str) -> None:
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got}, expected {want}")
+
+
+def _logits_held(bundle, frames, what: str, rel: float = 0.05) -> float:
+    """The target frame's logits through ``apis.clip_logits``, kernels
+    against ``force="torch"`` on the card: finite, within ``rel`` of the
+    largest plain logit. Returns max_abs_err / max|plain|."""
+    from vss_cffm_tpu_torch.apis import clip_logits
+    from vss_cffm_tpu_torch.models import set_force
+
+    logits, _ = clip_logits(bundle, frames)
+    set_force(bundle.model, "torch")
+    try:
+        ref, _ = clip_logits(bundle, frames)
+    finally:
+        set_force(bundle.model, None)
+    if not torch.isfinite(logits.float()).all():
+        raise RuntimeError(f"{what}: non-finite logits")
+    err = (logits.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if err > rel * scale:
+        raise RuntimeError(f"{what}: logits disagree with the plain path: {err} > {rel * scale}")
+    return err / scale
+
+
+def image_phase(apis, ops, opts, root, kind, smi) -> tuple[dict, dict]:
+    """``[image]``: SegFormer-B0 (MiT-B0 32/64/160/256, head 256 wide, 124
+    classes; random weights from SEED, bf16) from its config through
+    ``init_segmentor``, on ``[eval]``'s synthetic video at the config's
+    ``dilation=()`` (480x853, the network at 480x864): rows 1 and 3 at the
+    inputs of one plain forward there (B0's channel counts);
+    ``inference_segmentor`` on one frame (launches 4 / 0 / 4, logits against
+    ``force="torch"`` within 5 % of the largest); the whole-mode
+    ``ClipEvaluator`` over the video (launches held 4 / 0 / 4 a target frame,
+    the confusion's total = the valid GT pixels, eval frames/s over
+    EVAL_ROUNDS rounds, device busy a target frame); slide on 2 frames; a
+    streamed evaluator refused with a ``ValueError``. Returns (kernel stats
+    at B0's shapes, launch counts by path)."""
+    from vss_cffm_tpu_torch.data import iterate_eval
+    from vss_cffm_tpu_torch.eval import ClipEvaluator, StreamingVideoEvaluator
+    from vss_cffm_tpu_torch.eval.inference import slide_grid
+    from vss_cffm_tpu_torch.models import ImageSegmentor
+
+    t0 = time.perf_counter()
+    bundle = apis.init_segmentor(os.path.join(root, IMAGE_CONFIG), device="cuda", seed=SEED)
+    model, cfg = bundle.model, bundle.cfg
+    widths = model.config.backbone_config.embed_dims
+    print(f"[image] {IMAGE_CONFIG}: {type(model).__name__}, {model.config.backbone} widths "
+          f"{widths}, head {model.config.head.embed_dim} wide, {model.config.head.num_classes} "
+          f"classes, img_scale {bundle.img_scale}, dilation {cfg.data.dilation}, compute "
+          f"{model.backbone.compute_dtype}", flush=True)
+    if not (isinstance(model, ImageSegmentor) and widths == (32, 64, 160, 256)
+            and model.config.head.embed_dim == 256 and bundle.img_scale == EVAL_SCALE
+            and cfg.data.dilation == () and model.backbone.compute_dtype == torch.bfloat16):
+        raise RuntimeError("[image] the SegFormer-B0 config gave another model")
+    video = _synthetic_video(SEED + 2, dilation=cfg.data.dilation)
+    valid = sum(int((lab < NUM_CLASSES).sum()) for lab in video.labels)
+    ev = ClipEvaluator(model, NUM_CLASSES, device="cuda")
+    item = video.get_test_item(EVAL_CLIP_TARGET)
+    x = ev._input(item["imgs"], item["img_scale"])
+    if tuple(x.shape) != (1, 1, *EVAL_INPUT_HW, 3):
+        raise RuntimeError(f"[image] network input {tuple(x.shape)}")
+
+    # rows 1 and 3 at the inputs of one plain forward at 480x864
+    kernels = {name: KERNELS[name] for name in ("mit_block_fused", "dwconv3x3")}
+    stats = check_kernels(ops, _capture_main_path_inputs(model, x), kernels, opts.profile)
+
+    # inference_segmentor on one frame
+    frame = video.imgs[EVAL_CLIP_TARGET]
+    apis.inference_segmentor(bundle, frame)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    mask = apis.inference_segmentor(bundle, frame)
+    torch.cuda.synchronize()
+    counts = {"image_inference": ops.launches()}
+    _launches_held(counts["image_inference"], IMAGE_PER_FRAME, "[image] inference_segmentor")
+    rel = _logits_held(bundle, frame, "[image] inference_segmentor")
+    print(f"[image] inference_segmentor on one {EVAL_HW[0]}x{EVAL_HW[1]} frame: mask "
+          f"{tuple(mask.shape)}, launches {IMAGE_PER_FRAME}; logits vs force='torch' "
+          f"max_abs_err / max|ref| = {rel:.4f} (limit 0.05)", flush=True)
+
+    # the whole-mode evaluation over the video, each target frame's launches held
+    ops.reset_launches()
+    deltas, on_pred = _launch_deltas(ops)
+    m = ev.run((video.get_test_item(i) for i in range(len(video))), dataset=video,
+               on_pred=on_pred)
+    torch.cuda.synchronize()
+    counts["image_eval"] = ops.launches()
+    for index, got in deltas:
+        if got != IMAGE_PER_FRAME:
+            raise RuntimeError(f"[image] eval frame {index}: launches {got}, expected "
+                               f"{IMAGE_PER_FRAME}")
+    total = int(ev.confusion.sum())
+    print(f"[image] ClipEvaluator (whole) over {EVAL_FRAMES} frames: launches "
+          f"{ {k: counts['image_eval'][k] for k in IMAGE_PER_FRAME} } (each frame held); "
+          f"confusion total {total}, valid GT pixels {valid}; mIoU {m['mIoU']:.5f}", flush=True)
+    if total != valid:
+        raise RuntimeError(f"[image] confusion counts {total} pixels, the GT has {valid}")
+
+    # eval frames/s and device busy a target frame
+    run = lambda: ev.run(iterate_eval(video, num_workers=2), dataset=video)
+    rates = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(EVAL_ROUNDS):
+        ev.reset()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        rates.append(EVAL_FRAMES / (time.perf_counter() - ts))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    busy = _profile(run, f"image eval, {EVAL_FRAMES} frames", "profile_image_eval.txt", root,
+                    kind, smi)
+    print(f"[image] SegFormer-B0 {EVAL_HW[0]}x{EVAL_HW[1]} video, per frame: "
+          f"{float(np.median(rates)):.3f} eval frames/s, median of {EVAL_ROUNDS} rounds "
+          f"({', '.join(f'{r:.3f}' for r in rates)}); device busy {busy / EVAL_FRAMES:.3f} ms a "
+          f"target frame; peak memory {peak:.1f} MiB | {smi}", flush=True)
+
+    # slide: 3 crops of 480x480 a frame
+    grid = slide_grid(EVAL_INPUT_HW, EVAL_CROP, EVAL_STRIDE)
+    slide_ev = ClipEvaluator(model, NUM_CLASSES, mode="slide", crop_size=EVAL_CROP,
+                             stride=EVAL_STRIDE, device="cuda")
+    slide_ev.predict(video.get_test_item(EVAL_SLIDE_FRAMES[0]))  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ts = time.perf_counter()
+    slide_ev.run((video.get_test_item(i) for i in EVAL_SLIDE_FRAMES), dataset=video)
+    torch.cuda.synchronize()
+    slide_s = (time.perf_counter() - ts) / len(EVAL_SLIDE_FRAMES)
+    counts["image_slide"] = ops.launches()
+    want = {k: len(grid) * n * len(EVAL_SLIDE_FRAMES) for k, n in IMAGE_PER_FRAME.items()}
+    _launches_held(counts["image_slide"], want, "[image] slide")
+    print(f"[image] slide ({len(grid)} crops of {EVAL_CROP}) on {len(EVAL_SLIDE_FRAMES)} frames: "
+          f"{slide_s:.4f} s a frame; launches {want}", flush=True)
+
+    try:
+        StreamingVideoEvaluator(model, NUM_CLASSES, device="cuda")
+    except ValueError as e:
+        print(f"[image] StreamingVideoEvaluator refused the image model: {e}", flush=True)
+    else:
+        raise RuntimeError("[image] a StreamingVideoEvaluator took the image model")
+    del bundle, model, ev, slide_ev, video
+    torch.cuda.empty_cache()
+    print(f"[image] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return stats, counts
+
+
+# ---- [test_cli]: the test CLI as a user runs it, on a VSPW tree on disk --------
+
+# 2 videos of 10 frames (VC8 needs more than 8 frames a video), from the
+# [train_cli] videos (whose centres phase A wrote), and one video of 2
+# frames, [eval]'s (its centres too), for TTA
+TEST_CLI_FRAMES, TEST_CLI_TTA_FRAMES = 10, 2
+# with the TTA tree's 2 frames: frame 1's clip is (0, 0, 0, 1), four frames,
+# so the focal decoder and the cluster branch run under TTA
+TEST_CLI_TTA_DILATION = "-1,-1,-1"
+
+
+def _write_vspw_tree(root: str, videos: dict) -> str:
+    """A VSPW tree (``val.txt``, ``data/<video>/origin/*.jpg``,
+    ``mask/*.png``) from {video: [(BGR frame, label), ...]}, written with PIL:
+    the labels as raw VSPW masks (label + 1, 0 where ignored), which
+    ``reduce_zero_label`` reads back as they were."""
+    from PIL import Image
+
+    os.makedirs(root)
+    with open(os.path.join(root, "val.txt"), "w") as f:
+        f.write("\n".join(videos) + "\n")
+    for video, frames in videos.items():
+        d = os.path.join(root, "data", video)
+        os.makedirs(os.path.join(d, "origin"))
+        os.makedirs(os.path.join(d, "mask"))
+        for i, (img, lab) in enumerate(frames):
+            Image.fromarray(np.ascontiguousarray(img[..., ::-1])).save(
+                os.path.join(d, "origin", f"{i:08d}.jpg"), quality=95)
+            raw = np.where(lab == 255, 0, lab.astype(np.int64) + 1).astype(np.uint8)
+            Image.fromarray(raw).save(os.path.join(d, "mask", f"{i:08d}.png"))
+    return root
+
+
+def _clip_plan(ds, views: int = 1) -> dict:
+    """Rows 1-3's launches of one evaluation pass: 4 / 4 an item and view,
+    row 2 twice a view where the item's clip has 4 frames."""
+    n = len(ds)
+    full = sum(len(ds.sample_test_clip(i).frame_indices) == 4 for i in range(n))
+    return {"mit_block_fused": 4 * n * views, "cfm_attention": 2 * full * views,
+            "dwconv3x3": 4 * n * views}
+
+
+def test_cli_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str, ft_ckpt: str,
+                   cluster_dir: str) -> dict:
+    """``[test_cli]``: ``tools.test.main`` on VSPW trees written with PIL (JPEG
+    frames, PNG masks of 480x853): the CFFM-B1 config on ``[train_cli]``'s
+    checkpoint directory, ``--streaming --vc --out m.json`` and per clip, each
+    confusion equal to the direct evaluator's on the same tree and weights,
+    VC8 finite; the CFFM++-B1 finetune config on ``[cffm_pp]``'s checkpoint and
+    cluster directory with ``--aug-test`` on a one-video 2-frame tree (rows 1,
+    1′, 2, 3 launches held; confusion equal to the direct evaluator's); the
+    SegFormer-B0 config on a random ``.pth`` with ``--format-only --show``
+    (a PNG and an overlay a frame). Host ms a frame of each run. Returns the
+    launch counts of each run."""
+    from vss_cffm_tpu_torch.apis import init_segmentor
+    from vss_cffm_tpu_torch.config import apply_overrides, load_config
+    from vss_cffm_tpu_torch.data import VSPWVideoDataset, iterate_eval, iterate_eval_tta
+    from vss_cffm_tpu_torch.eval import ClipEvaluator, ClusterStore, StreamingVideoEvaluator
+    from vss_cffm_tpu_torch.tools import test as test_cli
+
+    t0 = time.perf_counter()
+    work = os.path.join(work_root, "test_cli")
+    train = _synthetic_train_videos(SEED + 5)
+    # each frame with its video's first label map: the pattern moves 11-19 px a
+    # frame, so moving labels would leave VC8's windows no pixel whose GT stays
+    tree = _write_vspw_tree(os.path.join(work, "vspw"), {
+        v: [(train.imgs[v, f], train.labels[v, train.frames[v][0]])
+            for f in train.frames[v][:TEST_CLI_FRAMES]] for v in train.videos})
+    video = _synthetic_video(SEED + 2)
+    tta_tree = _write_vspw_tree(os.path.join(work, "vspw_tta"), {
+        video.videos[0]: list(zip(video.imgs, video.labels))[:TEST_CLI_TTA_FRAMES]})
+    del train, video
+    print(f"[test_cli] VSPW trees written with PIL: {len(os.listdir(os.path.join(tree, 'data')))} "
+          f"videos of {TEST_CLI_FRAMES} frames and 1 of {TEST_CLI_TTA_FRAMES} "
+          f"({CLI_HW[0]}x{CLI_HW[1]} JPEG frames, PNG masks) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    configs = os.path.join(root, "vss_cffm_tpu_torch", "configs")
+    counts = {}
+
+    def run(name: str, argv: list, n: int, want: dict) -> dict:
+        ops.reset_launches()
+        ts = time.perf_counter()
+        out = test_cli.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - ts
+        counts[name] = ops.launches()
+        _launches_held(counts[name], want, f"[test_cli] {name}")
+        print(f"[test_cli] {name} ({' '.join(a for a in argv[2:] if not a.startswith('data.'))}):"
+              f" {dt * 1e3 / n:.1f} host ms a frame ({n} frames in {dt:.2f} s, the CLI's "
+              f"loading and its first calls included); launches {want}; mIoU "
+              f"{out['metrics']['mIoU']:.5f}", flush=True)
+        return out
+
+    def equal(out: dict, ev, what: str) -> None:
+        same = np.array_equal(out["confusion"], ev.confusion)
+        print(f"[test_cli] {what}: the CLI's confusion (total {int(out['confusion'].sum())}) "
+              f"{'equals' if same else 'DIFFERS FROM'} the direct evaluator's", flush=True)
+        if not same:
+            raise RuntimeError(f"[test_cli] {what}: the CLI's confusion differs from the "
+                               "direct evaluator's")
+
+    # 1. CFFM-B1 on [train_cli]'s checkpoint directory, streamed and per clip
+    path = os.path.join(configs, "cffm_b1_vspw_160k.py")
+    options = [f"data.data_root={tree}"]
+    cfg = apply_overrides(load_config(path), options)
+    ds = VSPWVideoDataset(tree, "val", dilation=cfg.data.dilation, img_scale=cfg.data.img_scale)
+    bundle = init_segmentor(cfg, checkpoint=cffm_ckpt, device="cuda")
+    plan = {**_clip_plan(ds), "attention_fwd_tiled": 0}
+    for name, flags in (("streamed", ["--streaming"]), ("per_clip", [])):
+        out_json = os.path.join(work, f"{name}.json")
+        out = run(f"test_cli_{name}", [path, cffm_ckpt, *flags, "--vc", "--out", out_json,
+                                       "--options", *options], len(ds), plan)
+        if name == "streamed":
+            ev = StreamingVideoEvaluator(bundle.model, NUM_CLASSES,
+                                         max_lag=-min(cfg.data.dilation), device="cuda")
+            ev.run_streaming(ds, keep_for_vc=True)
+        else:
+            ev = ClipEvaluator(bundle.model, NUM_CLASSES, device="cuda")
+            ev.run(iterate_eval(ds), dataset=ds, keep_for_vc=True)
+        equal(out, ev, f"CFFM-B1 {name}")
+        with open(out_json) as f:
+            written = json.load(f)
+        vc8 = out["metrics"]["VC8"]
+        print(f"[test_cli] CFFM-B1 {name}: VC8 {vc8:.5f} VC16 {out['metrics']['VC16']}; "
+              f"{out_json} holds {sorted(written)}", flush=True)
+        same = json.dumps(written, sort_keys=True) == json.dumps(out["metrics"], sort_keys=True)
+        if not np.isfinite(vc8) or not same:  # (VC16 is NaN: the videos have 10 frames)
+            raise RuntimeError(f"[test_cli] {name}: VC8 {vc8}, or the JSON is not the metrics")
+    del bundle, ev
+
+    # 2. CFFM++-B1 on [cffm_pp]'s finetune checkpoint and centres, with TTA
+    path = os.path.join(configs, "cffm_b1_vspw_finetune_40k.py")
+    options = [f"data.data_root={tta_tree}", f"data.dilation={TEST_CLI_TTA_DILATION}",
+               f"cluster_dir={cluster_dir}"]
+    cfg = apply_overrides(load_config(path), options)
+    ds = VSPWVideoDataset(tta_tree, "val", dilation=cfg.data.dilation,
+                          img_scale=cfg.data.img_scale)
+    bundle = init_segmentor(cfg, checkpoint=ft_ckpt, device="cuda")
+    items = [ds.get_test_item_tta(i) for i in range(len(ds))]
+    views = len(items[0]["scales"])
+    tiled = sum(_tta_tiled_expected(bundle.model, it["ori_shape"], it["scales"]) for it in items)
+    plan = {**_clip_plan(ds, views), "attention_fwd_tiled": tiled}
+    if not (tiled > 0 and plan["cfm_attention"] > 0):
+        raise RuntimeError(f"[test_cli] the TTA plan {plan} runs no row 1′ or no row 2")
+    out = run("test_cli_tta", [path, ft_ckpt, "--aug-test", "--options", *options], len(ds), plan)
+    ev = ClipEvaluator(bundle.model, NUM_CLASSES, device="cuda",
+                       cluster_store=ClusterStore(cluster_dir))
+    ev.run(iterate_eval_tta(ds), dataset=ds)
+    equal(out, ev, f"CFFM++-B1 with the store, TTA ({views} views a frame)")
+    del bundle, ev, items
+
+    # 3. SegFormer-B0 on a random .pth, --format-only --show
+    path = os.path.join(root, IMAGE_CONFIG)
+    pth = os.path.join(work, "segformer_b0.pth")
+    torch.save({"state_dict": init_segmentor(path, device="cpu", seed=SEED).model.state_dict()},
+               pth)
+    show_dir = os.path.join(work, "submission")
+    options = [f"data.data_root={tree}"]
+    ds = VSPWVideoDataset(tree, "val", dilation=(), img_scale=EVAL_SCALE)
+    plan = {k: v * len(ds) for k, v in IMAGE_PER_FRAME.items()}
+    out = run("test_cli_image", [path, pth, "--format-only", "--show", "--show-dir", show_dir,
+                                 "--options", *options], len(ds), plan)
+    written = {d: sum(len(os.listdir(os.path.join(d, v))) for v in ds.videos)
+               for d in (show_dir, show_dir + "_vis")}
+    valid = sum(int((ds.load_gt(i) < NUM_CLASSES).sum()) for i in range(len(ds)))
+    print(f"[test_cli] SegFormer-B0 --format-only --show: {written} PNGs for {len(ds)} frames; "
+          f"confusion total {int(out['confusion'].sum())}, valid GT pixels {valid}", flush=True)
+    if set(written.values()) != {len(ds)} or int(out["confusion"].sum()) != valid:
+        raise RuntimeError("[test_cli] the image run wrote other PNGs or counted other pixels")
+    torch.cuda.empty_cache()
+    print(f"[test_cli] done in {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    return counts
 
 
 # ---- the CE microbench: its six kernels at its own inputs --------------------
@@ -1922,17 +2278,18 @@ TILED_CASES = ((920, 128, 2, 92 * 160, "stage 2 at TTA 1.5x (736x1280)"),
 TILED_RESIDENT_CASE = (405, 128, 2, 60 * 108, "stage 2 at 480x864")
 
 
-def _synthetic_video(seed: int):
+def _synthetic_video(seed: int, dilation=(-9, -6, -3)):
     """One video of EVAL_FRAMES frames of 480x853 uint8 BGR in memory, with
     the VSPW test dataset's interface (``VSPWVideoDataset``'s samplers and
-    items; frames and labels read from memory): a pattern that moves from
-    frame to frame, so that the frames and their masks differ, with noise;
-    labels in [0, 124) laid over the same pattern, ~5 % ignored (255)."""
+    items at ``dilation``; frames and labels read from memory): a pattern
+    that moves from frame to frame, so that the frames and their masks
+    differ, with noise; labels in [0, 124) laid over the same pattern, ~5 %
+    ignored (255)."""
     from vss_cffm_tpu_torch.data.vspw import VSPWVideoDataset
 
     class SyntheticVideo(VSPWVideoDataset):
         def __init__(self):
-            self.split, self.dilation, self.img_scale = "val", [-9, -6, -3], EVAL_SCALE
+            self.split, self.dilation, self.img_scale = "val", list(dilation), EVAL_SCALE
             self.reduce_zero, self.img_suffix, self.seg_suffix = True, ".jpg", ".png"
             names = [f"{i:08d}.jpg" for i in range(EVAL_FRAMES)]
             self.videos, self.frames = ["synthetic"], {"synthetic": names}
@@ -2629,6 +2986,9 @@ def main() -> int:
     # ---- 4c. video evaluation at VSPW's eval geometry -------------------------
     eval_stats, eval_counts = eval_phase(apis, ops, opts, root, kind, smi)
 
+    # ---- 4d. the image model, SegFormer-B0, at the same geometry --------------
+    image_stats, image_counts = image_phase(apis, ops, opts, root, kind, smi)
+
     # ---- 5. the train step, in each block form ------------------------------
     train_stats, train_counts = {}, {}
     for form, spec in TRAIN_FORMS.items():
@@ -2636,11 +2996,19 @@ def main() -> int:
             train_stats[form], train_counts[form] = train_phase(apis, ops, opts, root, kind, smi,
                                                                 form)
 
-    # ---- 5b. the train CLI from the B1 config, resumed, with the decoder remat --
-    cli_counts = train_cli_phase(ops, root, smi)
+    work_root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # ---- 5b. the train CLI from the B1 config, resumed, with the decoder remat
+        cli_counts, cffm_ckpt = train_cli_phase(ops, root, smi, work_root)
 
-    # ---- 5c. CFFM++: phase A, the finetune step, evaluation with the store ----
-    pp_counts = cffm_pp_phase(ops, root, kind, smi)
+        # ---- 5c. CFFM++: phase A, the finetune step, evaluation with the store
+        pp_counts, ft_ckpt, cluster_dir = cffm_pp_phase(ops, root, kind, smi, work_root)
+
+        # ---- 5d. the test CLI on 5b's and 5c's checkpoints, and the image model
+        test_cli_counts = test_cli_phase(ops, root, smi, work_root, cffm_ckpt, ft_ckpt,
+                                         cluster_dir)
+    finally:
+        shutil.rmtree(work_root, ignore_errors=True)
 
     # ---- 6. the CE microbench and its six kernels ----------------------------
     _clocks("after the train phase")
@@ -2672,7 +3040,9 @@ def main() -> int:
                    "mixffn": counts_mix[cn], **{f: c[cn] for f, c in train_counts.items()},
                    "train_cli": cli_counts[cn], "ce_bench": ce_counts[cn],
                    **{p: c[cn] for p, c in eval_counts.items()},
-                   **{p: c[cn] for p, c in pp_counts.items()}}
+                   **{p: c[cn] for p, c in pp_counts.items()},
+                   **{p: c[cn] for p, c in image_counts.items()},
+                   **{p: c[cn] for p, c in test_cli_counts.items()}}
         row = {"name": name, "route": "cuda", "source": spec["sources"][0],
                "sources": spec["sources"],
                "replaces": spec["replaces"], "launches": by_path[path], "path": path,
@@ -2683,6 +3053,8 @@ def main() -> int:
                "device_ms": st["device_ms"]}
         if f"{name} (480x864)" in eval_stats:  # rows 1-3 at the eval geometry too
             row["eval_480x864"] = eval_stats[f"{name} (480x864)"]
+        if name in image_stats:  # rows 1 and 3 at SegFormer-B0's widths there
+            row["image_b0_480x864"] = image_stats[name]
         kernels.append(row)
     print(f"[done] {time.perf_counter() - t0:.1f} s; kernels checked: "
           f"{', '.join(k['name'] for k in kernels)}", flush=True)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_common import few_threads  # noqa: F401 (the module's fixture)
 from torch_port_common import jax_config, perturbed_variables, port_config
 from vss_cffm_tpu.apis import SegmentorBundle as JaxBundle
 from vss_cffm_tpu.apis import inference_segmentor as jax_inference_segmentor
@@ -27,6 +28,8 @@ from vss_cffm_tpu_torch.data import transforms as port_transforms
 from vss_cffm_tpu_torch.utils import state_dict_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 def test_inference_segmentor_matches_jax():
@@ -53,6 +56,62 @@ def test_inference_segmentor_matches_jax():
     # tensors are taken as well as numpy arrays
     got_t = apis.inference_segmentor(pb, [torch.from_numpy(f) for f in frames])
     torch.testing.assert_close(got_t, got, rtol=0, atol=0)
+
+
+def test_init_segmentor_from_an_experiment_config():
+    """A config path and an ``ExperimentConfig`` (each of which the port
+    refused before: a ``KeyError`` and an ``AttributeError``) build the
+    CFFM++-B1 finetune model with ``img_scale`` from ``cfg.data`` and the
+    bundle carries the config; ``bf16=False`` computes in f32; an explicit
+    keyword wins over the config; the image config builds an
+    ``ImageSegmentor``; a ``SegmentorConfig`` and a variant name still work."""
+    from vss_cffm_tpu.config import load_config as jax_load_config
+    from vss_cffm_tpu_torch.models import CFFMSegmentor, ImageSegmentor
+
+    name = "cffm_b1_vspw_finetune_40k.py"
+    path = os.path.join(REPO, "vss_cffm_tpu_torch", "configs", name)
+    jcfg = jax_load_config(os.path.join(REPO, "configs", name))
+    b = apis.init_segmentor(path, device="cpu")
+    assert isinstance(b.model, CFFMSegmentor) and b.model.decode_head.finetune
+    assert b.img_scale == tuple(jcfg.data.img_scale) == (853, 480)
+    assert b.cfg == pcfg.load_config(path) and b.config == b.cfg.model
+    assert (b.config.backbone, b.model.backbone.compute_dtype) == ("mit_b1", torch.bfloat16)
+    b = apis.init_segmentor(pcfg.load_config(path), device="cpu")
+    assert b.model.decode_head.finetune and b.img_scale == (853, 480)
+    exp = dataclasses.replace(pcfg.load_config(path), bf16=False,
+                              model=pcfg.build_model_config("b0"),
+                              data=pcfg.DataConfig(img_scale=(96, 64)))
+    b = apis.init_segmentor(exp, device="cpu")
+    assert (b.img_scale, b.model.decode_head.compute_dtype) == ((96, 64), torch.float32)
+    assert b.cfg is exp and b.config.backbone == "mit_b0"
+    b = apis.init_segmentor(exp, device="cpu", img_scale=(128, 128), dtype=torch.bfloat16)
+    assert (b.img_scale, b.model.decode_head.compute_dtype) == ((128, 128), torch.bfloat16)
+    b = apis.init_segmentor(os.path.join(REPO, "vss_cffm_tpu_torch", "configs",
+                                         "segformer_b0_image.py"), device="cpu")
+    assert isinstance(b.model, ImageSegmentor) and b.config.arch == "image"
+    assert b.cfg.data.dilation == () and b.config.backbone == "mit_b0"
+    for form in ("b0", pcfg.build_model_config("b0")):
+        b = apis.init_segmentor(form, device="cpu")
+        assert isinstance(b.model, CFFMSegmentor) and b.cfg is None
+        assert b.img_scale == (853, 480)
+
+
+def test_inference_segmentor_takes_frame_paths(tmp_path):
+    """Frame paths (PNG, read as BGR) give the mask of the same frames as
+    arrays, for a clip and for one frame."""
+    from PIL import Image
+
+    b = apis.init_segmentor("b0", device="cpu", dtype=torch.float32, img_scale=(96, 64))
+    rng = np.random.RandomState(2)
+    frames = [rng.randint(0, 256, (64, 96, 3)).astype(np.uint8) for _ in range(4)]
+    paths = []
+    for i, f in enumerate(frames):
+        paths.append(str(tmp_path / f"{i}.png"))
+        Image.fromarray(f[..., ::-1]).save(paths[-1])
+    want = apis.inference_segmentor(b, frames)
+    torch.testing.assert_close(apis.inference_segmentor(b, paths), want, rtol=0, atol=0)
+    torch.testing.assert_close(apis.inference_segmentor(b, paths[-1]),
+                               apis.inference_segmentor(b, frames[-1]), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("hw,scale", [((128, 128), (128, 128)), ((480, 853), (853, 480)),
@@ -145,5 +204,6 @@ def test_port_and_chip_smoke_import_no_jax():
                  "ops.ce_upsampled", "tools.train", "data.loader",
                  "configs.cffm_b1_vspw_160k", "configs.cffm_b0_vspw_gene_prototype",
                  "configs.cffm_b1_vspw_finetune_40k", "ops.kmeans", "models.cluster_head",
-                 "eval.prototypes", "tools.generate_prototypes"):
+                 "eval.prototypes", "tools.generate_prototypes", "tools.test",
+                 "configs.segformer_b0_image", "demo.image_demo", "demo.video_demo"):
         assert f"vss_cffm_tpu_torch.{name}" in walked, name

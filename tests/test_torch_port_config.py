@@ -1,7 +1,8 @@
 """PyTorch port, the experiment configs against the JAX package's:
 
-- each of the twelve configs the port copies (``cffm_b{0,1,2,5}_vspw_160k``,
-  ``cffm_b{0,1,2,5}_vspw_gene_prototype``, ``cffm_b{0,1,2,5}_vspw_finetune_40k``)
+- each of the thirteen configs the port copies (``cffm_b{0,1,2,5}_vspw_160k``,
+  ``cffm_b{0,1,2,5}_vspw_gene_prototype``, ``cffm_b{0,1,2,5}_vspw_finetune_40k``,
+  ``segformer_b0_image``)
   loaded by the JAX ``load_config``
   and by the port's in one process, in both orders, and compared field by
   field: every field the port's dataclasses have, the model's included
@@ -29,11 +30,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_DIR = os.path.join(REPO, "configs")
 PORT_DIR = os.path.join(REPO, "vss_cffm_tpu_torch", "configs")
 NAMES = [f"cffm_b{v}_vspw_{kind}" for kind in ("160k", "gene_prototype", "finetune_40k")
-         for v in (0, 1, 2, 5)]
+         for v in (0, 1, 2, 5)] + ["segformer_b0_image"]
 
 # fields of the JAX dataclasses that the port does not have, and why
 JAX_ONLY = {
-    ("SegmentorConfig", "arch"): "the image models (SegFormer) are ROADMAP item 4",
     ("SegmentorConfig", "embed_impl"): "the im2col stage-1 embed is TPU layout tuning",
     ("MiTConfig", "embed_impl"): "the same field, as the backbone config carries it",
     ("CFFMDecoderConfig", "infer_kv_layout"): "the packed / grouped K/V layout is TPU tuning",
@@ -84,10 +84,9 @@ def test_port_config_equals_the_jax_config(name, order):
     n = _compare(got["port"], got["jax"], name, jax_only)
     assert n > 60
     assert jax_only == set(JAX_ONLY), jax_only ^ set(JAX_ONLY)
-    # the JAX-only field holds the value the port's form stands for
-    jm = got["jax"].model
-    assert jm.arch == "cffm"
-    assert jm.head.mode == ("finetune" if name.endswith("finetune_40k") else "cffm")
+    pm = got["port"].model
+    assert pm.arch == ("image" if name.startswith("segformer") else "cffm")
+    assert pm.head.mode == ("finetune" if name.endswith("finetune_40k") else "cffm")
     _fresh_imports()
 
 

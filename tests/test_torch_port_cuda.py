@@ -1529,3 +1529,83 @@ def test_kmeans_on_the_card_matches_the_cpu(dev, n, d, k):
     err = (got_c.cpu() - want_c).abs().max().item()
     assert err <= 1e-5 * want_c.abs().max().item(), err
     assert torch.equal(got_c, again_c) and torch.equal(got_l, again_l)
+
+
+def test_image_segmentor_on_the_card(dev):
+    """SegFormer-B0 (``arch="image"``) on a 64×96 frame: rows 1 and 3 launched
+    4 times each, no CFM attention, the logits within 5 % of the largest plain
+    logit."""
+    import dataclasses
+
+    from vss_cffm_tpu_torch import config as pcfg
+    from vss_cffm_tpu_torch.models import ImageSegmentor, build_segmentor, set_force
+    from vss_cffm_tpu_torch.train.step import device_normalize
+
+    cfg = dataclasses.replace(pcfg.build_model_config("b0", num_classes=11, num_clips=1),
+                              arch="image")
+    model = build_segmentor(cfg, dtype=torch.bfloat16)
+    assert isinstance(model, ImageSegmentor)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    rng = np.random.RandomState(13)
+    x = device_normalize(torch.from_numpy(
+        rng.randint(0, 256, (2, 64, 96, 3)).astype(np.uint8)).to(dev), torch.bfloat16)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = model(x)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    assert (counts["mit_block_fused"], counts["cfm_attention"], counts["dwconv3x3"]) == (4, 0, 4)
+    set_force(model, "torch")
+    with torch.inference_mode():
+        want = model(x)
+    assert got.shape == want.shape == (2, 16, 24, 11)
+    _close(got, want, 0.05)
+
+
+def test_test_cli_on_the_card_matches_the_cpu(dev, tmp_path):
+    """``tools.test.main`` on a 6-frame VSPW tree (64×96, written with PIL),
+    CFFM-B0 from a ``.pth`` whose class layer is scaled up so that no argmax
+    is near a tie: ``--device cuda`` against ``--device cpu``, the masks ≥ 99 %
+    equal and the confusions' totals equal."""
+    import pickle
+
+    from PIL import Image
+
+    from vss_cffm_tpu_torch import config as pcfg
+    from vss_cffm_tpu_torch.models import CFFMSegmentor
+    from vss_cffm_tpu_torch.tools import test as test_cli
+
+    rng = np.random.RandomState(14)
+    root = tmp_path / "vspw"
+    (root / "data" / "v" / "origin").mkdir(parents=True)
+    (root / "data" / "v" / "mask").mkdir()
+    (root / "val.txt").write_text("v\n")
+    for i in range(6):
+        Image.fromarray(rng.randint(0, 256, (64, 96, 3)).astype(np.uint8)).save(
+            root / "data" / "v" / "origin" / f"{i:08d}.jpg")
+        Image.fromarray(rng.randint(0, 6, (64, 96)).astype(np.uint8)).save(
+            root / "data" / "v" / "mask" / f"{i:08d}.png")
+    model_cfg = pcfg.build_model_config("b0", num_classes=5)
+    model = CFFMSegmentor(model_cfg)
+    model.init_weights(torch.Generator().manual_seed(1))
+    sd = model.state_dict()
+    for k in ("linear_pred.weight", "linear_pred2.weight"):
+        sd[f"decode_head.{k}"] = sd[f"decode_head.{k}"] * 100
+    ckpt = str(tmp_path / "b0.pth")
+    torch.save({"state_dict": sd}, ckpt)
+    cfg = pcfg.ExperimentConfig(model=model_cfg, data=pcfg.DataConfig(
+        data_root=str(root), img_scale=(96, 64), num_workers=2))
+    cfg_path = tmp_path / "cfg.py"
+    cfg_path.write_text(f"from vss_cffm_tpu_torch.config import *  # noqa: F403\n\n\n"
+                        f"def config():\n    return {cfg!r}\n")
+    masks, totals = {}, {}
+    for device in ("cuda", "cpu"):
+        pkl = str(tmp_path / f"{device}.pkl")
+        out = test_cli.main([str(cfg_path), ckpt, "--device", device, "--out", pkl])
+        totals[device] = int(out["confusion"].sum())
+        with open(pkl, "rb") as f:
+            masks[device] = np.stack(pickle.load(f))
+    assert masks["cuda"].shape == (6, 64, 96)
+    assert (masks["cuda"] == masks["cpu"]).mean() >= 0.99
+    assert totals["cuda"] == totals["cpu"] > 0

@@ -38,7 +38,7 @@ def jax_config(variant: str = "b0", num_classes: int = 7, depth: int = 1,
 
 def port_config(jcfg, block_impl=(None, "fused", "fused", None)) -> pcfg.SegmentorConfig:
     """The port's config with the same fields as a JAX ``SegmentorConfig`` (the
-    head's dropout, mode and cluster blend included); its
+    arch, the head's dropout, mode and cluster blend included); its
     ``train_block_impl`` and ``dwconv_impl`` are the JAX ones, the interpret
     modes mapped to the port's forms ("full-interpret" → "full",
     "ffn-interpret" → "ffn", "fused-interpret" → "fused")."""
@@ -56,8 +56,9 @@ def port_config(jcfg, block_impl=(None, "fused", "fused", None)) -> pcfg.Segment
     tbi = jcfg.train_block_impl
     form = lambda i: i.removesuffix("-interpret") if isinstance(i, str) else i
     tbi = tuple(map(form, tbi)) if isinstance(tbi, tuple) else form(tbi)
-    return pcfg.SegmentorConfig(backbone=jcfg.backbone, head=head, block_impl=block_impl,
-                                train_block_impl=tbi, dwconv_impl=form(jcfg.dwconv_impl))
+    return pcfg.SegmentorConfig(backbone=jcfg.backbone, head=head, arch=jcfg.arch,
+                                block_impl=block_impl, train_block_impl=tbi,
+                                dwconv_impl=form(jcfg.dwconv_impl))
 
 
 # jitted JAX inits by (model, its backbone config, input shape and dtype):
@@ -466,3 +467,13 @@ def mask_agreement(want: dict, got: dict) -> float:
     assert sorted(want) == sorted(got)
     same = sum(int((np.asarray(want[i]) == np.asarray(got[i])).sum()) for i in want)
     return same / sum(np.asarray(want[i]).size for i in want)
+
+
+def write_config(path, cfg: pcfg.ExperimentConfig) -> str:
+    """A config file at ``path`` whose ``config()`` returns ``cfg`` (the
+    dataclasses' repr is Python the port's config names evaluate)."""
+    with open(path, "w") as f:
+        f.write("from vss_cffm_tpu_torch.config import *  # noqa: F403\n\n\n"
+                f"def config():\n    return {cfg!r}\n")
+    assert pcfg.load_config(str(path)) == cfg
+    return str(path)

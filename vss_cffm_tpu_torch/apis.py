@@ -1,21 +1,33 @@
-"""Clip inference API of the port.
+"""Inference API of the port (reference ``mmseg/apis/inference.py``).
 
-- ``init_segmentor(model_config_or_variant, state_dict=None, device="cuda",
-  dtype=torch.bfloat16, img_scale=(853, 480), seed=0, checkpoint=None)``
-  builds a ``CFFMSegmentor``. Without a ``state_dict`` or ``checkpoint`` the
-  weights are random, drawn from ``seed``; a ``state_dict`` is loaded
-  strictly (reference PyTorch names). ``checkpoint`` (as
-  ``vss_cffm_tpu/apis.py:38-58``) is a reference ``.pth`` / ``.pt`` (the
-  port's names are the reference's: every weight of the model must be in
-  it, keys the model lacks, such as mmseg's unused ``conv_seg``, are
-  ignored) or a ``CheckpointManager`` directory (its latest step overlaid on
-  the random init). It runs on the card unless ``device="cpu"`` is asked
-  for, and raises when no CUDA device is present.
+- ``init_segmentor(config, state_dict=None, device="cuda", dtype=None,
+  img_scale=None, seed=0, checkpoint=None)`` builds the segmentor of
+  ``config``, which is an experiment config file (loaded with
+  ``config.load_config``), an ``ExperimentConfig``, a ``SegmentorConfig`` or
+  a CFFM variant name ("b0", "b1", ...). The model is the one of
+  ``arch`` (``models.build_segmentor``: the CFFM clip segmentor or the
+  single-frame SegFormer). From an experiment config, ``img_scale`` is
+  ``cfg.data.img_scale`` and the compute dtype bf16, or f32 where ``cfg.bf16``
+  is false; an explicit keyword wins over the config; without one
+  ``img_scale`` is (853, 480) and the dtype bf16. Without a ``state_dict``
+  or ``checkpoint`` the weights are random, drawn from ``seed``; a
+  ``state_dict`` is loaded strictly (reference PyTorch names).
+  ``checkpoint`` (as ``vss_cffm_tpu/apis.py:38-58``) is a reference
+  ``.pth`` / ``.pt`` (the port's names are the reference's: every weight of
+  the model must be in it, keys the model lacks, such as mmseg's unused
+  ``conv_seg``, are ignored) or a ``CheckpointManager`` directory (its
+  latest step overlaid on the random init). It runs on the card unless
+  ``device="cpu"`` is asked for, and raises when no CUDA device is present.
+  The bundle carries the experiment config as ``cfg`` (None when it was
+  given a model config or a variant).
 - ``inference_segmentor(bundle, frames)`` takes a clip (a list of HWC uint8
-  BGR frames, numpy arrays or tensors; the last is the target frame) or one
-  frame, runs the eval pipeline (aligned rescale to /32 multiples, normalise)
-  and returns the (H, W) int64 mask of the target frame at its original size:
-  logits → resize to the network input → resize to the original → argmax.
+  BGR frames, numpy arrays, tensors or image paths; the last is the target
+  frame) or one frame, runs the eval pipeline (aligned rescale to /32
+  multiples, normalise) and returns the (H, W) int64 mask of the target
+  frame at its original size: logits → resize to the network input →
+  resize to the original → argmax. An image model sees the target frame
+  alone (``vss_cffm_tpu/apis.py:83-85``); a clip model given a clip of
+  another length than ``num_clips`` gives its plain per-frame logits.
 - ``show_result(img, seg, palette=VSPW_PALETTE, opacity=0.5)``: the mask's
   colours blended over the BGR frame (reference ``base.py:241-303``).
 """
@@ -23,15 +35,16 @@
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from .config import SegmentorConfig, build_model_config
+from .config import ExperimentConfig, SegmentorConfig, build_model_config, load_config
 from .data.palette import VSPW_PALETTE
 from .data.transforms import aligned_resize_clip, normalize_clip
-from .models.segmentor import CFFMSegmentor
+from .models.segmentor import build_segmentor, target_logits
 from .ops.resize import resize_bilinear
 
 __all__ = ["SegmentorBundle", "init_segmentor", "inference_segmentor", "clip_logits",
@@ -40,28 +53,34 @@ __all__ = ["SegmentorBundle", "init_segmentor", "inference_segmentor", "clip_log
 
 @dataclasses.dataclass
 class SegmentorBundle:
-    model: CFFMSegmentor
+    model: torch.nn.Module  # CFFMSegmentor | ImageSegmentor
     config: SegmentorConfig
     device: torch.device
     img_scale: tuple[int, int]
+    cfg: ExperimentConfig | None = None
 
 
-def init_segmentor(model_config_or_variant: SegmentorConfig | str = "b1",
+def init_segmentor(config: ExperimentConfig | SegmentorConfig | str = "b1",
                    state_dict: dict[str, torch.Tensor] | None = None,
                    device: str | torch.device = "cuda",
-                   dtype: torch.dtype = torch.bfloat16,
-                   img_scale: tuple[int, int] = (853, 480),
+                   dtype: torch.dtype | None = None,
+                   img_scale: tuple[int, int] | None = None,
                    seed: int = 0, checkpoint: str | None = None) -> SegmentorBundle:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_segmentor: no CUDA device is present; pass device='cpu' "
                            "to run on the CPU")
-    cfg = model_config_or_variant
-    if isinstance(cfg, str):
-        cfg = build_model_config(cfg)
+    exp = None
+    if isinstance(config, str):
+        is_file = config.endswith(".py") or os.path.isfile(config)
+        config = load_config(config) if is_file else build_model_config(config)
+    if isinstance(config, ExperimentConfig):
+        exp, config = config, config.model
+        img_scale = img_scale or exp.data.img_scale
+        dtype = dtype or (torch.bfloat16 if exp.bf16 else torch.float32)
     if state_dict is not None and checkpoint is not None:
         raise ValueError("init_segmentor: a state_dict or a checkpoint, not both")
-    model = CFFMSegmentor(cfg, dtype=dtype)
+    model = build_segmentor(config, dtype=dtype or torch.bfloat16)
     if state_dict is None:
         model.init_weights(torch.Generator().manual_seed(seed))
     else:
@@ -79,14 +98,19 @@ def init_segmentor(model_config_or_variant: SegmentorConfig | str = "b1",
 
         CheckpointManager(checkpoint).load_params(model)
     model.to(device).eval()
-    return SegmentorBundle(model, cfg, device, tuple(img_scale))
+    return SegmentorBundle(model, config, device, tuple(img_scale or (853, 480)), exp)
 
 
 def _prepare_clip(bundle: SegmentorBundle, frames) -> tuple[torch.Tensor, tuple[int, int]]:
-    if isinstance(frames, (np.ndarray, torch.Tensor)) and frames.ndim == 3:
+    if isinstance(frames, str) or (isinstance(frames, (np.ndarray, torch.Tensor))
+                                   and frames.ndim == 3):
         frames = [frames]
     if not isinstance(frames, Sequence) or not frames:
-        raise ValueError("frames: expected a non-empty list of HWC uint8 frames")
+        raise ValueError("frames: expected a non-empty list of HWC uint8 frames or image paths")
+    if any(isinstance(f, str) for f in frames):
+        from .data.vspw import load_image
+
+        frames = [load_image(f) if isinstance(f, str) else f for f in frames]
     clip = torch.stack([torch.as_tensor(f) for f in frames]).to(bundle.device)
     ori = tuple(clip.shape[1:3])
     x = normalize_clip(aligned_resize_clip(clip, bundle.img_scale))
@@ -97,7 +121,7 @@ def _prepare_clip(bundle: SegmentorBundle, frames) -> tuple[torch.Tensor, tuple[
 def clip_logits(bundle: SegmentorBundle, frames) -> tuple[torch.Tensor, tuple[int, int]]:
     """Network logits (1, h, w, K) of the target frame, and its original size."""
     x, ori = _prepare_clip(bundle, frames)
-    logits = bundle.model(x)
+    logits = target_logits(bundle.model, x)
     return resize_bilinear(logits, tuple(x.shape[2:4])), ori
 
 

@@ -168,7 +168,9 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TestConfig:
-    """Inference mode; only 'whole' is served by this port so far."""
+    """Inference mode (the reference's ``test_cfg``): 'whole', or 'slide'
+    with ``crop_size`` / ``stride`` windows whose probabilities are averaged
+    (``eval/evaluator.py:ClipEvaluator``)."""
 
     mode: str = "whole"
     crop_size: tuple[int, int] = (480, 480)
@@ -176,12 +178,17 @@ class TestConfig:
 
 
 TRAIN_BLOCK_IMPLS = (None, "full", "ffn")
+ARCHS = ("cffm", "image")
 
 
 @dataclasses.dataclass(frozen=True)
 class SegmentorConfig:
     backbone: str = "mit_b1"
     head: CFFMHeadConfig = dataclasses.field(default_factory=CFFMHeadConfig)
+    # "cffm": the clip segmentor (MiT + CFFM head); "image": the single-frame
+    # SegFormer (MiT + SegFormer head), which reads only the head's decode
+    # fields (in_channels, embed_dim, num_classes, dropout_ratio)
+    arch: str = "cffm"
     # whole-block kernel at stages 2 and 3, composed blocks at stages 1 and 4
     block_impl: str | tuple | None = (None, "fused", "fused", None)
     # training block form, as the JAX package's default: the whole-block
@@ -193,6 +200,8 @@ class SegmentorConfig:
     test_cfg: TestConfig = dataclasses.field(default_factory=TestConfig)
 
     def __post_init__(self):
+        if self.arch not in ARCHS:
+            raise ValueError(f"SegmentorConfig.arch={self.arch!r}: expected one of {ARCHS}")
         self.backbone_config  # MiTConfig checks dwconv_impl
         impls = (self.train_block_impl if isinstance(self.train_block_impl, tuple)
                  else (self.train_block_impl,))

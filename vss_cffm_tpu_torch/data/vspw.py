@@ -42,7 +42,10 @@ import numpy as np
 
 from . import transforms as T
 
-__all__ = ["VSPWVideoDataset", "ClipSample", "load_label", "reduce_zero_label"]
+__all__ = ["VSPWVideoDataset", "ClipSample", "load_label", "reduce_zero_label", "TTA_RATIOS"]
+
+# the img_scale ratios of --aug-test (reference ``MultiScaleFlipAug``)
+TTA_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
 
 # reduce_zero_label as a 256-entry table: 0 → 255, k → k − 1, 255 stays 255
 _LUT_REDUCE = np.where(np.arange(256) == 0, 255, np.arange(256) - 1)
@@ -249,7 +252,7 @@ class VSPWVideoDataset:
     def get_test_item_tta(
         self,
         idx: int,
-        ratios: Sequence[float] = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75),
+        ratios: Sequence[float] = TTA_RATIOS,
         flip: bool = True,
     ) -> dict:
         """Multi-scale (+ flip) views of the test clip of frame ``idx``

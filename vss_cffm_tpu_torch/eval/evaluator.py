@@ -28,7 +28,13 @@ evaluators hand the model each item's video centres and mask, in every mode
 (whole, slide, TTA, streamed); a video's centres go to the device once. The
 feature cache is unchanged: the centres enter only the head.
 
-Not ported yet: the image models' single-frame branch.
+An image model (``arch="image"``, SegFormer) is evaluated by
+``ClipEvaluator`` on the target frame of each item (``models.target_logits``,
+JAX ``eval/evaluator.py:108-115``), in whole and slide mode. TTA and the
+streamed evaluator raise ``ValueError`` for it, as the JAX package cannot
+run them either (its TTA passes three positional arguments to
+``ImageSegmentor.__call__``, and its streamed evaluator calls a
+``frame_features`` that ``ImageSegmentor`` lacks).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 
 from ..data.palette import VSPW_PALETTE
 from ..data.transforms import aligned_resize_clip, aligned_size, normalize_clip, rescale_size
+from ..models.segmentor import is_image_model, target_logits
 from ..ops.resize import resize_bilinear
 from .inference import slide_inference, tta_inference
 from .metrics import eval_metrics, fwiou, mean_iou_seen, update_confusion, video_consistency
@@ -64,6 +71,12 @@ def save_pred_png(pred: np.ndarray, path: str, palette=VSPW_PALETTE) -> None:
     img.save(path)
 
 
+def _refuse_image(model, what: str) -> None:
+    if is_image_model(model):
+        raise ValueError(f"{what} evaluates clip models only; this model has arch='image' "
+                         "(the JAX package cannot run it on an image model either)")
+
+
 def _device(device: str | torch.device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -75,7 +88,8 @@ def _device(device: str | torch.device) -> torch.device:
 class ClipEvaluator:
     """Accumulates the masks of test clips into a confusion matrix.
 
-    ``model``: a ``CFFMSegmentor`` (moved to ``device``, put in eval mode);
+    ``model``: a ``CFFMSegmentor`` or an ``ImageSegmentor`` (moved to
+    ``device``, put in eval mode);
     ``mode``: 'whole' (the CFFM configs' ``test_cfg.mode``) or 'slide' with
     ``crop_size`` / ``stride`` (reference ``encoder_decoder.py:457-500``);
     ``cluster_store``: CFFM++'s per-video centres, for a finetune-mode model.
@@ -128,9 +142,8 @@ class ClipEvaluator:
 
     def _logits_fn(self, video: str) -> Callable:
         centers = self._centers(video)
-        if centers is None:
-            return self.model
-        return lambda clip: self.model(clip, cluster_centers=centers)
+        kwargs = {} if centers is None else {"cluster_centers": centers}
+        return lambda clip: target_logits(self.model, clip, **kwargs)
 
     @torch.inference_mode()
     def predict(self, item: dict) -> torch.Tensor:
@@ -145,6 +158,7 @@ class ClipEvaluator:
 
     @torch.inference_mode()
     def _predict_tta(self, item: dict) -> torch.Tensor:
+        _refuse_image(self.model, "TTA")
         views = [self._input(item["imgs"], scale) for scale in item["scales"]]
         prob = tta_inference(self._logits_fn(item["video"]), views, item["flips"],
                              tuple(item["ori_shape"]))
@@ -233,6 +247,7 @@ class StreamingVideoEvaluator(ClipEvaluator):
 
     def __init__(self, model, num_classes: int, max_lag: int = 9,
                  device: str | torch.device = "cuda", cluster_store=None):
+        _refuse_image(model, "StreamingVideoEvaluator")
         super().__init__(model, num_classes, device=device, cluster_store=cluster_store)
         self.max_lag = max_lag
 

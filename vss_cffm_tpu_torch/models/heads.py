@@ -1,11 +1,16 @@
-"""CFFM clip head (``cffm`` mode), channels-last.
+"""The decode heads, channels-last: SegFormer's single-frame head and the
+CFFM clip head.
 
-Port of ``vss_cffm_tpu/models/heads.py:CFFMHead``: per-frame SegFormer MLP
-decode (4 levels projected, upsampled to 1/4, fused by a 1×1 conv + BN in
-eval mode + ReLU), then the CFFM focal decoder over the clip at 1/8 and
-``linear_pred2`` on [target features, refined target features], resized back
-to 1/4. Parameter names follow the reference (``linear_c4.proj.weight``,
-``linear_fuse.conv.weight`` (f, 4f, 1, 1), ``linear_fuse.bn.running_mean``,
+Both start with the per-frame SegFormer MLP decode of ``MLPDecodeHead`` (4
+levels projected, upsampled to 1/4, fused by a 1×1 conv + BN + ReLU) and its
+``linear_pred``. ``SegFormerHead`` (port of
+``vss_cffm_tpu/models/heads.py:SegFormerHead``, reference
+``segformer_head.py``) ends there: Dropout2d, then ``linear_pred``.
+``CFFMHead`` (``vss_cffm_tpu/models/heads.py:CFFMHead``) adds the CFFM focal
+decoder over the clip at 1/8 and ``linear_pred2`` on [target features,
+refined target features], resized back to 1/4. Parameter names follow the
+reference (``linear_c4.proj.weight``, ``linear_fuse.conv.weight`` (f, 4f, 1,
+1), ``linear_fuse.bn.running_mean``, ``linear_pred.weight``,
 ``decoder_focal.blocks.0...``).
 
 The per-frame decode uses the merged form of the JAX package: the level
@@ -13,12 +18,12 @@ embedding and its slice of the 1×1 fuse conv are both linear and commute
 with the bilinear resize, so each level is one matmul at its own resolution
 and the (B·T, h, w, 4f) concat never exists.
 
-In training (``forward(..., train=True, generator=g)``) the head returns
+In training (``forward(..., train=True, generator=g)``) the fuse BatchNorm
+normalises with the f32 batch statistics of the merged sum and updates its
+running statistics the flax way, and Dropout2d (whole channels per sample)
+precedes ``linear_pred`` and ``linear_pred2``. The CFFM head then returns
 (B, T+1, h, w, classes): the per-frame logits of all T frames and the
-refined last frame. The fuse BatchNorm then normalises with the f32 batch
-statistics of the merged sum and updates its running statistics the flax
-way, Dropout2d (whole channels per sample) precedes ``linear_pred`` and
-``linear_pred2``.
+refined last frame; the SegFormer head returns every frame's logits.
 
 In ``finetune`` mode (CFFM++, ``CFFMHeadConfig.mode``, the JAX head's
 ``:200-277``) the head adds the cluster branch: ``decoder_swin`` (a
@@ -46,7 +51,7 @@ from .cffm_transformer import CFFMDecoder
 from .cluster_head import ClusterDecoder
 from .mit import derived, keep_mask
 
-__all__ = ["CFFMHead", "dropout2d"]
+__all__ = ["MLPDecodeHead", "SegFormerHead", "CFFMHead", "dropout2d"]
 
 BN_MOMENTUM = 0.9  # flax BatchNorm: running = 0.9·running + 0.1·batch
 
@@ -84,7 +89,10 @@ def _conv1x1(x: torch.Tensor, conv: nn.Conv2d, dt: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dt), w, b)
 
 
-class CFFMHead(nn.Module):
+class MLPDecodeHead(nn.Module):
+    """The per-frame SegFormer MLP decode and ``linear_pred``, shared by both
+    heads (JAX ``_PerFrameDecoder`` and the heads' ``linear_pred``)."""
+
     def __init__(self, cfg: CFFMHeadConfig):
         super().__init__()
         self.cfg = cfg
@@ -93,12 +101,6 @@ class CFFMHead(nn.Module):
             setattr(self, f"linear_c{i + 1}", _MLPEmbed(c, f))
         self.linear_fuse = _ConvBN(4 * f, f)
         self.linear_pred = nn.Conv2d(f, cfg.num_classes, 1)
-        self.decoder_focal = CFFMDecoder(cfg.decoder)
-        self.linear_pred2 = nn.Conv2d(2 * f, cfg.num_classes, 1)
-        self.finetune = cfg.mode == "finetune"
-        if self.finetune:
-            self.decoder_swin = ClusterDecoder(f, cfg.decoder.num_heads)
-            self.linear_pred3 = nn.Conv2d(f, cfg.num_classes, 1)
         self.compute_dtype = torch.float32
 
     def decode(self, feats: list[torch.Tensor], train: bool = False) -> torch.Tensor:
@@ -139,6 +141,36 @@ class CFFMHead(nn.Module):
         z = (a - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
         return torch.relu(z).to(dt)
 
+    def frame_logits(self, _c: torch.Tensor, rate: float,
+                     generator: torch.Generator | None) -> torch.Tensor:
+        """``linear_pred`` of the fused features (N, h, w, f) after Dropout2d
+        at ``rate``: (N, h, w, classes)."""
+        return _conv1x1(dropout2d(_c, rate, generator), self.linear_pred, self.compute_dtype)
+
+
+class SegFormerHead(MLPDecodeHead):
+    """Single-frame SegFormer head: the decode, Dropout2d, ``linear_pred``.
+    No ``linear_pred2``, focal decoder or cluster branch."""
+
+    def forward(self, feats: list[torch.Tensor], train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits (N, h, w, classes) of the N frames' 4 backbone maps; with
+        ``train``, BN batch statistics and dropout from ``generator``."""
+        rate = self.cfg.dropout_ratio if train else 0.0
+        return self.frame_logits(self.decode(feats, train), rate, generator)
+
+
+class CFFMHead(MLPDecodeHead):
+    def __init__(self, cfg: CFFMHeadConfig):
+        super().__init__(cfg)
+        f = cfg.embed_dim
+        self.decoder_focal = CFFMDecoder(cfg.decoder)
+        self.linear_pred2 = nn.Conv2d(2 * f, cfg.num_classes, 1)
+        self.finetune = cfg.mode == "finetune"
+        if self.finetune:
+            self.decoder_swin = ClusterDecoder(f, cfg.decoder.num_heads)
+            self.linear_pred3 = nn.Conv2d(f, cfg.num_classes, 1)
+
     def forward_fused(self, _c: torch.Tensor, batch_size: int, num_clips: int,
                       train: bool = False, generator: torch.Generator | None = None,
                       cluster_centers=None) -> torch.Tensor:
@@ -158,7 +190,7 @@ class CFFMHead(nn.Module):
             _c = _c.detach()
         if train or num_clips != cfg.num_clips:
             with torch.no_grad() if frozen else contextlib.nullcontext():
-                x = _conv1x1(dropout2d(_c, rate, generator), self.linear_pred, dt)
+                x = self.frame_logits(_c, rate, generator)
             x = x.reshape(batch_size, num_clips, h, w, cfg.num_classes)
             if not train:
                 return x[:, -1]

@@ -1,15 +1,23 @@
-"""CFFM clip segmentor: MiT backbone + CFFM clip head.
+"""Segmentors: the CFFM clip segmentor and the single-frame SegFormer.
 
-Port of ``vss_cffm_tpu/models/segmentor.py:CFFMSegmentor``. The (B, T) clip
-is flattened into a (B·T) frame batch through the backbone and the per-frame
-decode, and the CFFM head refines the last frame; in training it returns
-every frame's logits and the refined last frame.
+Port of ``vss_cffm_tpu/models/segmentor.py``:
 
-``CFFMSegmentor(config, dtype, force)``: parameters are f32; ``dtype`` is
-the compute dtype of every module; ``force`` is handed to every op with a
-kernel (see ``set_force``; the train step hands the model's ``force`` to the
-loss). ``init_weights(generator)`` draws random
-weights with the reference's initialisers from an explicit generator.
+- ``CFFMSegmentor``: MiT backbone + CFFM clip head. The (B, T) clip is
+  flattened into a (B·T) frame batch through the backbone and the per-frame
+  decode, and the CFFM head refines the last frame; in training it returns
+  every frame's logits and the refined last frame.
+- ``ImageSegmentor``: MiT backbone + SegFormer head, one frame in, its
+  logits out (``SegmentorConfig.arch == "image"``).
+- ``build_segmentor(config, dtype)`` picks one by ``config.arch``;
+  ``target_logits(model, clip)`` gives either the target frame's logits of
+  a normalised clip.
+
+``CFFMSegmentor(config, dtype, force)`` (and ``ImageSegmentor`` alike):
+parameters are f32; ``dtype`` is the compute dtype of every module;
+``force`` is handed to every op with a kernel (see ``set_force``; the train
+step hands the model's ``force`` to the loss). ``init_weights(generator)``
+draws random weights with the reference's initialisers from an explicit
+generator.
 
 CFFM++ (``head.mode="finetune"``): ``forward`` and ``predict_from_features``
 take the video's ``cluster_centers``; in finetune training the backbone
@@ -28,10 +36,11 @@ import torch.nn as nn
 
 from ..config import SegmentorConfig
 from .cffm_transformer import CFFMWindowAttention, _PoolLinear
-from .heads import CFFMHead
+from .heads import CFFMHead, SegFormerHead
 from .mit import MiT
 
-__all__ = ["CFFMSegmentor", "set_force", "set_compute_dtype"]
+__all__ = ["CFFMSegmentor", "ImageSegmentor", "build_segmentor", "target_logits",
+           "is_image_model", "set_force", "set_compute_dtype"]
 
 
 def set_force(model: nn.Module, force: str | None) -> None:
@@ -51,13 +60,16 @@ def _trunc_normal(t: torch.Tensor, std: float, g: torch.Generator) -> None:
     nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=g)
 
 
-class CFFMSegmentor(nn.Module):
-    def __init__(self, config: SegmentorConfig, dtype: torch.dtype = torch.float32,
-                 force: str | None = None):
+class _EncoderDecoder(nn.Module):
+    """A MiT backbone and a decode head built by ``head_cls``, with the
+    reference's initialisers."""
+
+    def __init__(self, config: SegmentorConfig, head_cls, dtype: torch.dtype,
+                 force: str | None):
         super().__init__()
         self.config = config
         self.backbone = MiT(config.backbone_config)
-        self.decode_head = CFFMHead(config.head)
+        self.decode_head = head_cls(config.head)
         self.force: str | None = None
         set_compute_dtype(self, dtype)
         set_force(self, force)
@@ -101,6 +113,15 @@ class CFFMSegmentor(nn.Module):
                           *m.relative_position_bias_table_to_windows_clips):
                     _trunc_normal(p, 0.02, g)
 
+
+class CFFMSegmentor(_EncoderDecoder):
+    def __init__(self, config: SegmentorConfig, dtype: torch.dtype = torch.float32,
+                 force: str | None = None):
+        if config.arch != "cffm":
+            raise ValueError(f"CFFMSegmentor: arch={config.arch!r}; build_segmentor builds "
+                             "the model of any arch")
+        super().__init__(config, CFFMHead, dtype, force)
+
     def forward(self, imgs: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None,
                 cluster_centers=None) -> torch.Tensor:
@@ -134,3 +155,47 @@ class CFFMSegmentor(nn.Module):
         b, t, h, w, c = imgs.shape
         fused = self.decode_head.fused_features(self.backbone(imgs.reshape(b * t, h, w, c)))
         return fused.reshape(b, t, *fused.shape[1:])
+
+
+class ImageSegmentor(_EncoderDecoder):
+    """Single-frame segmentor (SegFormer): MiT backbone + SegFormer head."""
+
+    def __init__(self, config: SegmentorConfig, dtype: torch.dtype = torch.float32,
+                 force: str | None = None):
+        if config.arch != "image":
+            raise ValueError(f"ImageSegmentor: arch={config.arch!r}, expected 'image'")
+        super().__init__(config, SegFormerHead, dtype, force)
+
+    def forward(self, imgs: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """imgs (B, H, W, 3) normalised → logits (B, H/4, W/4, K); with
+        ``train`` (the model in ``train()`` mode), dropout and stochastic depth
+        drawn from ``generator`` and the fuse BN on batch statistics."""
+        if train and not self.training:
+            raise ValueError("forward(train=True) needs the model in train() mode")
+        return self.decode_head(self.backbone(imgs, train, generator), train, generator)
+
+
+def build_segmentor(config: SegmentorConfig, dtype: torch.dtype = torch.float32
+                    ) -> _EncoderDecoder:
+    """The segmentor of ``config.arch``: ``ImageSegmentor`` for "image",
+    ``CFFMSegmentor`` for "cffm"."""
+    cls = ImageSegmentor if config.arch == "image" else CFFMSegmentor
+    return cls(config, dtype)
+
+
+def target_logits(model: _EncoderDecoder, clip: torch.Tensor, **kwargs) -> torch.Tensor:
+    """The eval logits (B, h, w, K) of the target (last) frame of the
+    normalised clips (B, T, H, W, 3): an image model sees that frame alone
+    (JAX ``eval/evaluator.py:108-115``), a clip model the clip; ``kwargs``
+    (CFFM++'s ``cluster_centers``) go to a clip model."""
+    if is_image_model(model):
+        return model(clip[:, -1])
+    return model(clip, **kwargs)
+
+
+def is_image_model(model: nn.Module) -> bool:
+    """Whether ``model``'s config has ``arch="image"`` (a model without a
+    config, e.g. a fixed logits function, counts as a clip model, as in the
+    JAX evaluator)."""
+    return getattr(getattr(model, "config", None), "arch", "cffm") == "image"

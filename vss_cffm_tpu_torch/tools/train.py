@@ -142,6 +142,10 @@ def train(cfg: ExperimentConfig, *, work_dir: str, device: str | torch.device = 
     "iter_ms" (host ms an iteration of each log window, the loader's wait
     included), "profile" (iterations traced, device busy ms or None on the
     CPU)}."""
+    if cfg.model.arch != "cffm":
+        raise ValueError(f"train: the config's model has arch={cfg.model.arch!r}; the train "
+                         "step trains clip models only (the JAX step cannot train an image "
+                         "model either)")
     device = _device(device)
     logger = get_logger(work_dir)
     logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"

@@ -47,6 +47,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     built from ``loss_cfg``, by default the head's ``LossConfig``
     (``model.config.head.loss``), as the JAX step does. The model must be in
     ``train()`` mode; the loss takes the model's ``force``."""
+    if model.config.arch != "cffm":
+        raise ValueError(f"make_train_step trains clip models only; this model has "
+                         f"arch={model.config.arch!r} (the JAX step cannot train an image "
+                         "model either)")
     if loss_cfg is None:
         loss_cfg = model.config.head.loss
     loss_of = make_clip_loss(loss_cfg, ignore_index)

@@ -5,7 +5,10 @@
 the port's ``state_dict`` under the reference PyTorch names. It is the exact
 inverse of ``vss_cffm_tpu/utils/torch_convert.py:convert_segmentor``, in
 ``cffm`` mode and in ``finetune`` mode (CFFM++'s ``decoder_swin.blocks.0``
-and ``linear_pred3``, ``:178-190``):
+and ``linear_pred3``, ``:178-190``). For ``arch="image"`` (SegFormer) it
+writes the backbone, the decode and ``linear_pred`` only: the image model
+has no ``linear_pred2`` or ``decoder_focal`` (``convert_segmentor`` reads
+both unconditionally, ``:170-176``, and so refuses a SegFormer tree):
 
   dense kernel (in, out)            → Linear weight (out, in)
   conv kernel (kh, kw, in, out)     → Conv2d weight (out, in, kh, kw)
@@ -126,6 +129,8 @@ def state_dict_from_jax(variables: Mapping, config: SegmentorConfig) -> dict[str
     w.sd[f"{h}.linear_fuse.bn.running_var"] = _t(bn["var"])
     w.sd[f"{h}.linear_fuse.bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     w.conv(f"{h}.linear_pred", head["linear_pred"])
+    if config.arch == "image":
+        return w.sd
     w.conv(f"{h}.linear_pred2", head["linear_pred2"])
     for i in range(config.head.decoder.depth):
         _cffm_block(w, head["decoder_focal"][f"blocks_{i}"], f"{h}.decoder_focal.blocks.{i}")
