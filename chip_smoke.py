@@ -136,14 +136,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      launches held); the SegFormer-B0 config on a random ``.pth`` with
      ``--format-only --show`` (a PNG and an overlay a frame); host ms a
      frame of each run (``test_cli_phase``). The artefacts of 5b and 5c are
-     kept for it in one temporary directory, removed at its end;
+     kept for it and for 5e in one temporary directory, removed at the end;
+  5e. ``[dist]``: CFFM-B1 (``configs/cffm_b1_vspw_160k.py``, 480x480 crops,
+     global batch 2, bf16, drop path and head dropout 0.1) over several
+     processes (``dist_phase``): 2 default train steps in a group of one
+     NCCL rank here and on 2 gloo ranks pinned to ``cuda:0``
+     (``parallel.spawn``: processes started by ``spawn``, importing this
+     file and the port only), each on its rows of a fixed batch whose two
+     clips differ in brightness and contrast, against the one-process
+     steps on the whole batch (loss and the fuse BN's running statistics
+     within 1e-3, gradient norm 2e-3, cosine of the parameter deltas
+     ≥ 0.999, every rank's launches a step), then the same steps on the 2
+     ranks with the BN on each rank's own moments, which that check must
+     reject; host ms a step, the gradient all-reduce's ms and bytes, peak
+     memory a rank; then, started together, ``tools/dist_train.sh`` for 2
+     CLI steps with 1 NCCL rank and with 2 gloo ranks on ``cuda:0`` (one
+     checkpoint, each ``iter`` line once) and ``tools/dist_test.sh`` with 2
+     gloo ranks, streamed (JSON metrics equal to 5d's one-process CLI's)
+     and per clip (the ranks' pickled masks hold every frame, their
+     confusion equal to 5d's);
   6. the CE microbench: ``bench_ce.main`` at N 8 (the step's frames) with
      the counts set to 0 before it and held after (each of its six kernels
      launched warm-up + timed times), then each of the six kernels held
      against its plain version at the bench's inputs at N 8 and N 2, timed
      as in 3;
-  7. one JSON line of kernels, the ``nvidia-smi`` line, and the final
-     ``{"ok": true, "device": {...}}`` line.
+  7. one JSON line of kernels (``launches_by_path`` with each path's counts,
+     ``dist_rank0`` / ``dist_rank1`` the ranks' launches over 5e's steps),
+     the ``nvidia-smi`` line, and the final ``{"ok": true, "device": {...}}``
+     line.
 
 ``--profile`` adds, for one clip of each inference path and for one train
 step of each form, the device busy time, the number of kernel launches and
@@ -179,6 +199,7 @@ import dataclasses
 import importlib
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -2033,7 +2054,8 @@ def test_cli_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str, ft_
     1′, 2, 3 launches held; confusion equal to the direct evaluator's); the
     SegFormer-B0 config on a random ``.pth`` with ``--format-only --show``
     (a PNG and an overlay a frame). Host ms a frame of each run. Returns the
-    launch counts of each run."""
+    launch counts of each run, and for ``[dist]`` the B1 runs' tree, config
+    and outputs ({"tree", "config", "streamed", "per_clip"})."""
     from vss_cffm_tpu_torch.apis import init_segmentor
     from vss_cffm_tpu_torch.config import apply_overrides, load_config
     from vss_cffm_tpu_torch.data import VSPWVideoDataset, iterate_eval, iterate_eval_tta
@@ -2088,6 +2110,7 @@ def test_cli_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str, ft_
     ds = VSPWVideoDataset(tree, "val", dilation=cfg.data.dilation, img_scale=cfg.data.img_scale)
     bundle = init_segmentor(cfg, checkpoint=cffm_ckpt, device="cuda")
     plan = {**_clip_plan(ds), "attention_fwd_tiled": 0}
+    one_process = {"tree": tree, "config": path}
     for name, flags in (("streamed", ["--streaming"]), ("per_clip", [])):
         out_json = os.path.join(work, f"{name}.json")
         out = run(f"test_cli_{name}", [path, cffm_ckpt, *flags, "--vc", "--out", out_json,
@@ -2108,6 +2131,7 @@ def test_cli_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str, ft_
         same = json.dumps(written, sort_keys=True) == json.dumps(out["metrics"], sort_keys=True)
         if not np.isfinite(vc8) or not same:  # (VC16 is NaN: the videos have 10 frames)
             raise RuntimeError(f"[test_cli] {name}: VC8 {vc8}, or the JSON is not the metrics")
+        one_process[name] = out
     del bundle, ev
 
     # 2. CFFM++-B1 on [cffm_pp]'s finetune checkpoint and centres, with TTA
@@ -2151,6 +2175,351 @@ def test_cli_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str, ft_
         raise RuntimeError("[test_cli] the image run wrote other PNGs or counted other pixels")
     torch.cuda.empty_cache()
     print(f"[test_cli] done in {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    return counts, one_process
+
+
+# ---- [dist]: training and evaluation over several processes ------------------
+
+DIST_STEPS = 2
+DIST_OPTIONS = ["data.batch_size=2", "optim.max_iters=2", "log_interval=1",
+                "checkpoint_interval=2"]
+DIST_TIMED = 3                 # all-reduce calls timed after one warm-up
+DIST_REL = {"loss_seg": 1e-3, "grad_norm": 2e-3, "bn": 1e-3}  # relative, against one
+# process: the gradient norm carries the card's nondeterministic upsampling
+# backward (2.1e-4 read with SyncBN, 0.28 with each rank's own BN moments)
+DIST_COS = 0.999               # cosine of the parameter deltas (PERF.md §2)
+DIST_ACC = 0.1                 # accuracy, in points
+
+
+def _own_moments(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fuse BN's moments over this rank's rows alone: what a BatchNorm
+    without SyncBN computes on each rank."""
+    mean = a.mean(dim=(0, 1, 2))
+    return mean, (a - mean).square().mean(dim=(0, 1, 2))
+
+
+def _all_reduce_ms(grads: list, device) -> dict:
+    """Host ms of ``parallel.all_reduce_mean_`` of ``grads`` and of the
+    collective alone on their flat buffer, each the mean of DIST_TIMED calls
+    after one, in the process group that is up."""
+    import torch.distributed as dist
+
+    from vss_cffm_tpu_torch import parallel
+
+    flat = torch.cat([g.reshape(-1) for g in grads])
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(DIST_TIMED):
+            fn()
+        torch.cuda.synchronize(device)
+        return (time.perf_counter() - t0) * 1e3 / DIST_TIMED
+
+    return {"all_reduce_mean_ms": timed(lambda: parallel.all_reduce_mean_(grads)),
+            "collective_ms": timed(lambda: dist.all_reduce(flat))}
+
+
+def _dist_steps(device, model_cfg, state_dict: dict, batch: dict, optim_cfg,
+                own_bn: bool = False) -> dict:
+    """DIST_STEPS default train steps of the model of ``model_cfg`` (bf16
+    compute, f32 parameters) from ``state_dict`` on this rank's rows of the
+    global ``batch`` (without a process group: all of it); step ``it`` draws
+    from ``step_seed(SEED, it)``. ``own_bn``: the fuse BN on each rank's own
+    moments (``_own_moments``), the fault that the check of ``[dist]`` (a)
+    must catch. Returns each step's metrics, host ms (to a synchronize) and
+    launches; the parameter deltas (rank 0) and a digest of them; the fuse
+    BN's running statistics; the gradients' bytes and, in a process group,
+    the ms of their all-reduce (``_all_reduce_ms``); peak memory."""
+    from vss_cffm_tpu_torch import ops, parallel
+    from vss_cffm_tpu_torch.models import CFFMSegmentor, heads
+    from vss_cffm_tpu_torch.tools.train import step_seed
+    from vss_cffm_tpu_torch.train import TrainState, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = CFFMSegmentor(model_cfg, dtype=torch.bfloat16)
+    model.load_state_dict(state_dict, strict=True)
+    model.to(device).train()
+    state = TrainState.create(model, optim_cfg)
+    step = make_train_step(model, state.optimizer, state.scheduler)
+    rows = {k: torch.from_numpy(v).to(device) for k, v in parallel.shard_batch(batch).items()}
+    before = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.reset_peak_memory_stats(device)
+    out = {"metrics": [], "host_ms": [], "counts": []}
+    moments = heads.batch_moments
+    heads.batch_moments = _own_moments if own_bn else moments
+    try:
+        for it in range(DIST_STEPS):
+            torch.cuda.synchronize(device)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            m = step(rows, torch.Generator(device).manual_seed(step_seed(SEED, it)))
+            torch.cuda.synchronize(device)
+            out["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["counts"].append(ops.launches())
+            out["metrics"].append({k: v.item() for k, v in m.items()})
+    finally:
+        heads.batch_moments = moments
+    out["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
+    delta = torch.cat([(p.detach() - b).float().reshape(-1)
+                       for p, b in zip(model.parameters(), before)])
+    out["digest"] = (delta.double().sum().item(), delta.double().square().sum().item())
+    if parallel.rank() == 0:
+        out["delta"] = delta.cpu()
+    bn = model.decode_head.linear_fuse.bn
+    out["bn"] = torch.cat([bn.running_mean, bn.running_var]).cpu()
+    grads = [p.grad.clone() for p in model.parameters() if p.grad is not None]
+    out["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+    if parallel.is_distributed() and not own_bn:
+        out.update(_all_reduce_ms(grads, device))
+    return out
+
+
+def _dist_ranks(device, *args) -> dict:
+    """On each rank: the DIST_STEPS steps, then the same steps from the same
+    weights with the fuse BN on the rank's own moments (``own_bn``)."""
+    return {"sync": _dist_steps(device, *args), "own_bn": _dist_steps(device, *args, own_bn=True)}
+
+
+def _dist_readings(got: dict, want: dict) -> dict:
+    """The largest departures over the steps of a world's rank 0 from the one
+    process: relative loss and gradient norm, accuracy in points, the
+    cosine of the parameter deltas, the fuse BN's statistics relative to
+    their largest value."""
+    rel = {k: max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got["metrics"], want["metrics"]))
+           for k in ("loss_seg", "grad_norm")}
+    return {**rel, "acc_seg": max(abs(g["acc_seg"] - w["acc_seg"])
+                                  for g, w in zip(got["metrics"], want["metrics"])),
+            "cos": torch.nn.functional.cosine_similarity(got["delta"].double(),
+                                                         want["delta"].double(), dim=0).item(),
+            "bn": (got["bn"] - want["bn"]).abs().max().item() / want["bn"].abs().max().item()}
+
+
+def _dist_held(r: dict) -> bool:
+    return (all(r[k] <= lim for k, lim in DIST_REL.items()) and r["acc_seg"] <= DIST_ACC
+            and r["cos"] >= DIST_COS)
+
+
+def _parallel():
+    return importlib.import_module("vss_cffm_tpu_torch.parallel")
+
+
+def _dist_launch(root: str, runs: dict) -> dict:
+    """Each of ``runs`` ({log name: (script, args)}) started together:
+    ``vss_cffm_tpu_torch/tools/<script>`` with ``args``, its output in
+    ``chiprun_out/<log>``. Returns each output; raises with the output's end
+    unless every run exits 0."""
+    ports = set()
+    while len(ports) < len(runs):
+        ports.add(_parallel().free_port())
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    ts, procs = time.perf_counter(), {}
+    for (log, (script, args)), port in zip(runs.items(), sorted(ports)):
+        env = {**os.environ, "PYTHON": sys.executable, "PORT": str(port)}
+        for k in _parallel().RANK_ENV:
+            env.pop(k, None)
+        with open(os.path.join(root, "chiprun_out", log), "w") as f:
+            procs[log] = subprocess.Popen(
+                ["bash", os.path.join(root, "vss_cffm_tpu_torch", "tools", script), *args],
+                env=env, stdout=f, stderr=subprocess.STDOUT, text=True)
+    texts = {}
+    try:
+        for log, proc in procs.items():
+            rc = proc.wait(timeout=600)
+            with open(os.path.join(root, "chiprun_out", log)) as f:
+                texts[log] = f.read()
+            script, args = runs[log]
+            print(f"[dist] {script} {' '.join(a for a in args if '/' not in a)}: exit {rc} "
+                  f"(output in chiprun_out/{log})", flush=True)
+            if rc:
+                raise RuntimeError(f"[dist] {script} exited with {rc}:\n{texts[log][-4000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"[dist] {len(runs)} launch(es) together in {time.perf_counter() - ts:.1f} s",
+          flush=True)
+    return texts
+
+
+def _dist_train_held(text: str, work: str, what: str) -> None:
+    """One checkpoint (step 2) and each ``iter [k/2]`` line once."""
+    files = sorted(os.listdir(os.path.join(work, "ckpt")))
+    lines = [text.count(f"iter [{k}/2]") for k in (1, 2)]
+    saved = text.count("saved checkpoint at iter 2")
+    print(f"[dist] {what}: checkpoint files {files}, 'iter [1/2]' / 'iter [2/2]' logged "
+          f"{lines[0]} / {lines[1]} times, 'saved checkpoint' {saved}", flush=True)
+    if files != ["ckpt_2.pt", "metadata_2.json"] or lines != [1, 1] or saved != 1:
+        raise RuntimeError(f"[dist] {what}: the checkpoint or the log lines are not once each")
+
+
+def dist_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str,
+               one_process: dict) -> dict:
+    """``[dist]``: CFFM-B1 (``configs/cffm_b1_vspw_160k.py``, 480x480, global batch
+    2, bf16 compute, f32 parameters, drop path and head dropout 0.1) over
+    several processes. (a) DIST_STEPS default steps in a group of one NCCL
+    rank here and on 2 gloo ranks pinned to ``cuda:0`` (``parallel.spawn``),
+    each on its rows of a fixed synthetic batch whose two clips differ in
+    brightness and contrast, against the one-process steps here (no group)
+    on the whole batch from the same generator seeds: loss, gradient norm
+    and the fuse BN's running statistics within DIST_REL, accuracy within
+    DIST_ACC points, the cosine of the parameter deltas ≥ DIST_COS, the
+    ranks' parameters alike, each rank's launches a step the default
+    form's; the 2 ranks then run the steps with the BN on each rank's own
+    moments, which the check must reject; host ms a step in each world, the
+    gradient all-reduce's ms and bytes under NCCL and gloo, peak memory a
+    rank. Then, started together: (b) ``tools/dist_train.sh`` with 1 rank
+    under NCCL and (c) with 2 gloo ranks on ``cuda:0``, 2 CLI steps from
+    ``[train_cli]``'s checkpoint on ``[test_cli]``'s VSPW tree (its videos as
+    the train split): one checkpoint, each ``iter`` line once; (d)
+    ``tools/dist_test.sh`` with 2 gloo ranks on ``cuda:0``, streamed
+    (``--out`` JSON: its metrics equal the one-process CLI's of
+    ``[test_cli]``) and per clip (``--out`` pickle: the two shards hold
+    every frame once, and their masks' confusion equals the one-process
+    CLI's). Returns each rank's launches over the steps of (a)."""
+    from vss_cffm_tpu_torch.config import load_config
+    from vss_cffm_tpu_torch.data import VSPWVideoDataset
+    from vss_cffm_tpu_torch.eval.metrics import confusion_matrix_np
+    from vss_cffm_tpu_torch.models import CFFMSegmentor
+
+    parallel = _parallel()
+    t0 = time.perf_counter()
+    path = os.path.join(root, "vss_cffm_tpu_torch", "configs", "cffm_b1_vspw_160k.py")
+    cfg = load_config(path)
+    if (cfg.model.backbone_config.drop_path_rate, cfg.model.head.dropout_ratio) != (0.1, 0.1):
+        raise RuntimeError(f"[dist] the B1 config's drop rates {cfg.model}")
+    init = CFFMSegmentor(cfg.model)
+    init.init_weights(torch.Generator().manual_seed(SEED))
+    state_dict = init.state_dict()
+    del init
+    rng = np.random.RandomState(SEED + 7)
+    labels = rng.randint(0, NUM_CLASSES, (TRAIN_B, TRAIN_T, TRAIN_HW, TRAIN_HW)).astype(np.uint8)
+    labels[rng.rand(*labels.shape) < 0.05] = 255
+    imgs = rng.randint(0, 256, (TRAIN_B, TRAIN_T, TRAIN_HW, TRAIN_HW, 3)).astype(np.uint8)
+    imgs[1] = imgs[1] // 4 + 16  # clip 1 dark and flat: a rank's own BN moments stand apart
+    args = (cfg.model, state_dict, {"imgs": imgs, "labels": labels}, cfg.optim)
+    plan = TRAIN_FORMS["train"]["per_step"]
+
+    # (a) the step: one process here, then a group of one NCCL rank here, then
+    # 2 gloo ranks sharing the card
+    ta = time.perf_counter()
+    one = _dist_steps(torch.device("cuda"), *args)
+    parallel.init_distributed("cuda", "nccl", f"127.0.0.1:{parallel.free_port()}", 1, 0)
+    try:
+        nccl = _dist_steps(torch.device("cuda"), *args)
+    finally:
+        parallel.shutdown()
+    torch.cuda.empty_cache()
+    ranks = parallel.spawn(_dist_ranks, 2, *args, device="cuda:0", backend="gloo")
+    gloo = [r["sync"] for r in ranks]
+    print(f"[dist] (a) CFFM-B1 480x480, global batch {TRAIN_B} clip-{TRAIN_T} (clip 1's pixels "
+          f"x/4 + 16), bf16, {DIST_STEPS} default steps (drop path and head dropout 0.1) in one "
+          f"process, in a group of one NCCL rank and on 2 gloo ranks on cuda:0 (with SyncBN, "
+          f"then with each rank's own BN) in {time.perf_counter() - ta:.1f} s", flush=True)
+    worlds = {"world 1": [one], "world 1, NCCL": [nccl], "world 2, gloo": gloo}
+    for name, results in worlds.items():
+        for r, res in enumerate(results):
+            for s_, counts in enumerate(res["counts"]):
+                _launches_held(counts, plan, f"[dist] {name} rank {r} step {s_ + 1}")
+            if res["digest"] != results[0]["digest"]:
+                raise RuntimeError(f"[dist] {name}: rank {r}'s parameters differ from rank 0's")
+    for s_, (got, want) in enumerate(zip(gloo[0]["metrics"], one["metrics"])):
+        print(f"[dist] (a) world 2 step {s_ + 1}: loss_seg {got['loss_seg']:.6f} vs "
+              f"{want['loss_seg']:.6f}, acc_seg {got['acc_seg']:.4f} vs {want['acc_seg']:.4f}, "
+              f"grad_norm {got['grad_norm']:.6f} vs {want['grad_norm']:.6f}", flush=True)
+    readings = {"world 1, NCCL": _dist_readings(nccl, one),
+                "world 2, gloo, SyncBN": _dist_readings(gloo[0], one),
+                "world 2, gloo, each rank's own BN": _dist_readings(ranks[0]["own_bn"], one)}
+    for name, rd in readings.items():
+        print(f"[dist] (a) {name}, against one process: loss_seg rel {rd['loss_seg']:.3e} "
+              f"(limit {DIST_REL['loss_seg']:g}), grad_norm rel {rd['grad_norm']:.3e} (limit "
+              f"{DIST_REL['grad_norm']:g}), fuse BN statistics {rd['bn']:.3e} of their largest "
+              f"(limit {DIST_REL['bn']:g}), acc_seg {rd['acc_seg']:.4f} points (limit "
+              f"{DIST_ACC:g}), cosine of the parameter deltas {rd['cos']:.6f} (limit "
+              f"{DIST_COS:g}): {'held' if _dist_held(rd) else 'rejected'}", flush=True)
+    *sound, own = readings.values()
+    if not all(_dist_held(rd) for rd in sound):
+        raise RuntimeError(f"[dist] (a) a world disagrees with one process: {readings}")
+    if _dist_held(own):
+        raise RuntimeError(f"[dist] (a) the check passes a BN on each rank's own moments: {own}")
+    print(f"[dist] (a) every rank's launches a step the default form's; ranks' parameters alike",
+          flush=True)
+    g0 = gloo[0]
+    print(f"[dist] gradient all-reduce, {g0['grad_bytes']} bytes "
+          f"({g0['grad_bytes'] / 1e6:.3f} MB) of f32 in one flat buffer: gloo, 2 ranks on one "
+          f"card, all_reduce_mean_ {g0['all_reduce_mean_ms']:.3f} ms, the collective alone "
+          f"{g0['collective_ms']:.3f} ms; NCCL, a group of one rank, all_reduce_mean_ "
+          f"{nccl['all_reduce_mean_ms']:.4f} ms, the collective alone "
+          f"{nccl['collective_ms']:.4f} ms (one rank: no multi-card figure) | {smi}", flush=True)
+    gloo_mib = ", ".join(f"{g['peak_mib']:.1f}" for g in gloo)
+    print(f"[dist] peak memory a rank: world 1 {one['peak_mib']:.1f} MiB, world 1 under NCCL "
+          f"{nccl['peak_mib']:.1f} MiB, world 2 {gloo_mib} MiB | {smi}", flush=True)
+    gloo_ms = ", ".join(f"{g['host_ms'][-1]:.3f}" for g in gloo)
+    print(f"[dist] host ms a step (step {DIST_STEPS}, to a synchronize): world 1 "
+          f"{one['host_ms'][-1]:.3f}, world 1 under NCCL {nccl['host_ms'][-1]:.3f}, world 2 "
+          f"gloo {gloo_ms} (ranks 0, 1 sharing one card: no scaling figure) | {smi}", flush=True)
+    counts = {f"dist_rank{r}": {k: sum(c[k] for c in g["counts"]) for k in g["counts"][0]}
+              for r, g in enumerate(gloo)}
+    del one, nccl, gloo, ranks
+
+    # (b), (c) the train CLI through dist_train.sh, from [train_cli]'s checkpoint
+    # on [test_cli]'s tree, its videos as the train split, and (d) the test CLI
+    # through dist_test.sh on [train_cli]'s checkpoint, all started together
+    tree = one_process["tree"]
+    shutil.copy(os.path.join(tree, "val.txt"), os.path.join(tree, "train.txt"))
+    work = os.path.join(work_root, "dist")
+    options = ["--load-from", cffm_ckpt, "--options", f"data.data_root={tree}", *DIST_OPTIONS]
+    gloo_args = ["--device", "cuda:0", "--backend", "gloo"]
+    out_json, out_pkl = os.path.join(work, "streamed.json"), os.path.join(work, "masks.pkl")
+    texts = _dist_launch(root, {
+        "dist_train_nccl.log": ("dist_train.sh", [
+            path, "1", "--distributed", "--coordinator", f"127.0.0.1:{parallel.free_port()}",
+            "--num-processes", "1", "--process-id", "0", "--device", "cuda", "--work-dir",
+            os.path.join(work, "nccl"), *options]),
+        "dist_train_gloo.log": ("dist_train.sh", [path, "2", *gloo_args, "--work-dir",
+                                                  os.path.join(work, "gloo"), *options]),
+        "dist_test_streamed.log": ("dist_test.sh", [
+            path, cffm_ckpt, "2", *gloo_args, "--streaming", "--out", out_json, "--options",
+            f"data.data_root={tree}"]),
+        "dist_test_per_clip.log": ("dist_test.sh", [
+            path, cffm_ckpt, "2", *gloo_args, "--out", out_pkl, "--options",
+            f"data.data_root={tree}"])})
+    _dist_train_held(texts["dist_train_nccl.log"], os.path.join(work, "nccl"),
+                     "(b) 1 rank under NCCL")
+    _dist_train_held(texts["dist_train_gloo.log"], os.path.join(work, "gloo"),
+                     "(c) 2 gloo ranks on cuda:0")
+
+    ds = VSPWVideoDataset(tree, "val", dilation=cfg.data.dilation, img_scale=cfg.data.img_scale)
+    with open(out_json) as f:
+        got = json.load(f)
+    want = {k: one_process["streamed"]["metrics"][k] for k in got}
+    same = json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)
+    print(f"[dist] (d) streamed, 2 ranks (a video each): JSON metrics {sorted(got)} "
+          f"{'equal' if same else 'DIFFER FROM'} the one-process CLI's (mIoU {got['mIoU']:.6f}; "
+          f"VC8 / VC16 are each rank's own videos', not asked for)", flush=True)
+    if not same or set(got) & {"VC8", "VC16"}:
+        raise RuntimeError(f"[dist] (d) streamed metrics {got} != {want}")
+    shards = []
+    for r in range(2):
+        with open(f"{out_pkl}.rank{r}", "rb") as f:
+            shards.append(pickle.load(f))
+    if [len(sh) for sh in shards] != [len(range(r, len(ds), 2)) for r in range(2)]:
+        raise RuntimeError(f"[dist] (d) pickle shards of {[len(sh) for sh in shards]} masks "
+                           f"for {len(ds)} frames")
+    cm = sum(confusion_matrix_np(shards[i % 2][i // 2], ds.load_gt(i), NUM_CLASSES)
+             for i in range(len(ds)))
+    same = np.array_equal(cm, one_process["per_clip"]["confusion"])
+    print(f"[dist] (d) per clip, 2 ranks (every other frame): pickle shards of "
+          f"{[len(sh) for sh in shards]} masks hold the {len(ds)} frames; their confusion "
+          f"(total {int(cm.sum())}) {'equals' if same else 'DIFFERS FROM'} the one-process "
+          f"CLI's", flush=True)
+    if not same:
+        raise RuntimeError("[dist] (d) per clip: the ranks' masks give another confusion")
+    torch.cuda.empty_cache()
+    print(f"[dist] done in {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
     return counts
 
 
@@ -3005,8 +3374,11 @@ def main() -> int:
         pp_counts, ft_ckpt, cluster_dir = cffm_pp_phase(ops, root, kind, smi, work_root)
 
         # ---- 5d. the test CLI on 5b's and 5c's checkpoints, and the image model
-        test_cli_counts = test_cli_phase(ops, root, smi, work_root, cffm_ckpt, ft_ckpt,
-                                         cluster_dir)
+        test_cli_counts, one_process = test_cli_phase(ops, root, smi, work_root, cffm_ckpt,
+                                                      ft_ckpt, cluster_dir)
+
+        # ---- 5e. training and evaluation over several processes
+        dist_counts = dist_phase(ops, root, smi, work_root, cffm_ckpt, one_process)
     finally:
         shutil.rmtree(work_root, ignore_errors=True)
 
@@ -3042,7 +3414,8 @@ def main() -> int:
                    **{p: c[cn] for p, c in eval_counts.items()},
                    **{p: c[cn] for p, c in pp_counts.items()},
                    **{p: c[cn] for p, c in image_counts.items()},
-                   **{p: c[cn] for p, c in test_cli_counts.items()}}
+                   **{p: c[cn] for p, c in test_cli_counts.items()},
+                   **{p: c[cn] for p, c in dist_counts.items()}}
         row = {"name": name, "route": "cuda", "source": spec["sources"][0],
                "sources": spec["sources"],
                "replaces": spec["replaces"], "launches": by_path[path], "path": path,

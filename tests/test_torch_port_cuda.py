@@ -1609,3 +1609,62 @@ def test_test_cli_on_the_card_matches_the_cpu(dev, tmp_path):
     assert masks["cuda"].shape == (6, 64, 96)
     assert (masks["cuda"] == masks["cpu"]).mean() >= 0.99
     assert totals["cuda"] == totals["cpu"] > 0
+
+
+def test_two_gloo_ranks_on_one_card_match_one_process(dev):
+    """The fuse BN and one default train step on 2 gloo ranks pinned to
+    ``cuda:0`` (``parallel.spawn``, ``torch_port_ranks.bn_and_step``), one clip
+    each, against the one-process run on the global batch: the BN in f32
+    (output, input gradients, the parameters' gradients summed over the
+    ranks, within 1e-5 of each tensor's largest value; the running
+    statistics within 1e-6); the step at MiT-B0 widths, 64², bf16, drop path
+    and head dropout 0.1, at ``PERF.md`` §2's train limits (loss and gradient
+    norm within 1 %, cosine of all gradients ≥ 0.999: the card's step is not
+    deterministic, ``F.interpolate``'s backward adds with atomics), the fuse
+    BN's running statistics within 1 % of their largest value; the OHEM
+    weights of a fixed probability map (the gathered threshold over gloo on
+    the card) equal to the one process's exactly."""
+    import torch_port_ranks as ranks
+    from vss_cffm_tpu_torch import parallel
+    from vss_cffm_tpu_torch.models import CFFMSegmentor
+    from vss_cffm_tpu_torch.models.heads import MLPDecodeHead
+
+    rng = np.random.RandomState(8)
+    cfg = ranks.tiny_config()
+    model = CFFMSegmentor(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    labels = rng.randint(0, 124, (2, 4, 64, 64)).astype(np.uint8)
+    labels[rng.rand(*labels.shape) < 0.05] = 255
+    train = dict(cfg=cfg, state_dict=model.state_dict(), optim=dict(lr=1e-3, max_iters=100),
+                 batch={"imgs": rng.randint(0, 256, (2, 4, 64, 64, 3)).astype(np.uint8),
+                        "labels": labels}, dtype=torch.bfloat16)
+    head = MLPDecodeHead(cfg.head)
+    feats = [(rng.standard_normal((4, 8 >> i, 8 >> i, c)) * (i + 1) + i).astype(np.float32)
+             for i, c in enumerate(cfg.head.in_channels)]
+    bn = dict(head_cfg=cfg.head, state_dict=head.state_dict(), feats=feats,
+              cotangent=rng.standard_normal((4, 8, 8, 32)).astype(np.float32))
+    ohem_map = dict(gt_prob=rng.rand(4, 16, 16).astype(np.float32),
+                    valid=rng.rand(4, 16, 16) > 0.1, thresh=0.0, min_kept=150)
+    world = parallel.spawn(ranks.bn_and_step, 2, bn, train, ohem_map, device="cuda:0",
+                           backend="gloo")
+    one = ranks.bn_and_step(dev, bn, train, ohem_map)
+    assert 0.2 < one["ohem_map"].mean().item() < 0.8
+    for r, w in enumerate(world):
+        assert torch.equal(w["ohem_map"], parallel.shard_batch(one["ohem_map"], r, 2))
+        got, want = w["bn"], one["bn"]
+        ranks.close_to_largest(got["out"], parallel.shard_batch(want["out"], r, 2), 1e-5, "out")
+        for g, x in zip(got["dx"], want["dx"]):
+            ranks.close_to_largest(g, parallel.shard_batch(x, r, 2), 1e-5, "input grad")
+        ranks.grads_close(got["grads"], want["grads"], f"rank {r}")
+        for g, x in zip(got["bn"], want["bn"]):
+            torch.testing.assert_close(g, x, rtol=0, atol=1e-6)
+        got, want = w["train"], one["train"]
+        for k in ("loss_seg", "grad_norm"):
+            a, b = got["metrics"][0][k], want["metrics"][0][k]
+            assert abs(a - b) <= 1e-2 * abs(b), (k, a, b)
+        flat = lambda g: torch.cat([v.float().reshape(-1) for v in g.values()]).double()
+        cos = torch.nn.functional.cosine_similarity(flat(got["grads"][0]),
+                                                    flat(want["grads"][0]), dim=0).item()
+        assert cos >= 0.999, cos
+        for g, x in zip(got["bn"], want["bn"]):
+            ranks.close_to_largest(g, x, 1e-2, "running statistics")

@@ -122,9 +122,23 @@ def test_int64_split_round_trip_above_2_31():
 
 
 def test_aggregate_confusion_is_one_process_only(monkeypatch):
+    """The identity in one process; in a group of 2 ranks (faked here: its
+    all-reduce adds the other rank's matrix) one int64 all-reduce, exact
+    past 2³¹ (the 2-rank gloo run is in ``test_torch_port_parallel.py``)."""
     cm = _matrices()[0]
+    cm[0, 0] = 2**40 + 3
     np.testing.assert_array_equal(pm.aggregate_confusion(cm), cm)
+    other = np.full_like(cm, 2**31 + 1)
+    seen = []
+
+    def all_reduce(t):
+        seen.append(t.dtype)
+        t += torch.from_numpy(other)
+
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="2 processes"):
-        pm.aggregate_confusion(cm)
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda: "gloo")
+    monkeypatch.setattr(torch.distributed, "all_reduce", all_reduce)
+    got = pm.aggregate_confusion(cm)
+    assert got.dtype == np.int64 and seen == [torch.int64]
+    np.testing.assert_array_equal(got, cm + other)

@@ -17,7 +17,8 @@ video of 6 frames (one-frame clips for frames 0-2, four-frame clips after):
   the 12 view shapes would compile for minutes; the network itself is held
   against JAX in ``test_torch_port_cffm_pp.py``);
 - ``--out`` JSON and pickle (``--efficient-test``), ``--format-only``,
-  ``--shape-census``; ``--distributed`` and a missing card raise.
+  ``--shape-census``; a missing card raises, and so does ``--distributed``
+  without a rank environment.
 """
 
 from __future__ import annotations
@@ -153,10 +154,15 @@ def test_cli_outputs(cffm, tree, tmp_path, capsys):
     assert all(line.startswith("T=4 aligned=") for line in printed)
 
 
-def test_cli_refuses_distributed_and_a_missing_card(cffm):
+def test_cli_refuses_distributed_and_a_missing_card(cffm, monkeypatch):
+    """``--distributed`` without a rank environment names what is missing
+    (the 2-rank runs are in ``test_torch_port_parallel.py``)."""
     _, _, _, cfg_path, ckpt = cffm
-    with pytest.raises(NotImplementedError, match="--distributed"):
-        test_cli.main([cfg_path, ckpt, "--distributed"])
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="--distributed needs a rank environment"):
+        test_cli.main([cfg_path, ckpt, "--distributed", "--device", "cpu"])
+    assert not torch.distributed.is_initialized()
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the rule under test is its absence")
     with pytest.raises(RuntimeError, match="no CUDA device"):

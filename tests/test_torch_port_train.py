@@ -14,12 +14,16 @@ rates 0 on both sides, and the JAX CE kernels in interpret mode in its loss
   steps through the warmup against optax;
 - one whole ``make_train_step`` against the JAX ``make_train_step``, with
   the default CE and with a head configured for OHEM and class weights (the
-  port's per-pixel CE route, the JAX composed CE).
+  port's per-pixel CE route, the JAX composed CE); with the default CE also
+  on 2 gloo ranks of one clip each (``parallel.spawn``), against the same
+  compiled JAX step on the global batch.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_ranks as ranks
 from torch_port_common import (flat, index_map, perturbed_variables, to_jax_tree, to_np,
                                train_batch, train_configs, train_patches)
 from vss_cffm_tpu.models import losses as jax_losses
@@ -38,6 +43,7 @@ from vss_cffm_tpu.train.state import TrainState as JaxTrainState
 from vss_cffm_tpu.train.step import device_normalize as jax_device_normalize
 from vss_cffm_tpu.train.step import make_train_step as jax_make_train_step
 from vss_cffm_tpu_torch import config as pcfg
+from vss_cffm_tpu_torch import parallel
 from vss_cffm_tpu_torch.models import CFFMSegmentor
 from vss_cffm_tpu_torch.models.losses import make_clip_loss
 from vss_cffm_tpu_torch.train import TrainState, build_optimizer, make_train_step
@@ -218,10 +224,42 @@ def test_grad_clip_of_optim_config_matches_optax():
                              scales=(1.0, 30.0, 0.3))
 
 
-def test_one_train_step_matches_jax():
+def _start_two_ranks(pm, imgs, labels, ocfg) -> concurrent.futures.Future:
+    """The port step on 2 gloo ranks on the CPU, one clip each (spawned,
+    ``torch_port_ranks.train_steps``), started from a thread so that the
+    ranks run while the JAX step compiles; the rank 0 result."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    run = functools.partial(ranks.train_steps, mit_drop_path=False)
+    state_dict = {k: v.clone() for k, v in pm.state_dict().items()}
+    future = pool.submit(lambda: parallel.spawn(run, 2, pm.config, state_dict,
+                                                {"imgs": imgs, "labels": labels}, ocfg,
+                                                device="cpu")[0])
+    pool.shutdown(wait=False)
+    return future
+
+
+@pytest.fixture(scope="module")
+def default_step():
+    """The JAX step with the default CE, compiled and run once for the
+    one-process and the 2-rank port steps (``_jax_step``), the 2 ranks
+    started before the compile (``_start_two_ranks``)."""
+    return _jax_step(start=_start_two_ranks)
+
+
+def test_one_train_step_matches_jax(default_step):
     """``make_train_step`` against the JAX ``make_train_step`` from the same
     weights and uint8 batch, lr 1e-4 past the warmup (``_one_step_matches_jax``)."""
-    _one_step_matches_jax()
+    _one_step_matches_jax(default_step)
+
+
+def test_two_rank_train_step_matches_jax(default_step):
+    """The same step on 2 gloo ranks on the CPU, one clip each (spawned,
+    ``torch_port_ranks.train_steps``: the fuse BN's statistics, the loss and
+    the gradients over the global batch), held to the JAX step on the global
+    batch as the one-process step is."""
+    js = default_step
+    res = js["started"].result(timeout=600)
+    _step_matches_jax(js, res["metrics"][0], res["params"])
 
 
 def test_one_train_step_with_ohem_and_class_weights_matches_jax():
@@ -236,15 +274,14 @@ def test_one_train_step_with_ohem_and_class_weights_matches_jax():
     ignore (the JAX per-pixel route would count them as class 0; the port's
     rule is pinned in that file)."""
     cw = tuple(np.random.RandomState(7).uniform(0.5, 1.5, CLASSES))
-    _one_step_matches_jax(dict(use_ohem=True, class_weight=cw))
+    _one_step_matches_jax(_jax_step(dict(use_ohem=True, class_weight=cw)))
 
 
-def _one_step_matches_jax(loss: dict | None = None):
-    """loss, acc and the gradient norm as in the forward/backward tests. The
-    updated parameters: Adam's first step is ≈ lr·sign(g) per element, so an
-    element whose gradient is within rounding of 0 may step the other way;
-    99.9 % of the elements are held to 1e-3 of the step size lr·mult, every
-    element to 2·lr·mult plus its decay."""
+def _jax_step(loss: dict | None = None, start=None) -> dict:
+    """The JAX ``make_train_step`` from the perturbed weights on a uint8 batch,
+    lr 1e-4 past the warmup, and the port model on the same weights with its
+    state before the step; ``start(pm, imgs, labels, ocfg)``, called before
+    the JAX step compiles, gives the result's "started"."""
     ocfg = dict(lr=1e-4, warmup_iters=0, max_iters=1000)
     with train_patches("b0"), pytest.MonkeyPatch.context() as mp:
         jcfg, jm, variables, pm = _models(seed=1, loss=loss)
@@ -252,30 +289,47 @@ def _one_step_matches_jax(loss: dict | None = None):
         if loss is not None:
             labels[labels == CLASSES] = 255
             mp.setattr(jax_losses, "_FORCE_FUSED", False)
+        started = start(pm, imgs, labels, ocfg) if start else None
         jtx = jax_optim.build_optimizer(variables["params"], jax_optim.OptimConfig(**ocfg))
         jstate = JaxTrainState.create(variables, jtx)
         jstep = jax_make_train_step(jm, jtx, donate=False)
         jnew, jmetrics = jstep(jstate, {"imgs": jnp.asarray(imgs),
                                         "labels": jnp.asarray(labels).astype(jnp.int32)},
                                jax.random.PRNGKey(0))
-        state = TrainState.create(pm, pcfg.OptimConfig(**ocfg))
-        names = index_map(pm, jcfg)
-        before = flat(to_jax_tree(pm, {}, jcfg)["params"])
-        step = make_train_step(pm, state.optimizer, state.scheduler)
-        metrics = step({"imgs": torch.from_numpy(imgs), "labels": torch.from_numpy(labels)},
-                       torch.Generator().manual_seed(0))
-    assert state.step == int(jnew.step) == 1
-    np.testing.assert_allclose(metrics["loss_seg"].item(), float(jmetrics["loss_seg"]), rtol=1e-5)
-    assert abs(metrics["acc_seg"].item() - float(jmetrics["acc_seg"])) <= 0.01
-    np.testing.assert_allclose(metrics["grad_norm"].item(), float(jmetrics["grad_norm"]),
-                               rtol=1e-4)
-    port = flat(to_jax_tree(pm, {}, jcfg)["params"])
-    jflat = flat(jax.device_get(jnew.params))
+    return dict(jcfg=jcfg, pm=pm, started=started,
+                imgs=imgs, labels=labels, ocfg=ocfg, jstep=int(jnew.step),
+                jparams=flat(jax.device_get(jnew.params)),
+                jmetrics={k: float(v) for k, v in jmetrics.items()},
+                names=index_map(pm, jcfg), before=flat(to_jax_tree(pm, {}, jcfg)["params"]))
+
+
+def _one_step_matches_jax(js: dict):
+    """The port's one-process step on ``_jax_step``'s model and batch."""
+    pm = js["pm"]
+    state = TrainState.create(pm, pcfg.OptimConfig(**js["ocfg"]))
+    step = make_train_step(pm, state.optimizer, state.scheduler)
+    metrics = step({"imgs": torch.from_numpy(js["imgs"]),
+                    "labels": torch.from_numpy(js["labels"])}, torch.Generator().manual_seed(0))
+    assert state.step == js["jstep"] == 1
+    _step_matches_jax(js, metrics, {n: p.detach() for n, p in pm.named_parameters()})
+
+
+def _step_matches_jax(js: dict, metrics: dict, params: dict):
+    """loss, acc and the gradient norm as in the forward/backward tests. The
+    updated parameters: Adam's first step is ≈ lr·sign(g) per element, so an
+    element whose gradient is within rounding of 0 may step the other way;
+    99.9 % of the elements are held to 1e-3 of the step size lr·mult, every
+    element to 2·lr·mult plus its decay."""
+    jmetrics, before = js["jmetrics"], js["before"]
+    np.testing.assert_allclose(float(metrics["loss_seg"]), jmetrics["loss_seg"], rtol=1e-5)
+    assert abs(float(metrics["acc_seg"]) - jmetrics["acc_seg"]) <= 0.01
+    np.testing.assert_allclose(float(metrics["grad_norm"]), jmetrics["grad_norm"], rtol=1e-4)
+    port = flat(to_jax_tree(js["pm"], params, js["jcfg"])["params"])
     total = close = 0
-    for path, name in names.items():
+    for path, name in js["names"].items():
         mult, decayed = paramwise_multipliers(name, 10.0)
-        step_size = ocfg["lr"] * mult
-        dp, dj = port[path] - before[path], jflat[path] - before[path]
+        step_size = js["ocfg"]["lr"] * mult
+        dp, dj = port[path] - before[path], js["jparams"][path] - before[path]
         err = np.abs(dp - dj)
         bound = 2 * step_size + step_size * 0.01 * np.abs(before[path]) * decayed + 1e-9
         assert np.all(err <= bound), path

@@ -8,7 +8,9 @@ widths, head and decoder at 32 channels, decoder depth 1, frames of 64×96,
   step 2, a profiler window of one iteration);
 - ``--load-from`` a ``.pth`` of the port's ``state_dict()`` and of a
   backbone alone without prefix (an ImageNet ``head.*`` dropped);
-- ``--device cuda`` without a card and ``--distributed`` raise;
+- ``--device cuda`` without a card raises, and so does ``--distributed``
+  without a rank environment (the 2-rank runs are in
+  ``test_torch_port_parallel.py``);
 - CFFM++: ``tools.generate_prototypes`` (phase A) from a ``.pth`` of run A's
   CFFM weights into a cluster directory, then 2 finetune steps
   (``model.head.mode=finetune``) ``--load-from`` that ``.pth`` with the
@@ -169,7 +171,7 @@ def test_load_from_a_backbone_without_prefix(run_a, tree, monkeypatch):
     assert any(not torch.equal(full[k], init[k]) for k in full if k.startswith("backbone."))
 
 
-def test_no_card_and_distributed_raise(tree):
+def test_no_card_and_distributed_raise(tree, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     _, work, path = tree
@@ -177,8 +179,16 @@ def test_no_card_and_distributed_raise(tree):
         train_cli.main([path, "--work-dir", os.path.join(work, "f")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main([path, "--work-dir", os.path.join(work, "f"), "--device", "cuda"])
-    with pytest.raises(NotImplementedError):
+    # --distributed without torchrun's environment or the coordinator flags
+    # names what is missing, and starts no group
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="rank environment.*missing: RANK"):
         train_cli.main([path, "--distributed", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="missing: --process-id"):
+        train_cli.main([path, "--distributed", "--device", "cpu", "--coordinator",
+                        "127.0.0.1:1", "--num-processes", "2"])
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.fixture(scope="module")

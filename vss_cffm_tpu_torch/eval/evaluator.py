@@ -51,7 +51,8 @@ from ..data.transforms import aligned_resize_clip, aligned_size, normalize_clip,
 from ..models.segmentor import is_image_model, target_logits
 from ..ops.resize import resize_bilinear
 from .inference import slide_inference, tta_inference
-from .metrics import eval_metrics, fwiou, mean_iou_seen, update_confusion, video_consistency
+from .metrics import (aggregate_confusion, eval_metrics, fwiou, mean_iou_seen, update_confusion,
+                      video_consistency)
 
 __all__ = ["ClipEvaluator", "StreamingVideoEvaluator", "save_pred_png"]
 
@@ -218,6 +219,14 @@ class ClipEvaluator:
     def confusion(self) -> np.ndarray:
         """The (C, C) confusion matrix, int64 on the host."""
         return self._confusion.cpu().numpy()
+
+    def aggregate_across_processes(self) -> None:
+        """Sum the confusion matrix over the ranks, each of which evaluated its
+        own shard of frames or videos (JAX ``evaluator.py:195-204``). Call once,
+        after the local pass; ``summary()`` then gives the global metrics on
+        every rank. VC8 / VC16 stay the rank's own: they need whole videos on
+        one rank (shard by video). Nothing without a process group."""
+        self._confusion = torch.from_numpy(aggregate_confusion(self.confusion)).to(self.device)
 
     def summary(self, with_vc: bool = False) -> dict:
         cm = self.confusion

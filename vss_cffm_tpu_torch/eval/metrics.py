@@ -16,16 +16,18 @@ The port's copy of ``vss_cffm_tpu/eval/metrics.py`` (reference
 - ``video_consistency``: VC_n (``VC_perclip.py:64-80``), for every run of n
   consecutive frames the share of the pixels whose ground truth is static
   over the run whose prediction is static too.
-- ``_split_int64`` / ``_merge_int64``: the int32 digit split of a matrix
-  for a sum across processes, kept for ``aggregate_confusion``, which is the
-  identity in one process and refuses more (the multi-process port is
-  later work).
+- ``aggregate_confusion``: the matrix summed over the ranks of a
+  ``torch.distributed`` group with one int64 all-reduce (the JAX package
+  gathers an int32 digit split, ``_split_int64`` / ``_merge_int64``, kept
+  here with its parity tests, as JAX's default integers are 32-bit).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import parallel
 
 __all__ = [
     "update_confusion",
@@ -55,15 +57,14 @@ def _merge_int64(parts: np.ndarray) -> np.ndarray:
 
 
 def aggregate_confusion(cm: np.ndarray) -> np.ndarray:
-    """The (C, C) confusion summed over processes: the identity in one
-    process. A ``torch.distributed`` group of more than one rank raises, as
-    the port has no multi-process evaluation yet."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"aggregate_confusion: {dist.get_world_size()} processes; the port sums "
-            "confusion matrices in one process only so far")
-    return np.asarray(cm, np.int64)
+    """The (C, C) confusion summed over the ranks, int64 and exact (one sum
+    all-reduce of int64 counts); the identity without a process group."""
+    cm = np.asarray(cm, np.int64)
+    if not parallel.is_distributed():
+        return cm
+    t = torch.from_numpy(cm.copy()).to(parallel.collective_device())
+    torch.distributed.all_reduce(t)
+    return t.cpu().numpy()
 
 
 def update_confusion(confusion: torch.Tensor, pred: torch.Tensor, label: torch.Tensor,

@@ -19,7 +19,8 @@ with the bilinear resize, so each level is one matmul at its own resolution
 and the (B·T, h, w, 4f) concat never exists.
 
 In training (``forward(..., train=True, generator=g)``) the fuse BatchNorm
-normalises with the f32 batch statistics of the merged sum and updates its
+normalises with the f32 batch statistics of the merged sum, over the global
+batch when several ranks train (``batch_moments``), and updates its
 running statistics the flax way, and Dropout2d (whole channels per sample)
 precedes ``linear_pred`` and ``linear_pred2``. The CFFM head then returns
 (B, T+1, h, w, classes): the per-frame logits of all T frames and the
@@ -45,13 +46,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import parallel
 from ..config import CFFMHeadConfig
 from ..ops import resize_bilinear
 from .cffm_transformer import CFFMDecoder
 from .cluster_head import ClusterDecoder
 from .mit import derived, keep_mask
 
-__all__ = ["MLPDecodeHead", "SegFormerHead", "CFFMHead", "dropout2d"]
+__all__ = ["MLPDecodeHead", "SegFormerHead", "CFFMHead", "dropout2d", "batch_moments"]
 
 BN_MOMENTUM = 0.9  # flax BatchNorm: running = 0.9·running + 0.1·batch
 
@@ -66,6 +68,23 @@ def dropout2d(x: torch.Tensor, rate: float, generator: torch.Generator | None
     n, c = x.shape[0], x.shape[-1]
     keep = keep_mask(n * c, rate, generator, x.device).reshape(n, 1, 1, c)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def batch_moments(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-channel mean and biased variance of a (N, h, w, C) f32 over the
+    global batch (the JAX package's SyncBN): without a process group over
+    ``a``; in a group from two differentiable sum all-reduces, [Σx, count]
+    and then Σ(x − mean)², whose backward is the global-batch BN's. In a
+    group every rank must call it together (a train-mode forward on one
+    rank alone waits for the others)."""
+    if not parallel.is_distributed():
+        mean = a.mean(dim=(0, 1, 2))
+        return mean, (a - mean).square().mean(dim=(0, 1, 2))
+    count = a.new_full((1,), a.shape[0] * a.shape[1] * a.shape[2])
+    sums = parallel.all_reduce_sum(torch.cat([a.sum(dim=(0, 1, 2)), count]))
+    mean = sums[:-1] / sums[-1]
+    var = parallel.all_reduce_sum((a - mean).square().sum(dim=(0, 1, 2))) / sums[-1]
+    return mean, var
 
 
 class _MLPEmbed(nn.Module):
@@ -129,8 +148,7 @@ class MLPDecodeHead(nn.Module):
         bn = self.linear_fuse.bn
         a = acc.float()
         if train:
-            mean = a.mean(dim=(0, 1, 2))
-            var = (a - mean).square().mean(dim=(0, 1, 2))
+            mean, var = batch_moments(a)
             with torch.no_grad():
                 # flax's rule with the biased batch variance, where
                 # nn.BatchNorm2d would use the unbiased one

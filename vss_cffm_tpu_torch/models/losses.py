@@ -25,6 +25,11 @@ Labels are valid when 0 ≤ label < C, so ``ignore_index`` must lie outside
 [0, C). A label outside [0, C) that is not ``ignore_index`` is ignored too,
 as everywhere in the port; the JAX per-pixel route, which tests ``label !=
 ignore_index``, would count it as a pixel of class 0.
+
+While a ``torch.distributed`` group is up, the OHEM mask (``ohem_weight``
+and the per-pixel route) is the global batch's: every rank of the group
+must compute it together, each on its own rows, as the train step does
+(``parallel``'s contract); a rank that calls it alone waits for the others.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import functools
 
 import torch
 
+from .. import parallel
 from ..config import LossConfig
 from ..ops import ce_upsampled_loss, ce_upsampled_nll, ce_upsampled_nll_bwd
 from ..ops.ce_upsampled import valid_safe
@@ -91,11 +97,16 @@ def _ohem_from_gt_prob(gt_prob: torch.Tensor, valid: torch.Tensor, thresh: float
     gt-class probability is below max(thresh, the k-th smallest valid
     probability), k = min(min_kept·n_imgs, n_valid − 1) clipped to the
     pixels; invalid pixels sort last (+inf). No gradient. Any pixel layout:
-    the sort and the threshold are permutation-invariant."""
+    the sort and the threshold are permutation-invariant. Over N ranks
+    (``n_imgs`` each) the sort, ``n_valid`` and k are the global batch's: the
+    probabilities of every rank are gathered (``parallel.all_gather_cat``), so
+    every rank must call it together."""
     p = torch.where(valid, gt_prob.float(), torch.inf)
-    flat = torch.sort(p.reshape(-1)).values
-    n_valid = valid.sum()
-    k = torch.clamp(torch.clamp(n_valid - 1, max=min_kept * n_imgs), 0, flat.numel() - 1)
+    world = parallel.world_size()
+    flat = torch.sort(parallel.all_gather_cat(p.reshape(-1))).values
+    n_valid = parallel.all_reduce_sum(valid.sum())
+    k = torch.clamp(torch.clamp(n_valid - 1, max=min_kept * n_imgs * world), 0,
+                    flat.numel() - 1)
     kth = torch.where(n_valid > 0, flat[k], 0.0)
     eff = torch.clamp(kth, min=thresh)
     return (valid & (p < eff)).float()
@@ -104,7 +115,9 @@ def _ohem_from_gt_prob(gt_prob: torch.Tensor, valid: torch.Tensor, thresh: float
 def ohem_weight(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255,
                 thresh: float = 0.7, min_kept: int = 100000) -> torch.Tensor:
     """OHEM pixel weights from logits (..., H, W, C) and labels (..., H, W);
-    the image count is the leading dimension of 3-d labels."""
+    the image count is the leading dimension of 3-d labels. In a process
+    group every rank must call it together (the threshold is the global
+    batch's)."""
     _check_ignore(ignore_index, logits.shape[-1])
     valid, safe = valid_safe(labels, logits.shape[-1])
     with torch.no_grad():
@@ -245,7 +258,12 @@ def clip_lovasz_loss(seg_logits: torch.Tensor, seg_labels: torch.Tensor,
                      ignore_index: int = 255, loss_weight: float = 1.0,
                      force: str | None = None) -> dict[str, torch.Tensor]:
     """The clip case table with ``LovaszLoss`` (multi-class, per_image=False)
-    on the upsampled logits. No kernel: ``force`` is taken and unused."""
+    on the upsampled logits. No kernel: ``force`` is taken and unused. Its
+    sort is over the whole batch, so several ranks raise."""
+    if parallel.world_size() > 1:
+        raise NotImplementedError(
+            f"clip_lovasz_loss: {parallel.world_size()} ranks; the Lovász loss sorts the "
+            "errors of the whole batch, which the port does not gather across ranks")
     logit_ori, logit_last, label_ori, label_last = _split_clip_cases(seg_logits, seg_labels)
     size = tuple(seg_labels.shape[2:4])
     logit_ori = resize_bilinear(logit_ori, size)

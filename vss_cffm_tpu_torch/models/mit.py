@@ -45,6 +45,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import parallel
 from ..config import TRAIN_BLOCK_IMPLS, MiTConfig
 from ..ops import (block_ffn_fused, block_ffn_train, block_ffn_train_fits, dwconv3x3,
                    mit_block_fused, mit_block_train, mit_block_train_fits, mixffn_fused)
@@ -82,10 +83,16 @@ def derived(owner: nn.Module, key: Any, params: Sequence[torch.Tensor],
 def keep_mask(n: int, rate: float, generator: torch.Generator | None,
               device: torch.device) -> torch.Tensor:
     """(n,) bool: each entry kept with probability 1 − rate, drawn on the
-    generator's device from ``generator`` (required)."""
+    generator's device from ``generator`` (required). ``n`` counts this
+    rank's share of a batch, sample-major; over N ranks the draw is the
+    global batch's N·n entries, of which the rank takes its own rows, so that
+    every rank's generator stays in step with the one-process run's; every
+    rank must draw the same masks in the same order (a rank that draws alone
+    takes its rows of a draw the others did not make)."""
     if generator is None:
         raise ValueError(f"a random rate of {rate} needs an explicit torch.Generator")
-    u = torch.rand((n,), generator=generator, device=generator.device)
+    r, world = parallel.rank(), parallel.world_size()
+    u = torch.rand((world * n,), generator=generator, device=generator.device)[r * n:(r + 1) * n]
     return (u < 1.0 - rate).to(device)
 
 

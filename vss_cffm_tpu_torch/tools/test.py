@@ -8,10 +8,22 @@ and ``mmseg/apis/test.py``)::
         work_dirs/cffm_b1_vspw_160k/ckpt [--split val] [--eval | --no-eval] [--vc] \\
         [--streaming] [--aug-test] [--format-only --show-dir DIR] [--show --opacity 0.5] \\
         [--out metrics.json | masks.pkl [--efficient-test]] [--shape-census] \\
-        [--device cuda|cpu] [--options data.data_root=... ...]
+        [--device cuda|cuda:N|cpu] [--distributed [--backend nccl|gloo]
+        [--coordinator HOST:PORT --num-processes N --process-id R]]
+        [--options data.data_root=... ...]
 
-One process, one device (``--device``, the card unless ``cpu`` is asked
-for; without a card ``cuda`` raises). The checkpoint is what
+One process on one device (``--device``, the card unless ``cpu`` is asked
+for; without a card ``cuda`` raises), or, with ``--distributed``, one
+process a rank (``tools/dist_test.sh``, torchrun's environment or the
+coordinator flags, as ``tools/train.py`` takes them). Each rank evaluates
+a shard, every ``world``-th frame from its rank per clip and with
+``--aug-test``, every ``world``-th video with ``--streaming``, and the
+confusion matrices are summed over the ranks
+(``aggregate_across_processes``): the metrics are the whole pass's on every
+rank; VC8 / VC16 are the rank's own videos' (as in the JAX CLI). Rank 0
+logs the class table and writes the ``--out`` JSON; ``--out x.pkl`` is
+written by each rank as ``x.pkl.rank{r}`` with its own frames' masks; PNGs
+and overlays come from the rank that evaluated the frame. The checkpoint is what
 ``apis.init_segmentor(cfg, checkpoint=...)`` loads: a reference ``.pth`` /
 ``.pt`` or a ``CheckpointManager`` directory. The model and its compute
 dtype come from the config (``arch``, ``bf16``), as do the frames'
@@ -35,9 +47,8 @@ centres of ``cfg.cluster_dir`` (``eval.ClusterStore``).
   image header a video, and stops before loading anything.
 
 Left out: the JAX CLI's ``--host-normalize`` (the port always normalises on
-the device), and ``--distributed`` raises until the port has multi-process
-evaluation. ``main(argv)`` returns the metrics, the confusion matrix and
-the census, for callers in the same process.
+the device). ``main(argv)`` returns the metrics, the confusion matrix (the
+sum over the ranks) and the census, for callers in the same process.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import pickle
 
 import numpy as np
 
+from .. import parallel
 from ..config import apply_overrides, load_config
 from ..data import VSPWVideoDataset, iterate_eval, iterate_eval_tta
 from ..data.palette import VSPW_CLASSES
@@ -85,9 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "holding the paths")
     ap.add_argument("--shape-census", action="store_true",
                     help="print the network input shapes of the pass and stop")
-    ap.add_argument("--distributed", action="store_true",
-                    help="several processes (not ported yet: raises)")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parallel.add_arguments(ap)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default: the rank's own card), cuda:N (every rank on card N) "
+                         "or cpu")
     ap.add_argument("--options", nargs="*", default=[])
     return ap
 
@@ -136,9 +149,18 @@ def main(argv: list[str] | None = None) -> dict:
     """Returns {"metrics": the summary's scalars, "confusion": (C, C) int64,
     "census": the shape census}; with ``--shape-census`` only the census."""
     args = build_parser().parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError("--distributed: the port evaluates in one process; "
-                                  "multi-process evaluation waits for parallel/")
+    distributed = parallel.options(args)
+    if distributed is None:
+        return _main(args, args.device)
+    device = parallel.init_distributed(args.device, **distributed)
+    try:
+        return _main(args, device)
+    finally:
+        parallel.shutdown()
+
+
+def _main(args, device) -> dict:
+    rank, world = parallel.rank(), parallel.world_size()
     cfg = apply_overrides(load_config(args.config), args.options)
     logger = get_logger()
     dataset = VSPWVideoDataset(cfg.data.data_root, args.split, dilation=cfg.data.dilation,
@@ -153,7 +175,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     from ..apis import init_segmentor
 
-    bundle = init_segmentor(cfg, checkpoint=args.checkpoint, device=args.device)
+    bundle = init_segmentor(cfg, checkpoint=args.checkpoint, device=device)
     num_classes = cfg.model.head.num_classes
     store = ClusterStore(cfg.cluster_dir) if cfg.model.head.mode == "finetune" else None
     on_pred, preds = _mask_writers(args, dataset)
@@ -166,27 +188,32 @@ def main(argv: list[str] | None = None) -> dict:
         evaluator = StreamingVideoEvaluator(bundle.model, num_classes,
                                             max_lag=-min(cfg.data.dilation, default=0),
                                             device=bundle.device, cluster_store=store)
+        # a shard of whole videos: the feature cache stays local and VC defined
         evaluator.run_streaming(dataset, keep_for_vc=args.vc, save_dir=save_dir,
+                                videos=dataset.videos[rank::world] if world > 1 else None,
                                 on_pred=on_pred)
     else:
         evaluator = ClipEvaluator(bundle.model, num_classes, mode=tc.mode,
                                   crop_size=tc.crop_size, stride=tc.stride,
                                   device=bundle.device, cluster_store=store)
         iterate = iterate_eval_tta if args.aug_test else iterate_eval
-        evaluator.run(iterate(dataset, num_workers=cfg.data.num_workers), dataset=dataset,
+        evaluator.run(iterate(dataset, num_workers=cfg.data.num_workers, shard_id=rank,
+                              num_shards=world), dataset=dataset,
                       keep_for_vc=args.vc, save_dir=save_dir, on_pred=on_pred)
+    evaluator.aggregate_across_processes()
     metrics = evaluator.summary(with_vc=args.vc)
     summary = {k: float(v) for k, v in metrics.items() if np.isscalar(v)}
     confusion = evaluator.confusion
-    if args.eval:
+    if args.eval and rank == 0:
         names = VSPW_CLASSES if len(VSPW_CLASSES) == num_classes else None
         logger.info("\n" + format_class_table(confusion, names))
     logger.info(f"metrics: {summary}")
     if args.out and args.out.endswith(".pkl"):
-        with open(args.out, "wb") as f:
+        path = args.out if world == 1 else f"{args.out}.rank{rank}"
+        with open(path, "wb") as f:
             pickle.dump([preds[k] for k in sorted(preds)], f)
-        logger.info(f"dumped {len(preds)} masks to {args.out}")
-    elif args.out:
+        logger.info(f"dumped {len(preds)} masks to {path}")
+    elif args.out and rank == 0:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=2)
     return {"metrics": summary, "confusion": confusion, "census": census}

@@ -6,11 +6,20 @@ and ``mmseg/apis/train.py``)::
 
     python -m vss_cffm_tpu_torch.tools.train vss_cffm_tpu_torch/configs/cffm_b1_vspw_160k.py \\
         [--work-dir DIR] [--load-from CKPT] [--resume-from CKPT_DIR] [--seed N] \\
-        [--eval-interval N] [--profile-dir DIR] [--device cuda|cpu] \\
-        [--options data.batch_size=2 optim.max_iters=4 ...]
+        [--eval-interval N] [--profile-dir DIR] [--device cuda|cuda:N|cpu] \\
+        [--distributed [--backend nccl|gloo] [--coordinator HOST:PORT --num-processes N
+        --process-id R]] [--options data.batch_size=2 optim.max_iters=4 ...]
 
-One process, one device (``--device``, the card unless ``cpu`` is asked
-for; without a card ``cuda`` raises). The loop:
+One process on one device (``--device``, the card unless ``cpu`` is asked
+for; without a card ``cuda`` raises), or, with ``--distributed``, one
+process a rank (``tools/dist_train.sh``, torchrun's environment, or the
+coordinator flags; ``parallel.init_distributed``: NCCL on the card, one
+rank a card, ``cuda:N`` and ``--backend gloo`` to put every rank on card
+N; gloo on the CPU). ``cfg.data.batch_size`` is the global batch: each
+rank loads ``batch_size // world`` clips of its shard of the videos, and
+the step computes what one process computes on the global batch
+(``train/step.py``). Every rank starts from rank 0's weights
+(``parallel.replicate``); rank 0 logs and writes the checkpoints. The loop:
 
 - ``VSPWVideoDataset`` (train split) and ``TrainLoader`` with uint8 batches,
   normalised on the device by the train step;
@@ -26,7 +35,8 @@ for; without a card ``cuda`` raises). The loop:
 - a log line every ``log_interval`` steps; a checkpoint every
   ``checkpoint_interval`` steps and at ``max_iters`` (``work_dir/ckpt``,
   with classes, palette and config in its metadata); the val mIoU every
-  ``--eval-interval`` steps (``ClipEvaluator``); with ``--profile-dir``, a
+  ``--eval-interval`` steps (``ClipEvaluator``, each rank a shard of the
+  frames, the confusions summed); with ``--profile-dir``, a
   ``torch.profiler`` trace of iterations 10-13;
 - CFFM++ finetune (``model.head.mode="finetune"``, the ``*_finetune_40k``
   configs, ``--load-from`` a CFFM checkpoint): a ``ClusterStore`` of
@@ -48,6 +58,7 @@ import time
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import ExperimentConfig, apply_overrides, load_config
 from ..data import TrainLoader, VSPWVideoDataset, iterate_eval
 from ..data.palette import VSPW_CLASSES, VSPW_PALETTE
@@ -73,23 +84,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile-dir",
                     help=f"write a torch.profiler trace of iterations "
                          f"{PROFILE_FIRST}-{PROFILE_LAST} here")
-    ap.add_argument("--distributed", action="store_true",
-                    help="several processes (not ported yet: raises)")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parallel.add_arguments(ap)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default: the rank's own card), cuda:N (every rank on card N) "
+                         "or cpu")
     ap.add_argument("--options", nargs="*", default=[])
     return ap
 
 
 def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError("--distributed: the port trains in one process; "
-                                  "multi-process training waits for parallel/")
     cfg = apply_overrides(load_config(args.config), args.options)
     return train(cfg, work_dir=args.work_dir or cfg.work_dir, device=args.device,
                  seed=args.seed, load_from=args.load_from or cfg.load_from,
                  resume_from=args.resume_from or cfg.resume_from,
-                 eval_interval=args.eval_interval, profile_dir=args.profile_dir)
+                 eval_interval=args.eval_interval, profile_dir=args.profile_dir,
+                 distributed=parallel.options(args))
 
 
 def step_seed(seed: int, it: int) -> int:
@@ -134,30 +144,55 @@ def _device_busy_ms(prof) -> float:
 def train(cfg: ExperimentConfig, *, work_dir: str, device: str | torch.device = "cuda",
           seed: int | None = None, load_from: str | None = None,
           resume_from: str | None = None, eval_interval: int = 0,
-          profile_dir: str | None = None, dataset=None) -> dict:
+          profile_dir: str | None = None, dataset=None,
+          distributed: dict | None = None) -> dict:
     """Train ``cfg`` up to ``cfg.optim.max_iters``; ``dataset`` replaces the
-    train split of ``cfg.data.data_root``. Returns {"state", "steps": one
-    dict a step (step, loss_seg, acc_seg, grad_norm, lr of the groups
-    without a multiplier), "evals", "checkpoints" (steps saved),
-    "iter_ms" (host ms an iteration of each log window, the loader's wait
-    included), "profile" (iterations traced, device busy ms or None on the
-    CPU)}."""
+    train split of ``cfg.data.data_root``. ``distributed``, a dict of
+    ``parallel.init_distributed``'s keywords but the device (``backend``,
+    ``coordinator``, ``num_processes``, ``process_id``; ``{}`` for torchrun's
+    environment and the default backend), starts a process group on
+    ``device`` and ends it on return; with None the loop runs over the group
+    the caller started, if any. Returns {"state", "steps": one dict a step (step, loss_seg,
+    acc_seg, grad_norm, lr of the groups without a multiplier; the global
+    batch's), "evals", "checkpoints" (steps saved), "iter_ms" (host ms an
+    iteration of each log window, the loader's wait included), "profile"
+    (iterations traced, device busy ms or None on the CPU)}."""
     if cfg.model.arch != "cffm":
         raise ValueError(f"train: the config's model has arch={cfg.model.arch!r}; the train "
                          "step trains clip models only (the JAX step cannot train an image "
                          "model either)")
-    device = _device(device)
+    if distributed is None:
+        return _train(cfg, work_dir, _device(device), seed, load_from, resume_from,
+                      eval_interval, profile_dir, dataset)
+    device = parallel.init_distributed(device, **distributed)
+    try:
+        return _train(cfg, work_dir, device, seed, load_from, resume_from, eval_interval,
+                      profile_dir, dataset)
+    finally:
+        parallel.shutdown()
+
+
+def _train(cfg: ExperimentConfig, work_dir: str, device: torch.device, seed: int | None,
+           load_from: str | None, resume_from: str | None, eval_interval: int,
+           profile_dir: str | None, dataset) -> dict:
+    rank, world = parallel.rank(), parallel.world_size()
+    if cfg.data.batch_size % world:
+        raise ValueError(f"train: data.batch_size {cfg.data.batch_size} (the global batch) "
+                         f"does not divide by {world} ranks")
     logger = get_logger(work_dir)
     logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
-                                       if device.type == "cuda" else ""))
+                                       if device.type == "cuda" else "")
+                + (f"; rank {rank} of {world}, {cfg.data.batch_size // world} of the "
+                   f"{cfg.data.batch_size} clips a step" if world > 1 else ""))
     logger.info(f"config: {cfg}")
     seed = cfg.seed if seed is None else seed
 
     if dataset is None:
         dataset = VSPWVideoDataset(cfg.data.data_root, "train", dilation=cfg.data.dilation,
                                    crop_size=cfg.data.crop_size, img_scale=cfg.data.img_scale)
-    loader = TrainLoader(dataset, cfg.data.batch_size, seed=seed,
-                         num_workers=cfg.data.num_workers, device_normalize=True, device=device)
+    loader = TrainLoader(dataset, cfg.data.batch_size // world, seed=seed,
+                         num_workers=cfg.data.num_workers, shard_id=rank, num_shards=world,
+                         device_normalize=True, device=device)
 
     store = ClusterStore(cfg.cluster_dir) if cfg.model.head.mode == "finetune" else None
     model = CFFMSegmentor(cfg.model, dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
@@ -175,6 +210,7 @@ def train(cfg: ExperimentConfig, *, work_dir: str, device: str | torch.device = 
         logger.info(f"resumed from step {state.step}")
     elif load_from:
         _load_weights(model, load_from, logger)
+    parallel.replicate(model)
     step_fn = make_train_step(model, state.optimizer, state.scheduler)
     schedule = poly_schedule(cfg.optim)
     # a group without an lr multiplier: its lr is the schedule's
@@ -244,8 +280,10 @@ def train(cfg: ExperimentConfig, *, work_dir: str, device: str | torch.device = 
                                              cluster_store=store)
                 model.eval()
                 val_eval.reset()
-                m = val_eval.run(iterate_eval(val_ds, num_workers=cfg.data.num_workers),
-                                 dataset=val_ds)
+                val_eval.run(iterate_eval(val_ds, num_workers=cfg.data.num_workers,
+                                          shard_id=rank, num_shards=world), dataset=val_ds)
+                val_eval.aggregate_across_processes()
+                m = val_eval.summary()
                 model.train()
                 out["evals"].append({"step": it + 1, **m})
                 logger.info(f"eval @ {it + 1}: mIoU {m['mIoU']:.4f} "

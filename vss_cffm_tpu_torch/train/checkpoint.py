@@ -23,6 +23,7 @@ from typing import Any
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from .state import TrainState
 
 __all__ = ["CheckpointManager"]
@@ -38,11 +39,6 @@ def _config_to_jsonable(cfg: Any) -> Any:
     if isinstance(cfg, (tuple, list)):
         return [_config_to_jsonable(v) for v in cfg]
     return cfg
-
-
-def _rank() -> int:
-    dist = torch.distributed
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 class CheckpointManager:
@@ -64,9 +60,13 @@ class CheckpointManager:
 
     def save(self, state: TrainState, metadata: dict | None = None) -> None:
         """Write the state at its step (rank 0 only), then prune to
-        ``max_to_keep``."""
-        if _rank() != 0:
-            return
+        ``max_to_keep``; every rank waits until it is written (a barrier), so
+        that none reads a checkpoint before it exists."""
+        if parallel.is_main():
+            self._write(state, metadata)
+        parallel.barrier()
+
+    def _write(self, state: TrainState, metadata: dict | None) -> None:
         step = int(state.step)
         tmp = self._path(step) + ".tmp"
         torch.save({"step": step, "model": state.model.state_dict(),

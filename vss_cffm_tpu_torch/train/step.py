@@ -5,6 +5,14 @@ compute in their ``compute_dtype`` (bf16 on the card) with f32 softmax,
 loss and BatchNorm statistics. Randomness (Dropout2d, stochastic depth)
 comes from the ``torch.Generator`` handed to each step.
 
+Over N ranks (``parallel``), each holding its rows of the global batch, the
+step computes what one process computes on the global batch: the fuse BN
+and OHEM reduce over the ranks inside the forward, every random mask is the
+global draw's rows, and after the backward one all-reduce averages the
+gradients (the mean of the ranks' mean losses is the global mean, as each
+rank holds as many pixels), before the norm, the clip and AdamW; the
+returned loss and accuracy are the global means.
+
 A parameter that the loss does not reach (in CFFM++ finetune mode all but
 the head's cluster branch) gets a zero gradient, as ``jax.grad`` gives it:
 AdamW then moves it by its weight decay alone, as optax's
@@ -19,6 +27,7 @@ from typing import Callable
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from ..config import LossConfig
 from ..data.transforms import normalize_clip
 from ..models.losses import make_clip_loss
@@ -67,6 +76,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         losses = loss_of(logits, batch["labels"], force=model.force)
         losses["loss_seg"].backward()
         grads = [p.grad for p in params if p.grad is not None]
+        parallel.all_reduce_mean_(grads)
         norm = global_norm(grads)
         for i, p in enumerate(params):
             if p.grad is None:  # kept across steps: AdamW reads it, the clip scales 0
@@ -76,6 +86,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         optimizer.step()
         scheduler.step()
         metrics = {k: v.detach() for k, v in losses.items()}
+        if parallel.is_distributed():  # global means: every rank holds as many pixels
+            (means,) = parallel.all_reduce_mean_([torch.stack(list(metrics.values()))])
+            metrics = dict(zip(metrics, means))
         metrics["grad_norm"] = norm
         return metrics
 
