@@ -154,14 +154,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      checkpoint, each ``iter`` line once) and ``tools/dist_test.sh`` with 2
      gloo ranks, streamed (JSON metrics equal to 5d's one-process CLI's)
      and per clip (the ranks' pickled masks hold every frame, their
-     confusion equal to 5d's);
+     confusion equal to 5d's). On the same 2 ranks: (e) a clip's frames
+     split over them (``parallel.create_clip_mesh(2)``, 2 of the 4 frames a
+     rank, the fused features gathered over the frames group): eval logits
+     within 5 % of the one process's largest logit, launches a clip 4 / 2 /
+     4 on each rank, and the 2 default steps held as above; (f) 2 steps with
+     the Lovász loss (data 2: each rank its clip, the loss of the global
+     batch on each) held as above against one process; host ms a step and
+     peak memory a rank;
   6. the CE microbench: ``bench_ce.main`` at N 8 (the step's frames) with
      the counts set to 0 before it and held after (each of its six kernels
      launched warm-up + timed times), then each of the six kernels held
      against its plain version at the bench's inputs at N 8 and N 2, timed
      as in 3;
+  5f. ``[tools]`` (``tools_phase``): ``benchmark.py`` at CFFM-B1 480x864 (50
+     clips), ``--streaming`` and ``--train`` (batch 2, 10 steps), each with
+     its launches held per clip, frame and step; ``profile_forward.py``
+     (B1 480x480, 10 clips: its top 30 kernels name rows 1-3);
+     ``get_flops.py``; ``benchmark_loader.py`` (10 batches of 480x853
+     JPEGs); ``publish_model.py`` on 5b's checkpoint and the test CLI on the
+     published one (5d's per-clip confusion, exactly); ``bf16_dynamics.py``
+     (B0 64x64, 60 steps each run: finite, the last 20 losses' mean below
+     the first 10's);
   7. one JSON line of kernels (``launches_by_path`` with each path's counts,
-     ``dist_rank0`` / ``dist_rank1`` the ranks' launches over 5e's steps),
+     ``dist_rank0`` / ``dist_rank1`` the ranks' launches over 5e's steps,
+     ``dist_frames*`` / ``dist_lovasz*`` over (e) and (f), ``tools_*`` over
+     5f's runs),
      the ``nvidia-smi`` line, and the final ``{"ok": true, "device": {...}}``
      line.
 
@@ -2222,16 +2240,19 @@ def _all_reduce_ms(grads: list, device) -> dict:
 
 
 def _dist_steps(device, model_cfg, state_dict: dict, batch: dict, optim_cfg,
-                own_bn: bool = False) -> dict:
+                own_bn: bool = False, mesh=None, profile: bool = False) -> dict:
     """DIST_STEPS default train steps of the model of ``model_cfg`` (bf16
     compute, f32 parameters) from ``state_dict`` on this rank's rows of the
-    global ``batch`` (without a process group: all of it); step ``it`` draws
-    from ``step_seed(SEED, it)``. ``own_bn``: the fuse BN on each rank's own
-    moments (``_own_moments``), the fault that the check of ``[dist]`` (a)
-    must catch. Returns each step's metrics, host ms (to a synchronize) and
-    launches; the parameter deltas (rank 0) and a digest of them; the fuse
-    BN's running statistics; the gradients' bytes and, in a process group,
-    the ms of their all-reduce (``_all_reduce_ms``); peak memory."""
+    global ``batch`` (without a process group: all of it), or on ``mesh``
+    (``parallel.create_clip_mesh``) its share there (``shard_clip_batch``);
+    step ``it`` draws from ``step_seed(SEED, it)``. ``own_bn``: the fuse BN on
+    each rank's own moments (``_own_moments``), the fault that the check of
+    ``[dist]`` (a) must catch. Returns each step's metrics, host ms (to a
+    synchronize) and launches; the parameter deltas (rank 0) and a digest of
+    them; the fuse BN's running statistics; the gradients' bytes and, in a
+    process group, the ms of their all-reduce (``_all_reduce_ms``); peak
+    memory; with ``profile``, the device busy ms of the last step
+    (torch.profiler)."""
     from vss_cffm_tpu_torch import ops, parallel
     from vss_cffm_tpu_torch.models import CFFMSegmentor, heads
     from vss_cffm_tpu_torch.tools.train import step_seed
@@ -2243,8 +2264,11 @@ def _dist_steps(device, model_cfg, state_dict: dict, batch: dict, optim_cfg,
     model.load_state_dict(state_dict, strict=True)
     model.to(device).train()
     state = TrainState.create(model, optim_cfg)
-    step = make_train_step(model, state.optimizer, state.scheduler)
-    rows = {k: torch.from_numpy(v).to(device) for k, v in parallel.shard_batch(batch).items()}
+    step = make_train_step(model, state.optimizer, state.scheduler, mesh=mesh)
+    tensors = {k: torch.from_numpy(v) for k, v in batch.items()}
+    rows = (parallel.shard_clip_batch(tensors, mesh) if mesh is not None
+            else parallel.shard_batch(tensors))
+    rows = {k: v.to(device) for k, v in rows.items()}
     before = [p.detach().clone() for p in model.parameters()]
     torch.cuda.reset_peak_memory_stats(device)
     out = {"metrics": [], "host_ms": [], "counts": []}
@@ -2252,12 +2276,25 @@ def _dist_steps(device, model_cfg, state_dict: dict, batch: dict, optim_cfg,
     heads.batch_moments = _own_moments if own_bn else moments
     try:
         for it in range(DIST_STEPS):
+            prof = None
+            if profile and it == DIST_STEPS - 1:
+                from torch.profiler import ProfilerActivity
+
+                prof = torch.profiler.profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             torch.cuda.synchronize(device)
             ops.reset_launches()
             t0 = time.perf_counter()
-            m = step(rows, torch.Generator(device).manual_seed(step_seed(SEED, it)))
-            torch.cuda.synchronize(device)
+            with prof if prof is not None else contextlib.nullcontext():
+                m = step(rows, torch.Generator(device).manual_seed(step_seed(SEED, it)))
+                torch.cuda.synchronize(device)
             out["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            if prof is not None:
+                from torch.autograd import DeviceType
+
+                out["device_busy_ms"] = sum(
+                    e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
             out["counts"].append(ops.launches())
             out["metrics"].append({k: v.item() for k, v in m.items()})
     finally:
@@ -2272,15 +2309,51 @@ def _dist_steps(device, model_cfg, state_dict: dict, batch: dict, optim_cfg,
     out["bn"] = torch.cat([bn.running_mean, bn.running_var]).cpu()
     grads = [p.grad.clone() for p in model.parameters() if p.grad is not None]
     out["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
-    if parallel.is_distributed() and not own_bn:
+    if parallel.is_distributed() and not own_bn and mesh is None:
         out.update(_all_reduce_ms(grads, device))
     return out
 
 
-def _dist_ranks(device, *args) -> dict:
-    """On each rank: the DIST_STEPS steps, then the same steps from the same
-    weights with the fuse BN on the rank's own moments (``own_bn``)."""
-    return {"sync": _dist_steps(device, *args), "own_bn": _dist_steps(device, *args, own_bn=True)}
+@torch.no_grad()
+def _dist_infer(device, model_cfg, state_dict: dict, clip: np.ndarray, mesh=None) -> dict:
+    """The eval logits of the normalised clip ``clip`` (1, T, H, W, 3) f32 by the
+    model of ``model_cfg`` (bf16) from ``state_dict``, on ``mesh`` from this
+    rank's frames of it (``shard_clip_batch``): the logits (whole on every
+    rank of the frames group), the launches of the forward and peak memory."""
+    from vss_cffm_tpu_torch import ops, parallel
+    from vss_cffm_tpu_torch.models import CFFMSegmentor
+
+    model = CFFMSegmentor(model_cfg, dtype=torch.bfloat16)
+    model.load_state_dict(state_dict, strict=True)
+    model.to(device).eval()
+    x = torch.from_numpy(clip)
+    x = (parallel.shard_clip_batch(x, mesh) if mesh is not None else x).to(device)
+    model(x, mesh=mesh)  # warm-up (cuDNN's choices)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()
+    logits = model(x, mesh=mesh)
+    torch.cuda.synchronize(device)
+    return {"logits": logits.float().cpu(), "counts": ops.launches(),
+            "peak_mib": torch.cuda.max_memory_allocated(device) / 2**20}
+
+
+def _dist_ranks(device, model_cfg, state_dict: dict, batch: dict, optim_cfg, clip: np.ndarray,
+                lovasz_cfg) -> dict:
+    """On each rank: (a) the DIST_STEPS steps, then the same steps from the
+    same weights with the fuse BN on the rank's own moments (``own_bn``);
+    (e) a 1 x 2 clip mesh (``create_clip_mesh(2)``, the frames split over the
+    two ranks): the eval logits of ``clip`` and the DIST_STEPS steps; (f) the
+    steps with the Lovász loss (``lovasz_cfg``), each rank its rows."""
+    from vss_cffm_tpu_torch import parallel
+
+    args = (model_cfg, state_dict, batch, optim_cfg)
+    out = {"sync": _dist_steps(device, *args), "own_bn": _dist_steps(device, *args, own_bn=True)}
+    mesh = parallel.create_clip_mesh(2)
+    out["frames_infer"] = _dist_infer(device, model_cfg, state_dict, clip, mesh)
+    out["frames"] = _dist_steps(device, *args, mesh=mesh)
+    out["lovasz"] = _dist_steps(device, lovasz_cfg, state_dict, batch, optim_cfg)
+    return out
 
 
 def _dist_readings(got: dict, want: dict) -> dict:
@@ -2356,6 +2429,78 @@ def _dist_train_held(text: str, work: str, what: str) -> None:
         raise RuntimeError(f"[dist] {what}: the checkpoint or the log lines are not once each")
 
 
+DIST_LOGITS_REL = 0.05        # the frames split's logits, of the largest (as [main])
+DIST_PER_CLIP = {"mit_block_fused": 4, "cfm_attention": 2, "dwconv3x3": 4}
+
+
+def _steps_checked(results: list, want: dict, plan: dict, what: str) -> dict:
+    """Each rank's launches a step held to ``plan`` and its parameters to rank
+    0's; rank 0's readings against the one-process ``want`` printed and held
+    to the limits of (a). Returns the readings."""
+    for r, res in enumerate(results):
+        for s_, c in enumerate(res["counts"]):
+            _launches_held(c, plan, f"[dist] {what} rank {r} step {s_ + 1}")
+        if res["digest"] != results[0]["digest"]:
+            raise RuntimeError(f"[dist] {what}: rank {r}'s parameters differ from rank 0's")
+    rd = _dist_readings(results[0], want)
+    for s_, (got, ref) in enumerate(zip(results[0]["metrics"], want["metrics"])):
+        print(f"[dist] {what} step {s_ + 1}: loss_seg {got['loss_seg']:.6f} vs "
+              f"{ref['loss_seg']:.6f}, acc_seg {got['acc_seg']:.4f} vs {ref['acc_seg']:.4f}, "
+              f"grad_norm {got['grad_norm']:.6f} vs {ref['grad_norm']:.6f}", flush=True)
+    print(f"[dist] {what}, against one process: loss_seg rel {rd['loss_seg']:.3e} (limit "
+          f"{DIST_REL['loss_seg']:g}), grad_norm rel {rd['grad_norm']:.3e} (limit "
+          f"{DIST_REL['grad_norm']:g}), fuse BN statistics {rd['bn']:.3e} of their largest "
+          f"(limit {DIST_REL['bn']:g}), acc_seg {rd['acc_seg']:.4f} points (limit {DIST_ACC:g}), "
+          f"cosine of the parameter deltas {rd['cos']:.6f} (limit {DIST_COS:g}): "
+          f"{'held' if _dist_held(rd) else 'rejected'}; every rank's launches a step {plan}",
+          flush=True)
+    if not _dist_held(rd):
+        raise RuntimeError(f"[dist] {what} disagrees with one process: {rd}")
+    return rd
+
+
+def _dist_frames_lovasz(ranks: list, one: dict, one_infer: dict, one_lovasz: dict, plan: dict,
+                        smi: str) -> dict:
+    """(e) and (f) of ``dist_phase``, from the ranks' results; returns their
+    launch counts by path."""
+    infer = [r["frames_infer"] for r in ranks]
+    scale = one_infer["logits"].abs().max().item()
+    _launches_held(one_infer["counts"], DIST_PER_CLIP, "[dist] (e) one process clip")
+    for r, res in enumerate(infer):
+        _launches_held(res["counts"], DIST_PER_CLIP, f"[dist] (e) frames split rank {r} clip")
+        err = (res["logits"] - one_infer["logits"]).abs().max().item()
+        print(f"[dist] (e) frames split 1 x 2 (2 of the 4 frames a rank), rank {r}: eval logits "
+              f"{tuple(res['logits'].shape)} against one process max_abs_err {err:.3e}, "
+              f"max|ref| {scale:.3e} (limit {DIST_LOGITS_REL:g} of it); launches a clip "
+              f"{DIST_PER_CLIP}, as one process; peak {res['peak_mib']:.1f} MiB (one process "
+              f"{one_infer['peak_mib']:.1f})", flush=True)
+        if not torch.isfinite(res["logits"]).all() or err > DIST_LOGITS_REL * scale:
+            raise RuntimeError(f"[dist] (e) rank {r}'s logits disagree: {err} > "
+                               f"{DIST_LOGITS_REL * scale}")
+    frames = [r["frames"] for r in ranks]
+    _steps_checked(frames, one, plan, "(e) frames split 1 x 2, default steps")
+    lovasz_plan = {**plan, "ce_upsampled_loss": 0, "ce_upsampled_loss_bwd": 0}
+    lovasz = [r["lovasz"] for r in ranks]
+    _steps_checked(lovasz, one_lovasz, lovasz_plan, "(f) Lovász at data 2")
+    ms = lambda res: ", ".join(f"{g['host_ms'][-1]:.3f}" for g in res)
+    mib = lambda res: ", ".join(f"{g['peak_mib']:.1f}" for g in res)
+    print(f"[dist] (e) host ms a step (step {DIST_STEPS}): frames split {ms(frames)} (2 gloo "
+          f"ranks on one card), one process {one['host_ms'][-1]:.3f}; peak a rank "
+          f"{mib(frames)} MiB, one process {one['peak_mib']:.1f} MiB | {smi}", flush=True)
+    print(f"[dist] (f) Lovász step: host ms (step {DIST_STEPS}) {ms(lovasz)} a rank, one "
+          f"process {one_lovasz['host_ms'][-1]:.3f} (device busy "
+          f"{one_lovasz['device_busy_ms']:.3f} ms, torch.profiler, the profiled step); peak a "
+          f"rank {mib(lovasz)} MiB (the global batch's loss on each), one process "
+          f"{one_lovasz['peak_mib']:.1f} MiB | {smi}", flush=True)
+    summed = lambda res: {k: sum(c[k] for c in res["counts"]) for k in res["counts"][0]}
+    out = {}
+    for r in range(len(ranks)):
+        out[f"dist_frames_infer_rank{r}"] = infer[r]["counts"]
+        out[f"dist_frames_rank{r}"] = summed(frames[r])
+        out[f"dist_lovasz_rank{r}"] = summed(lovasz[r])
+    return out
+
+
 def dist_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str,
                one_process: dict) -> dict:
     """``[dist]``: CFFM-B1 (``configs/cffm_b1_vspw_160k.py``, 480x480, global batch
@@ -2380,10 +2525,11 @@ def dist_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str,
     ``[test_cli]``) and per clip (``--out`` pickle: the two shards hold
     every frame once, and their masks' confusion equals the one-process
     CLI's). Returns each rank's launches over the steps of (a)."""
-    from vss_cffm_tpu_torch.config import load_config
+    from vss_cffm_tpu_torch.config import LossConfig, load_config
     from vss_cffm_tpu_torch.data import VSPWVideoDataset
     from vss_cffm_tpu_torch.eval.metrics import confusion_matrix_np
     from vss_cffm_tpu_torch.models import CFFMSegmentor
+    from vss_cffm_tpu_torch.train.step import device_normalize
 
     parallel = _parallel()
     t0 = time.perf_counter()
@@ -2402,6 +2548,9 @@ def dist_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str,
     imgs[1] = imgs[1] // 4 + 16  # clip 1 dark and flat: a rank's own BN moments stand apart
     args = (cfg.model, state_dict, {"imgs": imgs, "labels": labels}, cfg.optim)
     plan = TRAIN_FORMS["train"]["per_step"]
+    clip = device_normalize(torch.from_numpy(imgs[:1])).numpy()
+    lovasz_cfg = dataclasses.replace(cfg.model, head=dataclasses.replace(
+        cfg.model.head, loss=LossConfig(type="lovasz")))
 
     # (a) the step: one process here, then a group of one NCCL rank here, then
     # 2 gloo ranks sharing the card
@@ -2412,8 +2561,12 @@ def dist_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str,
         nccl = _dist_steps(torch.device("cuda"), *args)
     finally:
         parallel.shutdown()
+    # the one-process references of (e) and (f)
+    one_infer = _dist_infer(torch.device("cuda"), cfg.model, state_dict, clip)
+    one_lovasz = _dist_steps(torch.device("cuda"), lovasz_cfg, *args[1:], profile=True)
     torch.cuda.empty_cache()
-    ranks = parallel.spawn(_dist_ranks, 2, *args, device="cuda:0", backend="gloo")
+    ranks = parallel.spawn(_dist_ranks, 2, *args, clip, lovasz_cfg, device="cuda:0",
+                           backend="gloo")
     gloo = [r["sync"] for r in ranks]
     print(f"[dist] (a) CFFM-B1 480x480, global batch {TRAIN_B} clip-{TRAIN_T} (clip 1's pixels "
           f"x/4 + 16), bf16, {DIST_STEPS} default steps (drop path and head dropout 0.1) in one "
@@ -2463,7 +2616,8 @@ def dist_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str,
           f"gloo {gloo_ms} (ranks 0, 1 sharing one card: no scaling figure) | {smi}", flush=True)
     counts = {f"dist_rank{r}": {k: sum(c[k] for c in g["counts"]) for k in g["counts"][0]}
               for r, g in enumerate(gloo)}
-    del one, nccl, gloo, ranks
+    counts.update(_dist_frames_lovasz(ranks, one, one_infer, one_lovasz, plan, smi))
+    del one, nccl, gloo, ranks, one_infer, one_lovasz
 
     # (b), (c) the train CLI through dist_train.sh, from [train_cli]'s checkpoint
     # on [test_cli]'s tree, its videos as the train split, and (d) the test CLI
@@ -2520,6 +2674,146 @@ def dist_phase(ops, root: str, smi: str, work_root: str, cffm_ckpt: str,
         raise RuntimeError("[dist] (d) per clip: the ranks' masks give another confusion")
     torch.cuda.empty_cache()
     print(f"[dist] done in {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    return counts
+
+
+# ---- [tools]: the measuring and publishing tools on the card -----------------
+
+TOOLS_CLIP_ITERS = 50          # benchmark's clip inference (+ its 5 warm-up calls)
+TOOLS_STREAM_ITERS = 50        # --streaming (+ 2 warm-up calls of each half)
+TOOLS_TRAIN_ITERS = 10         # --train (+ 3 warm-up steps), batch 2 (a GPU's share)
+TOOLS_PROFILE_ITERS = 10       # profile_forward (+ 1 call outside the window)
+TOOLS_LOADER_BATCHES = 10
+TOOLS_DYN_STEPS = 60
+# the kernels of rows 1, 2 and 3 by their CUDA names: row 1's GEMM and its
+# SRA attention (head dim 64, no bias), row 2 the CFM attention (head dim 32,
+# bias and mask), row 3 the depthwise conv
+PROFILE_ROWS = {"row 1": ("gemm_kernel", "attention_fwd_kernel<64"),
+                "row 2": ("attention_fwd_kernel<32",), "row 3": ("dwconv3x3_kernel",)}
+
+
+def _scaled(plan: dict, n: int) -> dict:
+    return {k: v * n for k, v in plan.items()}
+
+
+def tools_phase(ops, root: str, smi: str, cffm_ckpt: str, one_process: dict) -> dict:
+    """``[tools]``: the port's tools as a user runs them, in process:
+    ``benchmark`` (clip inference at 480x864, ``--streaming``, ``--train`` at
+    batch 2) with the launches of each held to the path's per clip, frame
+    and step; ``profile_forward`` (B1, 480x480), whose top entries must name
+    the kernels of rows 1-3 (``PROFILE_ROWS``); ``get_flops`` of B1;
+    ``benchmark_loader``; ``publish_model`` on ``[train_cli]``'s checkpoint,
+    then the test CLI on the published checkpoint, whose confusion must
+    equal ``[test_cli]``'s on the source exactly; ``bf16_dynamics`` (B0,
+    64x64): both trajectories finite, and in each the mean of the last 20
+    losses below that of the first 10. Returns the launch counts by path."""
+    from vss_cffm_tpu_torch.tools import (benchmark, benchmark_loader, bf16_dynamics,
+                                          get_flops, profile_forward, publish_model)
+    from vss_cffm_tpu_torch.tools import test as test_cli
+
+    t0 = time.perf_counter()
+    b1 = os.path.join(root, "vss_cffm_tpu_torch", "configs", "cffm_b1_vspw_160k.py")
+    counts = {}
+
+    def counted(name: str, fn, want: dict | None):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ts = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - ts
+        counts[name] = ops.launches()
+        if want is not None:
+            _launches_held(counts[name], want, f"[tools] {name}")
+        return out, dt
+
+    clip_plan = {**DIST_PER_CLIP, "attention_fwd_tiled": 0}
+    out, dt = counted("tools_benchmark_clip", lambda: benchmark.main(
+        [b1, "--iters", str(TOOLS_CLIP_ITERS)]), _scaled(clip_plan, TOOLS_CLIP_ITERS + 5))
+    clip_fps = out["fps"]
+    print(f"[tools] benchmark.py clip inference, CFFM-B1 480x864 batch 1: {out['fps']:.3f} "
+          f"clips/s ({1e3 / out['fps']:.3f} ms a clip, CUDA events, the fastest chunk of "
+          f"{TOOLS_CLIP_ITERS}); launches {clip_plan} a clip over {TOOLS_CLIP_ITERS + 5} clips; "
+          f"{dt:.1f} s | {smi}", flush=True)
+    calls = TOOLS_STREAM_ITERS + 2
+    stream_plan = {"mit_block_fused": 4 * calls, "dwconv3x3": 4 * calls,
+                   "cfm_attention": 2 * calls, "attention_fwd_tiled": 0}
+    out, dt = counted("tools_benchmark_streaming", lambda: benchmark.main(
+        [b1, "--streaming", "--iters", str(TOOLS_STREAM_ITERS)]), stream_plan)
+    print(f"[tools] benchmark.py --streaming, CFFM-B1 480x864: frame_features "
+          f"{out['frame_features_ms']} ms, predict {out['predict_ms']} ms, "
+          f"{out['frames_per_sec']} frames/s; launches 4 / 4 a frame's features (rows 1, 3) "
+          f"and 2 a prediction (row 2) over {calls} calls each; {dt:.1f} s | {smi}", flush=True)
+    steps = TOOLS_TRAIN_ITERS + 3
+    out, dt = counted("tools_benchmark_train", lambda: benchmark.main(
+        [b1, "--train", "--batch", "2", "--iters", str(TOOLS_TRAIN_ITERS)]),
+        _scaled(TRAIN_FORMS["train"]["per_step"], steps))
+    print(f"[tools] benchmark.py --train, CFFM-B1 480x480 batch 2 clip 4: "
+          f"{out['train_ms_per_iter']} ms a step, {out['frames_per_sec']} train frames/s, "
+          f"loss {out['loss']}; launches the default form's a step over {steps} steps; "
+          f"{dt:.1f} s | {smi}", flush=True)
+
+    out, dt = counted("tools_profile_forward", lambda: profile_forward.main(
+        ["--variant", "b1", "--iters", str(TOOLS_PROFILE_ITERS), "--top", "30"]),
+        _scaled(clip_plan, TOOLS_PROFILE_ITERS + 1))
+    names = [name for name, *_ in out["top"]]
+    found = {row: [next((n for n in names if key in n), None) for key in keys]
+             for row, keys in PROFILE_ROWS.items()}
+    print(f"[tools] profile_forward.py CFFM-B1 480x480, {TOOLS_PROFILE_ITERS} clips: device "
+          f"{out['per_iter_us']:.1f} us a clip; the top 30 name "
+          + "; ".join(f"{row}: {', '.join(str(n)[:60] for n in ns)}" for row, ns in found.items())
+          + f"; {dt:.1f} s | {smi}", flush=True)
+    if out["kind"] != "device" or any(n is None for ns in found.values() for n in ns):
+        raise RuntimeError(f"[tools] profile_forward's top entries miss a kernel of rows 1-3: "
+                           f"{found}")
+
+    flops = get_flops.main([b1, "--shape", "480", "864"])
+    print(f"[tools] get_flops.py CFFM-B1 4x480x864: {flops['total'] / 1e9:.2f} GFLOPs a clip; "
+          f"at benchmark.py's {clip_fps:.3f} clips/s, {flops['total'] * clip_fps / 1e12:.3f} "
+          f"TFLOP/s achieved ({flops['total'] * clip_fps / 989e12:.4f} of 989 TFLOP/s bf16) "
+          f"| {smi}", flush=True)
+
+    out, dt = counted("tools_benchmark_loader", lambda: benchmark_loader.main(
+        ["--batches", str(TOOLS_LOADER_BATCHES)]), None)
+    print(f"[tools] benchmark_loader.py, 480x853 JPEGs, 2-clip batches, 4 threads, "
+          f"{TOOLS_LOADER_BATCHES} batches: {out['clips_per_s']:.3f} clips/s, "
+          f"{out['frames_per_s']:.3f} frames/s (to the card); {dt:.1f} s | {smi}", flush=True)
+
+    published = publish_model.publish(cffm_ckpt, os.path.join(os.path.dirname(cffm_ckpt),
+                                                              "published", "cffm_b1"))
+    tree = one_process["tree"]
+    out, dt = counted("tools_test_cli_published", lambda: test_cli.main(
+        [one_process["config"], published, "--vc", "--options", f"data.data_root={tree}"]),
+        None)
+    same = np.array_equal(out["confusion"], one_process["per_clip"]["confusion"])
+    print(f"[tools] publish_model.py {os.path.basename(published)} (files "
+          f"{sorted(os.listdir(published))}); tools/test.py per clip on it: confusion (total "
+          f"{int(out['confusion'].sum())}) {'equals' if same else 'DIFFERS FROM'} the source "
+          f"checkpoint's in [test_cli]; {dt:.1f} s", flush=True)
+    if not same:
+        raise RuntimeError("[tools] the published checkpoint gives another confusion")
+
+    out, dt = counted("tools_bf16_dynamics", lambda: bf16_dynamics.main(
+        ["--steps", str(TOOLS_DYN_STEPS), "--hw", "64"]), None)
+    for run in ("f32", "bf16"):
+        losses = out[run]["losses"]
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-20:]))
+        print(f"[tools] bf16_dynamics.py {run} run, B0 64x64, {TOOLS_DYN_STEPS} steps: first 10 "
+              f"{first:.4f}, last 20 {last:.4f}, mIoU_seen {out[run]['mIoU_seen']:.4f}",
+              flush=True)
+        if not np.isfinite(losses).all() or not last < first:
+            raise RuntimeError(f"[tools] bf16_dynamics: the {run} run did not learn ({first} "
+                               f"-> {last}) or is not finite")
+    launched = {k: v for k, v in counts["tools_bf16_dynamics"].items() if v}
+    print(f"[tools] bf16_dynamics.py launches (the bf16 run's: the f32 run asks for the plain "
+          f"versions): {launched}; {dt:.1f} s | {smi}", flush=True)
+    for name in ("mit_block_fused", "cfm_attention", "cfm_attention_bwd", "dwconv3x3",
+                 "mit_block_train", "mit_block_train_bwd", "ce_upsampled_loss",
+                 "ce_upsampled_loss_bwd"):
+        if not launched.get(name):
+            raise RuntimeError(f"[tools] bf16_dynamics's bf16 run launched no {name}")
+    torch.cuda.empty_cache()
+    print(f"[tools] done in {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
     return counts
 
 
@@ -3379,6 +3673,9 @@ def main() -> int:
 
         # ---- 5e. training and evaluation over several processes
         dist_counts = dist_phase(ops, root, smi, work_root, cffm_ckpt, one_process)
+
+        # ---- 5f. the measuring and publishing tools
+        tools_counts = tools_phase(ops, root, smi, cffm_ckpt, one_process)
     finally:
         shutil.rmtree(work_root, ignore_errors=True)
 
@@ -3415,7 +3712,8 @@ def main() -> int:
                    **{p: c[cn] for p, c in pp_counts.items()},
                    **{p: c[cn] for p, c in image_counts.items()},
                    **{p: c[cn] for p, c in test_cli_counts.items()},
-                   **{p: c[cn] for p, c in dist_counts.items()}}
+                   **{p: c[cn] for p, c in dist_counts.items()},
+                   **{p: c[cn] for p, c in tools_counts.items()}}
         row = {"name": name, "route": "cuda", "source": spec["sources"][0],
                "sources": spec["sources"],
                "replaces": spec["replaces"], "launches": by_path[path], "path": path,

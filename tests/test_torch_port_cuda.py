@@ -1668,3 +1668,48 @@ def test_two_gloo_ranks_on_one_card_match_one_process(dev):
         assert cos >= 0.999, cos
         for g, x in zip(got["bn"], want["bn"]):
             ranks.close_to_largest(g, x, 1e-2, "running statistics")
+
+
+def test_frames_split_on_two_gloo_ranks_on_one_card_matches_one_process(dev):
+    """A clip's frames split over 2 gloo ranks pinned to ``cuda:0`` (a 1 x 2
+    clip mesh, ``parallel.create_clip_mesh(2)``: 2 of the 4 frames of both
+    clips a rank, the fused features gathered over the frames group;
+    ``torch_port_ranks.grid_cases``) against the one-process run, MiT-B0
+    widths, 64², bf16 through the kernels: the eval logits within 5 % of the
+    one process's largest (the backbone's kernels see 2 frames a call there,
+    4 here), the target frames' confusion's total the valid pixels, and one
+    default step at ``PERF.md`` §2's train limits (loss and gradient norm
+    within 1 %, cosine of all gradients ≥ 0.999, the fuse BN's running
+    statistics within 1 % of their largest value); the ranks' parameters
+    after the step equal."""
+    import torch_port_ranks as ranks
+    from vss_cffm_tpu_torch import parallel
+    from vss_cffm_tpu_torch.models import CFFMSegmentor
+
+    rng = np.random.RandomState(9)
+    cfg = ranks.tiny_config()
+    model = CFFMSegmentor(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    labels = rng.randint(0, 124, (2, 4, 64, 64)).astype(np.uint8)
+    labels[rng.rand(*labels.shape) < 0.05] = 255
+    frames = dict(cfg=cfg, state_dict=model.state_dict(), optim=dict(lr=1e-3, max_iters=100),
+                  batch={"imgs": rng.randint(0, 256, (2, 4, 64, 64, 3)).astype(np.uint8),
+                         "labels": labels}, dtype=torch.bfloat16, frame_axis=2, infer=True)
+    world = parallel.spawn(ranks.grid_cases, 2, frames, device="cuda:0", backend="gloo")
+    one = ranks.train_steps(dev, **frames)
+    assert one["confusion"].sum() == int((labels[:, -1] != 255).sum())
+    for w in world:
+        got = w["frames"]
+        ranks.close_to_largest(got["logits"].float(), one["logits"].float(), 0.05, "logits")
+        assert got["confusion"].sum() == one["confusion"].sum()
+        for k in ("loss_seg", "grad_norm"):
+            a, b = got["metrics"][0][k], one["metrics"][0][k]
+            assert abs(a - b) <= 1e-2 * abs(b), (k, a, b)
+        flat = lambda g: torch.cat([v.float().reshape(-1) for v in g.values()]).double()
+        cos = torch.nn.functional.cosine_similarity(flat(got["grads"][0]),
+                                                    flat(one["grads"][0]), dim=0).item()
+        assert cos >= 0.999, cos
+        for g, x in zip(got["bn"], one["bn"]):
+            ranks.close_to_largest(g, x, 1e-2, "running statistics")
+    for name, p in world[0]["frames"]["params"].items():
+        assert torch.equal(p, world[1]["frames"]["params"][name]), name

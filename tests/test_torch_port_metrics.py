@@ -131,8 +131,8 @@ def test_aggregate_confusion_is_one_process_only(monkeypatch):
     other = np.full_like(cm, 2**31 + 1)
     seen = []
 
-    def all_reduce(t):
-        seen.append(t.dtype)
+    def all_reduce(t, group=None):
+        seen.append((t.dtype, group))
         t += torch.from_numpy(other)
 
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
@@ -140,5 +140,5 @@ def test_aggregate_confusion_is_one_process_only(monkeypatch):
     monkeypatch.setattr(torch.distributed, "get_backend", lambda: "gloo")
     monkeypatch.setattr(torch.distributed, "all_reduce", all_reduce)
     got = pm.aggregate_confusion(cm)
-    assert got.dtype == np.int64 and seen == [torch.int64]
+    assert got.dtype == np.int64 and seen == [(torch.int64, None)]  # the world
     np.testing.assert_array_equal(got, cm + other)

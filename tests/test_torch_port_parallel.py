@@ -23,7 +23,23 @@ against the port's one-process run on the global batch:
 - ``aggregate_confusion`` over the ranks with counts past 2³¹, exact;
 - ``ClipEvaluator`` on frame shards and ``StreamingVideoEvaluator`` on video
   shards, aggregated, equal to the one-process confusions exactly;
-- ``clip_lovasz_loss`` refuses several ranks;
+- a clip's frames split over the 2 ranks (a 1 × 2 grid,
+  ``parallel.create_clip_mesh(2)``, each rank 2 of the 4 frames of both
+  clips): the eval logits within 1e-5 of their largest value and 2 default
+  steps as above, against the one-process run; on 4 ranks started beside
+  (a 2 × 2 grid: one clip and 2 frames a rank) the same, and the target
+  frames' confusion summed over the data group equal to the one process's
+  exactly, to the JAX package's ``confusion_matrix_np`` of the one-process
+  predictions, its total the valid pixels;
+- a Lovász step on the 2 ranks against one process as above, and
+  ``clip_lovasz_loss`` of each rank's rows of fixed logits: the loss and the
+  accuracy those of the JAX ``clip_lovasz_loss`` on the global batch, each
+  rank's gradient twice the JAX gradient of its rows (the gather's backward
+  sums the two ranks' equal upstream gradients), within 1e-5 of the
+  largest;
+- ``shard_clip_batch``, ``create_clip_mesh`` without a group,
+  ``DrawShard``'s frames rule against the one-process draw, and the local
+  rank under the coordinator flags (``LOCAL_RANK``, ``SLURM_LOCALID``);
 - the test CLI (``tools/test.py``) per clip on the 2 ranks, over their
   group: its JSON metrics equal the one-process CLI's, its confusion the
   one process's exactly; ``tools/dist_test.sh`` hands the CLI to torchrun
@@ -45,6 +61,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -65,6 +82,7 @@ B = 2
 CLASSES = 124
 OPTIM = dict(lr=1e-3, warmup_iters=0, max_iters=100)
 OHEM = dict(use_ohem=True, ohem_thresh=0.0, ohem_min_kept=900)
+LOVASZ = dict(type="lovasz")
 EVAL_SCALE = (96, 64)  # the fake tree's 64×96 frames, at their own size
 
 
@@ -104,7 +122,8 @@ def launch_files(tmp_path_factory):
 def inputs(launch_files):
     """The inputs of every case, the same for the ranks and the one process."""
     rng = np.random.RandomState(5)
-    cfg, cfg_ohem = ranks.tiny_config(), ranks.tiny_config(OHEM)
+    cfg, cfg_ohem, cfg_lovasz = (ranks.tiny_config(), ranks.tiny_config(OHEM),
+                                 ranks.tiny_config(LOVASZ))
     weights = _weights(cfg)
     batch = _batch()
     head = MLPDecodeHead(cfg.head)
@@ -136,14 +155,64 @@ def inputs(launch_files):
         "evaluation": dict(cfg=cfg, state_dict=weights, root=root, img_scale=EVAL_SCALE),
         "cli": [launch_files[0], launch_files[2], "--device", "cpu", "--out",
                 str(d / "two.json"), *CLI_OPTIONS],
+        "frames": dict(cfg=cfg, state_dict=weights, batch=batch, optim=OPTIM, steps=2,
+                       frame_axis=2, infer=True),
+        "lovasz": dict(cfg=cfg_lovasz, state_dict=weights, batch=batch, optim=OPTIM),
+        "lovasz_loss": dict(logits=rng.standard_normal((B, 5, 8, 8, 5)).astype(np.float32),
+                            labels=_lovasz_labels(rng)),
     }
 
 
+def _lovasz_labels(rng) -> np.ndarray:
+    labels = rng.randint(0, 5, (B, 4, 32, 32)).astype(np.int64)
+    labels[rng.rand(*labels.shape) < 0.1] = 255
+    labels[1, :, :, :16] = 2  # a class only the second clip holds much of
+    return labels
+
+
 @pytest.fixture(scope="module")
-def world(inputs, training_launch):
-    """Every case on 2 gloo ranks (``torch_port_ranks.cases``), one start,
-    while ``training_launch`` runs."""
+def grid_launch(inputs):
+    """The 2 × 2 grid's case on 4 gloo ranks (``torch_port_ranks.grid_cases``),
+    started from a thread here: a callable that waits for the ranks'
+    results."""
+    out = {}
+
+    def run():
+        try:
+            out["world"] = parallel.spawn(ranks.grid_cases, 4, inputs["frames"], device="cpu")
+        except Exception as e:  # raised again in the test thread
+            out["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def result() -> list:
+        thread.join(timeout=900)
+        assert not thread.is_alive(), "the 4 ranks did not finish"
+        if "error" in out:
+            raise out["error"]
+        return out["world"]
+
+    return result
+
+
+@pytest.fixture(scope="module")
+def world(inputs, training_launch, grid_launch):
+    """Every 2-rank case on 2 gloo ranks (``torch_port_ranks.cases``), one
+    start, while ``training_launch`` and the 4 ranks of ``grid_launch`` run."""
     return parallel.spawn(ranks.cases, 2, *inputs.values(), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def grid_world(world, grid_launch):
+    return grid_launch()
+
+
+@pytest.fixture(scope="module")
+def one_frames(inputs):
+    """The one-process run of the frames cases: eval logits and confusion,
+    then 2 steps."""
+    return ranks.train_steps("cpu", **inputs["frames"])
 
 
 def _rows(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -161,14 +230,26 @@ def test_sync_bn_matches_the_global_batch(world, inputs):
             torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
-def _steps_match(res: dict, one: dict) -> None:
+def _steps_match(res: dict, one: dict, zero_names: tuple = ranks.BEFORE_BN) -> None:
+    """Metrics, gradients (``grads_close``) and the fuse BN's running
+    statistics after each step. The AdamW step turns the rounding noise of
+    the zero gradients of ``BEFORE_BN`` (~1e-10) into moves of up to ~2e-4
+    (its eps 1e-8), which the BN takes out of its output but not out of its
+    batch mean: from the second step on the running mean is held after the
+    shift those parameters account for, 0.9·(the last step's) + 0.1·(the
+    difference of their constants, ``bn_constant``)."""
     for got, want in zip(res["metrics"], one["metrics"]):
         for k in ("loss_seg", "acc_seg", "grad_norm"):
             assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]), (k, got[k], want[k])
     for got, want in zip(res["grads"], one["grads"]):
-        ranks.grads_close(got, want, "grad")
-    for got, want in zip(res["bn"], one["bn"]):
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        ranks.grads_close(got, want, "grad", zero_names)
+    shift = torch.zeros_like(one["bn_consts"][0])
+    for s_, (got, want) in enumerate(zip(res["bn_steps"], one["bn_steps"])):
+        if s_:
+            shift = 0.9 * shift + 0.1 * (res["bn_consts"][s_ - 1] - one["bn_consts"][s_ - 1])
+        torch.testing.assert_close(got[0] - shift, want[0], rtol=0, atol=1e-6)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
+
 
 
 def test_two_rank_train_step_matches_one_process(world, inputs):
@@ -219,9 +300,122 @@ def test_sharded_evaluators_sum_to_the_one_process_confusion(world, inputs):
             np.testing.assert_array_equal(w["eval"][kind], one[kind])
 
 
-def test_lovasz_refuses_several_ranks(world):
-    for w in world:
-        assert "2 ranks" in w["lovasz"] and "Lovász" in w["lovasz"]
+@pytest.mark.parametrize("grid", ["1x2", "2x2"])
+def test_frames_split_inference_matches_one_process(grid, world, grid_world, one_frames):
+    """Each rank's eval logits are its rows' whole clips' (the frames of a
+    row gathered over its frames group)."""
+    results = [w["frames"] for w in (world if grid == "1x2" else grid_world)]
+    data = 1 if grid == "1x2" else 2
+    for r, res in enumerate(results):
+        want = parallel.shard_batch(one_frames["logits"], r // (len(results) // data), data)
+        ranks.close_to_largest(res["logits"], want, 1e-5, f"logits, {grid} rank {r}")
+
+
+@pytest.mark.parametrize("grid", ["1x2", "2x2"])
+def test_frames_split_train_steps_match_one_process(grid, world, grid_world, one_frames):
+    results = [w["frames"] for w in (world if grid == "1x2" else grid_world)]
+    _steps_match(results[0], one_frames)
+    for res in results[1:]:
+        assert res["metrics"] == results[0]["metrics"]
+        for name, p in res["params"].items():
+            assert torch.equal(p, results[0]["params"][name]), name
+
+
+def test_grid_confusion_equals_one_process_exactly(grid_world, one_frames, inputs):
+    from vss_cffm_tpu.eval.metrics import confusion_matrix_np
+
+    labels = inputs["frames"]["batch"]["labels"][:, -1]
+    want = one_frames["confusion"]
+    np.testing.assert_array_equal(
+        want, confusion_matrix_np(one_frames["pred"].numpy(), labels, CLASSES))
+    assert want.sum() == int((labels != 255).sum())
+    for w in grid_world:
+        assert w["frames"]["confusion"].dtype == np.int64
+        np.testing.assert_array_equal(w["frames"]["confusion"], want)
+
+
+# under the Lovász loss at this size, besides BEFORE_BN: 4.6e-13 in one process,
+# 2.6e-8 of the largest gradient (1.8e-5), rounding
+LOVASZ_ZERO = (*ranks.BEFORE_BN, "pool_layers_clips.2.bias")
+
+
+def test_two_rank_lovasz_step_matches_one_process(world, inputs):
+    one = ranks.train_steps("cpu", **inputs["lovasz"])
+    res0, res1 = (w["lovasz"] for w in world)
+    _steps_match(res0, one, LOVASZ_ZERO)
+    for name, p in res0["params"].items():
+        assert torch.equal(p, res1["params"][name]), name
+
+
+def test_two_rank_lovasz_loss_matches_jax_on_the_global_batch(world, inputs):
+    """Every rank computes the global batch's loss; the gather's backward
+    sums the two ranks' (equal) upstream gradients, so a rank's gradient is
+    2 × the JAX gradient of its rows, and the world mean of the parameter
+    gradients the one-process one (the step above)."""
+    import jax
+    import jax.numpy as jnp
+
+    from vss_cffm_tpu.models import losses as jax_losses
+
+    case = inputs["lovasz_loss"]
+    logits, labels = jnp.asarray(case["logits"]), jnp.asarray(case["labels"])
+
+    def loss(x):
+        out = jax_losses.clip_lovasz_loss(x, labels)
+        return out["loss_seg"], out["acc_seg"]
+
+    (want, acc), grad = jax.jit(jax.value_and_grad(loss, has_aux=True))(logits)
+    grad = torch.from_numpy(np.array(grad))
+    for r, w in enumerate(world):
+        got = w["lovasz_loss"]
+        assert abs(got["loss"] - float(want)) <= 1e-5 * abs(float(want)), (got["loss"], want)
+        assert abs(got["acc"] - float(acc)) <= 1e-4, (got["acc"], acc)
+        ranks.close_to_largest(got["grad"] / 2, _rows(grad, r), 1e-5, f"grad, rank {r}")
+        assert got["grad"].abs().max() > 0
+
+
+def test_shard_clip_batch_takes_rows_and_frames():
+    mesh = parallel.ClipMesh(data=2, frames=2, data_index=1, frame_index=1)
+    imgs = torch.arange(2 * 4 * 3).reshape(2, 4, 3)
+    labels = torch.arange(2 * 4).reshape(2, 4)
+    out = parallel.shard_clip_batch({"imgs": imgs, "labels": labels, "videos": ["a", "b"]},
+                                    mesh)
+    assert torch.equal(out["imgs"], imgs[1:, 2:])
+    assert torch.equal(out["labels"], labels[1:])  # the whole clips' labels
+    assert out["videos"] == ["b"]
+    with pytest.raises(ValueError, match="clips of 4 frames over 3 frame ranks"):
+        parallel.shard_clip_batch(imgs, parallel.ClipMesh(frames=3))
+    assert parallel.create_clip_mesh(4) == parallel.ClipMesh()  # no group: 1 x 1
+
+
+def test_draw_shard_takes_the_one_process_draws_entries():
+    """A (data, frames) grid's backbone draws: each rank's frames of its rows
+    of the one-process draw over (B, T) samples, in its sample order."""
+    b, t, data, frames = 2, 4, 2, 2
+    whole = torch.rand((data * b * t,), generator=torch.Generator().manual_seed(3))
+    whole = whole.view(data * b, t)
+    for d in range(data):
+        for f in range(frames):
+            shard = parallel.DrawShard(data, d, frames, f, rows=b)
+            got = shard.uniforms(b * t // frames, torch.Generator().manual_seed(3))
+            want = whole[d * b:(d + 1) * b, f * (t // frames):(f + 1) * (t // frames)]
+            assert torch.equal(got, want.reshape(-1))
+        got = parallel.DrawShard(data, d).uniforms(b, torch.Generator().manual_seed(3))
+        assert torch.equal(got, whole.reshape(-1)[d * b:(d + 1) * b])
+
+
+@pytest.mark.parametrize("env, local", [({}, 5), ({"SLURM_LOCALID": "1"}, 1),
+                                        ({"LOCAL_RANK": "2", "SLURM_LOCALID": "1"}, 2)])
+def test_coordinator_flags_take_the_local_rank_from_the_environment(monkeypatch, env, local):
+    """Under the coordinator flags on a node past the first, the card is the
+    node's local rank, not the process id."""
+    from vss_cffm_tpu_torch.parallel import mesh
+
+    for k in (*parallel.RANK_ENV, *parallel.LOCAL_RANK_ENV):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert mesh._rank_settings("node0:29500", 8, 5) == ("tcp://node0:29500", 8, 5, local)
 
 
 def test_distributed_without_a_rank_environment_raises(monkeypatch, tmp_path):

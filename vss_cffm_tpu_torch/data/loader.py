@@ -135,7 +135,11 @@ class TrainLoader:
                     raise item
                 yield self._to_device(item)
         finally:
+            # the producer ends after its items in flight; waiting for it keeps
+            # a closed loader from decoding on while its caller (or the
+            # interpreter) goes on and tears down what the items read
             stop.set()
+            thread.join()
 
 
 def prefetch_map(fn, indices, num_workers: int = 4, prefetch: int = 8) -> Iterator:

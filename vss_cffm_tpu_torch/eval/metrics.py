@@ -56,14 +56,17 @@ def _merge_int64(parts: np.ndarray) -> np.ndarray:
     return total.reshape((-1,) + total.shape[-2:]).sum(0)
 
 
-def aggregate_confusion(cm: np.ndarray) -> np.ndarray:
-    """The (C, C) confusion summed over the ranks, int64 and exact (one sum
-    all-reduce of int64 counts); the identity without a process group."""
+def aggregate_confusion(cm: np.ndarray, group=None) -> np.ndarray:
+    """The (C, C) confusion summed over the ranks of ``group`` (None: the
+    world), int64 and exact (one sum all-reduce of int64 counts); the
+    identity without a process group. On a clip mesh with a frames split the
+    ranks of a frames group predict the same target frames: sum over the
+    data group (``ClipMesh.data_group``), so that each row counts once."""
     cm = np.asarray(cm, np.int64)
     if not parallel.is_distributed():
         return cm
     t = torch.from_numpy(cm.copy()).to(parallel.collective_device())
-    torch.distributed.all_reduce(t)
+    torch.distributed.all_reduce(t, group=group)
     return t.cpu().numpy()
 
 

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import CFFMDecoderConfig
 from ..ops import cfm_attention, resize_bilinear
+from ..parallel import DrawShard
 from .mit import derived, drop_path, layer_norm, linear
 
 __all__ = ["CFFMDecoder", "CFFMBlock", "CFFMWindowAttention", "build_geometry",
@@ -428,7 +429,10 @@ class CFFMBlock(nn.Module):
         self.compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                shard: DrawShard | None = None) -> torch.Tensor:
+        """``shard``: where this rank's clips sit in the global drop-path draw
+        (``mit.keep_mask``)."""
         cfg = self.cfg
         dt = self.compute_dtype
         rate = cfg.drop_path if train else 0.0
@@ -463,8 +467,9 @@ class CFFMBlock(nn.Module):
         ws = cfg.window_size
         out = win.reshape(b, geom.n_wh, geom.n_ww, ws, ws, c)
         out = out.permute(0, 1, 3, 2, 4, 5).reshape(b, geom.hp, geom.wp, c)[:, :h0, :w0]
-        last = x[:, -1] + drop_path(out, rate, generator)
-        last = last + drop_path(self.mlp(layer_norm(last, self.norm2, dt), dt), rate, generator)
+        last = x[:, -1] + drop_path(out, rate, generator, shard)
+        last = last + drop_path(self.mlp(layer_norm(last, self.norm2, dt), dt), rate, generator,
+                                shard)
         return torch.cat([x[:, :-1], last[:, None].to(x.dtype)], dim=1)
 
 
@@ -497,14 +502,16 @@ class CFFMDecoder(nn.Module):
         self.blocks = nn.ModuleList(CFFMBlock(cfg) for _ in range(cfg.depth))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                shard: DrawShard | None = None) -> torch.Tensor:
         remat = self.cfg.use_checkpoint and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = _checkpointed(blk, x, train, generator) if remat else blk(x, train, generator)
+            run = functools.partial(blk, shard=shard)
+            x = _checkpointed(run, x, train, generator) if remat else run(x, train, generator)
         return x
 
 
-def _checkpointed(blk: CFFMBlock, x: torch.Tensor, train: bool,
+def _checkpointed(blk, x: torch.Tensor, train: bool,
                   generator: torch.Generator | None) -> torch.Tensor:
     """``blk(x, train, generator)`` under ``torch.utils.checkpoint``: its
     activations are not kept, and the backward runs the block again.

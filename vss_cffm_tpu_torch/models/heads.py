@@ -58,15 +58,15 @@ __all__ = ["MLPDecodeHead", "SegFormerHead", "CFFMHead", "dropout2d", "batch_mom
 BN_MOMENTUM = 0.9  # flax BatchNorm: running = 0.9·running + 0.1·batch
 
 
-def dropout2d(x: torch.Tensor, rate: float, generator: torch.Generator | None
-              ) -> torch.Tensor:
+def dropout2d(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+              shard: parallel.DrawShard | None = None) -> torch.Tensor:
     """torch ``Dropout2d`` on channels-last x (N, h, w, C): each (sample,
     channel) is zeroed with probability ``rate``, the rest divided by the
-    keep probability."""
+    keep probability; ``shard`` as in ``keep_mask``."""
     if rate == 0.0:
         return x
     n, c = x.shape[0], x.shape[-1]
-    keep = keep_mask(n * c, rate, generator, x.device).reshape(n, 1, 1, c)
+    keep = keep_mask(n * c, rate, generator, x.device, shard).reshape(n, 1, 1, c)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -159,11 +159,12 @@ class MLPDecodeHead(nn.Module):
         z = (a - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
         return torch.relu(z).to(dt)
 
-    def frame_logits(self, _c: torch.Tensor, rate: float,
-                     generator: torch.Generator | None) -> torch.Tensor:
+    def frame_logits(self, _c: torch.Tensor, rate: float, generator: torch.Generator | None,
+                     shard: parallel.DrawShard | None = None) -> torch.Tensor:
         """``linear_pred`` of the fused features (N, h, w, f) after Dropout2d
         at ``rate``: (N, h, w, classes)."""
-        return _conv1x1(dropout2d(_c, rate, generator), self.linear_pred, self.compute_dtype)
+        return _conv1x1(dropout2d(_c, rate, generator, shard), self.linear_pred,
+                        self.compute_dtype)
 
 
 class SegFormerHead(MLPDecodeHead):
@@ -191,14 +192,16 @@ class CFFMHead(MLPDecodeHead):
 
     def forward_fused(self, _c: torch.Tensor, batch_size: int, num_clips: int,
                       train: bool = False, generator: torch.Generator | None = None,
-                      cluster_centers=None) -> torch.Tensor:
+                      cluster_centers=None, shard: parallel.DrawShard | None = None
+                      ) -> torch.Tensor:
         """Logits from per-frame fused features (B·T, h, w, f). Eval: the
         refined target-frame logits (B, h, w, classes), or, when the clip
         length is not ``num_clips``, the plain per-frame logits of the last
         frame. Train: (B, T+1, h, w, classes), every frame's plain logits and
         the refined last frame (in finetune mode the cluster branch's).
         ``cluster_centers`` (B, K, f), or a ``(centers, mask)`` pair, is
-        required in finetune mode."""
+        required in finetune mode; ``shard``: where these B clips sit in the
+        global batch's random draws (``keep_mask``)."""
         cfg = self.cfg
         dt = self.compute_dtype
         rate = cfg.dropout_ratio if train else 0.0
@@ -208,16 +211,16 @@ class CFFMHead(MLPDecodeHead):
             _c = _c.detach()
         if train or num_clips != cfg.num_clips:
             with torch.no_grad() if frozen else contextlib.nullcontext():
-                x = self.frame_logits(_c, rate, generator)
+                x = self.frame_logits(_c, rate, generator, shard)
             x = x.reshape(batch_size, num_clips, h, w, cfg.num_classes)
             if not train:
                 return x[:, -1]
         _c8 = resize_bilinear(_c.to(dt), (h // 2, w // 2))
         _c_further = _c8.reshape(batch_size, num_clips, h // 2, w // 2, cfg.embed_dim)
         if not frozen:
-            _c2 = self.decoder_focal(_c_further, train, generator)
+            _c2 = self.decoder_focal(_c_further, train, generator, shard)
             fused_last = torch.cat([_c_further[:, -1], _c2[:, -1]], dim=-1)
-            x2 = _conv1x1(dropout2d(fused_last, rate, generator), self.linear_pred2, dt)
+            x2 = _conv1x1(dropout2d(fused_last, rate, generator, shard), self.linear_pred2, dt)
             x2 = resize_bilinear(x2, (h, w))
             if not self.finetune:
                 return x2 if not train else torch.cat([x, x2[:, None]], dim=1)
@@ -225,7 +228,7 @@ class CFFMHead(MLPDecodeHead):
         if cluster_centers is None:
             raise ValueError("CFFMHead in finetune mode needs the video's cluster centres")
         _c3 = self.decoder_swin(_c_further[:, -1], cluster_centers)
-        x3 = _conv1x1(dropout2d(_c3, rate, generator), self.linear_pred3, dt)
+        x3 = _conv1x1(dropout2d(_c3, rate, generator, shard), self.linear_pred3, dt)
         x3 = resize_bilinear(x3, (h, w))
         if not train:
             return x2 + cfg.cluster_blend * x3
@@ -233,12 +236,22 @@ class CFFMHead(MLPDecodeHead):
 
     def forward(self, feats: list[torch.Tensor], batch_size: int, num_clips: int,
                 train: bool = False, generator: torch.Generator | None = None,
-                cluster_centers=None) -> torch.Tensor:
+                cluster_centers=None, mesh: parallel.ClipMesh | None = None) -> torch.Tensor:
+        """``feats`` of ``batch_size`` clips of ``num_clips`` frames each; on a
+        ``mesh`` with a frames split, this rank's frames of its clips: the
+        fused features are gathered over the frames group into whole clips
+        before ``forward_fused``, which every rank of the group runs alike."""
         # finetune mode: the fuse BN on its running statistics, not updated,
         # and no gradient to the decode
         with torch.no_grad() if train and self.finetune else contextlib.nullcontext():
             _c = self.decode(feats, train and not self.finetune)
-        return self.forward_fused(_c, batch_size, num_clips, train, generator, cluster_centers)
+        shard = None
+        if mesh is not None:
+            _c = mesh.gather_frames(_c, batch_size)
+            num_clips *= mesh.frames
+            shard = mesh.draws()
+        return self.forward_fused(_c, batch_size, num_clips, train, generator, cluster_centers,
+                                  shard)
 
     def fused_features(self, feats: list[torch.Tensor]) -> torch.Tensor:
         """Fused features at 1/8 (N, h/8, w/8, f) for CFFM++'s prototypes: the

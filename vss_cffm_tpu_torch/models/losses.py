@@ -27,9 +27,12 @@ as everywhere in the port; the JAX per-pixel route, which tests ``label !=
 ignore_index``, would count it as a pixel of class 0.
 
 While a ``torch.distributed`` group is up, the OHEM mask (``ohem_weight``
-and the per-pixel route) is the global batch's: every rank of the group
-must compute it together, each on its own rows, as the train step does
-(``parallel``'s contract); a rank that calls it alone waits for the others.
+and the per-pixel route) and the Lovász loss are the global batch's: every
+rank of the group must compute them together, each on its own rows, as the
+train step does (``parallel``'s contract); a rank that calls one alone
+waits for the others. ``group`` (None: the world) names the ranks that hold
+distinct rows: on a clip mesh with a frames split, the data group, since
+the ranks of a frames group hold the same clips after the frames' gather.
 """
 
 from __future__ import annotations
@@ -92,19 +95,19 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def _ohem_from_gt_prob(gt_prob: torch.Tensor, valid: torch.Tensor, thresh: float,
-                       min_kept: int, n_imgs: int) -> torch.Tensor:
+                       min_kept: int, n_imgs: int, group=None) -> torch.Tensor:
     """OHEM 0/1 weight map (``OHEMPixelSampler``): keep the valid pixels whose
     gt-class probability is below max(thresh, the k-th smallest valid
     probability), k = min(min_kept·n_imgs, n_valid − 1) clipped to the
     pixels; invalid pixels sort last (+inf). No gradient. Any pixel layout:
-    the sort and the threshold are permutation-invariant. Over N ranks
-    (``n_imgs`` each) the sort, ``n_valid`` and k are the global batch's: the
-    probabilities of every rank are gathered (``parallel.all_gather_cat``), so
-    every rank must call it together."""
+    the sort and the threshold are permutation-invariant. Over the N ranks of
+    ``group`` (``n_imgs`` each) the sort, ``n_valid`` and k are the global
+    batch's: the probabilities of every rank are gathered
+    (``parallel.all_gather_cat``), so every rank must call it together."""
     p = torch.where(valid, gt_prob.float(), torch.inf)
-    world = parallel.world_size()
-    flat = torch.sort(parallel.all_gather_cat(p.reshape(-1))).values
-    n_valid = parallel.all_reduce_sum(valid.sum())
+    world = parallel.group_size(group)
+    flat = torch.sort(parallel.all_gather_cat(p.reshape(-1), group)).values
+    n_valid = parallel.all_reduce_sum(valid.sum(), group)
     k = torch.clamp(torch.clamp(n_valid - 1, max=min_kept * n_imgs * world), 0,
                     flat.numel() - 1)
     kth = torch.where(n_valid > 0, flat[k], 0.0)
@@ -186,7 +189,7 @@ def _split_clip_cases(seg_logits: torch.Tensor, seg_labels: torch.Tensor):
 
 
 def _pixel_nll(logits: torch.Tensor, labels: torch.Tensor, s: int, use_ohem: bool,
-               ohem_cfg: dict, cw: torch.Tensor | None, force: str | None):
+               ohem_cfg: dict, cw: torch.Tensor | None, force: str | None, group=None):
     """One branch of the per-pixel route: (mean of the weighted nll over all
     pixels, first-max prediction)."""
     nll, pred, _ = ce_upsampled_nll(logits, labels, s, force=force)
@@ -194,7 +197,8 @@ def _pixel_nll(logits: torch.Tensor, labels: torch.Tensor, s: int, use_ohem: boo
     if use_ohem:
         nll = nll * _ohem_from_gt_prob(torch.exp(-nll.detach()), valid,
                                        ohem_cfg.get("thresh", 0.7),
-                                       ohem_cfg.get("min_kept", 100000), logits.shape[0])
+                                       ohem_cfg.get("min_kept", 100000), logits.shape[0],
+                                       group)
     if cw is not None:
         nll = nll * cw[safe]
     return torch.where(valid, nll, 0.0).mean(), pred
@@ -233,9 +237,11 @@ def ohem_path_errors(logits: torch.Tensor, labels: torch.Tensor, s: int, thresh:
 
 def clip_ce_loss(seg_logits: torch.Tensor, seg_labels: torch.Tensor, ignore_index: int = 255,
                  use_ohem: bool = False, ohem_cfg: dict | None = None, class_weight=None,
-                 loss_weight: float = 1.0, force: str | None = None) -> dict[str, torch.Tensor]:
+                 loss_weight: float = 1.0, force: str | None = None,
+                 group=None) -> dict[str, torch.Tensor]:
     """seg_logits (B, T', h, w, C), seg_labels (B, T, H, W) with H = s·h →
-    {"loss_seg", "acc_seg"}."""
+    {"loss_seg", "acc_seg"}, this rank's; OHEM's threshold is that of the
+    ranks of ``group``."""
     c = seg_logits.shape[-1]
     _check_ignore(ignore_index, c)
     logit_ori, logit_last, label_ori, label_last = _split_clip_cases(seg_logits, seg_labels)
@@ -243,8 +249,8 @@ def clip_ce_loss(seg_logits: torch.Tensor, seg_labels: torch.Tensor, ignore_inde
     cw = _class_weight(class_weight, c, seg_logits.device)
     if use_ohem or cw is not None:
         cfg = ohem_cfg or {}
-        mean_o, pred = _pixel_nll(logit_ori, label_ori, s, use_ohem, cfg, cw, force)
-        mean_l, _ = _pixel_nll(logit_last, label_last, s, use_ohem, cfg, cw, force)
+        mean_o, pred = _pixel_nll(logit_ori, label_ori, s, use_ohem, cfg, cw, force, group)
+        mean_l, _ = _pixel_nll(logit_last, label_last, s, use_ohem, cfg, cw, force, group)
         acc = 100.0 * (pred == label_ori).float().mean()
         return {"loss_seg": loss_weight * (0.5 * mean_o + mean_l), "acc_seg": acc}
     p_ori, p_last = float(label_ori.numel()), float(label_last.numel())
@@ -256,14 +262,19 @@ def clip_ce_loss(seg_logits: torch.Tensor, seg_labels: torch.Tensor, ignore_inde
 
 def clip_lovasz_loss(seg_logits: torch.Tensor, seg_labels: torch.Tensor,
                      ignore_index: int = 255, loss_weight: float = 1.0,
-                     force: str | None = None) -> dict[str, torch.Tensor]:
+                     force: str | None = None, group=None) -> dict[str, torch.Tensor]:
     """The clip case table with ``LovaszLoss`` (multi-class, per_image=False)
-    on the upsampled logits. No kernel: ``force`` is taken and unused. Its
-    sort is over the whole batch, so several ranks raise."""
-    if parallel.world_size() > 1:
-        raise NotImplementedError(
-            f"clip_lovasz_loss: {parallel.world_size()} ranks; the Lovász loss sorts the "
-            "errors of the whole batch, which the port does not gather across ranks")
+    on the upsampled logits. No kernel: ``force`` is taken and unused.
+
+    Its sort is over the whole batch: over the ranks of ``group`` (None: the
+    world) each rank's logits, at their own resolution (before the resize),
+    and labels are gathered in rank order (``parallel.gather_cat``, whose
+    backward hands each rank its slice of the summed gradient), and every
+    rank computes the global batch's loss and accuracy. A rank then holds
+    the upsampled logits, the sort and its gradient of the global batch: its
+    memory is that of one process at the global batch."""
+    seg_logits = parallel.gather_cat(seg_logits, 0, group)
+    seg_labels = parallel.all_gather_cat(seg_labels, group)
     logit_ori, logit_last, label_ori, label_last = _split_clip_cases(seg_logits, seg_labels)
     size = tuple(seg_labels.shape[2:4])
     logit_ori = resize_bilinear(logit_ori, size)

@@ -81,38 +81,39 @@ def derived(owner: nn.Module, key: Any, params: Sequence[torch.Tensor],
 
 
 def keep_mask(n: int, rate: float, generator: torch.Generator | None,
-              device: torch.device) -> torch.Tensor:
+              device: torch.device, shard: parallel.DrawShard | None = None) -> torch.Tensor:
     """(n,) bool: each entry kept with probability 1 − rate, drawn on the
     generator's device from ``generator`` (required). ``n`` counts this
-    rank's share of a batch, sample-major; over N ranks the draw is the
-    global batch's N·n entries, of which the rank takes its own rows, so that
-    every rank's generator stays in step with the one-process run's; every
-    rank must draw the same masks in the same order (a rank that draws alone
-    takes its rows of a draw the others did not make)."""
+    rank's share of a batch, sample-major; over several ranks the draw is
+    the global batch's, of which the rank takes its own entries (``shard``,
+    by default its rows of the world's batch: ``parallel.world_draws``), so
+    that every rank's generator stays in step with the one-process run's;
+    every rank must draw the same masks in the same order (a rank that draws
+    alone takes its rows of a draw the others did not make)."""
     if generator is None:
         raise ValueError(f"a random rate of {rate} needs an explicit torch.Generator")
-    r, world = parallel.rank(), parallel.world_size()
-    u = torch.rand((world * n,), generator=generator, device=generator.device)[r * n:(r + 1) * n]
+    u = (shard or parallel.world_draws()).uniforms(n, generator)
     return (u < 1.0 - rate).to(device)
 
 
 def branch_scale(n: int, rate: float, generator: torch.Generator | None,
-                 device: torch.device) -> torch.Tensor:
+                 device: torch.device, shard: parallel.DrawShard | None = None
+                 ) -> torch.Tensor:
     """(n,) f32 per-sample stochastic-depth scales: keep / (1 − rate), the
     draw ``drop_path`` makes (none when rate is 0: ones)."""
     if rate == 0.0:
         return torch.ones((n,), dtype=torch.float32, device=device)
-    return keep_mask(n, rate, generator, device).float() / (1.0 - rate)
+    return keep_mask(n, rate, generator, device, shard).float() / (1.0 - rate)
 
 
-def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None
-              ) -> torch.Tensor:
+def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+              shard: parallel.DrawShard | None = None) -> torch.Tensor:
     """Per-sample stochastic depth (timm ``DropPath``): each sample along
     dim 0 is zeroed with probability ``rate``, the rest divided by the keep
     probability."""
     if rate == 0.0:
         return x
-    keep = keep_mask(x.shape[0], rate, generator, x.device)
+    keep = keep_mask(x.shape[0], rate, generator, x.device, shard)
     return torch.where(keep.reshape(-1, *([1] * (x.dim() - 1))), x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -313,7 +314,10 @@ class MiTBlock(nn.Module):
                                     self.n_kv(x))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                shard: parallel.DrawShard | None = None) -> torch.Tensor:
+        """``shard``: where this rank's samples sit in the global drop-path
+        draw (``keep_mask``)."""
         dt = self.compute_dtype
         if self.fused and not self.training and self.n_kv(x) <= FUSED_MAX_KV:
             args, kw = self.fused_args(x)
@@ -321,20 +325,20 @@ class MiTBlock(nn.Module):
         rate = self.drop_path_rate if train else 0.0
         if train and self.train_impl == "full" and self._pair_fits(x):
             args, kw = self.train_args(x)
-            s_attn = branch_scale(x.shape[0], rate, generator, x.device)
-            s_ffn = branch_scale(x.shape[0], rate, generator, x.device)
+            s_attn = branch_scale(x.shape[0], rate, generator, x.device, shard)
+            s_ffn = branch_scale(x.shape[0], rate, generator, x.device, shard)
             return mit_block_train(*args, s_attn, s_ffn, **kw, force=self.force)
-        x = x + drop_path(self.attn(layer_norm(x, self.norm1, dt)), rate, generator)
+        x = x + drop_path(self.attn(layer_norm(x, self.norm1, dt)), rate, generator, shard)
         _, h, w, c = x.shape
         if (train and self.train_impl == "ffn"
                 and block_ffn_train_fits(h, w, c, self.mlp.fc1.out_features)):
-            s_ffn = branch_scale(x.shape[0], rate, generator, x.device)
+            s_ffn = branch_scale(x.shape[0], rate, generator, x.device, shard)
             return block_ffn_train(x.to(dt), *self.ffn_params(), s_ffn, self.norm2.eps,
                                    force=self.force)
         if self.mlp.fuses(x):
             return block_ffn_fused(x.to(dt), self.norm2.weight, self.norm2.bias,
                                    *self.mlp.fused_params(), self.norm2.eps, force=self.force)
-        return x + drop_path(self.mlp(layer_norm(x, self.norm2, dt)), rate, generator)
+        return x + drop_path(self.mlp(layer_norm(x, self.norm2, dt)), rate, generator, shard)
 
 
 class MiT(nn.Module):
@@ -370,12 +374,13 @@ class MiT(nn.Module):
         self.compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> list[torch.Tensor]:
+                generator: torch.Generator | None = None,
+                shard: parallel.DrawShard | None = None) -> list[torch.Tensor]:
         outs = []
         for s in range(1, 5):
             x = getattr(self, f"patch_embed{s}")(x)
             for blk in getattr(self, f"block{s}"):
-                x = blk(x, train, generator)
+                x = blk(x, train, generator, shard)
             x = layer_norm(x, getattr(self, f"norm{s}"), self.compute_dtype)
             outs.append(x)
         return outs

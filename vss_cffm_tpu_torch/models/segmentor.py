@@ -34,6 +34,7 @@ import math
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from ..config import SegmentorConfig
 from .cffm_transformer import CFFMWindowAttention, _PoolLinear
 from .heads import CFFMHead, SegFormerHead
@@ -124,19 +125,30 @@ class CFFMSegmentor(_EncoderDecoder):
 
     def forward(self, imgs: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None,
-                cluster_centers=None) -> torch.Tensor:
+                cluster_centers=None, mesh: parallel.ClipMesh | None = None) -> torch.Tensor:
         """imgs (B, T, H, W, 3) normalised → refined target logits
         (B, H/4, W/4, K); with ``train`` (the model in ``train()`` mode),
         (B, T+1, H/4, W/4, K) with dropout and stochastic depth drawn from
         ``generator``. ``cluster_centers``: the videos' centres (B, n, C) or a
-        ``(centers, mask)`` pair, required in finetune mode."""
+        ``(centers, mask)`` pair, required in finetune mode.
+
+        ``mesh`` (``parallel.create_clip_mesh``): imgs are this rank's
+        ``T / mesh.frames`` frames of its B clips (``shard_clip_batch``). The
+        backbone and the per-frame decode run on them, the fused 1/4 features
+        are gathered over the frames group, and the rest runs on the whole
+        clips on every rank of the group: the output is that of the whole
+        clips. Every random draw takes this rank's entries of the global
+        batch's draw, and the fuse BN's moments are the world's, so a train
+        step on the grid computes the one-process step's (``train/step.py``).
+        Every rank of the grid must call it together."""
         if train and not self.training:
             raise ValueError("forward(train=True) needs the model in train() mode")
         b, t, h, w, c = imgs.shape
         frozen = train and self.decode_head.finetune
         with torch.no_grad() if frozen else contextlib.nullcontext():
-            feats = self.backbone(imgs.reshape(b * t, h, w, c), train, generator)
-        return self.decode_head(feats, b, t, train, generator, cluster_centers)
+            feats = self.backbone(imgs.reshape(b * t, h, w, c), train, generator,
+                                  mesh.draws(rows=b) if mesh is not None else None)
+        return self.decode_head(feats, b, t, train, generator, cluster_centers, mesh)
 
     def frame_features(self, frames: torch.Tensor) -> torch.Tensor:
         """Per-frame fused 1/4 features (N, H/4, W/4, embed_dim) — the

@@ -20,6 +20,13 @@ reductions are explicit ``torch.distributed`` collectives:
   concatenates equal-sized tensors of every rank in rank order;
 - ``rank``, ``world_size``, ``is_main``, ``barrier`` and ``is_distributed``
   read the group;
+- ``create_clip_mesh`` lays the ranks out as a (data, frames) grid, the
+  JAX package's 2-D clip mesh: a clip's frames split over the ranks of a
+  frames group, and ``shard_clip_batch`` gives a rank its rows and frames;
+  ``gather_cat`` is the differentiable all-gather that rebuilds the clip
+  (its backward sums the upstream gradient over the group and returns the
+  rank's slice), and ``DrawShard`` says which entries of a global random
+  draw are the rank's;
 - ``add_arguments`` gives a CLI the flags of ``init_distributed`` and
   ``options`` reads them back.
 
@@ -41,6 +48,7 @@ outside the group, or in a process without one.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import pickle
@@ -54,10 +62,14 @@ import torch.distributed as dist
 
 __all__ = ["init_distributed", "shutdown", "rank", "world_size", "is_main", "barrier",
            "is_distributed", "shard_batch", "replicate", "all_reduce_mean_", "all_reduce_sum",
-           "all_gather_cat", "collective_device", "add_arguments", "options", "free_port",
-           "spawn", "RANK_ENV"]
+           "all_gather_cat", "gather_cat", "collective_device", "add_arguments", "options",
+           "free_port", "spawn", "RANK_ENV", "LOCAL_RANK_ENV", "ClipMesh", "DrawShard",
+           "create_clip_mesh", "shard_clip_batch", "group_size", "world_draws"]
 
 RANK_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+# a process's index among those of its node, read under the coordinator flags:
+# torchrun's, else Slurm's (srun sets it for each task)
+LOCAL_RANK_ENV = ("LOCAL_RANK", "SLURM_LOCALID")
 
 
 def is_distributed() -> bool:
@@ -88,7 +100,9 @@ def barrier() -> None:
 def _rank_settings(coordinator: str | None, num_processes: int | None,
                    process_id: int | None) -> tuple[str, int, int, int]:
     """(init_method, world size, rank, local rank) from torchrun's environment,
-    else from the coordinator flags; raises naming what is missing."""
+    else from the coordinator flags, the local rank from ``LOCAL_RANK_ENV``
+    (on any node but the first the process id is not it), else the process
+    id; raises naming what is missing."""
     env = {k: os.environ.get(k) for k in RANK_ENV}
     if all(v is not None for v in env.values()):
         return ("env://", int(env["WORLD_SIZE"]), int(env["RANK"]), int(env["LOCAL_RANK"]))
@@ -97,7 +111,9 @@ def _rank_settings(coordinator: str | None, num_processes: int | None,
     if all(v is not None for v in flags.values()):
         if ":" not in coordinator:
             raise ValueError(f"--coordinator {coordinator!r}: expected host:port")
-        return f"tcp://{coordinator}", int(num_processes), int(process_id), int(process_id)
+        local = next((os.environ[k] for k in LOCAL_RANK_ENV if os.environ.get(k) is not None),
+                     process_id)
+        return f"tcp://{coordinator}", int(num_processes), int(process_id), int(local)
     raise RuntimeError(
         "--distributed needs a rank environment: launch with torchrun (or the port's "
         "tools/dist_train.sh / dist_test.sh), which sets "
@@ -214,27 +230,186 @@ def all_reduce_mean_(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
     return tensors
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, differentiable: the backward sums the
-    upstream gradient over the ranks (``torch.distributed.nn``). ``x``
-    without a group."""
+def group_size(group=None) -> int:
+    """The ranks of ``group`` (None: the world); 1 without a process group."""
+    return dist.get_world_size(group) if is_distributed() else 1
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (None: the world),
+    differentiable: the backward sums the upstream gradient over the ranks
+    (``torch.distributed.nn``). ``x`` without a process group."""
     if not is_distributed():
         return x
     from torch.distributed.nn.functional import all_reduce
 
-    return all_reduce(x)
+    return all_reduce(x, group=group)
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` where a collective takes it: on the card under NCCL; under gloo
+    where it lies, bf16 / f16 widened to f32 (exact)."""
+    x = x.to(collective_device(x.device)).contiguous()
+    if dist.get_backend() != "nccl" and x.dtype in (torch.bfloat16, torch.float16):
+        x = x.float()
+    return x
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    wire = _wire(x)
+    parts = [torch.empty_like(wire) for _ in range(group_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    return torch.cat(parts, dim=dim).to(device=x.device, dtype=x.dtype)
 
 
 @torch.no_grad()
-def all_gather_cat(x: torch.Tensor) -> torch.Tensor:
+def all_gather_cat(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``x`` (the same shape on each) concatenated along dim 0 in
-    rank order, without gradient (one all-gather); ``x`` without a group."""
+    the rank order of ``group`` (None: the world), without gradient (one
+    all-gather); ``x`` without a process group."""
     if not is_distributed():
         return x
-    x_ = x.to(collective_device(x.device))
-    parts = [torch.empty_like(x_) for _ in range(world_size())]
-    dist.all_gather(parts, x_.contiguous())
-    return torch.cat(parts).to(x.device)
+    return _gather(x, 0, group)
+
+
+class _GatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.size = dim, group, x.shape[dim]
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank's upstream gradient of the whole, summed; this rank's slice
+        wire = _wire(g)
+        dist.all_reduce(wire, group=ctx.group)
+        r = dist.get_rank(ctx.group)
+        own = wire.narrow(ctx.dim, r * ctx.size, ctx.size)
+        return own.to(device=g.device, dtype=g.dtype), None, None
+
+
+def gather_cat(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
+    """Every rank's ``x`` (the same shape on each) concatenated along ``dim``
+    in the rank order of ``group`` (None: the world), differentiable: the
+    backward gives each rank the sum over the group of the upstream
+    gradients of its own slice (so every rank of the group must run the
+    backward). ``x`` without a process group or in a group of one."""
+    if group_size(group) == 1:
+        return x
+    return _GatherCat.apply(x, dim, group)
+
+
+# ---- the (data, frames) grid of a clip ------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DrawShard:
+    """Which entries of a random draw over the global batch are this rank's,
+    so that every rank's generator stays in step with the one-process run's
+    (``models.mit.keep_mask``). The rank holds ``n`` entries, sample-major.
+
+    ``frames == 1``: its samples are rows ``data_index·b … (data_index+1)·b − 1``
+    of ``data·b`` (the global draw's chunk ``data_index``). ``frames > 1``:
+    its samples are its ``n / rows`` frames of each of its ``rows`` rows
+    (a frames-split batch, ``frames`` slices of the clip a row): of the
+    global draw viewed as (data, rows, frames, n / rows), entry
+    ``[data_index, :, frame_index]``."""
+
+    data: int = 1
+    data_index: int = 0
+    frames: int = 1
+    frame_index: int = 0
+    rows: int | None = None
+
+    def uniforms(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        """This rank's ``n`` of the global draw's U(0, 1) entries."""
+        u = torch.rand((self.data * self.frames * n,), generator=generator,
+                       device=generator.device)
+        if self.frames == 1:
+            return u[self.data_index * n:(self.data_index + 1) * n]
+        u = u.view(self.data, self.rows, self.frames, n // self.rows)
+        return u[self.data_index, :, self.frame_index].reshape(-1)
+
+
+def world_draws() -> DrawShard:
+    """The draw of data parallelism over the world: rank r takes chunk r."""
+    return DrawShard(data=world_size(), data_index=rank())
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipMesh:
+    """This rank's place in a (data, frames) grid of ``data · frames`` ranks:
+    rank r sits at (r // frames, r % frames), as the JAX package's
+    ``create_clip_mesh`` reshapes its devices. The ranks of a frames group
+    (one data index) share their rows' clips, each holding ``T / frames``
+    frames; those of a data group (one frame index) hold distinct rows.
+    ``frames_group`` and ``data_group`` are this rank's two process groups
+    (None without a process group)."""
+
+    data: int = 1
+    frames: int = 1
+    data_index: int = 0
+    frame_index: int = 0
+    data_group: Any = None
+    frames_group: Any = None
+
+    def draws(self, rows: int | None = None) -> DrawShard:
+        """The draws of a batch of whole clips of this rank's rows (None), or
+        of its frames of ``rows`` rows (the backbone under a frames split)."""
+        if rows is None:
+            return DrawShard(self.data, self.data_index)
+        return DrawShard(self.data, self.data_index, self.frames, self.frame_index, rows)
+
+    def gather_frames(self, x: torch.Tensor, rows: int) -> torch.Tensor:
+        """This rank's frames of each of its ``rows`` clips (rows·t, ...) →
+        the whole clips (rows·t·frames, ...) in frame order, gathered over the
+        frames group (``gather_cat``: differentiable)."""
+        if self.frames == 1:
+            return x
+        y = gather_cat(x.reshape(rows, -1, *x.shape[1:]), 1, self.frames_group)
+        return y.reshape(-1, *x.shape[1:])
+
+
+def create_clip_mesh(frame_axis: int = 4) -> ClipMesh:
+    """The (data, frames) grid of the process group: ``frames`` is the largest
+    divisor of the world size that is at most ``frame_axis`` (as the JAX
+    package's ``create_clip_mesh`` shrinks it). Every rank must call it
+    together: it makes every frames and data group (``dist.new_group``) in
+    the same order on each rank. Without a process group, a 1 × 1 grid."""
+    if frame_axis < 1:
+        raise ValueError(f"create_clip_mesh: frame_axis {frame_axis}")
+    if not is_distributed():
+        return ClipMesh()
+    n, r = world_size(), rank()
+    frames = min(frame_axis, n)
+    while n % frames:
+        frames -= 1
+    data = n // frames
+    frames_groups = [dist.new_group([d * frames + f for f in range(frames)])
+                     for d in range(data)]
+    data_groups = [dist.new_group([d * frames + f for d in range(data)])
+                   for f in range(frames)]
+    return ClipMesh(data, frames, r // frames, r % frames, data_groups[r % frames],
+                    frames_groups[r // frames])
+
+
+def shard_clip_batch(batch: Any, mesh: ClipMesh) -> Any:
+    """This rank's share of a global (B, T, ...) clip batch on ``mesh``: its
+    rows of the data axis (``shard_batch``'s rule over ``mesh.data``) and, of
+    a tensor or of a dict's ``"imgs"``, its ``T / frames`` frames; a dict's
+    other entries (labels, centres, names) keep their rows' whole clips,
+    which the loss reads after the frames are gathered. Raises unless the
+    frames divide T."""
+    if isinstance(batch, dict):
+        return {k: (shard_clip_batch(v, mesh) if k == "imgs"
+                    else shard_batch(v, mesh.data_index, mesh.data))
+                for k, v in batch.items()}
+    rows = shard_batch(batch, mesh.data_index, mesh.data)
+    t = rows.shape[1]
+    if t % mesh.frames:
+        raise ValueError(f"shard_clip_batch: clips of {t} frames over {mesh.frames} frame ranks")
+    k = t // mesh.frames
+    return rows[:, mesh.frame_index * k:(mesh.frame_index + 1) * k]
 
 
 def add_arguments(parser) -> None:

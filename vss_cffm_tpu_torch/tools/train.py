@@ -65,6 +65,7 @@ from ..data.palette import VSPW_CLASSES, VSPW_PALETTE
 from ..eval.prototypes import ClusterStore
 from ..models import CFFMSegmentor
 from ..train import CheckpointManager, TrainState, make_train_step, poly_schedule
+from ..utils.benchmark import device_of
 from ..utils.logging import get_logger
 
 __all__ = ["build_parser", "main", "train", "step_seed", "PROFILE_FIRST", "PROFILE_LAST"]
@@ -105,14 +106,6 @@ def main(argv: list[str] | None = None) -> dict:
 def step_seed(seed: int, it: int) -> int:
     """The seed of step ``it``'s generator, from ``(seed + 1, it)``."""
     return int(np.random.SeedSequence([seed + 1, it]).generate_state(1, np.uint64)[0])
-
-
-def _device(device: str | torch.device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train: no CUDA device is present; pass --device cpu to train on "
-                           "the CPU")
-    return device
 
 
 def _load_weights(model: CFFMSegmentor, src: str, logger) -> None:
@@ -162,7 +155,7 @@ def train(cfg: ExperimentConfig, *, work_dir: str, device: str | torch.device = 
                          "step trains clip models only (the JAX step cannot train an image "
                          "model either)")
     if distributed is None:
-        return _train(cfg, work_dir, _device(device), seed, load_from, resume_from,
+        return _train(cfg, work_dir, device_of(device, "train"), seed, load_from, resume_from,
                       eval_interval, profile_dir, dataset)
     device = parallel.init_distributed(device, **distributed)
     try:

@@ -63,15 +63,19 @@ class CheckpointManager:
         ``max_to_keep``; every rank waits until it is written (a barrier), so
         that none reads a checkpoint before it exists."""
         if parallel.is_main():
-            self._write(state, metadata)
+            self.save_weights(state.model.state_dict(), int(state.step), metadata,
+                              optimizer=state.optimizer.state_dict(),
+                              scheduler=state.scheduler.state_dict())
         parallel.barrier()
 
-    def _write(self, state: TrainState, metadata: dict | None) -> None:
-        step = int(state.step)
+    def save_weights(self, model_state: dict, step: int = 0, metadata: dict | None = None,
+                     **extra) -> None:
+        """Write ``model_state`` (a model's ``state_dict``) as the checkpoint
+        of ``step``, with ``extra`` entries beside it (a train state's
+        optimizer and scheduler), and ``metadata``; then prune to
+        ``max_to_keep``. This process writes, whatever its rank."""
         tmp = self._path(step) + ".tmp"
-        torch.save({"step": step, "model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "scheduler": state.scheduler.state_dict()}, tmp)
+        torch.save({"step": step, "model": model_state, **extra}, tmp)
         os.replace(tmp, self._path(step))
         if metadata is not None:
             with open(self._meta_path(step), "w") as f:
@@ -85,7 +89,10 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def _load(self, step: int | None) -> dict:
+    def read(self, step: int | None = None) -> dict:
+        """The dict saved at ``step`` (the latest by default), on the CPU:
+        "step", "model" (a ``state_dict``) and, in a train checkpoint,
+        "optimizer" and "scheduler"."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -98,7 +105,7 @@ class CheckpointManager:
         schedule is the current config's, the hyperparameters stay those
         ``state`` was built with (lr, betas, decay; the schedule's lr at the
         restored step, e.g. after ``optim.max_iters`` is raised)."""
-        ckpt = self._load(step)
+        ckpt = self.read(step)
         state.model.load_state_dict(ckpt["model"], strict=True)
         opt, sched = state.optimizer, state.scheduler
         hyper = [{k: v for k, v in g.items() if k != "params"} for g in opt.param_groups]
@@ -116,7 +123,7 @@ class CheckpointManager:
         the checkpoint's weights overlaid on ``model``; parameters and buffers
         the checkpoint lacks keep their values, its optimizer state is
         ignored. Returns the names of those kept."""
-        return list(model.load_state_dict(self._load(step)["model"], strict=False).missing_keys)
+        return list(model.load_state_dict(self.read(step)["model"], strict=False).missing_keys)
 
     def metadata(self, step: int | None = None) -> dict | None:
         step = step if step is not None else self.latest_step()

@@ -1,5 +1,6 @@
 """Timing of one call, the counterpart of the JAX package's
-``vss_cffm_tpu/utils/benchmark.py:time_apply_chunked``.
+``vss_cffm_tpu/utils/benchmark.py:time_apply_chunked``, and ``device_of``,
+the device a CLI or tool runs on (the card unless the CPU is asked for).
 
 On the card: after ``warmup`` calls, chunks of ``chunk`` back-to-back calls,
 each chunk between two CUDA events on the current stream; the time per call
@@ -17,7 +18,18 @@ from typing import Callable
 
 import torch
 
-__all__ = ["time_apply_chunked"]
+__all__ = ["time_apply_chunked", "device_of"]
+
+
+def device_of(device: str | torch.device, what: str) -> torch.device:
+    """``device`` as a ``torch.device``; raises when it names the card and no
+    card is present (a tool measures the device it is asked for, or
+    nothing)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: no CUDA device is present; pass --device cpu to run on "
+                           "the CPU")
+    return device
 
 
 def time_apply_chunked(fn: Callable[[], object], device: torch.device | str,
