@@ -176,10 +176,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      published one (5d's per-clip confusion, exactly); ``bf16_dynamics.py``
      (B0 64x64, 60 steps each run: finite, the last 20 losses' mean below
      the first 10's);
+  5g. ``[export]`` (``export_phase``): ``tools/export.py``'s ``main`` with
+     ``--verify`` on CFFM-B1 at full widths (``configs/cffm_b1_vspw_160k.py``,
+     a random ``.pth`` from SEED), a 480x480 clip of 4 frames in bf16: the
+     graph's ``vss_cffm::`` ops and the live and reloaded launches held to
+     4 / 2 / 4 (rows 1 / 2 / 3); a process that imports only
+     ``vss_cffm_tpu_torch.ops`` reloads the ``.pt2`` and runs the clip
+     (launches 4 / 2 / 4, no model module imported, logits within 1e-3 of
+     the live forward's largest, bitwise equality printed); host ms a clip
+     of the program against the live forward in alternating rounds; one
+     clip of each under torch.profiler (device busy, the ``aten::_to_copy``
+     casts' calls and device ms); the host µs of a ``dwconv3x3`` call
+     through its custom op against the bare launch function (launch
+     replaced by nothing); then ``[dropout]``: one default train step of B1
+     with MiT ``drop_rate`` = ``attn_drop_rate`` = decoder ``drop`` =
+     ``attn_drop`` = 0.1, twice from the same weights and generator seed
+     (finite, rows 6 / 7 and 2 / 4 not launched, dwconv3x3 8, the same
+     loss);
   7. one JSON line of kernels (``launches_by_path`` with each path's counts,
      ``dist_rank0`` / ``dist_rank1`` the ranks' launches over 5e's steps,
      ``dist_frames*`` / ``dist_lovasz*`` over (e) and (f), ``tools_*`` over
-     5f's runs),
+     5f's runs, ``export_reloaded`` over 5g's reloaded clip and
+     ``dropout_step`` over its first step),
      the ``nvidia-smi`` line, and the final ``{"ok": true, "device": {...}}``
      line.
 
@@ -1217,6 +1235,17 @@ def _grad_agreement(model, x, labels, loss_of, form: str) -> None:
         raise RuntimeError("kernel-path gradients disagree with the plain path's")
 
 
+def _synthetic_train_batch(seed: int) -> dict:
+    """A (TRAIN_B, TRAIN_T, 480, 480) uint8 batch on the card, labels in
+    [0, NUM_CLASSES) with ~5 % ignored (255)."""
+    rng = np.random.RandomState(seed)
+    shape = (TRAIN_B, TRAIN_T, TRAIN_HW, TRAIN_HW)
+    imgs = torch.from_numpy(rng.randint(0, 256, (*shape, 3), dtype=np.uint8)).cuda()
+    labels = rng.randint(0, NUM_CLASSES, shape).astype(np.uint8)
+    labels[rng.rand(*shape) < 0.05] = 255
+    return {"imgs": imgs, "labels": torch.from_numpy(labels).cuda()}
+
+
 def train_phase(apis, ops, opts, root, kind, smi, form: str) -> tuple[dict, dict]:
     """One block form of the train step (``TRAIN_FORMS``): kernel checks at its
     inputs, gradient agreement, the counted steps and the timed rounds.
@@ -1233,13 +1262,8 @@ def train_phase(apis, ops, opts, root, kind, smi, form: str) -> tuple[dict, dict
     print(f"[{form}] train_block_impl={cfg.train_block_impl} loss={cfg.head.loss}", flush=True)
     bundle = apis.init_segmentor(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
     model = bundle.model.train()
-    rng = np.random.RandomState(SEED + 1)
-    shape = (TRAIN_B, TRAIN_T, TRAIN_HW, TRAIN_HW)
-    imgs = torch.from_numpy(rng.randint(0, 256, (*shape, 3), dtype=np.uint8)).cuda()
-    labels = rng.randint(0, NUM_CLASSES, shape).astype(np.uint8)
-    labels[rng.rand(*shape) < 0.05] = 255
-    batch = {"imgs": imgs, "labels": torch.from_numpy(labels).cuda()}
-    x = device_normalize(imgs, torch.bfloat16)
+    batch = _synthetic_train_batch(SEED + 1)
+    x = device_normalize(batch["imgs"], torch.bfloat16)
 
     caught = _capture_train_inputs(model, x, batch["labels"], loss_of, spec["kernels"])
     for q, ks, _, _, _, nh in caught.get("cfm_attention_probs", ()):
@@ -2817,6 +2841,259 @@ def tools_phase(ops, root: str, smi: str, cffm_ckpt: str, one_process: dict) -> 
     return counts
 
 
+# ---- [export]: the clip forward through tools/export.py, reloaded apart --------
+
+EXPORT_CONFIG = os.path.join("vss_cffm_tpu_torch", "configs", "cffm_b1_vspw_160k.py")
+EXPORT_HW = (480, 480)
+# rows 1 / 2 / 3 in the graph and in a reloaded clip's launches
+EXPORT_PLAN = {"mit_block_fused": 4, "cfm_attention": 2, "dwconv3x3": 4}
+EXPORT_REL = 1e-3              # reloaded vs live logits, of the live forward's largest
+EXPORT_ROUNDS, EXPORT_CLIPS = 3, 10
+DROP_RATE = 0.1
+
+# run by a process that imports only the ops: argv = program, clip, output
+_RELOAD = """
+import json, sys, time
+import torch
+import vss_cffm_tpu_torch.ops as ops
+t0 = time.perf_counter()
+program = torch.export.load(sys.argv[1]).module()
+load_s = time.perf_counter() - t0
+x = torch.load(sys.argv[2]).cuda()
+with torch.no_grad():
+    program(x)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = program(x)
+    torch.cuda.synchronize()
+torch.save(out.cpu(), sys.argv[3])
+print(json.dumps({"launches": ops.launches(), "load_s": load_s,
+                  "modules": sorted(m for m in sys.modules if m.startswith("vss_cffm_tpu_torch"))}))
+"""
+
+
+def _host_ms_rounds(runs: dict, x: torch.Tensor) -> dict:
+    """Host ms a clip of each callable, EXPORT_ROUNDS rounds of EXPORT_CLIPS
+    clips up to a synchronize, alternating their order round by round."""
+    ms = {name: [] for name in runs}
+    with torch.no_grad():
+        for fn in runs.values():
+            fn(x)
+        for r in range(EXPORT_ROUNDS):
+            for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                for _ in range(EXPORT_CLIPS):
+                    runs[name](x)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - ts) * 1e3 / EXPORT_CLIPS)
+    return ms
+
+
+def _cast_device_ms(fn, x: torch.Tensor) -> tuple[float, float, int]:
+    """(device busy ms, device ms under ``aten::_to_copy``, its calls) of one
+    clip, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        fn(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(x)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    casts = [e for e in events if e.key == "aten::_to_copy"]
+    return (busy, sum(e.device_time_total for e in casts) / 1e3, sum(e.count for e in casts))
+
+
+def _dispatch_us(ops, x, k, b, calls: int = 2000) -> tuple[float, float]:
+    """Host µs of one ``dwconv3x3`` call (the custom op's dispatch, the
+    wrapper, its checks, allocation and ctypes call) and of the bare launch
+    function at the same input, both with the C entry's no-launch twin in
+    place (``_dwconv_host_us``), in alternating halves."""
+    from vss_cffm_tpu_torch.ops import _build
+
+    dw = importlib.import_module("vss_cffm_tpu_torch.ops.dwconv")
+    calls_of = {"op": lambda: ops.dwconv3x3(x, k, b, gelu=True),
+                "bare": lambda: dw.dwconv3x3_launch(x, k, b, True)}
+    real, count = dw._c_entry(), ops.dwconv3x3.launches
+    dw._entry["dwconv3x3_nhwc"] = _build.library("dwconv").dwconv3x3_nhwc_nolaunch
+    us = {name: 0.0 for name in calls_of}
+    try:
+        with torch.no_grad():
+            for order in (("op", "bare"), ("bare", "op")):
+                for name in order:
+                    fn = calls_of[name]
+                    for _ in range(50):
+                        fn()
+                    torch.cuda.synchronize()
+                    ts = time.perf_counter()
+                    for _ in range(calls // 2):
+                        fn()
+                    us[name] += (time.perf_counter() - ts) * 1e6 / calls
+    finally:
+        dw._entry["dwconv3x3_nhwc"] = real
+        ops.dwconv3x3.launches = count  # nothing was launched
+    return us["op"], us["bare"]
+
+
+def _dropout_steps(ops) -> dict:
+    """One default train step of CFFM-B1 with MiT ``drop_rate`` and
+    ``attn_drop_rate`` and the decoder's ``drop`` and ``attn_drop`` at
+    DROP_RATE, twice from the same weights and generator seed: a finite
+    loss, the MiT blocks composed (rows 6 / 7 not launched) and the
+    decoder's attention on its probabilities path (rows 2 / 4 not
+    launched), the same loss both times. Returns the first step's launches."""
+    from vss_cffm_tpu_torch import apis
+    from vss_cffm_tpu_torch.config import MIT_VARIANTS, OptimConfig, build_model_config
+    from vss_cffm_tpu_torch.train import TrainState, make_train_step
+
+    # the MiT rates come from the variant's registry entry, as in the JAX package
+    name = "mit_b1_dropout"
+    MIT_VARIANTS[name] = dataclasses.replace(MIT_VARIANTS["mit_b1"], drop_rate=DROP_RATE,
+                                             attn_drop_rate=DROP_RATE)
+    batch = _synthetic_train_batch(SEED + 1)
+    losses, counts = [], None
+    try:
+        cfg = build_model_config("b1")
+        cfg = dataclasses.replace(cfg, backbone=name, head=dataclasses.replace(
+            cfg.head, decoder=dataclasses.replace(cfg.head.decoder, drop=DROP_RATE,
+                                                  attn_drop=DROP_RATE)))
+        for run in range(2):
+            model = apis.init_segmentor(cfg, device="cuda", dtype=torch.bfloat16,
+                                        seed=SEED).model.train()
+            state = TrainState.create(model, OptimConfig())
+            step = make_train_step(model, state.optimizer, state.scheduler)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            ts = time.perf_counter()
+            m = step(batch, torch.Generator("cuda").manual_seed(SEED))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - ts) * 1e3
+            losses.append(m["loss_seg"].item())
+            counts = counts or ops.launches()
+            print(f"[dropout] run {run}: loss_seg {losses[-1]!r} acc_seg {m['acc_seg'].item():.6f} "
+                  f"grad_norm {m['grad_norm'].item():.6f}; host ms of the step (the first of a "
+                  f"model: cuDNN and allocator warm-up included) {step_ms:.1f}", flush=True)
+            del model, state, step
+    finally:
+        del MIT_VARIANTS[name]
+    print(f"[dropout] CFFM-B1 480x480 B={TRAIN_B} clip-{TRAIN_T} bf16, MiT drop_rate = "
+          f"attn_drop_rate = decoder drop = attn_drop = {DROP_RATE}, train_block_impl "
+          f"{cfg.train_block_impl}: launches of one step {counts}", flush=True)
+    if not np.isfinite(losses[0]):
+        raise RuntimeError(f"dropout step: loss {losses[0]}")
+    zero = ("mit_block_train", "mit_block_train_bwd", "cfm_attention", "cfm_attention_bwd")
+    if any(counts[k] for k in zero) or counts["dwconv3x3"] != 8:
+        raise RuntimeError(f"dropout step: launches {counts}; expected rows 6 / 7 / 2 / 4 at 0 "
+                           "(composed blocks, the probabilities path) and dwconv3x3 8")
+    print(f"[dropout] the same loss from the same generator seed: {losses[0]!r} vs "
+          f"{losses[1]!r} (bitwise {losses[0] == losses[1]})", flush=True)
+    if losses[0] != losses[1]:
+        raise RuntimeError(f"dropout step: losses {losses} differ from one generator seed")
+    return counts
+
+
+def export_phase(ops, root: str, smi: str, work_root: str) -> dict:
+    """``[export]``: CFFM-B1 at full widths (random weights from SEED as a
+    ``.pth``) through ``tools/export.py``'s ``main`` with ``--verify`` on a
+    480x480 clip of 4 frames in bf16; the graph's custom ops and the live
+    and reloaded launches held to EXPORT_PLAN; a process that imports only
+    the ops reloads the program and runs the clip (launches held, logits
+    within EXPORT_REL of the live forward's largest); host ms a clip of the
+    program against the live forward in alternating rounds; the weight
+    casts' device time in the program; the custom op's dispatch µs; then
+    the dropout step (``_dropout_steps``). Returns the launches by path."""
+    from vss_cffm_tpu_torch import apis
+    from vss_cffm_tpu_torch.tools import export
+
+    t0 = time.perf_counter()
+    config = os.path.join(root, EXPORT_CONFIG)
+    ckpt, out = os.path.join(work_root, "export_b1.pth"), os.path.join(work_root, "b1.pt2")
+    torch.save(apis.init_segmentor(config, device="cuda", seed=SEED).model.state_dict(), ckpt)
+    ts = time.perf_counter()
+    res = export.main([config, ckpt, out, "--shape", *map(str, EXPORT_HW), "--verify"])
+    tool_s = time.perf_counter() - ts
+    plan = {f"vss_cffm::{k}": v for k, v in EXPORT_PLAN.items()}
+    print(f"[export] tools/export.py {EXPORT_CONFIG} --shape {EXPORT_HW[0]} {EXPORT_HW[1]} "
+          f"--verify: {tool_s:.1f} s (export, save, reload, two verify clips); {res['mb']:.1f} "
+          f"MB; graph {res['graph_ops']}; live launches {res['live_launches']}, reloaded "
+          f"{res['reloaded_launches']}; reloaded vs live max_abs_err={res['max_abs_err']:.3e} "
+          f"of max|live| {res['max_abs_live']:.3e}, bitwise equal {res['bitwise']}", flush=True)
+    if res["graph_ops"] != plan:
+        raise RuntimeError(f"export: graph custom ops {res['graph_ops']}, expected {plan}")
+    for what in ("live_launches", "reloaded_launches"):
+        got = {k: v for k, v in res[what].items() if k in EXPORT_PLAN}
+        if got != EXPORT_PLAN:
+            raise RuntimeError(f"export: {what} {res[what]}, expected {EXPORT_PLAN}")
+    if not res["max_abs_err"] <= EXPORT_REL * res["max_abs_live"]:
+        raise RuntimeError(f"export: reloaded logits {res['max_abs_err']} from the live ones")
+
+    bundle = apis.init_segmentor(config, checkpoint=ckpt, device="cuda")
+    model = bundle.model
+    x = torch.from_numpy(np.random.RandomState(SEED).randn(1, 4, *EXPORT_HW, 3)
+                         .astype(np.float32)).cuda()
+    module = res["program"]
+    nodes = [n for n in module.graph.nodes if n.op == "call_function"]
+    n_to = sum(1 for n in nodes if str(n.target).startswith("aten.to"))
+    with torch.no_grad():
+        live = model(x)
+    xin = os.path.join(work_root, "export_clip.pt")
+    yout = os.path.join(work_root, "export_out.pt")
+    torch.save(x.cpu(), xin)
+    ts = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _RELOAD, out, xin, yout], capture_output=True,
+                       text=True, timeout=600, env=dict(os.environ, PYTHONPATH=root))
+    if r.returncode != 0:
+        raise RuntimeError(f"export: the reloading process failed:\n{r.stderr[-4000:]}")
+    sub = json.loads(r.stdout.strip().splitlines()[-1])
+    got = torch.load(yout).cuda()
+    err = (got.float() - live.float()).abs().max().item()
+    scale = live.float().abs().max().item()
+    reloaded = {k: v for k, v in sub["launches"].items() if v}
+    print(f"[export] a process importing only vss_cffm_tpu_torch.ops (modules "
+          f"{sub['modules']}) reloaded the program in {sub['load_s']:.2f} s and ran the clip "
+          f"in {time.perf_counter() - ts:.1f} s of wall time (process start included): "
+          f"launches {reloaded}; logits {tuple(got.shape)} vs live max_abs_err={err:.3e} "
+          f"max|live|={scale:.3e} (limit {EXPORT_REL} of it), bitwise equal "
+          f"{bool(torch.equal(got, live))}", flush=True)
+    if any(m.startswith("vss_cffm_tpu_torch.models") for m in sub["modules"]):
+        raise RuntimeError("export: the reloading process imported the model code")
+    if {k: v for k, v in reloaded.items() if k in EXPORT_PLAN} != EXPORT_PLAN:
+        raise RuntimeError(f"export: the reloaded program launched {reloaded}")
+    if not err <= EXPORT_REL * scale or not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"export: reloaded logits {err} from the live ones")
+
+    ms = _host_ms_rounds({"program": module, "live": model}, x)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"[export] CFFM-B1 480x480 clip-4 bf16, host ms a clip (to a synchronize), "
+          f"{EXPORT_ROUNDS} rounds of {EXPORT_CLIPS} alternating: exported program "
+          f"{med['program']:.3f} ({', '.join(f'{v:.3f}' for v in ms['program'])}), live "
+          f"forward {med['live']:.3f} ({', '.join(f'{v:.3f}' for v in ms['live'])}); "
+          f"program/live {med['program'] / med['live']:.3f} | {smi}", flush=True)
+    busy_p, cast_p, n_cast_p = _cast_device_ms(module, x)
+    busy_l, cast_l, n_cast_l = _cast_device_ms(model, x)
+    print(f"[export] one clip under torch.profiler: exported program device busy "
+          f"{busy_p:.3f} ms, aten::_to_copy {n_cast_p} calls {cast_p:.3f} device ms (the graph "
+          f"holds {n_to} aten.to* nodes of {len(nodes)}); live forward device busy {busy_l:.3f} "
+          f"ms, aten::_to_copy {n_cast_l} calls {cast_l:.3f} device ms (its casts kept by "
+          f"derived())", flush=True)
+    xs, k, b = _capture_main_path_inputs(model, x)["dwconv3x3"][0]
+    op_us, bare_us = _dispatch_us(ops, xs, k, b)
+    print(f"[export] dwconv3x3 at x{tuple(xs.shape)}, the launch replaced by nothing: "
+          f"custom op {op_us:.2f} host us a call, bare launch function {bare_us:.2f}: "
+          f"dispatch {op_us - bare_us:.2f} us | {smi}", flush=True)
+    del bundle, model, module, live, got, res
+    torch.cuda.empty_cache()
+    counts = {"export_reloaded": sub["launches"], "dropout_step": _dropout_steps(ops)}
+    torch.cuda.empty_cache()
+    print(f"[export] done in {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    return counts
+
+
 # ---- the CE microbench: its six kernels at its own inputs --------------------
 
 CE_BENCH_N = (8, 2)  # the train step's frames, and one clip's branch
@@ -3676,6 +3953,9 @@ def main() -> int:
 
         # ---- 5f. the measuring and publishing tools
         tools_counts = tools_phase(ops, root, smi, cffm_ckpt, one_process)
+
+        # ---- 5g. the clip forward exported with its kernels; dropout above 0
+        export_counts = export_phase(ops, root, smi, work_root)
     finally:
         shutil.rmtree(work_root, ignore_errors=True)
 
@@ -3713,7 +3993,8 @@ def main() -> int:
                    **{p: c[cn] for p, c in image_counts.items()},
                    **{p: c[cn] for p, c in test_cli_counts.items()},
                    **{p: c[cn] for p, c in dist_counts.items()},
-                   **{p: c[cn] for p, c in tools_counts.items()}}
+                   **{p: c[cn] for p, c in tools_counts.items()},
+                   **{p: c[cn] for p, c in export_counts.items()}}
         row = {"name": name, "route": "cuda", "source": spec["sources"][0],
                "sources": spec["sources"],
                "replaces": spec["replaces"], "launches": by_path[path], "path": path,

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from torch_port_common import few_threads  # noqa: F401 (the module's fixture)
-from torch_port_common import jax_config, perturbed_variables, port_config
+from torch_port_common import jax_config, port_config, port_weights
 from vss_cffm_tpu.apis import SegmentorBundle as JaxBundle
 from vss_cffm_tpu.apis import inference_segmentor as jax_inference_segmentor
 from vss_cffm_tpu.config import DataConfig, ExperimentConfig
@@ -25,7 +25,6 @@ from vss_cffm_tpu.models.segmentor import CFFMSegmentor as JaxSegmentor
 from vss_cffm_tpu.models.segmentor import build_model_config as jax_build_model_config
 from vss_cffm_tpu_torch import apis, config as pcfg
 from vss_cffm_tpu_torch.data import transforms as port_transforms
-from vss_cffm_tpu_torch.utils import state_dict_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,7 +38,7 @@ def test_inference_segmentor_matches_jax():
     (or f32-rounding) ties of the argmax, hence ≥ 99.5% agreement."""
     jcfg = jax_config("b0", num_classes=7, depth=1)
     jm = JaxSegmentor(jcfg)
-    variables = perturbed_variables(jm, np.zeros((1, 4, 128, 128, 3), np.float32), seed=5)
+    variables, state_dict = port_weights(jcfg, seed=5)
     exp = ExperimentConfig(model=jcfg, data=DataConfig(crop_size=(128, 128),
                                                        img_scale=(128, 128)))
     jb = JaxBundle(jm, variables["params"], variables["batch_stats"], exp)
@@ -47,8 +46,8 @@ def test_inference_segmentor_matches_jax():
               for i in range(4)]
     want = np.asarray(jax_inference_segmentor(jb, frames))
 
-    pb = apis.init_segmentor(port_config(jcfg), state_dict_from_jax(variables, jcfg),
-                             device="cpu", dtype=torch.float32, img_scale=(128, 128))
+    pb = apis.init_segmentor(port_config(jcfg), state_dict, device="cpu", dtype=torch.float32,
+                             img_scale=(128, 128))
     got = apis.inference_segmentor(pb, frames)
     assert got.dtype == torch.int64 and tuple(got.shape) == want.shape == (128, 128)
     agree = (got.numpy() == want).mean()

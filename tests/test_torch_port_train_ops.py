@@ -263,8 +263,9 @@ def test_unsupported_train_settings_raise():
     default is the port's, and the override parser takes per-stage forms.
     ``dwconv_impl`` takes None and "fused"; the JAX package's TPU and
     interpret names raise. Every loss the JAX ``make_clip_loss`` serves is
-    built; an unknown loss type, a class weight of the wrong length and an
-    ``ignore_index`` inside [0, C) raise."""
+    built; an unknown loss type, a class weight of the wrong length, an
+    ``ignore_index`` inside [0, C) and a decoder dropout rate of 1 (a keep
+    probability of 0 cannot scale) raise."""
     assert pcfg.build_model_config("b1").train_block_impl == ("full", "full", "full", None)
     cfg = pcfg.apply_overrides(pcfg.build_model_config("b1"),
                                ["train_block_impl=ffn,ffn,full,"])
@@ -295,8 +296,8 @@ def test_unsupported_train_settings_raise():
         clip_ce_loss(torch.zeros(1, 5, 2, 2, 7), torch.zeros(1, 4, 8, 8, dtype=torch.uint8),
                      ignore_index=3)
     cfg = pcfg.build_model_config("b0", num_classes=7)
-    with pytest.raises(NotImplementedError, match="CFFM decoder dropout"):
-        dec = dataclasses.replace(cfg.head.decoder, attn_drop=0.1)
+    with pytest.raises(ValueError, match=r"attn_drop=1.0: a dropout rate must be in \[0, 1\)"):
+        dec = dataclasses.replace(cfg.head.decoder, attn_drop=1.0)
         CFFMSegmentor(dataclasses.replace(cfg, head=dataclasses.replace(cfg.head, decoder=dec)))
     model = CFFMSegmentor(cfg).eval()
     with pytest.raises(ValueError, match="train\\(\\) mode"):

@@ -89,16 +89,25 @@ def perturbed_variables(model, sample, seed: int = 0, scale: float = 0.02):
     return jax.tree_util.tree_map_with_path(bump, variables)
 
 
+# the clip size of ``jax_and_port``'s JAX init
+_INIT_HW = (112, 112)
+
+
 def jax_and_port(variant="b0", hw=(112, 112), depth=1, num_classes=7, seed=0,
                  jax_block_impl=(None, "fused", "fused", None), dwconv_impl=None):
     """(JAX model, its variables, the port model on the same weights, the input clip)."""
     jcfg = jax_config(variant, num_classes, depth, jax_block_impl, dwconv_impl)
     jmodel = JaxSegmentor(jcfg)
     clip = np.random.RandomState(seed).randn(1, 4, *hw, 3).astype(np.float32)
-    # the fused FFN keeps the composed parameter tree: init without it, as
-    # its interpreted kernel would make the init trace slow
-    variables = perturbed_variables(JaxSegmentor(dataclasses.replace(jcfg, dwconv_impl=None)),
-                                    clip, seed)
+    # the interpreted block and FFN kernels keep the composed parameter tree,
+    # and no parameter's shape or value depends on the input's size: init
+    # without them at one clip size, so that every form and geometry shares
+    # one compiled init (an interpreted kernel would also make the init
+    # trace slow)
+    init_cfg = dataclasses.replace(jcfg, dwconv_impl=None, block_impl=(None, "fused", "fused",
+                                                                       None))
+    variables = perturbed_variables(JaxSegmentor(init_cfg),
+                                    np.zeros((1, 4, *_INIT_HW, 3), np.float32), seed)
     pmodel = CFFMSegmentor(port_config(jcfg))
     pmodel.load_state_dict(state_dict_from_jax(variables, jcfg), strict=True)
     return jmodel, variables, pmodel.eval(), clip
@@ -424,20 +433,36 @@ def replay_loss(logits, labels, s, img_w, plan, count_acc=True, loop: bool = Fal
 EVAL_HW, EVAL_SCALE, EVAL_CLASSES = (64, 96), (96, 64), 5
 
 
+# port_weights' results by (JAX config, seed), made once a process (the
+# port's init and the two conversions take seconds)
+_PORT_WEIGHTS: dict = {}
+
+
+def port_weights(jcfg, seed: int = 0) -> tuple[dict, dict]:
+    """(JAX variables, port state dict) of one set of weights for the JAX
+    config ``jcfg``: the port's init from ``seed`` perturbed with numpy
+    noise, carried to JAX (``to_jax_tree``) and back
+    (``state_dict_from_jax``); no JAX init is compiled."""
+    key = (repr(jcfg), seed)
+    if key not in _PORT_WEIGHTS:
+        pm = CFFMSegmentor(port_config(jcfg))
+        pm.init_weights(torch.Generator().manual_seed(seed))
+        rng = np.random.RandomState(seed + 1)
+        with torch.no_grad():
+            for p in pm.parameters():
+                p += torch.from_numpy(0.02 * rng.standard_normal(p.shape).astype(np.float32))
+        variables = to_jax_tree(pm, {}, jcfg)
+        _PORT_WEIGHTS[key] = variables, state_dict_from_jax(variables, jcfg)
+    return _PORT_WEIGHTS[key]
+
+
 def eval_models(seed: int = 0):
-    """(JAX B0 segmentor at decoder depth 1, its variables, the port model on
-    the same weights in eval mode): the port's init perturbed with numpy
-    noise, carried to JAX (``to_jax_tree``) and back (``state_dict_from_jax``)."""
+    """(JAX B0 segmentor at decoder depth 1, its variables, a new port model on
+    the same weights in eval mode), the weights of ``port_weights``."""
     jcfg = jax_config("b0", num_classes=EVAL_CLASSES, depth=1)
-    pm = CFFMSegmentor(port_config(jcfg))
-    pm.init_weights(torch.Generator().manual_seed(seed))
-    rng = np.random.RandomState(seed + 1)
-    with torch.no_grad():
-        for p in pm.parameters():
-            p += torch.from_numpy(0.02 * rng.standard_normal(p.shape).astype(np.float32))
-    variables = to_jax_tree(pm, {}, jcfg)
+    variables, state_dict = port_weights(jcfg, seed)
     port = CFFMSegmentor(port_config(jcfg))
-    port.load_state_dict(state_dict_from_jax(variables, jcfg), strict=True)
+    port.load_state_dict(state_dict, strict=True)
     return JaxSegmentor(jcfg), variables, port.eval()
 
 

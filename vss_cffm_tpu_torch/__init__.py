@@ -7,9 +7,19 @@ Hopper (``csrc/``, built with nvcc at first use). The JAX package
 ``vss_cffm_tpu`` stays the reference; this package imports nothing of it.
 """
 
-from .apis import SegmentorBundle, inference_segmentor, init_segmentor
-from .config import SegmentorConfig, build_model_config
-from .models import CFFMSegmentor
+import importlib
 
-__all__ = ["SegmentorBundle", "init_segmentor", "inference_segmentor",
-           "SegmentorConfig", "build_model_config", "CFFMSegmentor"]
+# the package's names, each imported from its module at first use, so that
+# importing one subpackage (``vss_cffm_tpu_torch.ops``, all that a process
+# reloading an exported program needs) does not import the model code
+_NAMES = {"SegmentorBundle": "apis", "init_segmentor": "apis", "inference_segmentor": "apis",
+          "SegmentorConfig": "config", "build_model_config": "config",
+          "CFFMSegmentor": "models"}
+
+__all__ = list(_NAMES)
+
+
+def __getattr__(name: str):
+    if name not in _NAMES:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{_NAMES[name]}", __name__), name)

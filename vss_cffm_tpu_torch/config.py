@@ -102,8 +102,7 @@ class CFFMDecoderConfig:
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
     # dropout of the attention output and MLP, attention dropout, stochastic
-    # depth: 0 in every CFFM config; only drop_path is ported (> 0 for the
-    # other two raises)
+    # depth (the first two 0 in every CFFM config; each a rate in [0, 1))
     drop: float = 0.0
     attn_drop: float = 0.0
     drop_path: float = 0.0

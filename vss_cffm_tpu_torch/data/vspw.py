@@ -42,7 +42,8 @@ import numpy as np
 
 from . import transforms as T
 
-__all__ = ["VSPWVideoDataset", "ClipSample", "load_label", "reduce_zero_label", "TTA_RATIOS"]
+__all__ = ["VSPWVideoDataset", "ClipSample", "load_label", "load_image", "reduce_zero_label",
+           "normalized", "resized_normalized", "scaled_crop", "TTA_RATIOS"]
 
 # the img_scale ratios of --aug-test (reference ``MultiScaleFlipAug``)
 TTA_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
@@ -79,6 +80,36 @@ def _resized(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     """``cv2.resize(img, hw[::-1])`` bilinear, bit for bit (to the same size
     it copies)."""
     return img if tuple(hw) == img.shape[:2] else T.resize_window(img, *hw, 0, 0, *hw)
+
+
+def normalized(imgs: Sequence[np.ndarray]) -> list[np.ndarray]:
+    """uint8 BGR frames → RGB (x − mean) / std in f32, as the JAX numpy route."""
+    mean, std = np.array(T.IMG_MEAN, np.float32), np.array(T.IMG_STD, np.float32)
+    return [(im[..., ::-1].astype(np.float32) - mean) / std for im in imgs]
+
+
+def resized_normalized(img: np.ndarray, img_scale: tuple[int, int]) -> np.ndarray:
+    """One uint8 BGR frame resized to fit ``img_scale``, then up to multiples
+    of 32 (``AlignedResize``), with cv2's bilinear bits, and normalised."""
+    img = _resized(img, T.rescale_size(img.shape[:2], img_scale))
+    return normalized([_resized(img, T.aligned_size(img.shape[:2]))])[0]
+
+
+def scaled_crop(imgs: list[np.ndarray], segs: list[np.ndarray], rng: np.random.RandomState,
+                img_scale: tuple[int, int], crop_size: tuple[int, int]
+                ) -> tuple[list[np.ndarray], list[np.ndarray]]:
+    """``random_scale_clip`` then ``random_crop_clip`` with their draws (the
+    ratio, then the crop box on the nearest-resized last label), resizing
+    only the crop window of each frame and label: the same bits."""
+    scale = T.draw_scale(rng, img_scale)
+    y1, y2, x1, x2 = T.sample_crop_box(T.imrescale(segs[-1], scale, nearest=True), rng,
+                                       crop_size)
+
+    def window(a: np.ndarray, resize) -> np.ndarray:
+        rh, rw = T.rescale_size(a.shape[:2], scale)
+        return resize(a, rh, rw, y1, x1, max(min(y2, rh) - y1, 0), max(min(x2, rw) - x1, 0))
+
+    return [window(im, T.resize_window) for im in imgs], [window(s, T.label_window) for s in segs]
 
 
 @dataclasses.dataclass
@@ -211,21 +242,11 @@ class VSPWVideoDataset:
         names = [frames[i] for i in sample.frame_indices]
         imgs = [self.read_frame(sample.video, n) for n in names]
         segs = [self.read_label(sample.video, n) for n in names]
-        scale = T.draw_scale(rng, self.img_scale)
-        y1, y2, x1, x2 = T.sample_crop_box(T.imrescale(segs[-1], scale, nearest=True), rng,
-                                           self.crop_size)
-
-        def window(a: np.ndarray, resize) -> np.ndarray:
-            rh, rw = T.rescale_size(a.shape[:2], scale)
-            return resize(a, rh, rw, y1, x1, max(min(y2, rh) - y1, 0), max(min(x2, rw) - x1, 0))
-
-        imgs = [window(im, T.resize_window) for im in imgs]
-        segs = [window(s, T.label_window) for s in segs]
+        imgs, segs = scaled_crop(imgs, segs, rng, self.img_scale, self.crop_size)
         imgs, segs, _ = T.random_flip_clip(imgs, segs, rng)
         imgs = T.photometric_distortion_clip(imgs, rng)
         if normalize:
-            mean, std = np.array(T.IMG_MEAN, np.float32), np.array(T.IMG_STD, np.float32)
-            imgs = [(im[..., ::-1].astype(np.float32) - mean) / std for im in imgs]
+            imgs = normalized(imgs)
         imgs, segs = T.pad_clip(imgs, segs, self.crop_size)
         return {
             "imgs": np.stack(imgs),
@@ -274,12 +295,7 @@ class VSPWVideoDataset:
         to multiples of 32 with cv2's bilinear bits (``AlignedResize``), then
         RGB (x − mean) / std, as the JAX item; and the video's name."""
         sample = self.sample_prototype_clip(idx, num_frames)
-        mean, std = np.array(T.IMG_MEAN, np.float32), np.array(T.IMG_STD, np.float32)
-        imgs = []
-        for im in self._clip(sample):
-            im = _resized(im, T.rescale_size(im.shape[:2], self.img_scale))
-            im = _resized(im, T.aligned_size(im.shape[:2]))
-            imgs.append((im[..., ::-1].astype(np.float32) - mean) / std)
+        imgs = [resized_normalized(im, self.img_scale) for im in self._clip(sample)]
         return {"imgs": np.stack(imgs), "video": sample.video}
 
     def load_gt(self, idx: int) -> np.ndarray:

@@ -8,8 +8,13 @@ pooled windows of the target frame and pooled windows of each reference
 frame (coarser with temporal distance), with four families of learned
 relative-position biases and additive −100 padding masks. Residual and MLP
 update the last frame only. ``forward(x, train=True, generator=g)`` adds the
-config's stochastic depth; dropout and attention dropout are 0 in every
-CFFM config and are not ported (a rate > 0 raises). With
+config's stochastic depth and dropout, drawn from g (``mit.dropout``, at the
+JAX sites: ``attn_drop`` on the window-attention probabilities, ``drop``
+after the projection and after the MLP's GELU and fc2). In training with
+``attn_drop`` above 0 the attention takes the plain probabilities path
+(``_attention_with_dropout``, the JAX inline path), as the kernel cannot
+drop probabilities; in eval mode dropout is the identity and the kernel
+serves. With
 ``use_checkpoint`` each block runs under ``torch.utils.checkpoint`` (JAX:
 ``nn.remat``) and is recomputed in the backward, with the same drop-path
 masks (``_checkpointed``).
@@ -36,8 +41,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import CFFMDecoderConfig
 from ..ops import cfm_attention, resize_bilinear
+from ..ops.cfm_attention import scale_in
 from ..parallel import DrawShard
-from .mit import derived, drop_path, layer_norm, linear
+from .mit import check_rate, derived, drop_path, dropout, layer_norm, linear
 
 __all__ = ["CFFMDecoder", "CFFMBlock", "CFFMWindowAttention", "build_geometry",
            "CFFMGeometry"]
@@ -258,17 +264,22 @@ def _partition_windows(x: torch.Tensor, ws: int) -> torch.Tensor:
 
 
 class _Tables:
-    """Device copies of a geometry's index tables, made once per device."""
+    """Device copies of a geometry's index tables, made once per device
+    (while a graph is traced, made anew and not kept: they become the
+    graph's constants)."""
 
     def __init__(self):
         self._cache: dict = {}
 
     def get(self, key, device: torch.device, make) -> torch.Tensor:
+        # contiguous: numpy's boolean indexing may leave a table in column order
+        made = lambda: torch.as_tensor(np.ascontiguousarray(make()), device=device)
+        if torch.compiler.is_compiling():
+            return made()
         k = (key, str(device))
         t = self._cache.get(k)
         if t is None:
-            t = torch.as_tensor(make(), device=device)
-            self._cache[k] = t
+            t = self._cache[k] = made()
         return t
 
 
@@ -392,13 +403,50 @@ class CFFMWindowAttention(nn.Module):
                 self._bias(geom, dev), mask.repeat(b, 1), nh)
 
     def forward(self, x_target: torch.Tensor, pooled_target: Sequence[torch.Tensor],
-                pooled_clips: Sequence[torch.Tensor], geom: CFFMGeometry) -> torch.Tensor:
-        """(B, nW, 49, C) attention output of the target frame's windows."""
+                pooled_clips: Sequence[torch.Tensor], geom: CFFMGeometry, train: bool = False,
+                generator: torch.Generator | None = None,
+                shard: DrawShard | None = None) -> torch.Tensor:
+        """(B, nW, 49, C) attention output of the target frame's windows; with
+        ``train``, dropout on the probabilities and on the output."""
+        cfg = self.cfg
         b = x_target.shape[0]
-        out = cfm_attention(*self.attention_inputs(x_target, pooled_target, pooled_clips,
-                                                   geom), force=self.force)
-        return linear(out.reshape(b, geom.num_windows, -1, self.cfg.dim), self.proj,
-                      self.compute_dtype)
+        inputs = self.attention_inputs(x_target, pooled_target, pooled_clips, geom)
+        if train and cfg.attn_drop > 0.0:
+            out = _attention_with_dropout(*inputs, cfg.attn_drop, generator, shard)
+        else:
+            out = cfm_attention(*inputs, force=self.force)
+        out = linear(out.reshape(b, geom.num_windows, -1, cfg.dim), self.proj,
+                     self.compute_dtype)
+        return dropout(out, cfg.drop if train else 0.0, generator, shard)
+
+
+def _attention_with_dropout(q: torch.Tensor, ks: Sequence[torch.Tensor],
+                            vs: Sequence[torch.Tensor], bias: torch.Tensor, mask: torch.Tensor,
+                            nh: int, rate: float, generator: torch.Generator | None,
+                            shard: DrawShard | None) -> torch.Tensor:
+    """The packed attention with dropout on its probabilities, in plain
+    PyTorch with the JAX inline path's arithmetic
+    (``vss_cffm_tpu/models/cffm_transformer.py:559-582``): scores of each
+    source group in q's dtype, + bias + mask in that dtype, f32 softmax
+    rounded to it, dropout, and the groups' P·V summed. (nW, 49, C) in,
+    (nW, 49, C) out."""
+    n_w, area, c = q.shape
+    hd = c // nh
+    dt = q.dtype
+    heads = lambda t: t.reshape(n_w, -1, nh, hd).transpose(1, 2)
+    qs = heads(q * scale_in(dt, hd ** -0.5))
+    attn = torch.cat([qs @ heads(k).transpose(-1, -2) for k in ks], dim=-1)
+    attn = attn + bias.to(dt)[None]
+    attn = attn + mask.to(dt)[:, None, None, :]
+    attn = dropout(torch.softmax(attn.float(), dim=-1).to(dt), rate, generator, shard)
+    out = None
+    offset = 0
+    for v in vs:
+        n_g = v.shape[1]
+        part = attn[..., offset:offset + n_g] @ heads(v)
+        out = part if out is None else out + part
+        offset += n_g
+    return out.transpose(1, 2).reshape(n_w, area, c)
 
 
 class _Mlp(nn.Module):
@@ -407,8 +455,12 @@ class _Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-        return linear(F.gelu(linear(x, self.fc1, dt)), self.fc2, dt)
+    def forward(self, x: torch.Tensor, dt: torch.dtype, rate: float = 0.0,
+                generator: torch.Generator | None = None,
+                shard: DrawShard | None = None) -> torch.Tensor:
+        """With a dropout ``rate``, dropout after the GELU and after fc2."""
+        h = dropout(F.gelu(linear(x, self.fc1, dt)), rate, generator, shard)
+        return dropout(linear(h, self.fc2, dt), rate, generator, shard)
 
 
 class CFFMBlock(nn.Module):
@@ -463,13 +515,15 @@ class CFFMBlock(nn.Module):
                 src = resize_bilinear(src, level.resize_hw)
             pooled_clips.append(pool(src, dt))
 
-        win = self.attn(target, pooled_target, pooled_clips, geom)
+        win = self.attn(target, pooled_target, pooled_clips, geom, train=train, generator=generator,
+                        shard=shard)
         ws = cfg.window_size
         out = win.reshape(b, geom.n_wh, geom.n_ww, ws, ws, c)
         out = out.permute(0, 1, 3, 2, 4, 5).reshape(b, geom.hp, geom.wp, c)[:, :h0, :w0]
         last = x[:, -1] + drop_path(out, rate, generator, shard)
-        last = last + drop_path(self.mlp(layer_norm(last, self.norm2, dt), dt), rate, generator,
-                                shard)
+        ffn = self.mlp(layer_norm(last, self.norm2, dt), dt, cfg.drop if train else 0.0,
+                       generator, shard)
+        last = last + drop_path(ffn, rate, generator, shard)
         return torch.cat([x[:, :-1], last[:, None].to(x.dtype)], dim=1)
 
 
@@ -495,9 +549,8 @@ class CFFMDecoder(nn.Module):
 
     def __init__(self, cfg: CFFMDecoderConfig):
         super().__init__()
-        if cfg.drop > 0.0 or cfg.attn_drop > 0.0:
-            raise NotImplementedError("CFFM decoder dropout (drop / attn_drop > 0) is not "
-                                      "ported: it is 0 in every CFFM config")
+        check_rate("drop", cfg.drop)
+        check_rate("attn_drop", cfg.attn_drop)
         self.cfg = cfg
         self.blocks = nn.ModuleList(CFFMBlock(cfg) for _ in range(cfg.depth))
 

@@ -32,9 +32,15 @@ composed and ``x + s·FFN(LN2 x)`` through ``ops.block_ffn_train``; None runs
 the composed block. The pairs take the drop-path draws as per-frame branch
 scales, drawn in the composed block's order (attention, then FFN), so one
 generator seed gives every form the same masks; a geometry the pair's gate
-refuses runs composed. Every form shares one parameter tree. Dropout inside
-SRA and the MixFFN is 0 in every MiT variant and is not ported: a rate > 0
-raises.
+refuses runs composed. Every form shares one parameter tree.
+
+Dropout (``MiTConfig.attn_drop_rate`` on the attention probabilities,
+``drop_rate`` after the attention's projection and after the MixFFN's GELU
+and fc2, as the JAX modules place ``nn.Dropout``) is drawn per element from
+the step's generator (``dropout``) and acts only in training: in eval mode
+it is the identity and the inference forms keep their kernels. In training
+with a rate above 0 the block runs composed, as the JAX block takes its
+train pair only at rates of 0 ("ffn" needs ``drop_rate`` 0 alone).
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ FUSED_MAX_KV = 2048
 
 __all__ = ["MiT", "MiTBlock", "OverlapPatchEmbed", "SRAttention", "MixFFN", "dense_t",
            "linear", "layer_norm", "conv2d_nhwc", "derived", "drop_path", "keep_mask",
-           "branch_scale"]
+           "branch_scale", "dropout", "check_rate"]
 
 
 def derived(owner: nn.Module, key: Any, params: Sequence[torch.Tensor],
@@ -67,8 +73,10 @@ def derived(owner: nn.Module, key: Any, params: Sequence[torch.Tensor],
     and kept on ``owner`` under ``key`` until one of ``params`` gets new
     storage (``.to``, a new device) or is changed in place (its version
     counter: ``load_state_dict``, ``init_weights``). Nothing is kept while
-    autograd records, so no graph is reused."""
-    if torch.is_grad_enabled():
+    autograd records, so no graph is reused, nor while a graph is traced
+    (``torch.export``: a fake tensor has no storage to stamp, and the traced
+    graph computes the value itself)."""
+    if torch.is_grad_enabled() or torch.compiler.is_compiling():
         return make()
     stamp = tuple((p.device, p.data_ptr(), p._version) for p in params)
     cache = owner.__dict__.setdefault("_derived", {})
@@ -118,6 +126,30 @@ def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def check_rate(name: str, rate: float) -> float:
+    """``rate`` if it is a dropout rate that can be drawn and scaled: in
+    [0, 1), since a keep probability of 0 cannot scale."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"{name}={rate}: a dropout rate must be in [0, 1)")
+    return rate
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            shard: parallel.DrawShard | None = None) -> torch.Tensor:
+    """Element-wise dropout (flax ``nn.Dropout``): each element kept with
+    probability 1 − rate and divided by it, the rest zeroed. The mask is
+    drawn as ``keep_mask`` draws a sample's, one entry an element in x's
+    order (sample-major), so that over several ranks each takes its own
+    entries of the one-process draw. The keep probability is rounded to x's
+    dtype before the division, as JAX rounds the weak-typed scalar."""
+    if rate == 0.0:
+        return x
+    keep = keep_mask(x.numel(), check_rate("dropout rate", rate), generator, x.device,
+                     shard).view(x.shape)
+    return torch.where(keep, x / scale_in(x.dtype, 1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _cast(mod: nn.Module, name: str, dt: torch.dtype) -> torch.Tensor | None:
     """Parameter ``name`` of ``mod`` in dtype dt, made once (``derived``)."""
     p = getattr(mod, name)
@@ -161,9 +193,12 @@ class SRAttention(nn.Module):
     """Attention whose K/V come from an sr×sr stride-sr conv (VALID, floor)
     of the token map + LayerNorm(eps 1e-5); no reduction when sr == 1."""
 
-    def __init__(self, dim: int, num_heads: int, sr_ratio: int, qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, sr_ratio: int, qkv_bias: bool = True,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.dim, self.num_heads, self.sr_ratio = dim, num_heads, sr_ratio
+        self.attn_drop = check_rate("attn_drop_rate", attn_drop)
+        self.proj_drop = check_rate("drop_rate", proj_drop)
         self.q = nn.Linear(dim, dim, bias=qkv_bias)
         self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
@@ -182,7 +217,10 @@ class SRAttention(nn.Module):
         kv = linear(kv_in, self.kv, dt).reshape(b, -1, 2, self.dim)
         return kv[:, :, 0].contiguous(), kv[:, :, 1].contiguous()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None,
+                shard: parallel.DrawShard | None = None) -> torch.Tensor:
+        """With ``train``, dropout on the probabilities and on the output."""
         dt = self.compute_dtype
         b, h, w, c = x.shape
         nh, hd = self.num_heads, c // self.num_heads
@@ -192,8 +230,10 @@ class SRAttention(nn.Module):
         v = v.reshape(b, -1, nh, hd).transpose(1, 2)
         attn = (q * scale_in(dt, hd ** -0.5)) @ k.transpose(-1, -2)
         attn = torch.softmax(attn.float(), dim=-1).to(dt)
+        attn = dropout(attn, self.attn_drop if train else 0.0, generator, shard)
         ctx = (attn @ v).transpose(1, 2).reshape(b, h, w, c)
-        return linear(ctx, self.proj, dt)
+        return dropout(linear(ctx, self.proj, dt), self.proj_drop if train else 0.0, generator,
+                       shard)
 
 
 class DWConv(nn.Module):
@@ -216,12 +256,14 @@ def dense_t(lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
 
 
 class MixFFN(nn.Module):
-    def __init__(self, dim: int, hidden: int, dwconv_impl: str | None = None):
+    def __init__(self, dim: int, hidden: int, dwconv_impl: str | None = None,
+                 drop: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.dwconv = DWConv(hidden)
         self.fc2 = nn.Linear(hidden, dim)
         self.dwconv_impl = dwconv_impl
+        self.drop = check_rate("drop_rate", drop)
         self.compute_dtype = torch.float32
         self.force: str | None = None
 
@@ -243,12 +285,17 @@ class MixFFN(nn.Module):
         return (self.dwconv_impl == "fused" and not self.training
                 and block_ffn_train_fits(h, w, c, self.fc1.out_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None,
+                shard: parallel.DrawShard | None = None) -> torch.Tensor:
+        """With ``train``, dropout after the GELU and after fc2."""
         if self.fuses(x):
             return mixffn_fused(x.to(self.compute_dtype), *self.fused_params(),
                                 force=self.force)
+        rate = self.drop if train else 0.0
         h = dwconv3x3(*self.dwconv_args(x), gelu=True, force=self.force)
-        return linear(h, self.fc2, self.compute_dtype)
+        h = dropout(h, rate, generator, shard)
+        return dropout(linear(h, self.fc2, self.compute_dtype), rate, generator, shard)
 
 
 class MiTBlock(nn.Module):
@@ -256,7 +303,8 @@ class MiTBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int, mlp_ratio: int,
                  qkv_bias: bool, norm_eps: float, fused: bool, drop_path_rate: float = 0.0,
-                 train_impl: str | None = None, dwconv_impl: str | None = None):
+                 train_impl: str | None = None, dwconv_impl: str | None = None,
+                 drop: float = 0.0, attn_drop: float = 0.0):
         super().__init__()
         if train_impl not in TRAIN_BLOCK_IMPLS:
             raise ValueError(f"train_block_impl {train_impl!r}: expected one of "
@@ -264,9 +312,9 @@ class MiTBlock(nn.Module):
         self.drop_path_rate = drop_path_rate
         self.train_impl = train_impl
         self.norm1 = nn.LayerNorm(dim, eps=norm_eps)
-        self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias)
+        self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias, attn_drop, drop)
         self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
-        self.mlp = MixFFN(dim, int(dim * mlp_ratio), dwconv_impl)
+        self.mlp = MixFFN(dim, int(dim * mlp_ratio), dwconv_impl, drop)
         self.fused = fused
         self.compute_dtype = torch.float32
         self.force: str | None = None
@@ -323,14 +371,16 @@ class MiTBlock(nn.Module):
             args, kw = self.fused_args(x)
             return mit_block_fused(*args, **kw, force=self.force)
         rate = self.drop_path_rate if train else 0.0
-        if train and self.train_impl == "full" and self._pair_fits(x):
+        drops = self.mlp.drop > 0.0 or self.attn.attn_drop > 0.0
+        if train and self.train_impl == "full" and not drops and self._pair_fits(x):
             args, kw = self.train_args(x)
             s_attn = branch_scale(x.shape[0], rate, generator, x.device, shard)
             s_ffn = branch_scale(x.shape[0], rate, generator, x.device, shard)
             return mit_block_train(*args, s_attn, s_ffn, **kw, force=self.force)
-        x = x + drop_path(self.attn(layer_norm(x, self.norm1, dt)), rate, generator, shard)
+        attn = self.attn(layer_norm(x, self.norm1, dt), train, generator, shard)
+        x = x + drop_path(attn, rate, generator, shard)
         _, h, w, c = x.shape
-        if (train and self.train_impl == "ffn"
+        if (train and self.train_impl == "ffn" and self.mlp.drop == 0.0
                 and block_ffn_train_fits(h, w, c, self.mlp.fc1.out_features)):
             s_ffn = branch_scale(x.shape[0], rate, generator, x.device, shard)
             return block_ffn_train(x.to(dt), *self.ffn_params(), s_ffn, self.norm2.eps,
@@ -338,7 +388,8 @@ class MiTBlock(nn.Module):
         if self.mlp.fuses(x):
             return block_ffn_fused(x.to(dt), self.norm2.weight, self.norm2.bias,
                                    *self.mlp.fused_params(), self.norm2.eps, force=self.force)
-        return x + drop_path(self.mlp(layer_norm(x, self.norm2, dt)), rate, generator, shard)
+        ffn = self.mlp(layer_norm(x, self.norm2, dt), train, generator, shard)
+        return x + drop_path(ffn, rate, generator, shard)
 
 
 class MiT(nn.Module):
@@ -347,9 +398,6 @@ class MiT(nn.Module):
     def __init__(self, cfg: MiTConfig):
         super().__init__()
         self.cfg = cfg
-        if cfg.drop_rate > 0.0 or cfg.attn_drop_rate > 0.0:
-            raise NotImplementedError("MiT dropout (drop_rate / attn_drop_rate > 0) is not "
-                                      "ported: it is 0 in every MiT variant")
         total = sum(cfg.depths)
         dpr = [cfg.drop_path_rate * i / max(total - 1, 1) for i in range(total)]
         in_ch = 3
@@ -367,7 +415,8 @@ class MiT(nn.Module):
                          cfg.qkv_bias, cfg.norm_eps, fused=impl == "fused",
                          drop_path_rate=dpr[first + i],
                          train_impl=per_stage(cfg.train_block_impl, s),
-                         dwconv_impl=cfg.dwconv_impl)
+                         dwconv_impl=cfg.dwconv_impl, drop=cfg.drop_rate,
+                         attn_drop=cfg.attn_drop_rate)
                 for i in range(cfg.depths[s])))
             setattr(self, f"norm{s + 1}", nn.LayerNorm(dim, eps=cfg.norm_eps))
             in_ch = dim

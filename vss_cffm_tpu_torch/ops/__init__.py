@@ -1,5 +1,13 @@
 """Ops of the port. Each op with a CUDA kernel takes ``force=None|'torch'|'kernel'``
-and carries its launch count as ``<op>.launches``."""
+and carries its launch count as ``<op>.launches``.
+
+The inference ops that a clip forward reaches (``mit_block_fused``,
+``cfm_attention`` and ``dwconv3x3`` where autograd does not record,
+``block_ffn_fused``, ``mixffn_fused``) call custom ops of the ``vss_cffm``
+namespace (``_dispatch.custom_op``), which ``torch.export`` keeps as one
+node each: importing this package registers them, which a process that
+reloads an exported program must do. The training ops stay plain Python
+wrappers and ``torch.autograd.Function``s."""
 
 from .ce_upsampled import (ce_bwd_loss_v2, ce_bwd_loss_v3, ce_fwd_loss_v3, ce_fwd_loss_v5,
                            ce_upsampled_loss, ce_upsampled_loss_bwd,

@@ -73,12 +73,13 @@ tiles fill one wave of them).
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+from torch import Tensor
 
 from . import _build
-from ._dispatch import SMEM_LIMIT, ptr, require, stream_of, use_kernel
+from ._dispatch import SMEM_LIMIT, custom_op, ptr, records_grad, require, stream_of, use_kernel
 
 __all__ = ["cfm_attention", "cfm_attention_torch", "cfm_attention_bwd",
            "cfm_attention_bwd_torch", "cfm_attention_probs", "cfm_attention_probs_torch",
@@ -460,14 +461,27 @@ def _packed(q, ks, vs, bias, mask, kernel: bool):
     return q, k, v, bias, mask
 
 
+@custom_op("cfm_attention")
+def _cfm_attention_op(q: Tensor, k: Tensor, v: Tensor, bias: Tensor, mask: Tensor, nh: int,
+                      force: Optional[str]) -> Tensor:
+    """The no-grad forward of the packed attention (``_fwd``)."""
+    return _fwd(q, k, v, bias, mask, nh, use_kernel(force, q, "cfm_attention"), False)[0]
+
+
 def cfm_attention(q: torch.Tensor, ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
                   bias: torch.Tensor, mask: torch.Tensor, nh: int,
                   force: str | None = None) -> torch.Tensor:
-    """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'; the
-    backward follows the same rule (``cfm_attention_bwd``, or with
-    ``_BWD = "kernel"`` ``cfm_attention_bwd_probs``)."""
+    """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'. While
+    autograd records, a ``torch.autograd.Function`` whose backward follows the
+    same rule (``cfm_attention_bwd``, or with ``_BWD = "kernel"``
+    ``cfm_attention_bwd_probs``); else the custom op
+    ``vss_cffm::cfm_attention`` on the packed groups, which ``torch.export``
+    keeps as one node (the groups' concat stays in the graph)."""
     kernel = use_kernel(force, q, "cfm_attention")
-    return _CFMAttention.apply(*_packed(q, ks, vs, bias, mask, kernel), nh, force, kernel)
+    packed = _packed(q, ks, vs, bias, mask, kernel)
+    if records_grad((q, *ks, *vs, bias, mask)):
+        return _CFMAttention.apply(*packed, nh, force, kernel)
+    return _cfm_attention_op(*packed, nh, force)
 
 
 def cfm_attention_probs(q: torch.Tensor, ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],

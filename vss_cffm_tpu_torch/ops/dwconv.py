@@ -17,7 +17,8 @@ is XLA, not a TPU kernel; a CUDA backward is open work.
 
 The host path of a call is kept short, as at the stage-4 maps the kernel
 takes as long as the host's work around it: with nothing for autograd to
-record the op launches without the Function; the model's taps
+record the op launches without the Function, as the custom op
+``vss_cffm::dwconv3x3`` (one node of an exported graph); the model's taps
 (``DWConv.kernel``, made once per parameter value) and bias are already
 f32 and contiguous and pass without a copy; the strip plan and the SM
 count are cached per shape; the C entry point is looked up once and sets
@@ -27,12 +28,14 @@ the device only when it is not current.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from . import _build
-from ._dispatch import ptr, require, stream_of, use_kernel
+from ._dispatch import custom_op, ptr, records_grad, require, stream_of, use_kernel
 
 __all__ = ["dwconv3x3", "dwconv3x3_torch", "dwconv3x3_bwd_torch", "dwconv3x3_launch"]
 
@@ -190,19 +193,32 @@ class _DWConv3x3(torch.autograd.Function):
         return dx, dk, db, None, None
 
 
-def dwconv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-              gelu: bool = False, force: str | None = None) -> torch.Tensor:
-    """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'."""
+def _kernel_path(x: torch.Tensor, force: str | None) -> bool:
     kernel_path = use_kernel(force, x, "dwconv3x3")
     if kernel_path:
         require(x.dtype == torch.bfloat16, "dwconv3x3", lambda: f"x of dtype {x.dtype} (bf16 only)")
-        if not (torch.is_grad_enabled()
-                and (x.requires_grad or kernel.requires_grad or bias.requires_grad)):
-            # nothing to record: the launch alone, without the autograd Function
-            out = dwconv3x3_launch(x.contiguous(), kernel, bias, gelu)
-            dwconv3x3.launches += 1
-            return out
-    return _DWConv3x3.apply(x, kernel, bias, gelu, kernel_path)
+    return kernel_path
+
+
+@custom_op("dwconv3x3")
+def _dwconv3x3_op(x: Tensor, kernel: Tensor, bias: Tensor, gelu: bool,
+                  force: Optional[str]) -> Tensor:
+    """The forward with nothing for autograd to record: the launch alone."""
+    if not _kernel_path(x, force):
+        return dwconv3x3_torch(x, kernel, bias, gelu)
+    out = dwconv3x3_launch(x.contiguous(), kernel, bias, gelu)
+    dwconv3x3.launches += 1
+    return out
+
+
+def dwconv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+              gelu: bool = False, force: str | None = None) -> torch.Tensor:
+    """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'. While
+    autograd records, a ``torch.autograd.Function``; else the custom op
+    ``vss_cffm::dwconv3x3``, which ``torch.export`` keeps as one node."""
+    if records_grad((x, kernel, bias)):
+        return _DWConv3x3.apply(x, kernel, bias, gelu, _kernel_path(x, force))
+    return _dwconv3x3_op(x, kernel, bias, gelu, force)
 
 
 dwconv3x3.launches = 0

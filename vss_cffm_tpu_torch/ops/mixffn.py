@@ -51,9 +51,12 @@ same): ``MixFFN`` in eval mode takes it when called as a module of its own.
 
 from __future__ import annotations
 
-import torch
+from typing import Optional
 
-from ._dispatch import refuse_grad, require, use_kernel
+import torch
+from torch import Tensor
+
+from ._dispatch import custom_op, refuse_grad, require, use_kernel
 from .stage_block import (STEP_TOLERANCE, _ffn_fwd_steps, _held, bwd_step_errors, bwd_table,
                           ffn_bwd_steps, run_steps)
 
@@ -94,19 +97,27 @@ def block_ffn_fused_torch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2,
                     "block_ffn_fused")["out"]
 
 
+@custom_op("block_ffn_fused")
+def _block_ffn_fused_op(x: Tensor, gamma: Tensor, beta: Tensor, w1: Tensor, b1: Tensor,
+                        kdw: Tensor, bdw: Tensor, w2: Tensor, b2: Tensor, eps: float,
+                        force: Optional[str]) -> Tensor:
+    op = "block_ffn_fused"
+    kernel = use_kernel(force, x, op)
+    out = _forward(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, None, eps, kernel, op)["out"]
+    if kernel:
+        block_ffn_fused.launches += 1
+    return out
+
+
 def block_ffn_fused(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps: float = 1e-6,
                     force: str | None = None) -> torch.Tensor:
     """Inference ``x + FFN(LN(x))``, x (B, H, W, C), dense kernels (in, out),
     kdw (3, 3, 1, Ch). force: None (kernels on CUDA, plain on CPU) | 'torch'
-    | 'kernel'. Raises under autograd when an input requires grad."""
-    op = "block_ffn_fused"
+    | 'kernel'; the custom op ``vss_cffm::block_ffn_fused``. Raises under
+    autograd when an input requires grad."""
     args = (x, gamma, beta, w1, b1, kdw, bdw, w2, b2)
-    refuse_grad(op, args, _TRAIN_INSTEAD)
-    kernel = use_kernel(force, x, op)
-    out = _forward(*args, None, eps, kernel, op)["out"]
-    if kernel:
-        block_ffn_fused.launches += 1
-    return out
+    refuse_grad("block_ffn_fused", args, _TRAIN_INSTEAD)
+    return _block_ffn_fused_op(*args, eps, force)
 
 
 def mixffn_fused_torch(x, w1, b1, kdw, bdw, w2, b2) -> torch.Tensor:
@@ -115,19 +126,27 @@ def mixffn_fused_torch(x, w1, b1, kdw, bdw, w2, b2) -> torch.Tensor:
                     residual=False)["out"]
 
 
-def mixffn_fused(x, w1, b1, kdw, bdw, w2, b2, force: str | None = None) -> torch.Tensor:
-    """Inference ``GELU(dw3×3(x·W1 + b1) + bdw)·W2 + b2`` in x's dtype. force:
-    None (kernels on CUDA, plain on CPU) | 'torch' | 'kernel'. Raises under
-    autograd when an input requires grad."""
+@custom_op("mixffn_fused",
+           fake=lambda x, w1, b1, kdw, bdw, w2, *args: x.new_empty((*x.shape[:-1], w2.shape[1])))
+def _mixffn_fused_op(x: Tensor, w1: Tensor, b1: Tensor, kdw: Tensor, bdw: Tensor, w2: Tensor,
+                     b2: Tensor, force: Optional[str]) -> Tensor:
     op = "mixffn_fused"
-    args = (x, w1, b1, kdw, bdw, w2, b2)
-    refuse_grad(op, args, _TRAIN_INSTEAD)
     kernel = use_kernel(force, x, op)
     out = _forward(x, None, None, w1, b1, kdw, bdw, w2, b2, None, 0.0, kernel, op,
                    residual=False)["out"]
     if kernel:
         mixffn_fused.launches += 1
     return out
+
+
+def mixffn_fused(x, w1, b1, kdw, bdw, w2, b2, force: str | None = None) -> torch.Tensor:
+    """Inference ``GELU(dw3×3(x·W1 + b1) + bdw)·W2 + b2`` in x's dtype. force:
+    None (kernels on CUDA, plain on CPU) | 'torch' | 'kernel'; the custom op
+    ``vss_cffm::mixffn_fused``. Raises under autograd when an input requires
+    grad."""
+    args = (x, w1, b1, kdw, bdw, w2, b2)
+    refuse_grad("mixffn_fused", args, _TRAIN_INSTEAD)
+    return _mixffn_fused_op(*args, force)
 
 
 block_ffn_fused.launches = 0

@@ -70,12 +70,15 @@ and at inference ``block_ffn_fused`` and, without LN2 and the residual,
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from . import _build
-from ._dispatch import SMEM_LIMIT, ptr, refuse_grad, require, sm_count, stream_of, use_kernel
+from ._dispatch import (SMEM_LIMIT, custom_op, ptr, refuse_grad, require, sm_count, stream_of,
+                        use_kernel)
 from .cfm_attention import attention_launch, scale_in
 from .dwconv import _gelu_grad, _preact, dwconv3x3_launch, dwconv3x3_torch
 
@@ -365,20 +368,31 @@ def mit_block_step_errors(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b
             for name, (got, want) in pairs.items()]
 
 
-def mit_block_fused(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw,
-                    w2, b2, num_heads: int = 1, eps: float = 1e-6,
-                    force: str | None = None) -> torch.Tensor:
-    """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'.
-
-    Inference only: it raises rather than cut a gradient when autograd
-    records and an input requires grad; training takes ``mit_block_train``."""
+@custom_op("mit_block_fused")
+def _mit_block_fused_op(x: Tensor, g1: Tensor, be1: Tensor, wq: Tensor, bq: Tensor, k: Tensor,
+                        v: Tensor, wproj: Tensor, bproj: Tensor, g2: Tensor, be2: Tensor,
+                        w1: Tensor, b1: Tensor, kdw: Tensor, bdw: Tensor, w2: Tensor, b2: Tensor,
+                        num_heads: int, eps: float, force: Optional[str]) -> Tensor:
     args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
-    refuse_grad("mit_block_fused", args, "mit_block_train (MiTBlock in train() mode)")
     if not use_kernel(force, x, "mit_block_fused"):
         return mit_block_torch(*args, num_heads=num_heads, eps=eps)
     out = _run(_block_steps(*args, num_heads=num_heads, eps=eps, kernel=True))["out"]
     mit_block_fused.launches += 1
     return out.view(x.shape)
+
+
+def mit_block_fused(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw,
+                    w2, b2, num_heads: int = 1, eps: float = 1e-6,
+                    force: str | None = None) -> torch.Tensor:
+    """force: None (kernel on CUDA, plain on CPU) | 'torch' | 'kernel'; the
+    custom op ``vss_cffm::mit_block_fused``, which ``torch.export`` keeps
+    as one node.
+
+    Inference only: it raises rather than cut a gradient when autograd
+    records and an input requires grad; training takes ``mit_block_train``."""
+    args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
+    refuse_grad("mit_block_fused", args, "mit_block_train (MiTBlock in train() mode)")
+    return _mit_block_fused_op(*args, num_heads, eps, force)
 
 
 mit_block_fused.launches = 0
