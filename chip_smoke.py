@@ -97,6 +97,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      held to the form's launches per step and a finite loss; then ms per
      step, train frames/s (B·T frames per step) over the form's rounds of
      TRAIN_STEPS steps, every round printed, and peak memory;
+  5a. ``[native]`` (``native_phase``): the port's native data path
+     (``vss_cffm_tpu_torch/native``) built by g++ on the card's host (build
+     time, the codec headers found, the codecs built, the core count), then
+     on a VSPW train tree written to disk with PIL (2 videos of 24 JPEG
+     frames of 480x853, PNG masks, ``train.txt``): the native train item
+     against the numpy route (the library patched away in this process) for
+     seeds 0-7 bit for bit, ``normalize`` False and True, and the native JPEG
+     and PNG decodes against PIL's where the codecs are built; host ms a
+     clip on one thread on each route; the loader's clips/s with 4 workers,
+     threads on the numpy route, threads native and processes native, in
+     alternating rounds; the train CLI on the tree (B1 config, batch 2, 14
+     steps with the CLI's profiler window; the second pair 10 steps
+     untraced) on the native and the numpy route, ABBA: launches a step held
+     to the default plan, metrics finite, host ms a step, device busy and
+     idle share;
   5b. ``[train_cli]``: the train CLI (``vss_cffm_tpu_torch.tools.train``) from
      ``vss_cffm_tpu_torch/configs/cffm_b1_vspw_160k.py`` at full B1 widths,
      batch 2, on an in-memory VSPW train set (2 videos of 24 frames of
@@ -196,8 +211,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   7. one JSON line of kernels (``launches_by_path`` with each path's counts,
      ``dist_rank0`` / ``dist_rank1`` the ranks' launches over 5e's steps,
      ``dist_frames*`` / ``dist_lovasz*`` over (e) and (f), ``tools_*`` over
-     5f's runs, ``export_reloaded`` over 5g's reloaded clip and
-     ``dropout_step`` over its first step),
+     5f's runs, ``export_reloaded`` over 5g's reloaded clip,
+     ``dropout_step`` over its first step and ``native_cli`` over 5a's
+     first native CLI run),
      the ``nvidia-smi`` line, and the final ``{"ok": true, "device": {...}}``
      line.
 
@@ -1390,8 +1406,9 @@ def _synthetic_train_videos(seed: int):
     return SyntheticTrainVideos()
 
 
-def _cli_launches_held(counts: dict, steps: int, what: str, plan: dict) -> None:
-    print(f"[train_cli] {what}: launches over {steps} steps: {counts}", flush=True)
+def _cli_launches_held(counts: dict, steps: int, what: str, plan: dict,
+                       tag: str = "[train_cli]") -> None:
+    print(f"{tag} {what}: launches over {steps} steps: {counts}", flush=True)
     for name, n in plan.items():
         if counts[name] != n * steps:
             raise RuntimeError(f"train CLI, {what}: {name} launched {counts[name]} times, "
@@ -1577,6 +1594,216 @@ def train_cli_phase(ops, root: str, smi: str, work_root: str) -> tuple[dict, str
             shutil.rmtree(os.path.join(work, name), ignore_errors=True)
     torch.cuda.empty_cache()
     return {name: counts_a[name] + counts_b[name] for name in counts_a}, ckpt_dir
+
+
+# ---- [native]: the native data path on the card's host, and the train CLI on disk
+
+NATIVE_SEEDS = range(8)
+NATIVE_ITEMS = 4               # items timed on one thread, each route
+NATIVE_LOADERS = (("thread", "numpy"), ("thread", "native"), ("process", "native"))
+NATIVE_ROUNDS = 2              # each loader once a round, the order reversed every round
+NATIVE_BATCHES = 6             # timed batches of a loader, after one
+# the CLI's runs: (route, traced); a traced run writes its profiler trace (~15 s)
+NATIVE_CLI_RUNS = (("native", True), ("numpy", True), ("numpy", False), ("native", False))
+
+
+@contextlib.contextmanager
+def _numpy_route(native):
+    """The port's data path without its native library, in this process
+    (threads included): ``native.available`` patched to False."""
+    available = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = available
+
+
+def _route(native, name: str):
+    return _numpy_route(native) if name == "numpy" else contextlib.nullcontext()
+
+
+def native_phase(ops, root: str, smi: str, work_root: str) -> dict:
+    """``[native]``: ``vss_cffm_tpu_torch/native`` built by g++ on the card's
+    host (build time, the codec headers found, the codecs built), then on a
+    VSPW train tree written to disk with PIL (CLI_VIDEOS videos of CLI_FRAMES
+    480x853 JPEG frames with PNG masks, ``train.txt``): the native train item
+    against the numpy route (the library patched away in this process) for
+    seeds 0-7, bit for bit, with ``normalize`` False and True (True: against
+    ``normalize_f32`` of the numpy route's uint8 item, which is what the
+    native route computes; the numpy route's own division is printed beside
+    it), and, where the codecs are built, each JPEG and PNG decode against
+    PIL's; host ms a clip on one thread on each route; clips/s of the loader
+    with 4 workers on threads (numpy route), on threads (native) and in
+    processes (native), in alternating rounds, every round printed; then the
+    train CLI (``tools.train``) from ``configs/cffm_b1_vspw_160k.py`` on the
+    tree (batch 2) on the native and the numpy route in ABBA order, the first
+    pair CLI_PROFILE_STEPS steps with the CLI's profiler window, the second
+    ``PROFILE_FIRST`` steps untraced: launches a step held to the default
+    form's plan, metrics finite, host ms a step, and for the traced pair
+    device busy a step and the idle share. Returns the first native CLI
+    run's launch counts."""
+    from vss_cffm_tpu_torch import native
+    from vss_cffm_tpu_torch.config import apply_overrides, load_config
+    from vss_cffm_tpu_torch.data import TrainLoader, VSPWVideoDataset
+    from vss_cffm_tpu_torch.data.loader import _sample_rng
+    from vss_cffm_tpu_torch.data.transforms import IMG_MEAN, IMG_STD
+    from vss_cffm_tpu_torch.data.vspw import load_image, load_label
+    from vss_cffm_tpu_torch.tools import train as train_cli
+
+    t0 = time.perf_counter()
+    info = native.build_info()
+    print(f"[native] g++ {info['compiler']}: library ready in {time.perf_counter() - t0:.2f} s "
+          f"(compile {info['build_s'] if info['build_s'] is None else round(info['build_s'], 2)}"
+          f" s); headers {info['headers']}; codecs {', '.join(info['codecs']) or 'none'}; "
+          f"host {os.cpu_count()} cores | {smi}", flush=True)
+    if info["compiler"] is None:
+        raise RuntimeError("[native] no g++ on the card's host: the native library is not built")
+
+    t0 = time.perf_counter()
+    mem = _synthetic_train_videos(SEED + 5)
+    tree = _write_vspw_tree(os.path.join(work_root, "native_vspw"), {
+        v: [(mem.imgs[v, n], mem.labels[v, n]) for n in mem.frames[v]] for v in mem.videos},
+        split="train")
+    del mem
+    ds = VSPWVideoDataset(tree, "train")
+    print(f"[native] VSPW train tree: {len(ds)} videos of {CLI_FRAMES} JPEG frames of "
+          f"{CLI_HW[0]}x{CLI_HW[1]} (quality 95) with PNG masks, written in "
+          f"{time.perf_counter() - t0:.1f} s; crop {ds.crop_size}, img_scale {ds.img_scale}",
+          flush=True)
+
+    # the native item against the numpy route, bit for bit
+    ulps = 0
+    for normalize in (False, True):
+        for seed in NATIVE_SEEDS:
+            idx = seed % len(ds)
+            got = ds.get_train_item(idx, np.random.RandomState(seed), normalize)
+            with _numpy_route(native):
+                want = ds.get_train_item(idx, np.random.RandomState(seed), False)
+                divided = normalize and ds.get_train_item(idx, np.random.RandomState(seed), True)
+            same = np.array_equal(got["labels"], want["labels"])
+            if normalize:  # the pad is 0.0, which no normalised pixel is
+                pad = (got["imgs"] == 0).all(-1, keepdims=True)
+                f32 = native.normalize_f32(want["imgs"].reshape(-1, ds.crop_size[1], 3),
+                                           IMG_MEAN, IMG_STD).reshape(got["imgs"].shape)
+                same &= np.array_equal(got["imgs"], np.where(pad, 0, f32))
+                ulps = max(ulps, int(np.max(np.abs(got["imgs"] - divided["imgs"])
+                                            / np.spacing(np.abs(divided["imgs"])))))
+            else:
+                same &= np.array_equal(got["imgs"], want["imgs"])
+            if not same or got["imgs"].shape != (4, *ds.crop_size, 3):
+                raise RuntimeError(f"[native] the native train item of seed {seed} (normalize="
+                                   f"{normalize}) differs from the numpy route's")
+    print(f"[native] native train items equal the numpy route's bit for bit: seeds "
+          f"{NATIVE_SEEDS[0]}-{NATIVE_SEEDS[-1]}, normalize False and True (the numpy route's "
+          f"division by std within {ulps} ulp of the library's multiplication by 1 / std)",
+          flush=True)
+    if native.codecs():
+        names = [(v, n) for v in ds.videos for n in ds.frames[v]]
+
+        def decoded(k):
+            with open(ds._img_path(*k), "rb") as f:
+                return native.decode_jpeg(f.read())
+
+        jpegs = {k: decoded(k) for k in names}
+        pngs = {k: load_label(ds._seg_path(*k)) for k in names}
+        with _numpy_route(native):
+            if not all(np.array_equal(jpegs[k], load_image(ds._img_path(*k)))
+                       and np.array_equal(pngs[k], load_label(ds._seg_path(*k)))
+                       for k in names):
+                raise RuntimeError("[native] a native decode differs from PIL's")
+        print(f"[native] libjpeg and libpng decodes equal PIL's on all {len(names)} frames and "
+              f"masks", flush=True)
+
+    # host ms a clip on one thread, each route, and of its frames' and labels'
+    # decodes alone (what the item reads: libjpeg / libpng with the codecs, else PIL)
+    item_ms = {}
+    for name in ("numpy", "native", "native", "numpy"):
+        with _route(native, name):
+            t0 = time.perf_counter()
+            for i in range(NATIVE_ITEMS):
+                ds.get_train_item(i % len(ds), _sample_rng(SEED, 0, i), normalize=False)
+            item_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3 / NATIVE_ITEMS)
+    t0 = time.perf_counter()
+    for i in range(NATIVE_ITEMS):
+        video = ds.videos[i % len(ds)]
+        for n in ds.frames[video][:4]:
+            ds.read_frame(video, n), ds.read_label(video, n)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / NATIVE_ITEMS
+    print(f"[native] host ms a clip on one thread: " + "; ".join(
+        f"{n} {', '.join(f'{x:.2f}' for x in v)}" for n, v in item_ms.items())
+        + f"; its 4 frames' and labels' decodes alone {decode_ms:.2f} "
+        f"({'libjpeg / libpng' if native.codecs() else 'PIL'})", flush=True)
+
+    # the loader's clips/s with 4 workers, in alternating rounds
+    rates = {mode: [] for mode in NATIVE_LOADERS}
+    for r in range(NATIVE_ROUNDS):
+        for mode, name in (NATIVE_LOADERS if r % 2 == 0 else NATIVE_LOADERS[::-1]):
+            with _route(native, name):
+                loader = TrainLoader(ds, 2, seed=SEED + r, num_workers=4, worker_mode=mode,
+                                     device_normalize=True, device="cuda")
+                batches = iter(loader)
+                next(batches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(NATIVE_BATCHES):
+                    batch = next(batches)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                batches.close()
+            if batch["imgs"].shape != (2, 4, 480, 480, 3):
+                raise RuntimeError(f"[native] loader batch {tuple(batch['imgs'].shape)}")
+            rates[mode, name].append(NATIVE_BATCHES * 2 / dt)
+            print(f"[native] round {r}: loader {mode} {name}: {rates[mode, name][-1]:.3f} "
+                  f"clips/s ({loader.num_workers} workers, {NATIVE_BATCHES} batches of 2 after "
+                  f"one)", flush=True)
+    print("[native] loader clips/s at 480x853 -> 480x480, median of "
+          f"{NATIVE_ROUNDS} rounds: " + "; ".join(
+              f"{m} {n} {float(np.median(v)):.3f}" for (m, n), v in rates.items())
+          + f"; host {os.cpu_count()} cores | {smi}", flush=True)
+
+    # the train CLI on the tree, native and numpy routes in ABBA order; the
+    # first pair traced over the CLI's profiler window, the second not (it
+    # stops after the steps that give host ms)
+    path = os.path.join(root, "vss_cffm_tpu_torch", "configs", "cffm_b1_vspw_160k.py")
+    base = apply_overrides(load_config(path), CLI_OPTIONS + [
+        f"data.data_root={tree}", "checkpoint_interval=100000"])
+    plan = TRAIN_FORMS["train"]["per_step"]
+    runs, first = {}, None
+    for i, (name, traced) in enumerate(NATIVE_CLI_RUNS):
+        n_steps = CLI_PROFILE_STEPS if traced else train_cli.PROFILE_FIRST
+        cfg = apply_overrides(base, [f"optim.max_iters={n_steps}"])
+        with _route(native, name):
+            ops.reset_launches()
+            out = train_cli.train(cfg, work_dir=os.path.join(work_root, f"native_cli{i}"),
+                                  device="cuda", profile_dir=os.path.join(
+                                      work_root, f"native_prof{i}") if traced else None)
+            torch.cuda.synchronize()
+            counts = ops.launches()
+        _cli_launches_held(counts, n_steps, f"the CLI on disk, {name} route", plan,
+                           tag="[native]")
+        steps = out["steps"]
+        if [s["step"] for s in steps] != list(range(1, n_steps + 1)) or not all(
+                np.isfinite(s[k]) for s in steps for k in ("loss_seg", "acc_seg", "grad_norm")):
+            raise RuntimeError(f"[native] the CLI's {name} run: steps or metrics {steps}")
+        first = counts if first is None and name == "native" else first
+        host = float(np.median(out["iter_ms"][2:train_cli.PROFILE_FIRST]))
+        busy = (out["profile"]["device_busy_ms"] / out["profile"]["iterations"] if traced
+                else None)
+        runs.setdefault(name, []).append((host, busy))
+        print(f"[native] run {i}, {name} route: CFFM-B1 480x480 B=2 clip-4 bf16 from "
+              f"{cfg.data.data_root}: {host:.3f} host ms a step (median of steps 3-"
+              f"{train_cli.PROFILE_FIRST}), " + (
+                  f"device busy {busy:.3f} ms a step (iterations {train_cli.PROFILE_FIRST}-"
+                  f"{train_cli.PROFILE_LAST}), idle share {1 - busy / host:.3f}" if traced
+                  else "not traced") + f"; loss_seg {steps[0]['loss_seg']:.4f} -> "
+              f"{steps[-1]['loss_seg']:.4f} | {smi}", flush=True)
+        del out
+    print("[native] the CLI on disk, host ms a step (device busy ms): " + "; ".join(
+        f"{n} " + ", ".join(f"{h:.3f}" + (f" ({b:.3f})" if b is not None else "") for h, b in v)
+        for n, v in runs.items()), flush=True)
+    torch.cuda.empty_cache()
+    return {"native_cli": first}
 
 
 # ---- [cffm_pp]: CFFM++ on the card: phase A, the finetune step, eval with the store
@@ -2054,15 +2281,15 @@ TEST_CLI_FRAMES, TEST_CLI_TTA_FRAMES = 10, 2
 TEST_CLI_TTA_DILATION = "-1,-1,-1"
 
 
-def _write_vspw_tree(root: str, videos: dict) -> str:
-    """A VSPW tree (``val.txt``, ``data/<video>/origin/*.jpg``,
+def _write_vspw_tree(root: str, videos: dict, split: str = "val") -> str:
+    """A VSPW tree (``<split>.txt``, ``data/<video>/origin/*.jpg``,
     ``mask/*.png``) from {video: [(BGR frame, label), ...]}, written with PIL:
     the labels as raw VSPW masks (label + 1, 0 where ignored), which
     ``reduce_zero_label`` reads back as they were."""
     from PIL import Image
 
     os.makedirs(root)
-    with open(os.path.join(root, "val.txt"), "w") as f:
+    with open(os.path.join(root, f"{split}.txt"), "w") as f:
         f.write("\n".join(videos) + "\n")
     for video, frames in videos.items():
         d = os.path.join(root, "data", video)
@@ -3938,6 +4165,9 @@ def main() -> int:
 
     work_root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        # ---- 5a. the native data path, and the train CLI on a tree on disk
+        native_counts = native_phase(ops, root, smi, work_root)
+
         # ---- 5b. the train CLI from the B1 config, resumed, with the decoder remat
         cli_counts, cffm_ckpt = train_cli_phase(ops, root, smi, work_root)
 
@@ -3994,7 +4224,8 @@ def main() -> int:
                    **{p: c[cn] for p, c in test_cli_counts.items()},
                    **{p: c[cn] for p, c in dist_counts.items()},
                    **{p: c[cn] for p, c in tools_counts.items()},
-                   **{p: c[cn] for p, c in export_counts.items()}}
+                   **{p: c[cn] for p, c in export_counts.items()},
+                   **{p: c[cn] for p, c in native_counts.items()}}
         row = {"name": name, "route": "cuda", "source": spec["sources"][0],
                "sources": spec["sources"],
                "replaces": spec["replaces"], "launches": by_path[path], "path": path,

@@ -2,9 +2,9 @@
 fake tree of ``tests/test_cityscapes.py`` (rebuilt here, with a second
 sequence): the sample list, the frame names (``_shift_frame``, reversed
 dilations), train items from the same ``RandomState`` seeds, test items and
-the ground truth, element for element. The JAX normalise runs on its numpy
-route (``native.available`` False), whose bits the port's host pipeline
-gives (its native route multiplies by 1 / std: one ulp apart)."""
+the ground truth, element for element. Both packages run their numpy route
+(each ``native.available`` False): their native routes normalise by a
+multiplication by 1 / std, one ulp from the division."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import pytest
 from PIL import Image
 
 from vss_cffm_tpu import native
+from vss_cffm_tpu_torch import native as port_native
 from vss_cffm_tpu.data import cityscapes as jax_city
 from vss_cffm_tpu_torch.data import CityscapesClipDataset
 from vss_cffm_tpu_torch.data import cityscapes as city
@@ -49,6 +50,7 @@ def city_root(tmp_path_factory):
 @pytest.fixture
 def datasets(city_root, monkeypatch):
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
     return (jax_city.CityscapesClipDataset(city_root, "train", **GEOM),
             CityscapesClipDataset(city_root, "train", **GEOM))
 

@@ -9,7 +9,8 @@
   ``--embed-impl im2col`` is refused, and a tool asked for the card without
   one raises;
 - ``benchmark_loader`` on a tiny tree: clips and frames per second over its
-  batches; ``--worker-mode process`` raises, as the port's loader does.
+  batches, on threads and with ``--worker-mode process`` (spawned workers),
+  with the native library's state.
 """
 
 from __future__ import annotations
@@ -107,6 +108,9 @@ def test_benchmark_loader_on_a_tiny_tree(capsys):
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert "clips/s" in line and "frames/s" in line
     assert out["frames_per_s"] == pytest.approx(4 * out["clips_per_s"])
-    with pytest.raises(NotImplementedError, match="process"):
-        benchmark_loader.main(["--frames-hw", "48", "64", "--batches", "1",
-                               "--worker-mode", "process", "--device", "cpu"])
+    proc = benchmark_loader.main(["--frames-hw", "48", "64", "--batches", "1",
+                                  "--worker-mode", "process", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert "native library available" in lines[-2] and "process workers" in lines[-1]
+    assert proc["worker_mode"] == "process" and proc["clips_per_s"] > 0
+    assert proc["frames_per_s"] == pytest.approx(4 * proc["clips_per_s"])

@@ -3,20 +3,27 @@ and cv2 (cv2 is here for the tests; the port does not import it):
 
 - ``VSPWVideoDataset.get_train_item(i, RandomState(s), normalize=False)``
   equal bit for bit to the JAX one (images, labels, video, frame) at 24
-  seeds on a ``make_fake_vspw`` tree, once on each JAX route (its native
-  C++ pipeline, and its numpy / cv2 pipeline with ``native.available``
-  False), and the RNG left at the same point;
+  seeds on a ``make_fake_vspw`` tree, once on each route, both packages on
+  the same one (their native C++ pipelines, and their numpy pipelines with
+  each ``native.available`` False), and the RNG left at the same point;
 - the window resizes against ``cv2.resize`` (bilinear at random geometries
   and windows, nearest), BGR→HSV and HSV→BGR against ``cv2.cvtColor`` at
   row widths that put the 32-pixel blocks and the tail in each mix, the
   HSV→BGR factors against their exact values, the photometric distortion
   against the JAX one;
 - ``TrainLoader``: the first 3 batches equal the JAX loader's at
-  ``num_workers`` 0 and 2, shards split the videos as the JAX shards do,
-  the process mode raises.
+  ``num_workers`` 0 and 2, shards split the videos as the JAX shards do; in
+  the process mode (2 spawned workers) the first 3 batches equal the thread
+  mode's and the synchronous ones bit for bit, and after that early close
+  no worker is alive and no shared-memory segment of the loader is left in
+  ``/dev/shm``; a worker's exception reaches the consumer, with the same
+  clean-up; an unknown worker mode is refused.
 """
 
 from __future__ import annotations
+
+import multiprocessing
+import os
 
 import cv2
 import numpy as np
@@ -28,6 +35,7 @@ from vss_cffm_tpu import native
 from vss_cffm_tpu.data import transforms as JT
 from vss_cffm_tpu.data.loader import TrainLoader as JaxTrainLoader
 from vss_cffm_tpu.data.vspw import VSPWVideoDataset as JaxDataset
+from vss_cffm_tpu_torch import native as port_native
 from vss_cffm_tpu_torch.data import TrainLoader, VSPWVideoDataset
 from vss_cffm_tpu_torch.data import transforms as T
 
@@ -42,10 +50,11 @@ def root(tmp_path_factory):
 
 @pytest.mark.parametrize("route", ["native", "numpy"])
 def test_train_items_equal_the_jax_items_bitwise(root, route, monkeypatch):
-    if route == "native" and not native.available():
-        pytest.skip("the JAX package's native library did not build here (no toolchain)")
+    if route == "native" and not (native.available() and port_native.available()):
+        pytest.skip("a native library did not build here (no toolchain)")
     if route == "numpy":
         monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setattr(port_native, "available", lambda: False)
     jds, pds = JaxDataset(root, "train", **GEOM), VSPWVideoDataset(root, "train", **GEOM)
     assert len(pds) == len(jds) == 3
     for seed in range(24):
@@ -63,8 +72,10 @@ def test_train_items_equal_the_jax_items_bitwise(root, route, monkeypatch):
 
 def test_normalized_train_item_equals_the_jax_numpy_route(root, monkeypatch):
     """normalize=True: RGB (x − mean) / std in f32 on the host, as the JAX
-    numpy route computes it, padding 0 after it."""
+    numpy route computes it, padding 0 after it (both packages on their numpy
+    route)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
     jds = JaxDataset(root, "train", crop_size=(80, 112), img_scale=(96, 64))
     pds = VSPWVideoDataset(root, "train", crop_size=(80, 112), img_scale=(96, 64))
     for seed in range(4):
@@ -227,9 +238,38 @@ def test_train_loader_shards_split_as_jax(root):
 
 
 def test_train_loader_refuses_the_process_mode_and_a_missing_card(root):
+    """The process mode is accepted now (its batches are held below); an
+    unknown mode and a missing card are refused."""
     ds = VSPWVideoDataset(root, "train", **GEOM)
-    with pytest.raises(NotImplementedError):
-        TrainLoader(ds, 2, worker_mode="process", device="cpu")
+    assert TrainLoader(ds, 2, worker_mode="process", device="cpu").worker_mode == "process"
+    with pytest.raises(ValueError, match="worker_mode"):
+        TrainLoader(ds, 2, worker_mode="fork", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             TrainLoader(ds, 2)
+
+
+def _loader_segments() -> list[str]:
+    """This process's loaders' shared-memory segments (``vssl_<pid>_...``)."""
+    return [f for f in os.listdir("/dev/shm") if f.startswith(f"vssl_{os.getpid()}_")]
+
+
+def test_process_workers_give_the_thread_batches_and_clean_up(root):
+    ds, before = VSPWVideoDataset(root, "train", **GEOM), set(multiprocessing.active_children())
+    make = lambda mode, workers: TrainLoader(ds, 2, seed=5, num_workers=workers,
+                                             worker_mode=mode, device_normalize=True,
+                                             device="cpu")
+    got = _batches(make("process", 2), 3)
+    assert set(multiprocessing.active_children()) <= before and _loader_segments() == []
+    for want in (_batches(make("thread", 2), 3), _batches(make("thread", 0), 3)):
+        for a, b in zip(got, want):
+            assert torch.equal(a["imgs"], b["imgs"]) and torch.equal(a["labels"], b["labels"])
+            assert a["videos"] == b["videos"]
+
+
+def test_process_worker_errors_reach_the_consumer(root, tmp_path):
+    ds, before = VSPWVideoDataset(root, "train", **GEOM), set(multiprocessing.active_children())
+    ds.data_root = str(tmp_path / "gone")  # every frame's file is missing in the workers
+    with pytest.raises(FileNotFoundError, match="gone"):
+        _batches(TrainLoader(ds, 2, num_workers=2, worker_mode="process", device="cpu"), 1)
+    assert set(multiprocessing.active_children()) <= before and _loader_segments() == []

@@ -47,7 +47,8 @@ import torch.nn.functional as F
 
 __all__ = ["IMG_MEAN", "IMG_STD", "rescale_size", "aligned_size", "aligned_resize_clip",
            "normalize_clip", "resize_window", "label_window", "imrescale",
-           "random_scale_clip", "sample_crop_box", "random_crop_clip", "random_flip_clip",
+           "random_scale_clip", "sample_crop_box", "sample_crop_box_windowed",
+           "random_crop_clip", "random_flip_clip",
            "bgr2hsv", "hsv2bgr", "pmd_apply", "draw_pmd_params",
            "photometric_distortion_clip", "pad_clip"]
 
@@ -182,13 +183,16 @@ def random_scale_clip(imgs: list[np.ndarray], segs: list[np.ndarray] | None,
     return imgs, segs
 
 
-def sample_crop_box(seg_last: np.ndarray, rng: np.random.RandomState,
-                    crop_size: tuple[int, int] = (480, 480), cat_max_ratio: float = 0.75,
-                    ignore_index: int = 255) -> tuple[int, int, int, int]:
-    """The crop box of ``RandomCrop_clips`` (reference ``:1566-1579``), drawn on
-    the clip's last label: redrawn up to 10 times while one class covers
-    ``cat_max_ratio`` or more of the box's labelled pixels."""
-    h, w = seg_last.shape[:2]
+def sample_crop_box_windowed(h: int, w: int, window_fn, rng: np.random.RandomState,
+                             crop_size: tuple[int, int] = (480, 480),
+                             cat_max_ratio: float = 0.75,
+                             ignore_index: int = 255) -> tuple[int, int, int, int]:
+    """The crop box of ``RandomCrop_clips`` (reference ``:1566-1579``) on a
+    virtual (h, w) label plane, whose windows ``window_fn(y1, y2, x1, x2)``
+    gives (bounds clamped to the plane): redrawn up to 10 times while one
+    class covers ``cat_max_ratio`` or more of the box's labelled pixels. The
+    native train item reads the windows straight from the unresized last
+    label (``native.label_window``), with the same draws."""
     ch, cw = crop_size
 
     def sample_box():
@@ -209,11 +213,20 @@ def sample_crop_box(seg_last: np.ndarray, rng: np.random.RandomState,
     if cat_max_ratio < 1.0:
         for _ in range(10):
             y1, y2, x1, x2 = box
-            cnt = label_counts(seg_last[y1:y2, x1:x2])
+            cnt = label_counts(window_fn(y1, min(y2, h), x1, min(x2, w)))
             if len(cnt) > 1 and cnt.max() / cnt.sum() < cat_max_ratio:
                 break
             box = sample_box()
     return box
+
+
+def sample_crop_box(seg_last: np.ndarray, rng: np.random.RandomState,
+                    crop_size: tuple[int, int] = (480, 480), cat_max_ratio: float = 0.75,
+                    ignore_index: int = 255) -> tuple[int, int, int, int]:
+    """``sample_crop_box_windowed`` on the clip's (resized) last label."""
+    h, w = seg_last.shape[:2]
+    return sample_crop_box_windowed(h, w, lambda y1, y2, x1, x2: seg_last[y1:y2, x1:x2], rng,
+                                    crop_size, cat_max_ratio, ignore_index)
 
 
 def random_crop_clip(imgs: list[np.ndarray], segs: list[np.ndarray],

@@ -23,13 +23,21 @@ The port's copy of ``vss_cffm_tpu/data/vspw.py`` (reference
   255 (ignore) and k to k − 1 (``loading.py:205-214``).
 
 A train item runs the host pipeline of ``data/transforms.py`` (scale,
-crop, flip, photometric distortion, pad) with cv2's bits, the crop box drawn
-from the nearest-resized last label and only the crop window of each frame
-resized. Test frames are decoded to uint8 BGR at their original size: the
-evaluator resizes (AlignedResize to /32) and normalises them on the device,
-so a test item carries the ``img_scale`` of each of its views. PIL decodes,
-imported inside the reading functions (it is not needed to import the
-package).
+crop, flip, photometric distortion, pad) with cv2's bits, only the crop
+window of each frame resized. Test frames are decoded to uint8 BGR at their
+original size: the evaluator resizes (AlignedResize to /32) and normalises
+them on the device, so a test item carries the ``img_scale`` of each of its
+views.
+
+Two routes give the same bits, as in the JAX package. Where the port's
+native library is built (``vss_cffm_tpu_torch.native``: g++ on ``PATH``),
+the train item's pixel work runs there (``_train_item_native``), the host
+normalisation is its ``normalize_f32`` (which multiplies by 1 / std, as the
+JAX package's native route does; the numpy route divides, as its numpy
+route does) and, where its codecs are built, JPEG frames and PNG labels are
+decoded by libjpeg and libpng. Elsewhere the numpy pipeline runs, and PIL
+decodes (imported inside the reading functions: it is not needed to import
+the package).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from typing import Sequence
 import numpy as np
 
 from . import transforms as T
+from .. import native
 
 __all__ = ["VSPWVideoDataset", "ClipSample", "load_label", "load_image", "reduce_zero_label",
            "normalized", "resized_normalized", "scaled_crop", "TTA_RATIOS"]
@@ -51,6 +60,12 @@ TTA_RATIOS = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
 # reduce_zero_label as a 256-entry table: 0 → 255, k → k − 1, 255 stays 255
 _LUT_REDUCE = np.where(np.arange(256) == 0, 255, np.arange(256) - 1)
 _LUT_REDUCE = np.where(_LUT_REDUCE == 254, 255, _LUT_REDUCE).astype(np.uint8)
+_LUT_IDENTITY = np.arange(256, dtype=np.uint8)
+
+
+def _codecs() -> bool:
+    """True where the native library decodes JPEG and PNG."""
+    return native.available() and bool(native.codecs())
 
 
 def reduce_zero_label(seg: np.ndarray) -> np.ndarray:
@@ -59,7 +74,14 @@ def reduce_zero_label(seg: np.ndarray) -> np.ndarray:
 
 
 def load_label(path: str, reduce_zero: bool = True) -> np.ndarray:
-    """(H, W) uint8 label of a palette PNG (its indices, not its colours)."""
+    """(H, W) uint8 label of a palette PNG (its indices, not its colours);
+    libpng decodes it where the native codecs are built, else PIL (and for a
+    PNG that the native decoder does not take)."""
+    if _codecs():
+        with open(path, "rb") as f:
+            seg = native.decode_label(f.read(), _LUT_REDUCE if reduce_zero else _LUT_IDENTITY)
+        if seg is not None:
+            return seg
     from PIL import Image
 
     with Image.open(path) as im:
@@ -68,7 +90,17 @@ def load_label(path: str, reduce_zero: bool = True) -> np.ndarray:
 
 
 def load_image(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 BGR, as cv2.imread gives it."""
+    """(H, W, 3) uint8 BGR, as cv2.imread gives it: a JPEG through libjpeg
+    where the native codecs are built, else (and for a JPEG that libjpeg
+    cannot give as RGB) through PIL."""
+    if _codecs():
+        with open(path, "rb") as f:
+            data = f.read()
+        if data[:2] == b"\xff\xd8":  # a JPEG's start-of-image marker
+            try:
+                return native.decode_jpeg(data)
+            except ValueError:
+                pass
     from PIL import Image
 
     with Image.open(path) as im:
@@ -79,11 +111,18 @@ def load_image(path: str) -> np.ndarray:
 def _resized(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     """``cv2.resize(img, hw[::-1])`` bilinear, bit for bit (to the same size
     it copies)."""
-    return img if tuple(hw) == img.shape[:2] else T.resize_window(img, *hw, 0, 0, *hw)
+    if tuple(hw) == img.shape[:2]:
+        return img
+    resize = native.resize_window if native.available() else T.resize_window
+    return resize(img, *hw, 0, 0, *hw)
 
 
 def normalized(imgs: Sequence[np.ndarray]) -> list[np.ndarray]:
-    """uint8 BGR frames → RGB (x − mean) / std in f32, as the JAX numpy route."""
+    """uint8 BGR frames → RGB (x − mean) / std in f32, as the JAX package's
+    ``normalize_clip``: the native ``normalize_f32`` (x − mean) · (1 / std)
+    where the library is built, else numpy's division."""
+    if native.available():
+        return [native.normalize_f32(im, T.IMG_MEAN, T.IMG_STD) for im in imgs]
     mean, std = np.array(T.IMG_MEAN, np.float32), np.array(T.IMG_STD, np.float32)
     return [(im[..., ::-1].astype(np.float32) - mean) / std for im in imgs]
 
@@ -237,8 +276,14 @@ class VSPWVideoDataset:
         each frame's photometric distortion. Only the crop window of each
         frame is resized. With ``normalize=False`` the images stay uint8 BGR,
         normalised later on the device (``train.step.device_normalize``);
-        else they are RGB (x − mean) / std in f32 here."""
+        else they are RGB (x − mean) / std in f32 here. Where the native
+        library is built the item comes from ``_train_item_native``, with the
+        same draws and bits."""
         sample, frames = self.sample_train_clip(idx, rng)
+        if native.available():
+            item = self._train_item_native(sample, frames, rng, normalize)
+            if item is not None:
+                return item
         names = [frames[i] for i in sample.frame_indices]
         imgs = [self.read_frame(sample.video, n) for n in names]
         segs = [self.read_label(sample.video, n) for n in names]
@@ -254,6 +299,105 @@ class VSPWVideoDataset:
             "video": sample.video,
             "frame": sample.target_frame,
         }
+
+    def _reads_files(self) -> bool:
+        """True where neither ``read_frame`` nor ``read_label`` is overridden:
+        frames and labels are this tree's files, and the fused JPEG route may
+        read their bytes."""
+        cls = type(self)
+        return (cls.read_frame is VSPWVideoDataset.read_frame
+                and cls.read_label is VSPWVideoDataset.read_label)
+
+    def _train_item_native(self, sample: ClipSample, frames: list[str],
+                           rng: np.random.RandomState, normalize: bool) -> dict | None:
+        """The train item with its pixel work in the native library, bit for
+        bit the numpy route's (``vss_cffm_tpu/data/vspw.py:_train_item_native``):
+
+        - the draws in the numpy route's order: the scale ratio, the crop box
+          (its candidate windows read straight from the unresized last label,
+          ``native.label_window``), the flip, each frame's photometric
+          distortion (``draw_pmd_params``);
+        - with the codecs built, on a dataset that reads its tree's files
+          (``_reads_files``): one threaded ``train_clip_v2`` call (JPEG band
+          decode, bilinear resize of the crop window only, flip, distortion),
+          and the other frames' labels band-decoded (PNG rows below the crop
+          are not read);
+        - else the frames and labels from ``read_frame`` / ``read_label`` (a
+          dataset that overrides them keeps its own), each window resized,
+          flipped and distorted by the pixel half.
+
+        Returns None, before the first draw, where the clip's frames and labels
+        do not share one geometry: the numpy route then takes an untouched
+        stream."""
+        video = sample.video
+        names = [frames[i] for i in sample.frame_indices]
+        lut = _LUT_REDUCE if self.reduce_zero else _LUT_IDENTITY
+        imgs = bufs = None
+        if _codecs() and self._reads_files():
+            bufs, seg_bufs = [], []
+            for n in names:
+                with open(self._img_path(video, n), "rb") as f:
+                    bufs.append(f.read())
+                with open(self._seg_path(video, n), "rb") as f:
+                    seg_bufs.append(f.read())
+            try:
+                dims = {native.jpeg_dims(b) for b in bufs}
+            except ValueError:
+                return None
+            if len(dims) != 1:
+                return None
+            (sh, sw), = dims
+            if any(native.png_dims(b) != (sh, sw) for b in seg_bufs):
+                return None
+            seg_last = native.decode_label(seg_bufs[-1], lut)
+            if seg_last is None:
+                seg_last = self.read_label(video, names[-1])
+        else:
+            imgs = [self.read_frame(video, n) for n in names]
+            segs = [self.read_label(video, n) for n in names]
+            sh, sw = imgs[0].shape[:2]
+            if (any(im.shape != (sh, sw, 3) or im.dtype != np.uint8 for im in imgs)
+                    or any(s.shape != (sh, sw) or s.dtype != np.uint8 for s in segs)):
+                return None
+            seg_last = segs[-1]
+
+        rh, rw = T.rescale_size((sh, sw), T.draw_scale(rng, self.img_scale))
+        y1, _, x1, _ = T.sample_crop_box_windowed(
+            rh, rw, lambda a, b, c, d: native.label_window(seg_last, rh, rw, a, c, b - a, d - c),
+            rng, self.crop_size)
+        flip = bool(rng.rand() < 0.5)
+        pmd = np.stack([T.draw_pmd_params(rng) for _ in names])
+
+        (ch, cw), t = self.crop_size, len(names)
+        vh, vw = min(ch, rh - y1), min(cw, rw - x1)
+        if imgs is None:
+            out = native.train_clip_v2(bufs, sh, sw, rh, rw, y1, x1, ch, cw, flip, pmd)
+        else:
+            out = np.zeros((t, ch, cw, 3), np.uint8)
+            for i, im in enumerate(imgs):
+                out[i, :vh, :vw] = native.pmd_apply(
+                    native.resize_window(im, rh, rw, y1, x1, vh, vw, flip), pmd[i])
+        if normalize:
+            f32 = np.zeros(out.shape, np.float32)
+            for i in range(t):
+                f32[i, :vh, :vw] = native.normalize_f32(out[i, :vh, :vw], T.IMG_MEAN, T.IMG_STD)
+            out = f32
+
+        labels = np.full((t, ch, cw), 255, np.uint8)
+        lo, hi = native.label_window_rows(sh, rh, y1, vh)
+        for i in range(t):
+            if imgs is not None:
+                band, row0 = segs[i], 0
+            elif i == t - 1:
+                band, row0 = seg_last, 0
+            else:
+                band, row0 = native.decode_label_band(seg_bufs[i], lut, lo, hi), lo
+                if band is None:  # a PNG the band decoder does not take: the whole plane
+                    band, row0 = self.read_label(video, names[i]), 0
+            labels[i, :vh, :vw] = native.label_window(band, rh, rw, y1, x1, vh, vw, flip,
+                                                      src_row0=row0, sh=sh)
+        return {"imgs": out, "labels": labels.astype(np.int32), "video": video,
+                "frame": sample.target_frame}
 
     def get_test_item(self, idx: int) -> dict:
         """The test clip of frame ``idx``: imgs (T, H, W, 3) uint8 BGR at the

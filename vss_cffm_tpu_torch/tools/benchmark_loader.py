@@ -2,16 +2,18 @@
 fed? The port of the JAX package's ``tools/benchmark_loader.py``::
 
     python -m vss_cffm_tpu_torch.tools.benchmark_loader [--frames-hw 480 853] \\
-        [--batch-size 2] [--num-workers 4] [--batches 20] [--device cuda|cuda:N|cpu]
+        [--batch-size 2] [--num-workers 4] [--worker-mode thread|process] \\
+        [--batches 20] [--device cuda|cuda:N|cpu]
 
 Writes a synthetic VSPW tree at the real frame geometry (3 videos of 24
 480 × 853 JPEGs of noise rolled frame to frame, PNG masks; PIL) into a
 temporary directory, then times ``TrainLoader`` over ``--batches`` batches
 after one: JPEG decode, the clip-synchronised train augmentation at 480 ×
 480 crops, batching and the copy of the uint8 batch to ``--device`` (pinned
-memory, ``non_blocking``; synchronised before the clock stops). Prints
-clips/s and frames/s. ``--worker-mode process`` raises, as the port's
-loader does (threads only).
+memory, ``non_blocking``; synchronised before the clock stops), on threads
+or, with ``--worker-mode process``, in spawned worker processes. Prints
+whether the native library is built and with which codecs (the route the
+items take: ``data/vspw.py``), then clips/s and frames/s.
 """
 
 from __future__ import annotations
@@ -56,17 +58,18 @@ def build_tree(root: str, hw, videos: int = 3, frames: int = 24) -> str:
 
 def main(argv: list[str] | None = None) -> dict:
     """Prints the rates; returns {"clips_per_s", "frames_per_s", "batches",
-    "device"}."""
+    "device", "worker_mode", "native", "codecs"}."""
     ap = argparse.ArgumentParser(description="Throughput of the port's train loader.")
     ap.add_argument("--frames-hw", type=int, nargs=2, default=(480, 853))
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--num-workers", type=int, default=4)
     ap.add_argument("--worker-mode", default="thread", choices=["thread", "process"],
-                    help="process: the JAX package's spawned workers, not ported (raises)")
+                    help="process: spawned workers, items back through shared memory")
     ap.add_argument("--batches", type=int, default=20)
     ap.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     args = ap.parse_args(argv)
 
+    from .. import native
     from ..data import TrainLoader, VSPWVideoDataset
 
     device = device_of(args.device, "benchmark_loader")
@@ -89,11 +92,14 @@ def main(argv: list[str] | None = None) -> dict:
             dt = time.perf_counter() - t0
         finally:
             it.close()
+    print(f"native library available: {native.available()}, codecs: "
+          f"{', '.join(native.codecs()) or 'none'}")
     print(f"{clips / dt:.3f} clips/s, {frames / dt:.3f} frames/s host decode+augment+copy to "
           f"{device} ({args.batch_size}-clip batches, {loader.num_workers} "
           f"{args.worker_mode} workers, {args.batches} batches)")
     return {"clips_per_s": clips / dt, "frames_per_s": frames / dt, "batches": args.batches,
-            "device": str(device)}
+            "device": str(device), "worker_mode": args.worker_mode,
+            "native": native.available(), "codecs": native.codecs()}
 
 
 if __name__ == "__main__":
