@@ -34,17 +34,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``bound_ms`` is the least time the card could take, the largest of
      bytes / 3.35 TB/s, tensor ops / 989 TFLOP/s and f32 ops / 67 TFLOP/s
      (H100 SXM data-sheet peaks); the whole block is also held step by
-     step: each of its six launches against its plain step, at a tolerance
+     step: each of its four launches (q, ctx, y and the FFN launch, alone
+     and with the residual y) against its plain steps, at a tolerance
      relative to that step's own output;
   4. the main path: launch counts set to 0, CLIPS synthetic uint8 clips through
      ``inference_segmentor``, counts read and held to 4 / 2 / 4 per clip
      (whole block / CFM attention / depthwise conv); logits against the same
      model under ``force="torch"`` on the card;
   4b. the fused-FFN path (a second bundle, ``dwconv_impl="fused"``, the same
-     weights): the inputs of ``block_ffn_fused`` (its three launches one by
-     one, then its whole output) and of ``mixffn_fused`` (LN2 of the same
-     blocks) captured at stages 1 and 4 from one plain forward and held
-     against their plain versions; CLIPS clips with the counts held to
+     weights): the inputs of ``block_ffn_fused`` (its launch alone and with
+     the residual, then its whole output) and of ``mixffn_fused`` (LN2 of
+     the same blocks) captured at stages 1 and 4 from one plain forward and
+     held against their plain versions; ``[ffn]``: the FFN half of rows 1
+     (stages 2, 3) and 8 (stages 1, 4) as one launch against the three
+     launches it replaced, in the order new, old, old, new, device µs
+     queued behind a sleep, beside its bound, two runs bitwise equal
+     (``ffn_phase``); CLIPS clips with the counts held to
      4 / 4 / 2 / 0 per clip (whole block / fused FFN / CFM attention /
      depthwise conv), the logits against ``force="torch"``; then
      ``mixffn_fused``'s own path, ``MixFFN.forward`` in eval mode at the
@@ -450,9 +455,11 @@ def _capture_main_path_inputs(model, clip):
 
 KERNELS = {
     "mit_block_fused": dict(
-        # six launches of three sources: GEMM (q, proj, fc1, fc2), attention, dwconv
-        sources=["vss_cffm_tpu_torch/csrc/block_gemm.cu", "vss_cffm_tpu_torch/csrc/attention.cu",
-                 "vss_cffm_tpu_torch/csrc/dwconv.cu"],
+        # four launches of three sources (five where the FFN plan splits its
+        # hidden channels): GEMM (q, proj), attention, the FFN half in one
+        # launch (ffn_fused, hid and a on chip)
+        sources=["vss_cffm_tpu_torch/csrc/ffn_fused.cu", "vss_cffm_tpu_torch/csrc/block_gemm.cu",
+                 "vss_cffm_tpu_torch/csrc/attention.cu"],
         replaces="vss_cffm_tpu/ops/stage_block.py:106",  # _kernel of mit_block_fused
         # bf16 q, ctx and GELU output are rounded at the same points on both
         # sides, but from f32 sums taken in other orders (mma.sync vs cuBLAS), so
@@ -486,10 +493,11 @@ def _ffn_fused_case(ops, rec):
     bound = _bound_ms(_nbytes(*args) + x.numel() * 2, 2 * m * 2 * c * ch,
                       m * ch * 24 + m * c * 20)
     # out is bf16 at the residual's scale: the whole output is a sanity check
-    # (2^-5 of its largest value), the three launches are held one by one
+    # (2^-5 of its largest value); the launch is held alone (no residual) and
+    # with the residual x at its own scales (block_ffn_fused_step_errors)
     return dict(call=lambda force: ops.block_ffn_fused(*args, eps, force=force), bound=bound,
                 library=None, compare=lambda got, want: _compare_one(got, want, PAIR_REL),
-                steps=lambda: ops.mixffn.block_ffn_train_step_errors(*args, None, eps),
+                steps=lambda: ops.mixffn.block_ffn_fused_step_errors(*args, eps),
                 shape=f"x{tuple(x.shape)} Ch={ch}")
 
 
@@ -505,8 +513,9 @@ def _mixffn_case(ops, args):
 
 FFN_INFER_KERNELS = {
     "block_ffn_fused": dict(
-        # launches 4-6 of the block without the branch scale: fc1 with LN2, dwconv, fc2
-        sources=["vss_cffm_tpu_torch/csrc/block_gemm.cu", "vss_cffm_tpu_torch/csrc/dwconv.cu"],
+        # one launch (two where its plan splits the hidden channels): LN, fc1,
+        # the depthwise conv + GELU and fc2 with hid and a on chip
+        sources=["vss_cffm_tpu_torch/csrc/ffn_fused.cu"],
         # block_ffn_fused, whose pallas_call (:179) runs _kernel_ln (:106) without a scale
         replaces="vss_cffm_tpu/ops/mixffn.py:165",
         case=_ffn_fused_case),
@@ -554,6 +563,105 @@ def _capture_ffn_inputs(model, clip):
             caught["mixffn_fused"].append((ln, *blk.mlp.fused_params()))
             caught["mlp"].append((blk.mlp, ln))
     return caught
+
+
+# the FFN half alone against its plain steps, of the largest output: the
+# launch's own bound (``stage_block.STEP_TOLERANCE["ffn + y (out)"]``)
+FFN_REL = 2.0 ** -6
+FFN_SLEEP_CYCLES = int(2e7)    # ~10 ms of the card's clock, longer than queuing the calls
+
+
+def _queued_us(fn, iters: int = 20) -> float:
+    """Device µs of one call of fn: ``iters`` calls queued behind a
+    ``torch.cuda._sleep``, so that the host's launch cost is off the clock,
+    between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(FFN_SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / iters
+
+
+@torch.no_grad()
+def ffn_phase(ops, caught: dict, caught_f: dict, smi: str) -> dict:
+    """``[ffn]``: the FFN half of each main-path call of rows 1 (stages 2, 3:
+    the f32 y from the block's own q, ctx, y launches, its residual) and 8
+    (stages 1, 4 of the fused-FFN path: bf16 x), as one launch
+    (``ffn_fused``) against the three launches it replaced (fc1 with LN,
+    dwconv, fc2 with the residual; the train forward keeps them), in the
+    order new, old, old, new: device µs, the bound of the half's own work
+    (inputs and weights read once, out written once; fc1 and fc2 on the
+    tensor cores) and its share; the launch held against the plain steps at
+    ``FFN_REL`` and two runs bitwise equal; for row 1 also the whole block on
+    both routes (its q, ctx and y launches, then the FFN half), in the same
+    order. Returns {row: [per shape]}."""
+    sb, ff = ops.stage_block, ops.ffn_fused
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = []
+    for args, kw in caught["mit_block_fused"]:
+        kern = sb._block_steps(*args, **kw, kernel=True)
+        attn = lambda kern=kern: kern["y"](kern["ctx"](kern["q"]()))
+        y = attn()
+        cases.append(("mit_block_fused", y.view(args[0].shape), y, args[9:17], kw["eps"], attn))
+    for args, eps in caught_f["block_ffn_fused"]:
+        x = args[0].contiguous()
+        cases.append(("block_ffn_fused", x, x.view(-1, x.shape[-1]), args[1:9], eps, None))
+    out = {}
+    for name, x, res, ffn, eps, attn in cases:
+        b, h, w, c = x.shape
+        m, ch = b * h * w, ffn[2].shape[1]
+        plan = ff.ffn_fused_plan(b, h, w, c, ch, sms)
+        new = lambda: ff.ffn_fused_launch(x, *ffn, eps, res, "ffn")
+        old_steps = sb._ffn_fwd_steps(*ffn, None, eps, tuple(x.shape), torch.bfloat16, True, "ffn")
+        plain = sb._ffn_fwd_steps(*ffn, None, eps, tuple(x.shape), torch.bfloat16, False, "ffn")
+        rows = x.view(m, c)
+        old = lambda: old_steps["out"](old_steps["a"](old_steps["hid"](rows)), res)
+        got, again = new(), new()
+        want = plain["out"](plain["a"](plain["hid"](rows)), res)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = FFN_REL * want.float().abs().max().item()
+        bitwise = torch.equal(got, again)
+        ts = [_queued_us(new), _queued_us(old), _queued_us(old), _queued_us(new)]
+        bound_ms, by = _bound_ms(_nbytes(x, *ffn) + m * c * 2, 2 * m * c * ch * 2,
+                                 m * ch * (18 + 1 + 5) + m * c * 20)
+        us, old_us = (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
+        row = "row 1" if name == "mit_block_fused" else "row 8"
+        block = ""
+        if attn is not None:
+            def block_new(attn=attn):
+                yb = attn()
+                return ff.ffn_fused_launch(yb.view(x.shape), *ffn, eps, yb, "ffn")
+
+            def block_old(attn=attn):
+                yb = attn()
+                return old_steps["out"](old_steps["a"](old_steps["hid"](yb)), yb)
+
+            tb = [_queued_us(block_new), _queued_us(block_old), _queued_us(block_old),
+                  _queued_us(block_new)]
+            block_us, block_old_us = (tb[0] + tb[3]) / 2, (tb[1] + tb[2]) / 2
+            block = (f"; the whole block: q, ctx, y and one launch {tb[0]:.1f} / {tb[3]:.1f} "
+                     f"device us, with the three launches {tb[1]:.1f} / {tb[2]:.1f}")
+        print(f"[ffn] {row} x{tuple(x.shape)} {str(x.dtype)[6:]} Ch={ch} plan=(rows {plan.rows}, "
+              f"cols {plan.cols}, hc {plan.hc}, splits {plan.splits}, {plan.smem} B smem): "
+              f"one launch {ts[0]:.1f} / {ts[3]:.1f} device us, three launches {ts[1]:.1f} / "
+              f"{ts[2]:.1f} (new, old, old, new, queued behind a sleep){block}; bound "
+              f"{bound_ms * 1e3:.1f} us ({by}), share {bound_ms * 1e3 / us:.3f}; "
+              f"max_abs_err={err:.3e} tol={tol:.3e} (2^-6 of the largest output), two runs "
+              f"bitwise equal: {bitwise} | {smi}", flush=True)
+        if not err <= tol or not bitwise:
+            raise RuntimeError(f"[ffn] {row} at x{tuple(x.shape)}: err {err} > {tol} or two "
+                               f"runs differ ({bitwise})")
+        rec = dict(shape=f"x{tuple(x.shape)} Ch={ch}", device_us=us, three_launch_us=old_us,
+                   bound_us=bound_ms * 1e3, bound_by=by, splits=plan.splits)
+        if attn is not None:
+            rec.update(block_device_us=block_us, block_parent_device_us=block_old_us)
+        out.setdefault(name, []).append(rec)
+    return out
 
 
 def _compare_one(got, want, rel_tol):
@@ -2936,10 +3044,10 @@ TOOLS_TRAIN_ITERS = 10         # --train (+ 3 warm-up steps), batch 2 (a GPU's s
 TOOLS_PROFILE_ITERS = 10       # profile_forward (+ 1 call outside the window)
 TOOLS_LOADER_BATCHES = 10
 TOOLS_DYN_STEPS = 60
-# the kernels of rows 1, 2 and 3 by their CUDA names: row 1's GEMM and its
-# SRA attention (head dim 64, no bias), row 2 the CFM attention (head dim 32,
+# the kernels of rows 1, 2 and 3 by their CUDA names: row 1's GEMM, its
+# SRA attention (head dim 64, no bias) and its FFN launch, row 2 the CFM attention (head dim 32,
 # bias and mask), row 3 the depthwise conv
-PROFILE_ROWS = {"row 1": ("gemm_kernel", "attention_fwd_kernel<64"),
+PROFILE_ROWS = {"row 1": ("gemm_kernel", "attention_fwd_kernel<64", "ffn_fused_kernel"),
                 "row 2": ("attention_fwd_kernel<32",), "row 3": ("dwconv3x3_kernel",)}
 
 
@@ -3925,7 +4033,7 @@ def attention_resources(build) -> None:
     cfm = importlib.import_module("vss_cffm_tpu_torch.ops.cfm_attention")
     fwd, bwd = build.library("attention"), build.library("attention_bwd")
     for src in ("attention", "attention_bwd", "sra_attention_bwd", "dwconv", "block_bwd",
-                "block_gemm", "ce_upsampled"):
+                "block_gemm", "ce_upsampled", "ffn_fused"):
         for k in build.ptxas_usage(src):
             print(f"[ptxas] csrc/{src}.cu {k['kernel']}: {k['registers']} registers, "
                   f"{k['smem']} B static smem, {k['stack']} B stack, spill stores "
@@ -4075,6 +4183,7 @@ def main() -> int:
     print(f"[ffn] dwconv_impl={cfg_f.dwconv_impl} block_impl={cfg_f.block_impl}", flush=True)
     caught_f = _capture_ffn_inputs(bundle_f.model, x0.to(torch.float32))
     kernel_stats.update(check_kernels(ops, caught_f, FFN_INFER_KERNELS, opts.profile))
+    ffn_half = ffn_phase(ops, caught, caught_f, smi)
     plan_f = {"mit_block_fused": 4, "block_ffn_fused": 4, "cfm_attention": 2, "dwconv3x3": 0,
               "mixffn_fused": 0}
     apis.inference_segmentor(bundle_f, clips[0])        # warm-up
@@ -4238,6 +4347,8 @@ def main() -> int:
             row["eval_480x864"] = eval_stats[f"{name} (480x864)"]
         if name in image_stats:  # rows 1 and 3 at SegFormer-B0's widths there
             row["image_b0_480x864"] = image_stats[name]
+        if name in ffn_half:  # rows 1 and 8: the FFN half alone against the old route
+            row["ffn_half"] = ffn_half[name]
         kernels.append(row)
     print(f"[done] {time.perf_counter() - t0:.1f} s; kernels checked: "
           f"{', '.join(k['name'] for k in kernels)}", flush=True)

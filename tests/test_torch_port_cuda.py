@@ -10,7 +10,10 @@ inference with the fused FFN; the redesigned block_gemm (rows 1, 6-11), CE
 backward (rows 17, 13) and CE forward (rows 14, 12) at the path's shapes and
 at ragged ones, with forced plans, two runs bitwise equal, and the CE
 microbench's phase-layout backwards and forwards on those two templates
-(rows 15, 19 and 16, 18), pinned to rows 17 and 14 bit for bit.
+(rows 15, 19 and 16, 18), pinned to rows 17 and 14 bit for bit; the
+inference FFN launch of rows 1 and 8 (``ops/ffn_fused.py``) at the main
+path's, eval's, TTA's and B0's shapes, with the f32 and the bf16 residual,
+with and without its split, two runs bitwise equal, and its launch count.
 
 Marked ``cuda`` and skipped where no CUDA device is present. On a machine
 with one, from the repository root::
@@ -110,8 +113,9 @@ def test_cfm_attention_kernel_matches_plain(dev, nw, area, nh, hd, gsizes):
 def test_mit_block_kernel_matches_plain(dev, shape, ch, s, nh):
     """The whole block, with weights scaled so that the attention and FFN
     branches are O(1) next to x, held as out − x so that a wrong branch
-    cannot hide under the residual; then each of its six launches against its
-    plain step, at a tolerance relative to its own output
+    cannot hide under the residual; then each of its launches (q, ctx, y
+    and the FFN launch, alone and with the residual y) against its plain
+    steps, at a tolerance relative to its own output
     (``mit_block_step_errors``)."""
     rng = np.random.RandomState(2)
     b, h, w, c = shape
@@ -368,14 +372,18 @@ FFN_SHAPES = [((2, 9, 11, 32), 128), ((1, 7, 13, 160), 640), ((2, 4, 4, 256), 10
 
 @pytest.mark.parametrize("shape,ch", FFN_SHAPES)
 def test_inference_ffn_kernels_match_plain(dev, shape, ch):
-    """``block_ffn_fused``: its three launches against their plain steps
-    (``block_ffn_train_step_errors`` without a scale), then the whole output
-    held as out − x; ``mixffn_fused`` whole, 2^-6 of its largest value (bf16
-    a and out rounded at the same points, one ulp carried through fc2)."""
+    """``block_ffn_fused``: its launch against the plain steps, alone and with
+    the residual (``block_ffn_fused_step_errors``), and the three launches it
+    replaced, which ``mixffn_fused`` and the train forward keep, against
+    theirs (``block_ffn_train_step_errors`` without a scale); then the whole
+    output held as out − x; ``mixffn_fused`` whole, 2^-6 of its largest value
+    (bf16 a and out rounded at the same points, one ulp carried through
+    fc2)."""
     rng = np.random.RandomState(10)
     ins, _, _, _ = _block_train_inputs(rng, shape, ch, 4, dev)
     x, ffn = ins[0], ins[9:]
-    for name, err, tol in ops.mixffn.block_ffn_train_step_errors(x, *ffn, None):
+    for name, err, tol in (ops.mixffn.block_ffn_fused_step_errors(x, *ffn)
+                           + ops.mixffn.block_ffn_train_step_errors(x, *ffn, None)):
         assert err <= tol, (name, err, tol)
     got = ops.block_ffn_fused(x, *ffn, force="kernel")
     want = ops.block_ffn_fused(x, *ffn, force="torch")
@@ -1713,3 +1721,111 @@ def test_frames_split_on_two_gloo_ranks_on_one_card_matches_one_process(dev):
             ranks.close_to_largest(g, x, 1e-2, "running statistics")
     for name, p in world[0]["frames"]["params"].items():
         assert torch.equal(p, world[1]["frames"]["params"][name]), name
+
+
+# The inference FFN launch (rows 1 and 8): (b, h, w, C, Ch, the input's and
+# residual's dtype, a forced (rows, cols, hc, splits) or None for the plan):
+# B1's stages on the main path (stages 2, 3: row 1's f32 y; 1, 4: row 8's
+# bf16 x), at 480x864 and at TTA's 1.75x view (stage 3, 54x94), B0's
+# stages 1 and 3, and ragged forced tiles with and without splits
+FFN_FUSED_CASES = [
+    (4, 60, 60, 128, 512, F32, None), (4, 30, 30, 320, 1280, F32, None),
+    (4, 120, 120, 64, 256, BF16, None), (4, 15, 15, 512, 2048, BF16, None),
+    (4, 60, 108, 128, 512, F32, None), (4, 30, 54, 320, 1280, F32, None),
+    (4, 54, 94, 320, 1280, F32, None), (4, 120, 120, 32, 128, BF16, None),
+    (4, 30, 30, 160, 640, F32, None),
+    (4, 30, 30, 320, 1280, F32, (8, 8, 64, 1)), (4, 15, 15, 512, 2048, BF16, (8, 4, 64, 1)),
+    (2, 9, 11, 64, 256, BF16, (2, 5, 32, 3)), (1, 7, 13, 160, 640, F32, (4, 4, 64, 2)),
+    (1, 1, 1, 8, 8, BF16, None), (2, 5, 1, 24, 200, BF16, (3, 1, 32, 2)),
+]
+
+
+def _ffn_inputs(rng, b, h, w, c, ch, xdt):
+    f = lambda *sh, sc: _rand(rng, *sh, scale=sc, dtype=torch.float32, dev="cuda")
+    return (f(b, h, w, c, sc=1.0).to(xdt), 1.0 + f(c, sc=0.1), f(c, sc=0.1),
+            f(c, ch, sc=c ** -0.5).to(BF16), f(ch, sc=0.1), f(3, 3, 1, ch, sc=1 / 3),
+            f(ch, sc=0.1), f(ch, c, sc=ch ** -0.5).to(BF16), f(c, sc=0.1))
+
+
+def _plain_ffn(args, res: bool):
+    x = args[0]
+    st = ops.stage_block._ffn_fwd_steps(*args[1:], None, 1e-6, tuple(x.shape), BF16, False, "t")
+    y = x.reshape(-1, x.shape[-1])
+    return st["out"](st["a"](st["hid"](y)), y if res else None)
+
+
+@pytest.mark.parametrize("b,h,w,c,ch,xdt,forced", FFN_FUSED_CASES)
+def test_ffn_fused_launch_matches_plain(dev, b, h, w, c, ch, xdt, forced):
+    """The launch alone (no residual) and with the residual (row 1's f32 y,
+    row 8's bf16 x) against the plain steps at 2^-6 of the largest output
+    (``stage_block.STEP_TOLERANCE``: a bf16 rounding of the LN output or of a
+    may flip one ulp from f32 sums in other orders and carry through fc1 or
+    fc2), each run twice, bitwise equal (no atomics; the split's partials
+    summed in a fixed order)."""
+    ff = ops.ffn_fused
+    rng = np.random.RandomState(21)
+    args = _ffn_inputs(rng, b, h, w, c, ch, xdt)
+    x = args[0]
+    plan = None
+    if forced is not None:
+        rows, cols, hc, splits = forced
+        nch = -(-ch // hc)
+        per = -(-nch // splits)
+        plan = ff.FfnPlan(rows, cols, hc, -(-nch // per), per, ff.ffn_fused_smem(rows, cols, c, hc))
+    for res in (False, True):
+        r = x.reshape(-1, c) if res else None
+        got = ff.ffn_fused_launch(x, *args[1:], 1e-6, r, "t", plan=plan)
+        again = ff.ffn_fused_launch(x, *args[1:], 1e-6, r, "t", plan=plan)
+        _close(got, _plain_ffn(args, res), 2.0 ** -6)
+        assert torch.equal(got, again)
+
+
+def test_ffn_fused_smem_is_the_kernels(dev):
+    """The planner's shared-memory sum (``ffn_fused_smem``) equals the
+    kernel's layout."""
+    from vss_cffm_tpu_torch.ops import _build
+
+    lib = _build.library("ffn_fused")
+    for c in (8, 32, 64, 128, 160, 320, 512):
+        for rows, cols in ((1, 1), (4, 15), (8, 8), (15, 8), (2, 30)):
+            if rows * cols <= ops.ffn_fused.max_pixels(c):
+                for hc in (32, 64):
+                    assert lib.ffn_fused_smem_bytes(rows, cols, c, hc) == \
+                        ops.ffn_fused.ffn_fused_smem(rows, cols, c, hc)
+
+
+def _device_kernels(fn) -> int:
+    """CUDA kernels one call of fn launches, as torch.profiler traces them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+
+
+@pytest.mark.parametrize("shape,ch,nh", [((4, 60, 60, 128), 512, 2), ((4, 30, 30, 320), 1280, 5)])
+def test_inference_block_launches_four_kernels(dev, shape, ch, nh):
+    """With the model's dtypes (bf16 x, K, V and weights, f32 vectors) the
+    inference block runs four CUDA kernels (q, ctx, y, the FFN launch), five
+    where the FFN plan splits the hidden channels; ``block_ffn_fused`` one,
+    or two."""
+    rng = np.random.RandomState(22)
+    b, h, w, c = shape
+    f = lambda *sh, sc: _rand(rng, *sh, scale=sc, dtype=torch.float32, dev=dev)
+    s = 225
+    args = (_rand(rng, *shape, dev=dev), 1.0 + f(c, sc=0.1), f(c, sc=0.1),
+            f(c, c, sc=c ** -0.5).to(BF16), f(c, sc=0.1), _rand(rng, b, s, c, dev=dev),
+            _rand(rng, b, s, c, dev=dev), f(c, c, sc=c ** -0.5).to(BF16), f(c, sc=0.1),
+            1.0 + f(c, sc=0.1), f(c, sc=0.1), f(c, ch, sc=c ** -0.5).to(BF16), f(ch, sc=0.1),
+            f(3, 3, 1, ch, sc=1 / 3), f(ch, sc=0.1), f(ch, c, sc=ch ** -0.5).to(BF16),
+            f(c, sc=0.1))
+    split = ops.ffn_fused.ffn_fused_plan(b, h, w, c, ch, torch.cuda.get_device_properties(
+        0).multi_processor_count).splits > 1
+    with torch.no_grad():
+        assert _device_kernels(lambda: ops.mit_block_fused(*args, num_heads=nh)) == 4 + split
+        assert _device_kernels(lambda: ops.block_ffn_fused(args[0], *args[9:])) == 1 + split

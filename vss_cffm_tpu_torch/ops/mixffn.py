@@ -31,16 +31,19 @@ grad.
 - ``block_ffn_fused(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps, force)``
   = x + (GELU(dw3×3(LN(x)·W1 + b1) + bdw)·W2 + b2) replaces the TPU kernel
   ``vss_cffm_tpu/ops/mixffn.py:block_ffn_fused`` (``_kernel_ln`` without a
-  scale): the forward's three launches without the branch scale. Its
-  rounding points are the Pallas kernel's: f32 LN statistics, the LN output
-  in x's dtype, the hidden map in f32 (the composed block rounds it), a =
-  GELU(·) rounded once, one rounding of the f32 x + branch. The XLA twin
-  ``block_ffn_xla`` rounds the branch before the residual; the port follows
-  the kernel.
+  scale) with one launch, ``ops/ffn_fused.py`` (``csrc/ffn_fused.cu``, the
+  whole inference block's FFN launch): the hidden map and a stay in shared
+  memory, and where the plan splits the hidden channels over blocks a second
+  pass sums the partials. Its rounding points are the Pallas kernel's: f32
+  LN statistics, the LN output in x's dtype, the hidden map in f32 (the
+  composed block rounds it), a = GELU(·) rounded once, one rounding of the
+  f32 x + branch. The XLA twin ``block_ffn_xla`` rounds the branch before
+  the residual; the port follows the kernel. The plain version runs the
+  train forward's three steps without the scale.
 - ``mixffn_fused(x, w1, b1, kdw, bdw, w2, b2, force)`` = GELU(dw3×3(x·W1 +
-  b1) + bdw)·W2 + b2 replaces ``mixffn_fused`` (``_kernel``): the same
-  launches without the LayerNorm prologue and without the residual, the
-  hidden map in f32, the output in x's dtype.
+  b1) + bdw)·W2 + b2 replaces ``mixffn_fused`` (``_kernel``): the train
+  forward's three launches without the LayerNorm prologue and without the
+  residual, the hidden map in f32, the output in x's dtype.
 
 In the MiT block with ``dwconv_impl="fused"`` the FFN half of every block
 that ``block_impl`` does not fuse takes ``block_ffn_fused`` at inference, so
@@ -57,12 +60,14 @@ import torch
 from torch import Tensor
 
 from ._dispatch import custom_op, refuse_grad, require, use_kernel
+from .ffn_fused import ffn_fused_launch
 from .stage_block import (STEP_TOLERANCE, _ffn_fwd_steps, _held, bwd_step_errors, bwd_table,
                           ffn_bwd_steps, run_steps)
 
 __all__ = ["block_ffn_fused", "block_ffn_fused_torch", "mixffn_fused", "mixffn_fused_torch",
            "block_ffn_train", "block_ffn_train_bwd", "block_ffn_train_torch",
            "block_ffn_train_bwd_torch", "block_ffn_train_fits", "block_ffn_train_step_errors",
+           "block_ffn_fused_step_errors",
            "block_ffn_train_bwd_step_errors", "FFN_GRADS"]
 
 # the backward's outputs in the JAX order, as the table names them
@@ -102,11 +107,21 @@ def _block_ffn_fused_op(x: Tensor, gamma: Tensor, beta: Tensor, w1: Tensor, b1: 
                         kdw: Tensor, bdw: Tensor, w2: Tensor, b2: Tensor, eps: float,
                         force: Optional[str]) -> Tensor:
     op = "block_ffn_fused"
-    kernel = use_kernel(force, x, op)
-    out = _forward(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, None, eps, kernel, op)["out"]
-    if kernel:
-        block_ffn_fused.launches += 1
+    if not use_kernel(force, x, op):
+        return _forward(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, None, eps, False, op)["out"]
+    out = _ffn_launch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps, True, op)
+    block_ffn_fused.launches += 1
     return out
+
+
+def _ffn_launch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps: float, residual: bool,
+                op: str) -> torch.Tensor:
+    """[x] + FFN(LN(x)) in one launch (x bf16 NHWC, its own residual)."""
+    require(x.dim() == 4 and x.dtype == torch.bfloat16, op,
+            f"x {x.dtype} {tuple(x.shape)} (bf16 NHWC only)")
+    x = x.contiguous()
+    res = x.view(-1, x.shape[-1]) if residual else None
+    return ffn_fused_launch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps, res, op).view(x.shape)
 
 
 def block_ffn_fused(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps: float = 1e-6,
@@ -249,7 +264,8 @@ def block_ffn_train_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale,
                                 eps: float = 1e-6) -> list:
     """[(check, max |kernel − plain|, tolerance)] of the forward's three
     launches, each fed the plain path's inputs (CUDA tensors, no count), at
-    ``stage_block.STEP_TOLERANCE``; scale None gives ``block_ffn_fused``'s."""
+    ``stage_block.STEP_TOLERANCE``; scale None holds them without the branch
+    scale (``block_ffn_fused`` is one launch: ``block_ffn_fused_step_errors``)."""
     op = "block_ffn_train"
     ins = (x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale, eps)
     plain = _ffn_fwd_steps(*ins[1:], tuple(x.shape), x.dtype, False, op)
@@ -262,6 +278,24 @@ def block_ffn_train_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale,
         ("dwconv+GELU (a)", kern["a"](ref["hid"]), ref["a"]),
         ("fc2 (out - y)", kern["out"](ref["a"], zero), plain["out"](ref["a"], zero)),
         ("fc2 + y (out)", kern["out"](ref["a"], y), ref["out"].reshape(y.shape)))]
+
+
+def block_ffn_fused_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, b2,
+                                eps: float = 1e-6) -> list:
+    """[(check, max |kernel − plain|, tolerance)] of ``block_ffn_fused``'s
+    launch (CUDA tensors, no count) against the plain steps, alone (no
+    residual) and with the residual x, at ``stage_block.STEP_TOLERANCE``."""
+    op = "block_ffn_fused"
+    ref = _forward(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, None, eps, False, op,
+                   names=("hid", "a"))
+    plain = _ffn_fwd_steps(gamma, beta, w1, b1, kdw, bdw, w2, b2, None, eps, tuple(x.shape),
+                           x.dtype, False, op)
+    y = x.contiguous().reshape(-1, x.shape[-1])
+    ffn = lambda residual: _ffn_launch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps, residual,
+                                       op).reshape(y.shape)
+    return [_held(name, got, want, STEP_TOLERANCE[name], op) for name, got, want in (
+        ("ffn (out - y)", ffn(False), plain["out"](ref["a"], None)),
+        ("ffn + y (out)", ffn(True), plain["out"](ref["a"], y)))]
 
 
 def block_ffn_train_bwd_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, go,

@@ -13,7 +13,8 @@ scales s_attn and s_ffn (B,):
 mit_block_fused`` (``_kernel``); training: ``_mit_block_train_fwd``
 (``_train_fwd_kernel``)). The TPU kernels keep the whole block in VMEM per
 (frame, row tile); the stage-3 working set does not fit one H100 block's
-227 KB of shared memory, so the CUDA path is six hand-written launches:
+227 KB of shared memory, so the CUDA path is a short run of hand-written
+launches. In training, six:
 
   1. ``block_gemm``  q   = bf16(LN1(x)·Wq + bq)              LN1 in the prologue
   2. ``attention``   ctx = bf16(softmax(q·(s·K)ᵀ)·V)          scores stay in shared memory
@@ -22,9 +23,14 @@ mit_block_fused`` (``_kernel``); training: ``_mit_block_train_fwd``
   5. ``dwconv``      a   = bf16(GELU(dw3×3(hid) + bdw))       zero padding outside the image
   6. ``block_gemm``  out = bf16(y + s_ffn·(a·W2 + b2))
 
-At inference the scales are absent (1). In training the pair keeps q, ctx,
-y, hid and a for the backward, where the TPU kernel recomputes them from x
-because VMEM is small; the rounding points are the same either way.
+The pair keeps q, ctx, y, hid and a for the backward, where the TPU kernel
+recomputes them from x because VMEM is small. At inference (no branch
+scales) the FFN half is one launch, ``ffn_fused`` (``ops/ffn_fused.py``,
+``csrc/ffn_fused.cu``): out = bf16(y + FFN(LN2 y)) with hid and a kept in
+shared memory, a tile of pixels at a time; where its plan splits the hidden
+channels over blocks, a second pass sums the f32 partials. So the inference
+block is four launches (five with the split): q, ctx, y, out. The rounding
+points are the same on every route.
 
 **Backward** (``_mit_block_train_bwd`` (``_train_bwd_kernel``)): dx, dK,
 dV and the 14 parameter gradients, as twelve launches of four sources:
@@ -62,9 +68,9 @@ run the same steps in PyTorch with those rounding points, so that
 ``mit_block_step_errors`` (with the branch scales) and
 ``mit_block_train_bwd_step_errors`` hold each launch on its own against its
 plain step, at a tolerance relative to that step's own output.
-``ops/mixffn.py`` reuses launches 4-6 of the forward (``block_ffn_train``,
-and at inference ``block_ffn_fused`` and, without LN2 and the residual,
-``mixffn_fused``) and 1-4, 9, 10 of the backward.
+``ops/mixffn.py`` reuses launches 4-6 of the forward (``block_ffn_train``
+and, without LN2 and the residual, ``mixffn_fused``), the inference FFN
+launch (``block_ffn_fused``) and launches 1-4, 9, 10 of the backward.
 """
 
 from __future__ import annotations
@@ -81,6 +87,7 @@ from ._dispatch import (SMEM_LIMIT, custom_op, ptr, refuse_grad, require, sm_cou
                         use_kernel)
 from .cfm_attention import attention_launch, scale_in
 from .dwconv import _gelu_grad, _preact, dwconv3x3_launch, dwconv3x3_torch
+from .ffn_fused import ffn_fused_launch
 
 __all__ = ["mit_block_fused", "mit_block_torch", "mit_block_step_errors",
            "mit_block_train", "mit_block_train_bwd", "mit_block_train_torch",
@@ -205,9 +212,11 @@ def _gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, *,
 
 # The block's six steps, in order, with the steps whose outputs each reads
 # (every step also reads the block's own inputs). Activations are (M, ·)
-# with M = B·H·W: q, ctx, a and out in x's dtype, y and hid in f32.
+# with M = B·H·W: q, ctx, a and out in x's dtype, y and hid in f32. The
+# inference kernel route runs the FFN half as one step (FUSED_STEPS).
 STEPS = (("q", ()), ("ctx", ("q",)), ("y", ("ctx",)), ("hid", ("y",)), ("a", ("hid",)),
          ("out", ("a", "y")))
+FUSED_STEPS = (("q", ()), ("ctx", ("q",)), ("y", ("ctx",)), ("out", ("y",)))
 
 
 def _ffn_fwd_steps(g2, be2, w1, b1, kdw, bdw, w2, b2, s_ffn, eps: float, shape, dt,
@@ -252,7 +261,9 @@ def _block_steps(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, b
                  op: str = "mit_block_fused") -> dict:
     """The step functions of one block: the plain ones, or (kernel=True) the
     hand-written launches, which check their inputs first. Without branch
-    scales this is the inference block."""
+    scales this is the inference block, whose kernel route runs the FFN half
+    as one launch: ``out(y)``, and ``ffn(y, res)`` with the residual res or
+    none (``FUSED_STEPS``)."""
     dt = x.dtype
     b, h, w, c = x.shape
     nh, dh = num_heads, c // num_heads
@@ -291,19 +302,26 @@ def _block_steps(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, b
     kb = k.to(_BF16).contiguous()
     vb = v.to(_BF16).contiguous()
     k_scale = scale_in(_BF16, dh ** -0.5)
-    return {
+    steps = {
         "q": lambda: _gemm(xf, wq, bq, out_dtype=_BF16, ln=(g1, be1, eps), op=op),
         "ctx": lambda q: attention_launch(q.view(b, h * w, c), kb, vb, None, None, nh, 1.0,
                                           k_scale, op).view(m, c),
         "y": lambda ctx: _gemm(ctx, wproj, bproj, out_dtype=_F32, res=xf, o_scale=s_attn,
                                rows_per_frame=h * w, op=op),
-        **_ffn_fwd_steps(*ffn),
     }
+    if s_attn is not None or s_ffn is not None:
+        return {**steps, **_ffn_fwd_steps(*ffn)}
+
+    def ffn_fused(y, res):
+        return ffn_fused_launch(y.view(b, h, w, c), g2, be2, w1, b1, kdw, bdw, w2, b2, eps, res,
+                                op)
+
+    return {**steps, "ffn": ffn_fused, "out": lambda y: ffn_fused(y, y)}
 
 
-def _run(steps: dict, t: dict | None = None, names=None) -> dict:
+def _run(steps: dict, t: dict | None = None, names=None, order=STEPS) -> dict:
     t = dict(t or {})
-    for name, reads in STEPS:
+    for name, reads in order:
         if names is None or name in names:
             t[name] = steps[name](*(t[r] for r in reads))
     return t
@@ -325,10 +343,17 @@ def mit_block_torch(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw
 # through it: 2^-6. y and hid are f32: proj is held as y − x, the attention
 # branch alone, to 2^-10 (same bf16 inputs, f32 sums in another order); fc1
 # to 2^-7, as LN2's bf16 output may flip one ulp. fc2 is held alone (zero
-# residual) and with the residual y.
+# residual) and with the residual y. The inference FFN launch is held whole,
+# alone ("ffn (out - y)", no residual) and with the residual y: its bf16
+# roundings (the LN output, a, out) are the plain steps', from f32 sums in
+# other orders, so a flipped ulp of the LN output or of a carries through
+# fc1 or fc2 into the output's own rounding: 2^-6 of the largest value, the
+# bound of the separate fc2 step it ends with (an H100 read at most 2^-7.6
+# at random inputs of the B0 and B1 widths).
 STEP_TOLERANCE = {"q": 2.0 ** -6, "ctx": 2.0 ** -6, "proj (y - x)": 2.0 ** -10,
                   "fc1 (hid)": 2.0 ** -7, "dwconv+GELU (a)": 2.0 ** -7,
-                  "fc2 (out - y)": 2.0 ** -6, "fc2 + y (out)": 2.0 ** -6}
+                  "fc2 (out - y)": 2.0 ** -6, "fc2 + y (out)": 2.0 ** -6,
+                  "ffn (out - y)": 2.0 ** -6, "ffn + y (out)": 2.0 ** -6}
 
 
 def _held(name: str, got: torch.Tensor, want: torch.Tensor, rel: float, op: str) -> tuple:
@@ -346,24 +371,31 @@ def mit_block_step_errors(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b
                           w2, b2, num_heads: int = 1, eps: float = 1e-6, s_attn=None,
                           s_ffn=None, op: str = "mit_block_fused") -> list:
     """[(check, max |kernel - plain|, tolerance), ...] for each forward step of
-    the kernel path, run on CUDA tensors against the plain steps (no count);
-    with branch scales, the train forward's steps."""
+    the kernel path, run on CUDA tensors against the plain steps (no count):
+    at inference q, ctx, proj and the FFN launch; with branch scales, the
+    train forward's six steps."""
     args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
     kw = dict(num_heads=num_heads, eps=eps, s_attn=s_attn, s_ffn=s_ffn, op=op)
     plain = _block_steps(*args, kernel=False, **kw)
     kern = _block_steps(*args, kernel=True, **kw)
     ref = _run(plain)
     xf = x.float().reshape(ref["y"].shape)
-    zero = torch.zeros_like(ref["y"])
     pairs = {
         "q": (kern["q"](), ref["q"]),
         "ctx": (kern["ctx"](ref["q"]), ref["ctx"]),
         "proj (y - x)": (kern["y"](ref["ctx"]) - xf, ref["y"] - xf),
-        "fc1 (hid)": (kern["hid"](ref["y"]), ref["hid"]),
-        "dwconv+GELU (a)": (kern["a"](ref["hid"]), ref["a"]),
-        "fc2 (out - y)": (kern["out"](ref["a"], zero), plain["out"](ref["a"], zero)),
-        "fc2 + y (out)": (kern["out"](ref["a"], ref["y"]), ref["out"]),
     }
+    if "ffn" in kern:
+        pairs["ffn (out - y)"] = (kern["ffn"](ref["y"], None), plain["out"](ref["a"], None))
+        pairs["ffn + y (out)"] = (kern["ffn"](ref["y"], ref["y"]), ref["out"])
+    else:
+        zero = torch.zeros_like(ref["y"])
+        pairs.update({
+            "fc1 (hid)": (kern["hid"](ref["y"]), ref["hid"]),
+            "dwconv+GELU (a)": (kern["a"](ref["hid"]), ref["a"]),
+            "fc2 (out - y)": (kern["out"](ref["a"], zero), plain["out"](ref["a"], zero)),
+            "fc2 + y (out)": (kern["out"](ref["a"], ref["y"]), ref["out"]),
+        })
     return [_held(name, got, want, STEP_TOLERANCE[name], op)
             for name, (got, want) in pairs.items()]
 
@@ -376,7 +408,8 @@ def _mit_block_fused_op(x: Tensor, g1: Tensor, be1: Tensor, wq: Tensor, bq: Tens
     args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
     if not use_kernel(force, x, "mit_block_fused"):
         return mit_block_torch(*args, num_heads=num_heads, eps=eps)
-    out = _run(_block_steps(*args, num_heads=num_heads, eps=eps, kernel=True))["out"]
+    out = _run(_block_steps(*args, num_heads=num_heads, eps=eps, kernel=True),
+               order=FUSED_STEPS)["out"]
     mit_block_fused.launches += 1
     return out.view(x.shape)
 
