@@ -83,9 +83,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      CE forward and backward at N 8 and N 2, the CFM attention forward and
      backward at 162 windows (the backward also at its first 81, beside
      its library call), the depthwise conv at stage 4 and the
-     whole-block train pair at stages 1-3, forward (its six launches step by
-     step) and backward (its twelve launches step by step, then its 17
-     outputs each at its own scale); in "ffn" the block-FFN pair likewise;
+     whole-block train pair at stages 1-3, forward (its four launches step
+     by step: q, ctx, y and the FFN half as one launch with the branch
+     scale) and backward (each output of the FFN half's launch, its dW2,
+     dW1, then the attention half's six launches step by step, then its 17
+     outputs each at its own scale); in "ffn" the block-FFN pair likewise
+     (its forward launch, and its backward launch's outputs, dW2, dW1);
+     ``[ffn_train]`` in both (``ffn_train_phase``): the FFN half at stages
+     1-3 as the new launches against the three + six they replaced, new,
+     old, old, new, device µs queued, beside its bound, two runs bitwise
+     equal, and in the default form rows 6 and 7 whole on both routes;
      composed, the depthwise conv with its pre-activation output at the
      four stages; in "ohem" the per-pixel CE pair at N 8 and N 2 (nll, lse,
      pred and dlogits) and the share of valid pixels that OHEM kept (near 1
@@ -565,6 +572,9 @@ def _capture_ffn_inputs(model, clip):
     return caught
 
 
+# [ffn_train]'s records by form, for the kernels JSON line
+FFN_TRAIN: dict = {}
+
 # the FFN half alone against its plain steps, of the largest output: the
 # launch's own bound (``stage_block.STEP_TOLERANCE["ffn + y (out)"]``)
 FFN_REL = 2.0 ** -6
@@ -661,6 +671,137 @@ def ffn_phase(ops, caught: dict, caught_f: dict, smi: str) -> dict:
         if attn is not None:
             rec.update(block_device_us=block_us, block_parent_device_us=block_old_us)
         out.setdefault(name, []).append(rec)
+    return out
+
+
+def _abba_us(new, old) -> tuple[list, float, float]:
+    """Device µs of new and old, queued, in the order new, old, old, new:
+    (the four times, new's mean, old's mean)."""
+    ts = [_queued_us(new), _queued_us(old), _queued_us(old), _queued_us(new)]
+    return ts, (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
+
+
+def _bitwise(fn) -> bool:
+    """Two calls of fn give the same bits (a tensor or a dict of them)."""
+    a, b = fn(), fn()
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(torch.equal(a[k], b[k]) for k in a if isinstance(a[k], torch.Tensor))
+
+
+@torch.no_grad()
+def ffn_train_phase(ops, caught: dict, form: str, smi: str) -> list:
+    """``[ffn_train]``: the train pairs' FFN half at each captured stage of the
+    step (the first block of stages 1-3): in the "ffn" form the pair's own
+    input x (rows 10 and 11), in the default form the whole block's f32 y from
+    its own q, ctx, y launches (the FFN half of rows 6 and 7, whose backward
+    also writes d_attn). The forward as one launch with the branch scale
+    (``ffn_fused``) against the three launches it replaced (fc1 with LN2,
+    dwconv, fc2 with the scale and residual), and the backward as one launch
+    and its dW2, dW1 reductions (``ffn_bwd_steps``) against the six it
+    replaced (``ffn_bwd_unfused_steps``, from the three launches' hid and
+    a), each pair timed new, old, old, new (device µs queued behind a sleep),
+    beside the bound of the half's own work and its share; in the default
+    form also rows 6 and 7 whole on both routes, in the same order. Each new
+    launch runs twice bitwise equal, the forward held against the plain steps
+    at FFN_REL. Returns one record a stage."""
+    sb, ff = ops.stage_block, ops.ffn_fused
+    out = []
+    full = form == "train"
+    for rec in caught["mit_block_train" if full else "block_ffn_train"]:
+        if full:
+            args, kw, go = rec
+            ins, s_attn, s_ffn = args[:17], args[17], args[18]
+            eps, ffn = kw["eps"], ins[9:17]
+            kern = sb._block_steps(*ins, **kw, kernel=True, s_attn=s_attn, s_ffn=s_ffn,
+                                   op="ffn_train")
+            acts = sb._run(kern, names=sb._ACTS)
+            xin = acts["y"].view(ins[0].shape)
+        else:
+            args, eps, go = rec
+            xin, ffn, s_ffn, s_attn = args[0].contiguous(), args[1:9], args[9], None
+        b, h, w, c = xin.shape
+        m, ch = b * h * w, ffn[2].shape[1]
+        rows = xin.view(m, c)
+        go_rows = go.contiguous().view(m, c)
+        p = dict(shape=(b, h, w, c), dt=torch.bfloat16, g2=ffn[0], be2=ffn[1], w1=ffn[2],
+                 b1=ffn[3], kdw=ffn[4], bdw=ffn[5], w2=ffn[6], s_ffn=s_ffn, s_attn=s_attn, eps=eps)
+        old_f = sb._ffn_fwd_steps(*ffn, s_ffn, eps, (b, h, w, c), torch.bfloat16, True, "ffn_train")
+        plain_f = sb._ffn_fwd_steps(*ffn, s_ffn, eps, (b, h, w, c), torch.bfloat16, False,
+                                    "ffn_train")
+        new_fwd = lambda: ff.ffn_fused_launch(xin, *ffn, eps, rows, "ffn_train", scale=s_ffn)
+        old_fwd = lambda: old_f["out"](old_f["a"](old_f["hid"](rows)), rows)
+        hid = old_f["hid"](rows)
+        t = {"y": rows, "go": go_rows}
+        t_old = dict(t, hid=hid, a=old_f["a"](hid))
+        new_bwd = lambda: sb.run_steps(sb.ffn_bwd_steps(p, True, full, "ffn_train"), t)
+        old_bwd = lambda: sb.run_steps(sb.ffn_bwd_unfused_steps(p, full, "ffn_train"), t_old)
+        want = plain_f["out"](plain_f["a"](plain_f["hid"](rows)), rows)
+        got = new_fwd()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = FFN_REL * want.float().abs().max().item()
+        bitwise = _bitwise(new_fwd) and _bitwise(new_bwd)
+        tf, fwd_us, fwd_old = _abba_us(new_fwd, old_fwd)
+        tb, bwd_us, bwd_old = _abba_us(new_bwd, old_bwd)
+        # the half's own work: the forward's fc1, fc2 (tensor cores), the
+        # depthwise + GELU and LayerNorm (f32); the backward's five products
+        # (fc1 recomputed, d_a, d_ln, dW2, dW1), GELU′ exps; inputs, weights
+        # and outputs moved once
+        grads = sum(t_.numel() * 4 for t_ in ffn[:7])
+        fb_ms, fby = _bound_ms(_nbytes(xin, *ffn) + m * c * 2, 2 * m * c * ch * 2,
+                               m * ch * 24 + m * c * 20)
+        bb_ms, bby = _bound_ms(_nbytes(xin, go_rows, *ffn[:7]) + m * c * (4 if full else 2)
+                               + (m * c * 2 if full else 0) + grads, 2 * m * 5 * c * ch,
+                               m * ch * 64 + m * c * 40, m * ch)
+        fplan = ff.ffn_fused_plan(b, h, w, c, ch, torch.cuda.get_device_properties(0)
+                                  .multi_processor_count)
+        bplan = ops.ffn_bwd.ffn_bwd_plan(b, h, w, c, ch, torch.cuda.get_device_properties(0)
+                                         .multi_processor_count)
+        row = "rows 6, 7 (FFN half)" if full else "rows 10, 11"
+        whole = ""
+        r = dict(shape=f"x{tuple(xin.shape)} Ch={ch}", row=row, fwd_us=fwd_us,
+                 fwd_parent_us=fwd_old, bwd_us=bwd_us, bwd_parent_us=bwd_old,
+                 fwd_bound_us=fb_ms * 1e3, bwd_bound_us=bb_ms * 1e3)
+        if full:
+            pb = dict(zip(sb._INPUTS, ins[:16]), shape=(b, h, w, c), dt=torch.bfloat16,
+                      num_heads=kw["num_heads"], eps=eps, s_attn=s_attn, s_ffn=s_ffn)
+            attn = lambda: kern["y"](kern["ctx"](kern["q"]()))
+            table = sb.bwd_table(ins[0].contiguous(), go.contiguous(), acts)
+            def row6_new():
+                yb = attn()
+                return ff.ffn_fused_launch(yb.view(xin.shape), *ffn, eps, yb, "ffn_train",
+                                           scale=s_ffn)
+
+            def row6_old():
+                yb = attn()
+                return old_f["out"](old_f["a"](old_f["hid"](yb)), yb)
+
+            r6 = _abba_us(row6_new, row6_old)
+            r7 = _abba_us(
+                lambda: sb.run_steps(sb._train_bwd_steps(pb, True, "ffn_train"), table),
+                lambda: sb.run_steps(sb.ffn_bwd_unfused_steps(pb, True, "ffn_train")
+                                     + sb._attn_bwd_steps(pb, True, "ffn_train"),
+                                     dict(table, hid=t_old["hid"], a=t_old["a"])))
+            r.update(row6_us=r6[1], row6_parent_us=r6[2], row7_us=r7[1], row7_parent_us=r7[2])
+            whole = (f"; row 6 whole (q, ctx, y, then the half) {r6[0][0]:.1f} / {r6[0][3]:.1f} "
+                     f"device us, with the three launches {r6[0][1]:.1f} / {r6[0][2]:.1f}; row 7 "
+                     f"whole {r7[0][0]:.1f} / {r7[0][3]:.1f}, with the six {r7[0][1]:.1f} / "
+                     f"{r7[0][2]:.1f}")
+        print(f"[ffn_train] {row} x{tuple(xin.shape)} {str(xin.dtype)[6:]} Ch={ch} fwd plan "
+              f"(rows {fplan.rows}, cols {fplan.cols}, hc {fplan.hc}, splits {fplan.splits}), "
+              f"bwd plan (rows {bplan.rows}, cols {bplan.cols}, hc {bplan.hc}, splits "
+              f"{bplan.splits}, {bplan.smem} B smem): forward one launch {tf[0]:.1f} / "
+              f"{tf[3]:.1f} device us, three launches {tf[1]:.1f} / {tf[2]:.1f}, bound "
+              f"{fb_ms * 1e3:.1f} us ({fby}), share {fb_ms * 1e3 / fwd_us:.3f}; backward one "
+              f"launch + dW2, dW1 {tb[0]:.1f} / {tb[3]:.1f}, six launches {tb[1]:.1f} / "
+              f"{tb[2]:.1f}, bound {bb_ms * 1e3:.1f} us ({bby}), share {bb_ms * 1e3 / bwd_us:.3f} "
+              f"(new, old, old, new, queued behind a sleep){whole}; forward max_abs_err="
+              f"{err:.3e} tol={tol:.3e} (2^-6 of the largest output), two runs of each new launch "
+              f"bitwise equal: {bitwise} | {smi}", flush=True)
+        if not err <= tol or not bitwise:
+            raise RuntimeError(f"[ffn_train] {row} at x{tuple(xin.shape)}: err {err} > {tol} or "
+                               f"two runs differ ({bitwise})")
+        out.append(r)
     return out
 
 
@@ -973,7 +1114,7 @@ def _block_train_case(ops, rec):
 
     # out is bf16 at the residual's scale, which dominates it at the step's
     # weights: the whole output is a sanity check (2^-5 of its largest
-    # value), the six launches are held one by one at their own scales
+    # value), the four launches are held one by one at their own scales
     return dict(call=call, bound=bound, library=None,
                 compare=lambda got, want: _compare_one(got, want, PAIR_REL),
                 steps=lambda: ops.mit_block_step_errors(*args[:17], **kw, s_attn=args[17],
@@ -1030,21 +1171,19 @@ def _ffn_train_case(ops, rec):
 
 
 def _ffn_train_bwd_case(ops, rec):
-    """Row 11: the block-FFN train backward, from the forward's kept hid and a."""
+    """Row 11: the block-FFN train backward, recomputed from x (the forward
+    keeps nothing else)."""
     args, eps, go = rec
     ins, scale = args[:8], args[9]
     x, w1 = args[0], args[3]
     b, h, w, c = x.shape
     m, ch = b * h * w, w1.shape[1]
     mx = ops.mixffn
-    acts = {force: mx._forward(*args, eps, force == "kernel", "block_ffn_train",
-                               names=mx._ACTS) for force in ("kernel", "torch")}
     grad_bytes = sum(t.numel() * 4 for t in ins[1:])
     # the TPU kernel's products: fc1 (recompute), d_a, d_ln, dW2, dW1; GELU′ exps
     bound = _bound_ms(_nbytes(*ins, go) + x.numel() * 2 + grad_bytes, 2 * m * 5 * c * ch,
                       m * ch * 64 + m * c * 40, m * ch)
-    return dict(call=lambda force: mx.block_ffn_train_bwd(*ins, scale, go, eps, force=force,
-                                                          acts=acts[force]),
+    return dict(call=lambda force: mx.block_ffn_train_bwd(*ins, scale, go, eps, force=force),
                 bound=bound, library=None,
                 compare=lambda g, w_: _held_outputs(mx.FFN_GRADS, g, w_, PAIR_REL),
                 steps=lambda: mx.block_ffn_train_bwd_step_errors(*ins, scale, go, eps),
@@ -1066,16 +1205,19 @@ TRAIN_KERNELS = {
         replaces="vss_cffm_tpu/ops/cfm_attention.py:120",  # _bwd_kernel_rc, called at :204
         case=_cfm_bwd_case),
     "mit_block_train": dict(
-        # the six forward launches of the block, with the branch scales
+        # four forward launches (five where the FFN plan splits): q, ctx, y,
+        # then the FFN half in one launch with the branch scale
         sources=["vss_cffm_tpu_torch/csrc/block_gemm.cu", "vss_cffm_tpu_torch/csrc/attention.cu",
-                 "vss_cffm_tpu_torch/csrc/dwconv.cu"],
+                 "vss_cffm_tpu_torch/csrc/ffn_fused.cu"],
         replaces="vss_cffm_tpu/ops/stage_block.py:321",  # _train_fwd_kernel, called at :672
         case=_block_train_case),
     "mit_block_train_bwd": dict(
-        # twelve launches: input-gradient GEMMs, the fused depthwise + GELU
-        # pass and the LayerNorm passes, the attention backward with dK and
-        # dV, the weight row-reduction GEMMs
-        sources=["vss_cffm_tpu_torch/csrc/sra_attention_bwd.cu",
+        # nine launches (ten where the FFN plan splits): the FFN half in one
+        # launch with hid, z, d_a, d_z and d_ln on chip, its dW2, dW1 row
+        # reductions; the attention half's input-gradient GEMMs, attention
+        # backward with dK and dV, LN1 backward and dWproj, dWq
+        sources=["vss_cffm_tpu_torch/csrc/ffn_bwd.cu",
+                 "vss_cffm_tpu_torch/csrc/sra_attention_bwd.cu",
                  "vss_cffm_tpu_torch/csrc/block_bwd.cu", "vss_cffm_tpu_torch/csrc/gemm_tn.cu",
                  "vss_cffm_tpu_torch/csrc/block_gemm.cu"],
         replaces="vss_cffm_tpu/ops/stage_block.py:369",  # _train_bwd_kernel, called at :732
@@ -1090,15 +1232,16 @@ TRAIN_KERNELS = {
 
 FFN_KERNELS = {
     "block_ffn_train": dict(
-        # launches 4-6 of the block's forward: fc1 with LN2, dwconv, fc2
-        sources=["vss_cffm_tpu_torch/csrc/block_gemm.cu", "vss_cffm_tpu_torch/csrc/dwconv.cu"],
+        # one launch (two where its plan splits): LN2, fc1, the depthwise conv
+        # + GELU and fc2 with hid and a on chip, the branch scale, the residual
+        sources=["vss_cffm_tpu_torch/csrc/ffn_fused.cu"],
         # _kernel_ln with the branch scale, called by _block_ffn_fwd_scaled at :467
         replaces="vss_cffm_tpu/ops/mixffn.py:106",
         case=_ffn_train_case),
     "block_ffn_train_bwd": dict(
-        # six launches: the FFN half of the block's backward
-        sources=["vss_cffm_tpu_torch/csrc/block_bwd.cu", "vss_cffm_tpu_torch/csrc/gemm_tn.cu",
-                 "vss_cffm_tpu_torch/csrc/block_gemm.cu"],
+        # three launches (four where its plan splits): the backward with hid,
+        # z, d_a, d_z and d_ln on chip, then dW2 and dW1 on gemm_tn
+        sources=["vss_cffm_tpu_torch/csrc/ffn_bwd.cu", "vss_cffm_tpu_torch/csrc/gemm_tn.cu"],
         replaces="vss_cffm_tpu/ops/mixffn.py:313",  # _bwd_kernel_ln, called at :517
         case=_ffn_train_bwd_case),
 }
@@ -1398,6 +1541,8 @@ def train_phase(apis, ops, opts, root, kind, smi, form: str) -> tuple[dict, dict
               f"{per_block} B (f32) per decoder block, {nb * per_block} B for the {nb} blocks",
               flush=True)
     stats = check_kernels(ops, caught, spec["kernels"], opts.profile)
+    if form in ("train", "train_ffn"):
+        FFN_TRAIN[form] = ffn_train_phase(ops, caught, form, smi)
     if "cfm_attention_bwd" in caught:
         # row 4 also at inference's 81 windows, checked and timed beside its
         # library call (not part of the form's statistics)
@@ -3521,15 +3666,19 @@ def ce_bench_phase(ops, opts) -> tuple[dict, dict]:
 
 
 # kernels that only row 7's backward launches in the default step (the
-# backward's block_gemm instance is named by its Bwd tag); the unfused d_z /
-# d_hid pair (dgelu_dz, dwconv_t) is listed too, so that the profile of a
-# tree from before the fusion reads the same way
-ROW7_KERNELS = ("sra_attention_bwd_kernel", "gemm_tn_kernel", "dz_dhid_kernel",
+# backward's block_gemm instance is named by its Bwd tag; the FFN half's
+# launch and its split pass by ffn_bwd); the launches that FFN launch
+# replaced (dz_dhid, and the d_z / d_hid pair dgelu_dz, dwconv_t before
+# them) are listed too, so that the profile of an older tree reads the same
+# way
+ROW7_KERNELS = ("ffn_bwd", "sra_attention_bwd_kernel", "gemm_tn_kernel", "dz_dhid_kernel",
                 "dgelu_dz_kernel", "dwconv_t_kernel", "ln_bwd_kernel", "::Bwd")
-# row 6's six launches in the default step: the forward's block_gemm
-# instance (Fwd tag), the attention without bias and mask (the MiT blocks'
-# spatial-reduction attention) and the depthwise conv on the f32 hidden map
-ROW6_KERNELS = ("::Fwd", "attention_fwd_kernel<64, false>", "dwconv3x3_kernel<float>")
+# row 6's launches in the default step: the forward's block_gemm instance
+# (Fwd tag), the attention without bias and mask (the MiT blocks'
+# spatial-reduction attention) and the FFN launch with its split pass (the
+# depthwise conv on the f32 hidden map of older trees too)
+ROW6_KERNELS = ("::Fwd", "attention_fwd_kernel<64, false>", "ffn_fused_kernel",
+                "ffn_reduce_kernel", "dwconv3x3_kernel<float>")
 
 
 # ---- the eval phase: video evaluation at VSPW's eval geometry ----------------
@@ -4349,6 +4498,11 @@ def main() -> int:
             row["image_b0_480x864"] = image_stats[name]
         if name in ffn_half:  # rows 1 and 8: the FFN half alone against the old route
             row["ffn_half"] = ffn_half[name]
+        # rows 6, 7, 10 and 11: the train pairs' FFN half against the old route
+        ffn_form = {"mit_block_train": "train", "mit_block_train_bwd": "train",
+                    "block_ffn_train": "train_ffn", "block_ffn_train_bwd": "train_ffn"}.get(name)
+        if ffn_form in FFN_TRAIN:
+            row["ffn_train"] = FFN_TRAIN[ffn_form]
         kernels.append(row)
     print(f"[done] {time.perf_counter() - t0:.1f} s; kernels checked: "
           f"{', '.join(k['name'] for k in kernels)}", flush=True)

@@ -1829,3 +1829,197 @@ def test_inference_block_launches_four_kernels(dev, shape, ch, nh):
     with torch.no_grad():
         assert _device_kernels(lambda: ops.mit_block_fused(*args, num_heads=nh)) == 4 + split
         assert _device_kernels(lambda: ops.block_ffn_fused(args[0], *args[9:])) == 1 + split
+
+
+# The block-FFN train pair's launches (rows 10 and 11, and the FFN half of
+# rows 6 and 7): (b, h, w, C, Ch, the whole block's mode, a forced (rows,
+# cols, hc, splits) or None for the plan): the train step's stages 1-3 (8
+# frames of 480x480 at B1's widths) on their plans and with forced splits,
+# in the pair's mode (bf16 x in, bf16 dx out) and the whole block's (f32 y
+# in, f32 d_y and bf16 d_attn out); ragged tiles and chunks, one pixel a frame
+FFN_BWD_CASES = [
+    (8, 120, 120, 64, 256, False, None), (8, 60, 60, 128, 512, False, None),
+    (8, 30, 30, 320, 1280, False, None), (8, 120, 120, 64, 256, True, None),
+    (8, 60, 60, 128, 512, True, None), (8, 30, 30, 320, 1280, True, None),
+    (8, 120, 120, 64, 256, False, (12, 10, 64, 2)), (8, 30, 30, 320, 1280, True, (8, 8, 32, 3)),
+    (8, 60, 60, 128, 512, True, (8, 16, 32, 2)),
+    (2, 9, 11, 64, 256, False, (3, 4, 32, 3)), (1, 7, 13, 160, 648, True, (4, 4, 64, 2)),
+    (3, 1, 1, 16, 40, False, None), (2, 5, 1, 24, 200, True, (3, 1, 32, 2)),
+]
+
+
+def _ffn_bwd_inputs(rng, b, h, w, c, ch, full):
+    """x (bf16, or the block's f32 y), go (bf16), the f32 parameters of
+    ``block_ffn_train`` and branch scales with a dropped branch in frame 0
+    (attention) and frame 1 (FFN)."""
+    f = lambda *sh, sc: _rand(rng, *sh, scale=sc, dtype=torch.float32, dev="cuda")
+    x = f(b, h, w, c, sc=1.0)
+    ffn = (1.0 + f(c, sc=0.1), f(c, sc=0.1), f(c, ch, sc=c ** -0.5), f(ch, sc=0.1),
+           f(3, 3, 1, ch, sc=1 / 3), f(ch, sc=0.1), f(ch, c, sc=ch ** -0.5), f(c, sc=0.1))
+    s_ffn = torch.tensor(([1 / 0.9, 0.0] + [1.0, 0.37] * b)[:b], device="cuda")
+    s_attn = torch.tensor(([0.0] + [1 / 0.9, 1.0] * b)[:b], device="cuda")
+    return (x if full else x.to(BF16)), ffn, _rand(rng, b, h, w, c, dev="cuda"), s_ffn, s_attn
+
+
+def _ffn_bwd_plan(b, h, w, c, ch, forced):
+    if forced is None:
+        return None
+    rows, cols, hc, splits = forced
+    nch = -(-ch // hc)
+    per = -(-nch // splits)
+    return ops.ffn_bwd.FfnBwdPlan(rows, cols, hc, -(-nch // per), per,
+                                  ops.ffn_bwd.ffn_bwd_smem(rows, cols, c, hc))
+
+
+@pytest.mark.parametrize("b,h,w,c,ch,full,forced", FFN_BWD_CASES)
+def test_ffn_bwd_launch_matches_plain(dev, b, h, w, c, ch, full, forced):
+    """Each output of the backward launch against the plain steps of the FFN
+    half (``stage_block.ffn_bwd_steps``, fed the same y and go) at
+    ``stage_block.FFN_BWD_TOLERANCE`` (a flipped bf16 ulp of the LN output,
+    a, go_s or d_hid_b, from f32 sums in other orders, carried into what
+    follows: 2^-6; ln2 2^-7; db2 2^-10); two runs bitwise equal (no atomics,
+    every partial summed in a fixed order)."""
+    sb = ops.stage_block
+    rng = np.random.RandomState(23)
+    x, ffn, go, s_ffn, s_attn = _ffn_bwd_inputs(rng, b, h, w, c, ch, full)
+    p = dict(shape=(b, h, w, c), dt=BF16, g2=ffn[0], be2=ffn[1], w1=ffn[2], b1=ffn[3], kdw=ffn[4],
+             bdw=ffn[5], w2=ffn[6], s_ffn=s_ffn, s_attn=s_attn if full else None, eps=1e-6)
+    t = {"y": x.reshape(-1, c), "go": go.reshape(-1, c)}
+    ref = sb.run_steps(sb.ffn_bwd_steps(p, False, full, "t"), t)
+    plan = _ffn_bwd_plan(b, h, w, c, ch, forced)
+    run = lambda: ops.ffn_bwd.ffn_bwd_launch(x, go.reshape(-1, c), *ffn[:7], s_ffn, 1e-6, "t",
+                                             s_attn=s_attn if full else None, full=full,
+                                             plan=plan)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert set(got) == {"a", "d_hid", "ln2", "dkdw", "dbdw", "db1", "dg2", "dbe2", "db2"} | (
+        {"d_y", "d_attn", "dbproj"} if full else {"dx"})
+    for key, g in got.items():
+        want = ref[key]
+        assert g.dtype == want.dtype and g.shape == want.shape, key
+        assert torch.isfinite(g.float()).all(), key
+        err = (g.float() - want.float()).abs().max().item()
+        assert err <= sb.FFN_BWD_TOLERANCE[key] * want.float().abs().max().item(), (key, err)
+        assert torch.equal(g, again[key]), key
+
+
+@pytest.mark.parametrize("scale", [(0.0, 0.0), (1 / 0.9, 0.37), (1.0, 1.0)],
+                         ids=["dropped", "scaled", "one"])
+@pytest.mark.parametrize("b,h,w,c,ch,xdt,forced", [
+    (2, 60, 60, 128, 512, F32, None), (2, 30, 30, 320, 1280, F32, (8, 8, 64, 2)),
+    (2, 120, 120, 64, 256, BF16, None), (2, 9, 11, 64, 256, BF16, (2, 5, 32, 3))])
+def test_ffn_fused_launch_with_branch_scale(dev, b, h, w, c, ch, xdt, forced, scale):
+    """The forward launch of the train pairs: out = res + s·FFN(LN(x)) with
+    the per-frame scale s, against the plain steps at 2^-6 (as without the
+    scale), the f32 residual of the whole block (row 6) and the bf16 x of
+    the pair (row 10), with and without the split; a scale of 0 gives the
+    residual itself, rounded once; two runs bitwise equal."""
+    ff = ops.ffn_fused
+    rng = np.random.RandomState(24)
+    args = _ffn_inputs(rng, b, h, w, c, ch, xdt)
+    x = args[0]
+    s = torch.tensor(scale, device=dev)
+    plan = None
+    if forced is not None:
+        rows, cols, hc, splits = forced
+        nch = -(-ch // hc)
+        per = -(-nch // splits)
+        plan = ff.FfnPlan(rows, cols, hc, -(-nch // per), per, ff.ffn_fused_smem(rows, cols, c, hc))
+    st = ops.stage_block._ffn_fwd_steps(*args[1:], s, 1e-6, tuple(x.shape), BF16, False, "t")
+    y = x.reshape(-1, c)
+    want = st["out"](st["a"](st["hid"](y)), y)
+    got = ff.ffn_fused_launch(x, *args[1:], 1e-6, y, "t", plan=plan, scale=s)
+    again = ff.ffn_fused_launch(x, *args[1:], 1e-6, y, "t", plan=plan, scale=s)
+    _close(got, want, 2.0 ** -6)
+    assert torch.equal(got, again)
+    if scale == (0.0, 0.0):
+        assert torch.equal(got, y.to(BF16))
+
+
+def _port_kernels(fn) -> int:
+    """The port's own CUDA kernels (csrc/, all in anonymous namespaces) one
+    call of fn launches, as torch.profiler traces them: dtype copies and
+    torch's reductions of the partials left out."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    own = re.compile(r"^(void )?\(anonymous namespace\)::")
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and own.match(e.key))
+
+
+@pytest.mark.parametrize("shape,ch,s,nh", [((8, 60, 60, 128), 512, 225, 2),
+                                           ((8, 30, 30, 320), 1280, 225, 5)])
+def test_train_pairs_launch_counts(dev, shape, ch, s, nh):
+    """Kernels of the port per call at the step's stage 2 and 3 shapes: the
+    block-FFN pair's forward 1 (2 where the forward's plan splits), its
+    backward the launch (2 with a split) and the dW2, dW1 reductions; the
+    whole block's forward q, ctx, y and the FFN launch, its backward the FFN
+    half's three (four) and the attention half's six."""
+    rng = np.random.RandomState(25)
+    ins, s_attn, s_ffn, go = _block_train_inputs(rng, shape, ch, s, dev)
+    b, h, w, c = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fsplit = ops.ffn_fused.ffn_fused_plan(b, h, w, c, ch, sms).splits > 1
+    bsplit = ops.ffn_bwd.ffn_bwd_plan(b, h, w, c, ch, sms).splits > 1
+    x, ffn = ins[0], ins[9:]
+    with torch.no_grad():
+        assert _port_kernels(lambda: ops.block_ffn_train(x, *ffn, s_ffn)) == 1 + fsplit
+        assert _port_kernels(lambda: ops.mit_block_train(*ins, s_attn, s_ffn, num_heads=nh)) \
+            == 4 + fsplit
+    assert _port_kernels(lambda: ops.block_ffn_train_bwd(x, *ffn[:7], s_ffn, go)) == 3 + bsplit
+    sb = ops.stage_block
+    acts = sb._run(sb._block_steps(*ins[:16], None, num_heads=nh, eps=1e-6, kernel=True,
+                                   s_attn=s_attn, s_ffn=s_ffn), names=sb._ACTS)
+    assert _port_kernels(lambda: ops.mit_block_train_bwd(*ins[:16], s_attn, s_ffn, go,
+                                                         num_heads=nh, acts=acts)) == 9 + bsplit
+
+
+def test_ffn_bwd_memory_rise(dev):
+    """At the train step's stage 1 (8 frames of 120x120, C 64, Ch 256) the
+    pair's backward allocates beyond its inputs and outputs at most M·Ch·4
+    bytes (a and d_hid_b in bf16, for the weight products) + M·C·2 (ln2) +
+    the per-block partial sums (11·Ch + 4·C f32 a tile of its plan, and the
+    weight products' row-split partials of Ch x C f32) + 1 MiB; an f32 map
+    of M x Ch (the d_a the six launches it replaced wrote, M·Ch·6 with
+    d_hid) would add M·Ch·4 more."""
+    rng = np.random.RandomState(26)
+    b, h, w, c, ch = 8, 120, 120, 64, 256
+    m = b * h * w
+    x, ffn, go, s_ffn, _ = _ffn_bwd_inputs(rng, b, h, w, c, ch, False)
+    ops.block_ffn_train_bwd(x, *ffn[:7], s_ffn, go)  # built and warmed up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads = ops.block_ffn_train_bwd(x, *ffn[:7], s_ffn, go)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base - sum(g.numel() * g.element_size()
+                                                          for g in grads)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ops.ffn_bwd.ffn_bwd_plan(b, h, w, c, ch, sms)
+    tiles = b * -(-h // plan.rows) * -(-w // plan.cols)
+    # the weight products' partials (stage_block.gemm_tn's split of the rows)
+    gemm_splits = max(1, min(-(-4 * sms // (-(-ch // 64) * -(-c // 64))), -(-m // 256)))
+    partials = tiles * (11 * ch + 4 * c) * 4 + gemm_splits * ch * c * 4
+    assert rise <= m * ch * 4 + m * c * 2 + partials + 2 ** 20, (rise, m * ch * 4)
+
+
+def test_ffn_bwd_smem_is_the_kernels(dev):
+    """The planner's shared-memory sum (``ffn_bwd_smem``) equals the kernel's
+    layout."""
+    from vss_cffm_tpu_torch.ops import _build
+
+    lib = _build.library("ffn_bwd")
+    for c in (8, 32, 64, 128, 160, 320, 512):
+        for rows, cols in ((1, 1), (4, 15), (8, 8), (12, 10), (5, 3)):
+            if rows * cols <= ops.ffn_fused.max_pixels(c):
+                for hc in (32, 64):
+                    assert lib.ffn_bwd_smem_bytes(rows, cols, c, hc) == \
+                        ops.ffn_bwd.ffn_bwd_smem(rows, cols, c, hc)

@@ -1,16 +1,20 @@
 // The FFN half of a MiT block at inference in one launch:
 //
-//     out = bf16( [res] + b2 + bf16( GELU( dw3x3( mask( LN(x)·W1 + b1 ) ) + bdw ) ) · W2 )
+//     out = bf16( [res] + [s] · ( bf16( GELU( dw3x3( mask( LN(x)·W1 + b1 ) ) + bdw ) ) · W2 + b2 ) )
 //
 // x (B, H, W, C) bf16 or f32, the FFN's input; res (B·H·W, C) bf16, f32 or
-// none; W1 (C, Ch) and W2 (Ch, C) bf16 row-major; b1, bdw (Ch,), the taps
-// (9, Ch) and b2 (C,) f32.
+// none; s (B,) f32, the per-frame branch scale of training (stochastic
+// depth), or none; W1 (C, Ch) and W2 (Ch, C) bf16 row-major; b1, bdw (Ch,),
+// the taps (9, Ch) and b2 (C,) f32.
 //
 // Replaces the FFN half of the TPU kernels vss_cffm_tpu/ops/stage_block.py:
 // _kernel (:134-150: LN2 → fc1 → masked hidden map → 3x3 depthwise → GELU →
 // fc2 → + y, the whole block's second half, row 1 of PERF.md's table) and
-// vss_cffm_tpu/ops/mixffn.py:_kernel_ln without a scale (:106, row 8:
-// block_ffn_fused). Both keep the hidden map in VMEM. The port's earlier
+// vss_cffm_tpu/ops/mixffn.py:_kernel_ln (:106) without a scale (row 8:
+// block_ffn_fused) and with it (row 10: _block_ffn_fwd_scaled, the forward
+// of the block-FFN train pair, and the FFN half of row 6, the whole block's
+// train forward, where the JAX kernels keep nothing for the backward and
+// neither does this launch). All keep the hidden map in VMEM. The port's earlier
 // route wrote it to device memory in f32 (block_gemm), read it back for the
 // depthwise pass (dwconv.cu), wrote a in bf16 and read a again for fc2: at
 // B1 stage 2 ~107 MB a clip's pair of blocks, for ~11 MB of inputs and
@@ -60,7 +64,8 @@
 //    atomics: two runs give the same bits.
 // Rounding points are the plain version's (ops/stage_block.py:
 // _ffn_fwd_steps): LN in f32, bf16 before fc1, the hidden map in f32, a in
-// bf16, fc2 in f32, then b2, then the residual, bf16 out.
+// bf16, fc2 in f32, then b2, then the frame's scale, then the residual, bf16
+// out.
 #include "common.cuh"
 #include "mma_sync.cuh"
 #include "tma_wgmma.cuh"
@@ -128,6 +133,7 @@ struct Args {
   const float* bdw;
   const __nv_bfloat16* w2;
   const float* b2;
+  const float* scale;  // (B,) or null
   const void* res;
   void* out;  // bf16 (M, C), or the f32 partials (splits, M, C)
   int B, H, W, C, Ch, x_f32, res_kind, rows, cols, tiles_h, tiles_w, prow, chunks, splits;
@@ -521,9 +527,10 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_fused_kernel(const Args p) {
     mrow[hf] = pp < pout ? ((long long)f * H + i0 + r) * W + j0 + c : -1;
   }
   if (p.splits == 1) {
-    // b2, then the residual, into the accumulators: every read before any
-    // store (the compiler cannot tell out from res and would order each read
-    // after the stores before it)
+    // b2, the frame's scale, then the residual, into the accumulators: every
+    // read before any store (the compiler cannot tell out from res and would
+    // order each read after the stores before it)
+    const float sc = p.scale != nullptr ? __ldg(p.scale + f) : 1.f;
 #pragma unroll
     for (int j = 0; j < NA; ++j) {
       const int atom = PIX2 ? j : wg + 2 * j;
@@ -538,6 +545,10 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_fused_kernel(const Args p) {
           float& v1 = acc[j][4 * jj + 2 * hf + 1];
           v0 += bv.x;
           v1 += bv.y;
+          if (p.scale != nullptr) {
+            v0 *= sc;
+            v1 *= sc;
+          }
           if (mrow[hf] < 0 || p.res_kind == 0) continue;
           const long long o = mrow[hf] * C + n;
           float2 rv;
@@ -574,13 +585,16 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_fused_kernel(const Args p) {
   }
 }
 
-// The split's second pass: out = bf16(((p_0 + p_1) + ... + p_{S-1}) + b2 + res),
-// 8 channels a thread.
+// The split's second pass: out = bf16((((p_0 + p_1) + ... + p_{S-1}) + b2)·s
+// + res), 8 channels a thread; s the frame's scale (rows_per_frame rows a
+// frame), or none.
 __global__ void __launch_bounds__(256) ffn_reduce_kernel(const float* __restrict__ part,
                                                          const float* __restrict__ b2,
+                                                         const float* __restrict__ scale,
                                                          const void* res, int res_kind,
                                                          __nv_bfloat16* __restrict__ out,
-                                                         long long M, int C, int S) {
+                                                         long long M, int C, int S,
+                                                         long long rows_per_frame) {
   const int c8 = C / 8;
   const long long total = M * c8;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
@@ -597,6 +611,11 @@ __global__ void __launch_bounds__(256) ffn_reduce_kernel(const float* __restrict
     vss::load8(b2 + n, w);
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] += w[e];
+    if (scale != nullptr) {
+      const float sc = scale[m / rows_per_frame];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] *= sc;
+    }
     if (res_kind) {
       if (res_kind == 1)
         vss::load8(static_cast<const __nv_bfloat16*>(res) + m * C + n, w);
@@ -647,7 +666,8 @@ VSS_EXPORT int ffn_fused_smem_bytes(int rows, int cols, int c, int hc) {
 }
 
 // x (B, H, W, C) bf16 or f32 (x_f32); gamma, beta (C,) f32; w1 (C, Ch) bf16;
-// b1 (Ch,), kdw (9, Ch), bdw (Ch,) f32; w2 (Ch, C) bf16; b2 (C,) f32; res
+// b1 (Ch,), kdw (9, Ch), bdw (Ch,) f32; w2 (Ch, C) bf16; b2 (C,) f32; scale
+// (B,) f32, the branch's per-frame factor, or null; res
 // (B·H·W, C): none (res_kind 0), bf16 (1) or f32 (2); out (B·H·W, C) bf16;
 // part (splits, B·H·W, C) f32 when splits > 1, else unused. Tiles of rows x
 // cols output pixels (at most the instance's 32·mtw), chunks of hc (32 or
@@ -656,7 +676,8 @@ VSS_EXPORT int ffn_fused_smem_bytes(int rows, int cols, int c, int hc) {
 // Python wrapper). One launch, or two with a split. Returns a cudaError_t.
 VSS_EXPORT int ffn_fused(const void* x, const void* gamma, const void* beta, const void* w1,
                          const void* b1, const void* kdw, const void* bdw, const void* w2,
-                         const void* b2, const void* res, void* out, void* part, int B, int H,
+                         const void* b2, const void* scale, const void* res, void* out,
+                         void* part, int B, int H,
                          int W, int C, int Ch, int x_f32, int res_kind, int rows, int cols,
                          int hc, int splits, int chunks, float eps, int device, void* stream) {
   vss::use_device(device);
@@ -679,6 +700,7 @@ VSS_EXPORT int ffn_fused(const void* x, const void* gamma, const void* beta, con
          static_cast<const float*>(bdw),
          static_cast<const __nv_bfloat16*>(w2),
          static_cast<const float*>(b2),
+         static_cast<const float*>(scale),
          res,
          splits > 1 ? part : out,
          B, H, W, C, Ch, x_f32, res_kind, rows, cols, th, tw,
@@ -691,7 +713,9 @@ VSS_EXPORT int ffn_fused(const void* x, const void* gamma, const void* beta, con
   const long long want = (n8 + 255) / 256;
   const unsigned blocks = (unsigned)(want < 132LL * 16 ? want : 132LL * 16);
   ffn_reduce_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(part),
-                                            static_cast<const float*>(b2), res, res_kind,
-                                            static_cast<__nv_bfloat16*>(out), M, C, splits);
+                                            static_cast<const float*>(b2),
+                                            static_cast<const float*>(scale), res, res_kind,
+                                            static_cast<__nv_bfloat16*>(out), M, C, splits,
+                                            (long long)H * W);
   return (int)cudaGetLastError();
 }

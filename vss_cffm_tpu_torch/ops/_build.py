@@ -31,7 +31,7 @@ __all__ = ["library", "build_all", "check", "ptxas_usage", "SOURCES", "BUILD_DIR
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("dwconv", "attention", "block_gemm", "attention_bwd", "ce_upsampled", "gemm_tn",
-           "block_bwd", "sra_attention_bwd", "ffn_fused")
+           "block_bwd", "sra_attention_bwd", "ffn_fused", "ffn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -90,8 +90,12 @@ _SIGNATURES = {
         "sra_attention_bwd_blocks_per_sm": "iii",
     },
     "ffn_fused": {
-        "ffn_fused": "ppppppppppppiiiiiiiiiiiifip",
+        "ffn_fused": "pppppppppppppiiiiiiiiiiiifip",
         "ffn_fused_smem_bytes": "iiii",
+    },
+    "ffn_bwd": {
+        "ffn_bwd": "p" * 19 + "i" * 12 + "fip",
+        "ffn_bwd_smem_bytes": "iiii",
     },
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong, "f": ctypes.c_float}

@@ -1,10 +1,12 @@
 """The FFN half of a MiT block at inference as one launch
 (``csrc/ffn_fused.cu``):
 
-    out = bf16([res] + b2 + bf16(GELU(dw3×3(mask(LN(x)·W1 + b1)) + bdw))·W2)
+    out = bf16([res] + [s]·(bf16(GELU(dw3×3(mask(LN(x)·W1 + b1)) + bdw))·W2 + b2))
 
 x (B, H, W, C) is the FFN's input (f32 y in the whole block, bf16 x in
-``block_ffn_fused``); ``res`` the residual (the same tensor, or none). The
+``block_ffn_fused`` and ``block_ffn_train``); ``res`` the residual (the same
+tensor, or none); ``scale`` (B,) the per-frame branch scale of training
+(stochastic depth), or none at inference. The
 hidden map (f32) and the GELU output a (bf16) never reach device memory: a
 block owns a tile of ``rows`` x ``cols`` output pixels of one frame, keeps
 the LayerNorm of the tile and its one-pixel halo in shared memory in bf16,
@@ -19,11 +21,14 @@ bits.
 
 It replaces the FFN half of the TPU kernels
 ``vss_cffm_tpu/ops/stage_block.py:_kernel`` (:134-150, row 1 of ``PERF.md``'s
-table) and ``vss_cffm_tpu/ops/mixffn.py:_kernel_ln`` without a scale (row 8),
-with their rounding points (``ops/stage_block.py:_ffn_fwd_steps``'s plain
-steps): LN statistics in f32, the LN output rounded to bf16, the hidden map
-in f32, the nine taps in the plain version's (di, dj) order, exact erf GELU,
-a in bf16, fc2 summed in f32, then b2, then the residual, one bf16 rounding.
+table) and of ``_train_fwd_kernel`` (row 6, with the scale), and
+``vss_cffm_tpu/ops/mixffn.py:_kernel_ln`` without a scale (row 8) and with it
+(row 10), with their rounding points (``ops/stage_block.py:_ffn_fwd_steps``'s
+plain steps): LN statistics in f32, the LN output rounded to bf16, the hidden
+map in f32, the nine taps in the plain version's (di, dj) order, exact erf
+GELU, a in bf16, fc2 summed in f32, then b2, then the scale, then the
+residual, one bf16 rounding. In training nothing is kept for the backward
+(``ops/ffn_bwd.py`` recomputes it from x, as the TPU kernels do).
 
 ``ffn_fused_plan`` picks the tile, the chunk and the split; the C entry
 launches what it returns and refuses anything else, as ``require`` refuses
@@ -207,10 +212,12 @@ def ffn_fused_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                      w1: torch.Tensor, b1: torch.Tensor, kdw: torch.Tensor, bdw: torch.Tensor,
                      w2: torch.Tensor, b2: torch.Tensor, eps: float,
                      res: torch.Tensor | None, op: str,
-                     plan: FfnPlan | None = None) -> torch.Tensor:
-    """out (M, C) bf16 = [res] + FFN(LN(x)) on the card; x (B, H, W, C) bf16
-    or f32, contiguous; res (M, C) bf16 or f32, or None. ``plan`` replaces
-    ``ffn_fused_plan``'s (the card tests force splits and ragged tiles)."""
+                     plan: FfnPlan | None = None,
+                     scale: torch.Tensor | None = None) -> torch.Tensor:
+    """out (M, C) bf16 = [res] + [scale]·FFN(LN(x)) on the card; x (B, H, W,
+    C) bf16 or f32, contiguous; res (M, C) bf16 or f32, or None; scale (B,)
+    per frame, or None. ``plan`` replaces ``ffn_fused_plan``'s (the card
+    tests force splits and ragged tiles)."""
     require(x.dim() == 4 and x.dtype in (_BF16, _F32) and x.is_cuda, op,
             lambda: f"FFN input {x.dtype} {tuple(x.shape)} on {x.device} (bf16 or f32 NHWC)")
     b, h, w, c = x.shape
@@ -232,6 +239,9 @@ def ffn_fused_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     bf = lambda t: t.to(device=dev, dtype=_BF16).contiguous()
     held = (f32(gamma), f32(beta), bf(w1), f32(b1), f32(kdw.reshape(9, ch)), f32(bdw), bf(w2),
             f32(b2))
+    if scale is not None:
+        require(tuple(scale.shape) == (b,), op, lambda: f"branch scale {tuple(scale.shape)}")
+        scale = f32(scale)
     if plan is None:
         plan = ffn_fused_plan(b, h, w, c, ch, sm_count(x))
     out = torch.empty((m, c), device=dev, dtype=_BF16)
@@ -239,7 +249,8 @@ def ffn_fused_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             else None)
     devi, stream = stream_of(x)
     rc = _build.library("ffn_fused").ffn_fused(
-        ptr(x, op), *(ptr(t, op) for t in held), ptr(res, op), ptr(out, op), ptr(part, op),
+        ptr(x, op), *(ptr(t, op) for t in held), ptr(scale, op), ptr(res, op), ptr(out, op),
+        ptr(part, op),
         b, h, w, c, ch, int(x.dtype == _F32), res_kind, plan.rows, plan.cols, plan.hc,
         plan.splits, plan.chunks, eps, devi, stream)
     _build.check(rc, op)

@@ -11,12 +11,15 @@ composed, this pair the rest.
 It replaces the TPU kernels ``vss_cffm_tpu/ops/mixffn.py:
 _block_ffn_fwd_scaled`` (``_kernel_ln`` with a scale) and
 ``_block_ffn_bwd_pallas`` (``_bwd_kernel_ln``), whose bodies are line for
-line the FFN half of the whole-block train pair. So the CUDA path is that
-pair's FFN launches (``ops/stage_block.py``): the forward is launches 4-6
-(``block_gemm`` with LN in the prologue, ``dwconv``, ``block_gemm`` with the
-scale and the residual in the epilogue), keeping hid and a for the
-backward; the backward is d_a, d_hid (with d_z on chip), d_ln2, the LayerNorm backward
-(dx = go + LNᵀ(d_ln) in x's dtype) and the dW2, dW1 row reductions.
+line the FFN half of the whole-block train pair, and shares its launches
+with that pair (``ops/stage_block.py``). The forward is one launch
+(``ffn_fused`` with the branch scale: two where its plan splits the hidden
+channels), and the pair keeps nothing but x and the parameters for the
+backward, as the TPU kernel does. The backward is one launch
+(``ops/ffn_bwd.py``, ``csrc/ffn_bwd.cu``: LN, the hidden map, z, d_a, d_z
+and d_ln recomputed on chip from x and go, tile by tile; dx = go + LNᵀ(d_ln)
+in x's dtype, ln2, a and d_hid_b out; two launches where its plan splits),
+then the dW2 and dW1 row reductions (``gemm_tn``): three launches.
 
 ``block_ffn_train_torch`` and ``block_ffn_train_bwd_torch`` are the plain
 versions with the TPU kernel's rounding points: f32 LN statistics, the LN
@@ -41,9 +44,9 @@ grad.
   the residual; the port follows the kernel. The plain version runs the
   train forward's three steps without the scale.
 - ``mixffn_fused(x, w1, b1, kdw, bdw, w2, b2, force)`` = GELU(dw3×3(x·W1 +
-  b1) + bdw)·W2 + b2 replaces ``mixffn_fused`` (``_kernel``): the train
-  forward's three launches without the LayerNorm prologue and without the
-  residual, the hidden map in f32, the output in x's dtype.
+  b1) + bdw)·W2 + b2 replaces ``mixffn_fused`` (``_kernel``): three launches
+  (fc1 and fc2 on ``block_gemm``, the depthwise conv + GELU on ``dwconv``),
+  the hidden map in f32, the output in x's dtype.
 
 In the MiT block with ``dwconv_impl="fused"`` the FFN half of every block
 that ``block_impl`` does not fuse takes ``block_ffn_fused`` at inference, so
@@ -61,7 +64,7 @@ from torch import Tensor
 
 from ._dispatch import custom_op, refuse_grad, require, use_kernel
 from .ffn_fused import ffn_fused_launch
-from .stage_block import (STEP_TOLERANCE, _ffn_fwd_steps, _held, bwd_step_errors, bwd_table,
+from .stage_block import (STEP_TOLERANCE, _ffn_fwd_steps, _held, bwd_table, ffn_bwd_step_errors,
                           ffn_bwd_steps, run_steps)
 
 __all__ = ["block_ffn_fused", "block_ffn_fused_torch", "mixffn_fused", "mixffn_fused_torch",
@@ -72,7 +75,6 @@ __all__ = ["block_ffn_fused", "block_ffn_fused_torch", "mixffn_fused", "mixffn_f
 
 # the backward's outputs in the JAX order, as the table names them
 FFN_GRADS = ("dx", "dg2", "dbe2", "dw1", "db1", "dkdw", "dbdw", "dw2", "db2")
-_ACTS = ("hid", "a")
 # what trains in place of the inference FFN ops, which have no backward
 _TRAIN_INSTEAD = "block_ffn_train or the composed MixFFN (train() mode)"
 
@@ -115,13 +117,15 @@ def _block_ffn_fused_op(x: Tensor, gamma: Tensor, beta: Tensor, w1: Tensor, b1: 
 
 
 def _ffn_launch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps: float, residual: bool,
-                op: str) -> torch.Tensor:
-    """[x] + FFN(LN(x)) in one launch (x bf16 NHWC, its own residual)."""
+                op: str, scale=None) -> torch.Tensor:
+    """[x] + [scale]·FFN(LN(x)) in one launch (x bf16 NHWC, its own
+    residual)."""
     require(x.dim() == 4 and x.dtype == torch.bfloat16, op,
             f"x {x.dtype} {tuple(x.shape)} (bf16 NHWC only)")
     x = x.contiguous()
     res = x.view(-1, x.shape[-1]) if residual else None
-    return ffn_fused_launch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps, res, op).view(x.shape)
+    return ffn_fused_launch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps, res, op,
+                            scale=scale).view(x.shape)
 
 
 def block_ffn_fused(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps: float = 1e-6,
@@ -168,18 +172,18 @@ block_ffn_fused.launches = 0
 mixffn_fused.launches = 0
 
 
-def _params(x, gamma, beta, w1, kdw, bdw, w2, scale, eps: float) -> dict:
-    return dict(shape=tuple(x.shape), dt=x.dtype, g2=gamma, be2=beta, w1=w1, kdw=kdw, bdw=bdw,
-                w2=w2, s_ffn=scale, s_attn=None, eps=eps)
+def _params(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, eps: float) -> dict:
+    return dict(shape=tuple(x.shape), dt=x.dtype, g2=gamma, be2=beta, w1=w1, b1=b1, kdw=kdw,
+                bdw=bdw, w2=w2, s_ffn=scale, s_attn=None, eps=eps)
 
 
 def _backward(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, go, eps: float, kernel: bool,
-              acts: dict | None, op: str) -> tuple:
-    if acts is None:  # recompute the forward's activations, as the TPU kernel does
-        acts = _forward(x, gamma, beta, w1, b1, kdw, bdw, w2, None, scale, eps, kernel, op,
-                        names=_ACTS)
-    t = bwd_table(x, go, dict(acts, y=x.reshape(-1, x.shape[-1])), _ACTS + ("y",))
-    p = _params(x, gamma, beta, w1, kdw, bdw, w2, scale, eps)
+              op: str) -> tuple:
+    """The half's backward from x, as the TPU kernel: nothing of the forward
+    is kept."""
+    y = x.reshape(-1, x.shape[-1])
+    t = bwd_table(x, go, {"y": y}, ("y",))
+    p = _params(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, eps)
     t = run_steps(ffn_bwd_steps(p, kernel, False, op), t)
     t["dx"] = t["dx"].reshape(x.shape)
     return tuple(t[n] for n in FFN_GRADS)
@@ -197,22 +201,22 @@ def block_ffn_train_bwd_torch(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, go,
     """The plain backward, written out with ``_bwd_kernel_ln``'s rounding
     points: the forward recomputed from x, then the FFN half's backward
     steps. Returns ``FFN_GRADS``: dx in x's dtype, the rest f32."""
-    return _backward(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, go, eps, False, None,
+    return _backward(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, go, eps, False,
                      "block_ffn_train_bwd")
 
 
 def block_ffn_train_bwd(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, go, eps: float = 1e-6,
-                        force: str | None = None, acts: dict | None = None) -> tuple:
-    """``FFN_GRADS`` for the output cotangent go. force: None (kernels on
-    CUDA, plain on CPU) | 'torch' | 'kernel'. ``acts``: the forward's kept
-    hid and a as (M, ·) rows, recomputed from x when None."""
+                        force: str | None = None) -> tuple:
+    """``FFN_GRADS`` for the output cotangent go, recomputed from x. force:
+    None (kernels on CUDA, plain on CPU) | 'torch' | 'kernel': on the card
+    one launch (``ffn_bwd``) and the dW2, dW1 row reductions."""
     op = "block_ffn_train_bwd"
     kernel = use_kernel(force, x, op)
     if kernel:
         require(x.dtype == torch.bfloat16 and go.dtype == torch.bfloat16 and go.shape == x.shape,
                 op, f"x {x.dtype} {tuple(x.shape)}, go {go.dtype} {tuple(go.shape)}")
         x, go = x.contiguous(), go.contiguous()
-    out = _backward(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, go, eps, kernel, acts, op)
+    out = _backward(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, go, eps, kernel, op)
     if kernel:
         block_ffn_train_bwd.launches += 1
     return out
@@ -222,19 +226,22 @@ class _BlockFFNTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale, eps, force, kernel):
         ins = (x, gamma, beta, w1, b1, kdw, bdw, w2, b2)
-        t = _forward(*ins, scale, eps, kernel, "block_ffn_train")
         if kernel:
+            out = _ffn_launch(*ins, eps, True, "block_ffn_train", scale=scale)
             block_ffn_train.launches += 1
-        ctx.save_for_backward(*ins[:-1], scale, t["hid"], t["a"])
+        else:
+            out = _forward(*ins, scale, eps, False, "block_ffn_train")["out"]
+        # x and the parameters only: the backward recomputes hid and a
+        ctx.save_for_backward(*ins[:-1], scale)
         ctx.args = (eps, force, [a.dtype for a in ins])
-        return t["out"]
+        return out
 
     @staticmethod
     def backward(ctx, go):
-        x, gamma, beta, w1, b1, kdw, bdw, w2, scale, hid, a = ctx.saved_tensors
+        x, gamma, beta, w1, b1, kdw, bdw, w2, scale = ctx.saved_tensors
         eps, force, dtypes = ctx.args
         grads = block_ffn_train_bwd(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, go, eps,
-                                    force=force, acts={"hid": hid, "a": a})
+                                    force=force)
         return (*(g.to(d) for g, d in zip(grads, dtypes)), None, None, None, None)
 
 
@@ -260,53 +267,45 @@ def block_ffn_train_fits(h: int, w: int, c: int, ch: int) -> bool:
     return h >= 1 and w >= 1 and c % 8 == 0 and ch % 8 == 0 and 0 < c <= 512
 
 
+def _ffn_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale, eps: float,
+                     op: str) -> list:
+    """[(check, max |kernel − plain|, tolerance)] of the FFN launch (CUDA
+    tensors, no count) against the plain steps, alone (no residual) and with
+    the residual x, at ``stage_block.STEP_TOLERANCE``."""
+    ref = _forward(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale, eps, False, op)
+    plain = _ffn_fwd_steps(gamma, beta, w1, b1, kdw, bdw, w2, b2, scale, eps, tuple(x.shape),
+                           x.dtype, False, op)
+    y = x.contiguous().reshape(-1, x.shape[-1])
+    ffn = lambda residual: _ffn_launch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps, residual,
+                                       op, scale=scale).reshape(y.shape)
+    return [_held(name, got, want, STEP_TOLERANCE[name], op) for name, got, want in (
+        ("ffn (out - y)", ffn(False), plain["out"](ref["a"], None)),
+        ("ffn + y (out)", ffn(True), ref["out"].reshape(y.shape)))]
+
+
 def block_ffn_train_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale,
                                 eps: float = 1e-6) -> list:
-    """[(check, max |kernel − plain|, tolerance)] of the forward's three
-    launches, each fed the plain path's inputs (CUDA tensors, no count), at
-    ``stage_block.STEP_TOLERANCE``; scale None holds them without the branch
-    scale (``block_ffn_fused`` is one launch: ``block_ffn_fused_step_errors``)."""
-    op = "block_ffn_train"
-    ins = (x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale, eps)
-    plain = _ffn_fwd_steps(*ins[1:], tuple(x.shape), x.dtype, False, op)
-    kern = _ffn_fwd_steps(*ins[1:], tuple(x.shape), x.dtype, True, op)
-    ref = _forward(*ins, False, op)
-    y = x.contiguous().reshape(-1, x.shape[-1])
-    zero = torch.zeros_like(y)
-    return [_held(name, got, want, STEP_TOLERANCE[name], op) for name, got, want in (
-        ("fc1 (hid)", kern["hid"](y), ref["hid"]),
-        ("dwconv+GELU (a)", kern["a"](ref["hid"]), ref["a"]),
-        ("fc2 (out - y)", kern["out"](ref["a"], zero), plain["out"](ref["a"], zero)),
-        ("fc2 + y (out)", kern["out"](ref["a"], y), ref["out"].reshape(y.shape)))]
+    """``_ffn_step_errors`` of the pair's forward launch, with the branch
+    scale (None holds it without)."""
+    return _ffn_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, scale, eps,
+                            "block_ffn_train")
 
 
 def block_ffn_fused_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, b2,
                                 eps: float = 1e-6) -> list:
-    """[(check, max |kernel − plain|, tolerance)] of ``block_ffn_fused``'s
-    launch (CUDA tensors, no count) against the plain steps, alone (no
-    residual) and with the residual x, at ``stage_block.STEP_TOLERANCE``."""
-    op = "block_ffn_fused"
-    ref = _forward(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, None, eps, False, op,
-                   names=("hid", "a"))
-    plain = _ffn_fwd_steps(gamma, beta, w1, b1, kdw, bdw, w2, b2, None, eps, tuple(x.shape),
-                           x.dtype, False, op)
-    y = x.contiguous().reshape(-1, x.shape[-1])
-    ffn = lambda residual: _ffn_launch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps, residual,
-                                       op).reshape(y.shape)
-    return [_held(name, got, want, STEP_TOLERANCE[name], op) for name, got, want in (
-        ("ffn (out - y)", ffn(False), plain["out"](ref["a"], None)),
-        ("ffn + y (out)", ffn(True), plain["out"](ref["a"], y)))]
+    """``_ffn_step_errors`` of ``block_ffn_fused``'s launch."""
+    return _ffn_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, None, eps,
+                            "block_ffn_fused")
 
 
 def block_ffn_train_bwd_step_errors(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, go,
                                     eps: float = 1e-6) -> list:
-    """[(check, max |kernel − plain|, tolerance)] of the backward's six
-    launches, each fed the plain path's inputs (CUDA tensors, no count), at
-    ``stage_block.BWD_STEP_TOLERANCE``."""
+    """[(check, max |kernel − plain|, tolerance)] of the backward's launches
+    (``stage_block.ffn_bwd_step_errors``: each output of the ``ffn_bwd``
+    launch, then dW2 and dW1), fed the plain path's inputs (CUDA tensors, no
+    count)."""
     op = "block_ffn_train_bwd"
-    acts = _forward(x, gamma, beta, w1, b1, kdw, bdw, w2, None, scale, eps, False, op,
-                    names=_ACTS)
-    y = x.contiguous().reshape(-1, x.shape[-1])
-    t = bwd_table(x.contiguous(), go.contiguous(), dict(acts, y=y), _ACTS + ("y",))
-    p = _params(x, gamma, beta, w1, kdw, bdw, w2, scale, eps)
-    return bwd_step_errors(lambda p_, k, o: ffn_bwd_steps(p_, k, False, o), p, t, op)
+    xc = x.contiguous()
+    t = bwd_table(xc, go.contiguous(), {"y": xc.reshape(-1, x.shape[-1])}, ("y",))
+    p = _params(x, gamma, beta, w1, b1, kdw, bdw, w2, scale, eps)
+    return ffn_bwd_step_errors(p, t, False, op)[0]

@@ -14,48 +14,47 @@ mit_block_fused`` (``_kernel``); training: ``_mit_block_train_fwd``
 (``_train_fwd_kernel``)). The TPU kernels keep the whole block in VMEM per
 (frame, row tile); the stage-3 working set does not fit one H100 block's
 227 KB of shared memory, so the CUDA path is a short run of hand-written
-launches. In training, six:
+launches, four (``FUSED_STEPS``; five where the FFN plan splits):
 
   1. ``block_gemm``  q   = bf16(LN1(x)·Wq + bq)              LN1 in the prologue
   2. ``attention``   ctx = bf16(softmax(q·(s·K)ᵀ)·V)          scores stay in shared memory
   3. ``block_gemm``  y   = f32(x + s_attn·(ctx·Wproj + bproj)) per-frame scale in the epilogue
-  4. ``block_gemm``  hid = f32(LN2(y)·W1 + b1)                LN2 in the prologue
-  5. ``dwconv``      a   = bf16(GELU(dw3×3(hid) + bdw))       zero padding outside the image
-  6. ``block_gemm``  out = bf16(y + s_ffn·(a·W2 + b2))
+  4. ``ffn_fused``   out = bf16(y + s_ffn·FFN(LN2 y))         hid and a in shared memory
 
-The pair keeps q, ctx, y, hid and a for the backward, where the TPU kernel
-recomputes them from x because VMEM is small. At inference (no branch
-scales) the FFN half is one launch, ``ffn_fused`` (``ops/ffn_fused.py``,
-``csrc/ffn_fused.cu``): out = bf16(y + FFN(LN2 y)) with hid and a kept in
-shared memory, a tile of pixels at a time; where its plan splits the hidden
-channels over blocks, a second pass sums the f32 partials. So the inference
-block is four launches (five with the split): q, ctx, y, out. The rounding
-points are the same on every route.
+The FFN launch (``ops/ffn_fused.py``, ``csrc/ffn_fused.cu``) takes a tile of
+pixels at a time; where its plan splits the hidden channels over blocks, a
+second pass sums the f32 partials. At inference it runs without the branch
+scale. The train pair keeps q, ctx and y for the backward; the FFN half's
+hid and a are recomputed there, as the TPU kernel recomputes everything
+from x because VMEM is small. The plain route runs the FFN half as three
+steps (``STEPS``: hid, a, out); the rounding points are the same on every
+route.
 
 **Backward** (``_mit_block_train_bwd`` (``_train_bwd_kernel``)): dx, dK,
-dV and the 14 parameter gradients, as twelve launches of four sources:
+dV and the 14 parameter gradients, as nine launches of five sources (ten
+where the FFN backward's plan splits):
 
-  1. ``block_gemm``   d_a   = bf16(go·s_ffn)·W2ᵀ               (f32; scaled-A prologue)
-  2. ``block_bwd``    d_hid = dw3×3ᵀ(d_z) → bf16, with z = dw3×3(hid) + bdw and
-                      d_z = d_a·GELU′(z) recomputed in f32 on chip (``dz_dhid``);
-                      partials of the 9 depthwise taps Σ hid·d_z, of Σ d_z and
-                      of Σ d_hid (db1, f32)
-  3. ``block_gemm``   d_ln2 = d_hid_b·W1ᵀ                      (f32)
-  4. ``block_bwd``    LN2 backward: d_y = go + LN2ᵀ(d_ln2) (f32), ln2 (bf16),
-                      d_attn_b = bf16(d_y·s_attn); partials dg2, dbe2, dbproj
-                      = Σ d_y·s_attn, db2 = Σ go·s_ffn
-  5. ``block_gemm``   d_ctx = bf16(d_attn_b·Wprojᵀ)
-  6. ``sra_attention_bwd``  per (frame, head, split of its 64-query tiles):
+  1. ``ffn_bwd``      the FFN half in one launch (``ops/ffn_bwd.py``): per
+                      tile LN2(y), hid, z = dw3×3(hid) + bdw, d_a =
+                      bf16(go·s_ffn)·W2ᵀ, d_z = d_a·GELU′(z), d_hid and d_ln2 =
+                      d_hid_b·W1ᵀ recomputed on chip, then the LN2 backward:
+                      d_y = go + LN2ᵀ(d_ln2) (f32), d_attn_b = bf16(d_y·s_attn),
+                      ln2 and a, d_hid_b (bf16) out; partials of the 9
+                      depthwise taps Σ hid·d_z, of Σ d_z, Σ d_hid (db1), dg2,
+                      dbe2, db2 = Σ go·s_ffn, dbproj = Σ d_y·s_attn
+  2-3. ``gemm_tn``    dW2 = aᵀ·go_s, dW1 = ln2ᵀ·d_hid_b
+  4. ``block_gemm``   d_ctx = bf16(d_attn_b·Wprojᵀ)
+  5. ``sra_attention_bwd``  per (frame, head, split of its 64-query tiles):
                       p and d_s = bf16(p∘(d_p − Σ d_p∘p)) recomputed from q,
                       K, V and never written, d_q → bf16, partial Σ d_q (dbq),
                       and per split dK = scale·Σ d_sᵀ·q, dV = Σ bf16(p)ᵀ·d_ctx
                       (f32 partials summed in a fixed order)
-  7. ``block_gemm``   d_ln1 = d_q_b·Wqᵀ                       (f32)
-  8. ``block_bwd``    LN1 backward: dx = d_y + LN1ᵀ(d_ln1) (x's dtype), ln1
+  6. ``block_gemm``   d_ln1 = d_q_b·Wqᵀ                       (f32)
+  7. ``block_bwd``    LN1 backward: dx = d_y + LN1ᵀ(d_ln1) (x's dtype), ln1
                       (bf16); partials dg1, dbe1
-  9-12. ``gemm_tn``   dW2 = aᵀ·go_s, dW1 = ln2ᵀ·d_hid_b, dWproj = ctxᵀ·d_attn_b,
-                      dWq = ln1ᵀ·d_q_b: sums over the rows, split over
-                      blocks, partials reduced in a fixed order.
+  8-9. ``gemm_tn``    dWproj = ctxᵀ·d_attn_b, dWq = ln1ᵀ·d_q_b: sums over the
+                      rows, split over blocks, partials reduced in a fixed
+                      order.
 
 No atomics: every reduction over rows writes per-block partials that one
 ``torch.sum`` reduces, so results repeat exactly. The rounding points are
@@ -67,10 +66,12 @@ The plain versions (``mit_block_train_torch``, ``mit_block_train_bwd_torch``)
 run the same steps in PyTorch with those rounding points, so that
 ``mit_block_step_errors`` (with the branch scales) and
 ``mit_block_train_bwd_step_errors`` hold each launch on its own against its
-plain step, at a tolerance relative to that step's own output.
-``ops/mixffn.py`` reuses launches 4-6 of the forward (``block_ffn_train``
-and, without LN2 and the residual, ``mixffn_fused``), the inference FFN
-launch (``block_ffn_fused``) and launches 1-4, 9, 10 of the backward.
+plain steps, at a tolerance relative to that output's own largest value.
+``ops/mixffn.py`` reuses the FFN launches of both (``block_ffn_train``,
+``block_ffn_fused``) and the three launches of the plain FFN steps without
+LN2 and the residual (``mixffn_fused``). The six launches the FFN backward
+launch replaced stay as ``ffn_bwd_unfused_steps``, the yardstick it is
+timed against.
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ from ._dispatch import (SMEM_LIMIT, custom_op, ptr, refuse_grad, require, sm_cou
                         use_kernel)
 from .cfm_attention import attention_launch, scale_in
 from .dwconv import _gelu_grad, _preact, dwconv3x3_launch, dwconv3x3_torch
+from .ffn_bwd import ffn_bwd_launch
 from .ffn_fused import ffn_fused_launch
 
 __all__ = ["mit_block_fused", "mit_block_torch", "mit_block_step_errors",
@@ -208,12 +210,12 @@ def _gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, *,
     return out
 
 
-# ---- the forward: six steps ------------------------------------------------
+# ---- the forward: its steps ------------------------------------------------
 
-# The block's six steps, in order, with the steps whose outputs each reads
-# (every step also reads the block's own inputs). Activations are (M, ·)
-# with M = B·H·W: q, ctx, a and out in x's dtype, y and hid in f32. The
-# inference kernel route runs the FFN half as one step (FUSED_STEPS).
+# The block's six plain steps, in order, with the steps whose outputs each
+# reads (every step also reads the block's own inputs). Activations are
+# (M, ·) with M = B·H·W: q, ctx, a and out in x's dtype, y and hid in f32.
+# The kernel route runs the FFN half as one step (FUSED_STEPS).
 STEPS = (("q", ()), ("ctx", ("q",)), ("y", ("ctx",)), ("hid", ("y",)), ("a", ("hid",)),
          ("out", ("a", "y")))
 FUSED_STEPS = (("q", ()), ("ctx", ("q",)), ("y", ("ctx",)), ("out", ("y",)))
@@ -224,8 +226,12 @@ def _ffn_fwd_steps(g2, be2, w1, b1, kdw, bdw, w2, b2, s_ffn, eps: float, shape, 
     """Steps hid, a, out of the block (also the forward of the FFN-half pair
     and of the inference FFN ops in ``ops/mixffn.py``): y is the FFN's input
     and residual, (M, C) f32 or in x's dtype. Without g2 fc1 reads y as it
-    is (no LayerNorm), and ``out(a, None)`` adds no residual."""
-    b, h, w, _ = shape
+    is (no LayerNorm), and ``out(a, None)`` adds no residual. On the card
+    these are three launches (fc1 with LN, dwconv, fc2), which ``mixffn_fused``
+    runs; with g2 the kernel steps add ``ffn(y, res)``, the whole half as one
+    launch (``ffn_fused``, with the branch scale), which every block route
+    runs."""
+    b, h, w, c = shape
     ch = w1.shape[1]
     m = b * h * w
     if not kernel:
@@ -247,23 +253,27 @@ def _ffn_fwd_steps(g2, be2, w1, b1, kdw, bdw, w2, b2, s_ffn, eps: float, shape, 
             "out": out_torch,
         }
     ln = None if g2 is None else (g2, be2, eps)
-    return {
+    steps = {
         "hid": lambda y: _gemm(y, w1, b1, out_dtype=_F32, ln=ln, op=op),
         "a": lambda hid: dwconv3x3_launch(hid.view(b, h, w, ch), kdw, bdw, gelu=True,
                                           op=op).view(m, ch),
         "out": lambda a, y: _gemm(a, w2, b2, out_dtype=_BF16, res=y, o_scale=s_ffn,
                                   rows_per_frame=h * w, op=op),
     }
+    if g2 is not None:
+        steps["ffn"] = lambda y, res: ffn_fused_launch(y.view(b, h, w, c), g2, be2, w1, b1, kdw,
+                                                       bdw, w2, b2, eps, res, op, scale=s_ffn)
+    return steps
 
 
 def _block_steps(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2,
                  num_heads: int, eps: float, kernel: bool, s_attn=None, s_ffn=None,
                  op: str = "mit_block_fused") -> dict:
     """The step functions of one block: the plain ones, or (kernel=True) the
-    hand-written launches, which check their inputs first. Without branch
-    scales this is the inference block, whose kernel route runs the FFN half
-    as one launch: ``out(y)``, and ``ffn(y, res)`` with the residual res or
-    none (``FUSED_STEPS``)."""
+    hand-written launches, which check their inputs first. The kernel route
+    runs the FFN half as one launch, with the branch scale s_ffn in training:
+    ``out(y)``, and ``ffn(y, res)`` with the residual res or none
+    (``FUSED_STEPS``); the plain route runs ``STEPS``."""
     dt = x.dtype
     b, h, w, c = x.shape
     nh, dh = num_heads, c // num_heads
@@ -309,13 +319,7 @@ def _block_steps(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, b
         "y": lambda ctx: _gemm(ctx, wproj, bproj, out_dtype=_F32, res=xf, o_scale=s_attn,
                                rows_per_frame=h * w, op=op),
     }
-    if s_attn is not None or s_ffn is not None:
-        return {**steps, **_ffn_fwd_steps(*ffn)}
-
-    def ffn_fused(y, res):
-        return ffn_fused_launch(y.view(b, h, w, c), g2, be2, w1, b1, kdw, bdw, w2, b2, eps, res,
-                                op)
-
+    ffn_fused = _ffn_fwd_steps(*ffn)["ffn"]
     return {**steps, "ffn": ffn_fused, "out": lambda y: ffn_fused(y, y)}
 
 
@@ -336,23 +340,19 @@ def mit_block_torch(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw
 
 # Per-step checks of the kernel path (on the card): each kernel step is fed
 # the plain path's own inputs to it and held to a fraction of the largest
-# output of what it computes. bf16 outputs (q, ctx, a, out) come from f32
-# sums taken in another order than the plain version's, so one rounding may
-# flip by one bf16 ulp (2^-7 of the largest value), or, after a product
-# whose inputs were themselves rounded (q after LN1, ctx after P), carry
-# through it: 2^-6. y and hid are f32: proj is held as y − x, the attention
-# branch alone, to 2^-10 (same bf16 inputs, f32 sums in another order); fc1
-# to 2^-7, as LN2's bf16 output may flip one ulp. fc2 is held alone (zero
-# residual) and with the residual y. The inference FFN launch is held whole,
-# alone ("ffn (out - y)", no residual) and with the residual y: its bf16
-# roundings (the LN output, a, out) are the plain steps', from f32 sums in
-# other orders, so a flipped ulp of the LN output or of a carries through
-# fc1 or fc2 into the output's own rounding: 2^-6 of the largest value, the
-# bound of the separate fc2 step it ends with (an H100 read at most 2^-7.6
-# at random inputs of the B0 and B1 widths).
+# output of what it computes. bf16 outputs (q, ctx, out) come from f32 sums
+# taken in another order than the plain version's, so one rounding may flip
+# by one bf16 ulp (2^-7 of the largest value), or, after a product whose
+# inputs were themselves rounded (q after LN1, ctx after P), carry through
+# it: 2^-6. y is f32: proj is held as y − x, the attention branch alone, to
+# 2^-10 (same bf16 inputs, f32 sums in another order). The FFN launch is held
+# whole, alone ("ffn (out - y)", no residual: s·branch in training) and with
+# the residual y: its bf16 roundings (the LN output, a, out) are the plain
+# steps', from f32 sums in other orders, so a flipped ulp of the LN output or
+# of a carries through fc1 or fc2 into the output's own rounding: 2^-6 of the
+# largest value, the bound the separate fc2 launch it replaced was held to
+# (an H100 read at most 2^-7.6 at random inputs of the B0 and B1 widths).
 STEP_TOLERANCE = {"q": 2.0 ** -6, "ctx": 2.0 ** -6, "proj (y - x)": 2.0 ** -10,
-                  "fc1 (hid)": 2.0 ** -7, "dwconv+GELU (a)": 2.0 ** -7,
-                  "fc2 (out - y)": 2.0 ** -6, "fc2 + y (out)": 2.0 ** -6,
                   "ffn (out - y)": 2.0 ** -6, "ffn + y (out)": 2.0 ** -6}
 
 
@@ -372,8 +372,8 @@ def mit_block_step_errors(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b
                           s_ffn=None, op: str = "mit_block_fused") -> list:
     """[(check, max |kernel - plain|, tolerance), ...] for each forward step of
     the kernel path, run on CUDA tensors against the plain steps (no count):
-    at inference q, ctx, proj and the FFN launch; with branch scales, the
-    train forward's six steps."""
+    q, ctx, proj and the FFN launch (with the branch scale s_ffn in
+    training)."""
     args = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
     kw = dict(num_heads=num_heads, eps=eps, s_attn=s_attn, s_ffn=s_ffn, op=op)
     plain = _block_steps(*args, kernel=False, **kw)
@@ -385,17 +385,8 @@ def mit_block_step_errors(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b
         "ctx": (kern["ctx"](ref["q"]), ref["ctx"]),
         "proj (y - x)": (kern["y"](ref["ctx"]) - xf, ref["y"] - xf),
     }
-    if "ffn" in kern:
-        pairs["ffn (out - y)"] = (kern["ffn"](ref["y"], None), plain["out"](ref["a"], None))
-        pairs["ffn + y (out)"] = (kern["ffn"](ref["y"], ref["y"]), ref["out"])
-    else:
-        zero = torch.zeros_like(ref["y"])
-        pairs.update({
-            "fc1 (hid)": (kern["hid"](ref["y"]), ref["hid"]),
-            "dwconv+GELU (a)": (kern["a"](ref["hid"]), ref["a"]),
-            "fc2 (out - y)": (kern["out"](ref["a"], zero), plain["out"](ref["a"], zero)),
-            "fc2 + y (out)": (kern["out"](ref["a"], ref["y"]), ref["out"]),
-        })
+    pairs["ffn (out - y)"] = (kern["ffn"](ref["y"], None), plain["out"](ref["a"], None))
+    pairs["ffn + y (out)"] = (kern["ffn"](ref["y"], ref["y"]), ref["out"])
     return [_held(name, got, want, STEP_TOLERANCE[name], op)
             for name, (got, want) in pairs.items()]
 
@@ -733,32 +724,58 @@ def sra_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_ctx: 
 #
 # Each step reads tensors of the table ``t`` (the inputs, the forward's kept
 # activations and earlier steps' outputs) and returns new ones. The FFN half
-# (steps d_a … ln2_bwd, dW2, dW1) is shared with ``ops/mixffn.py``.
+# (``ffn_bwd_steps``) is shared with ``ops/mixffn.py``.
 
 def ffn_bwd_steps(p: dict, kernel: bool, full: bool, op: str) -> list:
-    """[(name, fn(t) -> dict)] of the FFN half's backward. p: the block's
-    parameters and geometry; ``full`` continues into the attention half (d_y
-    in f32, d_attn_b), else dx is the half's input gradient in x's dtype."""
+    """[(name, fn(t) -> dict)] of the FFN half's backward from its input y
+    and go. p: the block's parameters and geometry; ``full`` continues into
+    the attention half (d_y in f32, d_attn_b), else dx is the half's input
+    gradient in x's dtype. The kernel route is one launch (``ffn_bwd``:
+    ``ops/ffn_bwd.py``, hid, z, d_a, d_z and d_ln on chip), then the dW2 and
+    dW1 row reductions; the plain route recomputes hid and a from y and runs
+    the half's steps one by one, with the same rounding points."""
     b, h, w, c = p["shape"]
     dt, hw = p["dt"], h * w
     ch = p["w1"].shape[1]
     m = b * hw
 
+    def dw2(t):
+        return {"dw2": gemm_tn(t["a"], t["go"], kernel=kernel, b_scale=p["s_ffn"],
+                               rows_per_frame=hw, dt=dt, op=op)}
+
+    def dw1(t):
+        return {"dw1": gemm_tn(t["ln2"], t["d_hid"], kernel=kernel, dt=dt, op=op)}
+
+    if kernel:
+        def ffn_bwd(t):
+            return ffn_bwd_launch(t["y"].view(b, h, w, c), t["go"], p["g2"], p["be2"], p["w1"],
+                                  p["b1"], p["kdw"], p["bdw"], p["w2"], p["s_ffn"], p["eps"], op,
+                                  s_attn=p["s_attn"], full=full)
+
+        return [("ffn_bwd", ffn_bwd), ("dW2", dw2), ("dW1", dw1)]
+
+    fwd = _ffn_fwd_steps(p["g2"], p["be2"], p["w1"], p["b1"], p["kdw"], p["bdw"], p["w2"], None,
+                         None, p["eps"], p["shape"], dt, False, op)
+
+    def acts(t):
+        hid = fwd["hid"](t["y"])
+        return {"hid": hid, "a": fwd["a"](hid)}
+
     def d_a(t):
-        return {"d_a": lin_bwd(t["go"], p["w2"].t(), dt, kernel=kernel, a_scale=p["s_ffn"],
+        return {"d_a": lin_bwd(t["go"], p["w2"].t(), dt, kernel=False, a_scale=p["s_ffn"],
                                rows_per_frame=hw, op=op)}
 
     def d_hid(t):
         o = dz_dhid(t["d_a"].view(b, h, w, ch), t["hid"].view(b, h, w, ch), p["kdw"], p["bdw"],
-                    dt, kernel=kernel, op=op)
+                    dt, kernel=False, op=op)
         return dict(o, d_hid=o["d_hid"].reshape(m, ch))
 
     def d_ln2(t):
-        return {"d_ln2": lin_bwd(t["d_hid"], p["w1"].t(), dt, kernel=kernel, op=op)}
+        return {"d_ln2": lin_bwd(t["d_hid"], p["w1"].t(), dt, kernel=False, op=op)}
 
     def ln2_bwd(t):
         o = ln_bwd(t["d_ln2"], t["y"], p["g2"], p["be2"], p["eps"], t["go"],
-                   _F32 if full else dt, dt, kernel=kernel,
+                   _F32 if full else dt, dt, kernel=False,
                    s_out=p["s_attn"] if full else None, s_res=p["s_ffn"],
                    rows_per_frame=hw, op=op)
         out = {"ln2": o["ln"], "dg2": o["dg"], "dbe2": o["dbe"], "db2": o["sres"]}
@@ -768,15 +785,51 @@ def ffn_bwd_steps(p: dict, kernel: bool, full: bool, op: str) -> list:
             out["dx"] = o["dx"]
         return out
 
-    def dw2(t):
-        return {"dw2": gemm_tn(t["a"], t["go"], kernel=kernel, b_scale=p["s_ffn"],
-                               rows_per_frame=hw, dt=dt, op=op)}
-
-    def dw1(t):
-        return {"dw1": gemm_tn(t["ln2"], t["d_hid"], kernel=kernel, dt=dt, op=op)}
-
-    return [("d_a", d_a), ("d_hid", d_hid), ("d_ln2", d_ln2),
+    return [("acts", acts), ("d_a", d_a), ("d_hid", d_hid), ("d_ln2", d_ln2),
             ("ln2_bwd", ln2_bwd), ("dW2", dw2), ("dW1", dw1)]
+
+
+def ffn_bwd_unfused_steps(p: dict, full: bool, op: str) -> list:
+    """The FFN half's backward as the six launches the fused one replaced
+    (d_a and d_ln2 on ``block_gemm``, ``dz_dhid``, ``ln_bwd``, dW2 and dW1 on
+    ``gemm_tn``), from the forward's hid and a in the table, with the outputs
+    of ``ffn_bwd_steps``: no route runs it; it is the yardstick the fused
+    launch is timed against (``chip_smoke.py``'s ``[ffn_train]``)."""
+    b, h, w, c = p["shape"]
+    dt, hw = p["dt"], h * w
+    ch = p["w1"].shape[1]
+    m = b * hw
+
+    def d_a(t):
+        return {"d_a": lin_bwd(t["go"], p["w2"].t(), dt, kernel=True, a_scale=p["s_ffn"],
+                               rows_per_frame=hw, op=op)}
+
+    def d_hid(t):
+        o = dz_dhid(t["d_a"].view(b, h, w, ch), t["hid"].view(b, h, w, ch), p["kdw"], p["bdw"],
+                    dt, kernel=True, op=op)
+        return dict(o, d_hid=o["d_hid"].reshape(m, ch))
+
+    def d_ln2(t):
+        return {"d_ln2": lin_bwd(t["d_hid"], p["w1"].t(), dt, kernel=True, op=op)}
+
+    def ln2_bwd(t):
+        o = ln_bwd(t["d_ln2"], t["y"], p["g2"], p["be2"], p["eps"], t["go"],
+                   _F32 if full else dt, dt, kernel=True, s_out=p["s_attn"] if full else None,
+                   s_res=p["s_ffn"], rows_per_frame=hw, op=op)
+        out = {"ln2": o["ln"], "dg2": o["dg"], "dbe2": o["dbe"], "db2": o["sres"]}
+        if full:
+            out.update(d_y=o["dx"], d_attn=o["dx_s"], dbproj=o["sdx"])
+        else:
+            out["dx"] = o["dx"]
+        return out
+
+    def dws(t):
+        return {"dw2": gemm_tn(t["a"], t["go"], kernel=True, b_scale=p["s_ffn"],
+                               rows_per_frame=hw, dt=dt, op=op),
+                "dw1": gemm_tn(t["ln2"], t["d_hid"], kernel=True, dt=dt, op=op)}
+
+    return [("d_a", d_a), ("d_hid", d_hid), ("d_ln2", d_ln2), ("ln2_bwd", ln2_bwd),
+            ("dW", dws)]
 
 
 def _attn_bwd_steps(p: dict, kernel: bool, op: str) -> list:
@@ -817,7 +870,7 @@ GRADS = ("dx", "dg1", "dbe1", "dwq", "dbq", "dk", "dv", "dwproj", "dbproj", "dg2
          "dw1", "db1", "dkdw", "dbdw", "dw2", "db2")
 _INPUTS = ("x", "g1", "be1", "wq", "bq", "k", "v", "wproj", "bproj", "g2", "be2", "w1", "b1",
            "kdw", "bdw", "w2")
-_ACTS = ("q", "ctx", "y", "hid", "a")
+_ACTS = ("q", "ctx", "y")
 
 
 def bwd_table(x: torch.Tensor, go: torch.Tensor, acts: dict, names=_ACTS) -> dict:
@@ -875,8 +928,8 @@ def mit_block_train_bwd(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1,
                         force: str | None = None, acts: dict | None = None) -> tuple:
     """``GRADS`` of the block for the output cotangent go: dx in x's dtype, the
     rest f32. force: None (kernels on CUDA, plain on CPU) | 'torch' |
-    'kernel'. ``acts``: the forward's kept activations (q, ctx, y, hid, a as
-    (M, ·) rows), recomputed from x when None."""
+    'kernel'. ``acts``: the forward's kept activations (q, ctx, y as (M, ·)
+    rows), recomputed from x when None."""
     op = "mit_block_train_bwd"
     kernel = use_kernel(force, x, op)
     if kernel:
@@ -896,9 +949,11 @@ class _MitBlockTrain(torch.autograd.Function):
                 s_attn, s_ffn, num_heads, eps, force, kernel):
         ins = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2, b2)
         t = _run(_block_steps(*ins, num_heads=num_heads, eps=eps, kernel=kernel,
-                              s_attn=s_attn, s_ffn=s_ffn, op="mit_block_train"))
+                              s_attn=s_attn, s_ffn=s_ffn, op="mit_block_train"),
+                 order=FUSED_STEPS if kernel else STEPS)
         if kernel:
             mit_block_train.launches += 1
+        # q, ctx and y only: the backward recomputes the FFN half's hid and a
         ctx.save_for_backward(*ins[:-1], s_attn, s_ffn, *(t[n] for n in _ACTS))
         ctx.args = (num_heads, eps, force, [a.dtype for a in ins])
         return t["out"].reshape(x.shape)
@@ -955,7 +1010,9 @@ def mit_block_train_fits(h: int, w: int, c: int, ch: int, nh: int, n_kv: int) ->
 # from such sums (d_hid, d_attn, d_ctx, ln1, ln2, dx): one ulp, 2^-7. The
 # attention backward rounds p and d_s inside: dV sums bf16(p), any of which
 # may flip one ulp (2^-7); d_s = p∘(d_p − r) rounds after a difference that
-# may cancel, and d_q, Σ d_q and dK follow a product with it: 2^-6.
+# may cancel, and d_q, Σ d_q and dK follow a product with it: 2^-6. (The FFN
+# half's six launches, ``ffn_bwd_unfused_steps``, are held by the card tests
+# of ``dz_dhid`` and the GEMMs at these.)
 BWD_STEP_TOLERANCE = {
     "d_a": 2.0 ** -10, "dkdw": 2.0 ** -10, "dbdw": 2.0 ** -10,
     "d_hid": 2.0 ** -7, "db1": 2.0 ** -10, "d_ln2": 2.0 ** -10, "ln2": 2.0 ** -7,
@@ -964,6 +1021,19 @@ BWD_STEP_TOLERANCE = {
     "dw1": 2.0 ** -10, "d_ctx": 2.0 ** -7, "d_q": 2.0 ** -6, "dbq": 2.0 ** -6,
     "dk": 2.0 ** -6, "dv": 2.0 ** -7, "d_ln1": 2.0 ** -10, "ln1": 2.0 ** -7,
     "dg1": 2.0 ** -10, "dbe1": 2.0 ** -10, "dwproj": 2.0 ** -10, "dwq": 2.0 ** -10,
+}
+
+# The FFN half's backward launch (``ffn_bwd``) against the plain steps, fed
+# the same y, go and parameters. It recomputes LN2's bf16 output and the
+# hidden map on chip from f32 sums in another order, so a flipped ulp of the
+# LN output (or of a, go_s, d_hid_b) carries through fc1, GELU′ or d_ln into
+# everything after it: 2^-6 of each output's largest value, as the forward's
+# FFN launch is held. ln2 is LN2's own rounding (one ulp, 2^-7); db2 = Σ go·s
+# reads only inputs (2^-10).
+FFN_BWD_TOLERANCE = {
+    "a": 2.0 ** -6, "d_hid": 2.0 ** -6, "ln2": 2.0 ** -7, "dx": 2.0 ** -6, "d_y": 2.0 ** -6,
+    "d_attn": 2.0 ** -6, "dkdw": 2.0 ** -6, "dbdw": 2.0 ** -6, "db1": 2.0 ** -6,
+    "dg2": 2.0 ** -6, "dbe2": 2.0 ** -6, "db2": 2.0 ** -10, "dbproj": 2.0 ** -6,
 }
 
 
@@ -981,16 +1051,33 @@ def bwd_step_errors(steps_of, p: dict, t: dict, op: str) -> list:
     return out
 
 
+def ffn_bwd_step_errors(p: dict, t: dict, full: bool, op: str) -> tuple[list, dict]:
+    """([(check, max |kernel − plain|, tolerance)], the plain table) of the
+    FFN half's backward: each output of the ``ffn_bwd`` launch from the
+    table's y and go at ``FFN_BWD_TOLERANCE``, then dW2 and dW1 fed the plain
+    steps' a, ln2 and d_hid (CUDA tensors, no count)."""
+    ref = run_steps(ffn_bwd_steps(p, False, full, op), t)
+    kern = dict(ffn_bwd_steps(p, True, full, op))
+    out = [_held(f"ffn_bwd: {key}", got, ref[key], FFN_BWD_TOLERANCE[key], op)
+           for key, got in kern["ffn_bwd"](t).items()]
+    for name in ("dW2", "dW1"):
+        out += [_held(f"{name}: {key}", got, ref[key], BWD_STEP_TOLERANCE[key], op)
+                for key, got in kern[name](ref).items()]
+    return out, ref
+
+
 def mit_block_train_bwd_step_errors(x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1,
                                     kdw, bdw, w2, s_attn, s_ffn, go, num_heads: int = 1,
                                     eps: float = 1e-6) -> list:
-    """[(check, max |kernel − plain|, tolerance)] of the backward's twelve
-    launches, each fed the plain path's inputs (CUDA tensors, no count)."""
+    """[(check, max |kernel − plain|, tolerance)] of the backward's launches,
+    each fed the plain path's inputs (CUDA tensors, no count): the FFN half's
+    (``ffn_bwd_step_errors``), then the attention half's six."""
     op = "mit_block_train_bwd"
     ins = (x, g1, be1, wq, bq, k, v, wproj, bproj, g2, be2, w1, b1, kdw, bdw, w2)
     acts = _run(_block_steps(*ins, None, num_heads=num_heads, eps=eps, kernel=False,
                              s_attn=s_attn, s_ffn=s_ffn, op=op), names=_ACTS)
     p = dict(zip(_INPUTS, ins), shape=tuple(x.shape), dt=x.dtype, num_heads=num_heads, eps=eps,
              s_attn=s_attn, s_ffn=s_ffn)
-    return bwd_step_errors(_train_bwd_steps, p, bwd_table(x.contiguous(), go.contiguous(), acts),
-                           op)
+    errs, ref = ffn_bwd_step_errors(p, bwd_table(x.contiguous(), go.contiguous(), acts), True,
+                                    op)
+    return errs + bwd_step_errors(_attn_bwd_steps, p, ref, op)
