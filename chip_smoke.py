@@ -46,10 +46,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the residual, then its whole output) and of ``mixffn_fused`` (LN2 of
      the same blocks) captured at stages 1 and 4 from one plain forward and
      held against their plain versions; ``[ffn]``: the FFN half of rows 1
-     (stages 2, 3) and 8 (stages 1, 4) as one launch against the three
-     launches it replaced, in the order new, old, old, new, device µs
-     queued behind a sleep, beside its bound, two runs bitwise equal
-     (``ffn_phase``); CLIPS clips with the counts held to
+     (stages 2, 3) and 8 (stages 1, 4), and row 9 (``mixffn_fused`` at
+     stages 1, 4: the same launch without its LayerNorm), as one launch
+     against the three launches it replaced, in the order new, old, old,
+     new, device µs queued behind a sleep, beside its bound, two runs
+     bitwise equal (``ffn_phase``); CLIPS clips with the counts held to
      4 / 4 / 2 / 0 per clip (whole block / fused FFN / CFM attention /
      depthwise conv), the logits against ``force="torch"``; then
      ``mixffn_fused``'s own path, ``MixFFN.forward`` in eval mode at the
@@ -95,7 +96,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      equal, and in the default form rows 6 and 7 whole on both routes;
      composed, the depthwise conv with its pre-activation output at the
      four stages; in "ohem" the per-pixel CE pair at N 8 and N 2 (nll, lse,
-     pred and dlogits) and the share of valid pixels that OHEM kept (near 1
+     pred, and dlogits from row 13's own kernel, ``csrc/ce_nll_bwd.cu``)
+     and the share of valid pixels that OHEM kept (near 1
      at thresh 0.7 with random weights), then the OHEM path (rows 12, 13,
      the sort and the threshold) against the plain path on the same
      branches with a margin added to the label class at half the pixels,
@@ -240,7 +242,8 @@ pair's GEMM runs as a Fwd and a Bwd instance); then ``[row14]`` lines (rows 14
 and 12 alone at N 8 and N 2: device µs, exp bound and its share, the library
 calls' µs, a digest of the output), ``[row16]`` and ``[row18]`` lines (the
 phase-layout forwards on row 14's kernel, alike), ``[row17]`` lines (rows 17
-and 13 alone at N 8 and N 2: device µs, exp bound, recompute factor),
+and 13 alone at N 8 and N 2: device µs, exp bound, recompute factor; row 13
+on its own kernel and plan),
 ``[row15]`` and ``[row19]`` lines (the
 phase-layout backwards on row 17's kernel, alike) and
 ``[gemm]`` lines (every block_gemm launch of a default step and a clip: device
@@ -527,8 +530,8 @@ FFN_INFER_KERNELS = {
         replaces="vss_cffm_tpu/ops/mixffn.py:165",
         case=_ffn_fused_case),
     "mixffn_fused": dict(
-        # the same launches without the LayerNorm prologue and the residual
-        sources=["vss_cffm_tpu_torch/csrc/block_gemm.cu", "vss_cffm_tpu_torch/csrc/dwconv.cu"],
+        # the same launch without the LayerNorm prologue and the residual
+        sources=["vss_cffm_tpu_torch/csrc/ffn_fused.cu"],
         replaces="vss_cffm_tpu/ops/mixffn.py:62",  # _kernel, called by mixffn_fused at :234
         # no residual: bf16 a and out rounded at the same points from f32 sums
         # in other orders, one ulp carried through fc2: 2^-6 of the largest
@@ -601,15 +604,16 @@ def _queued_us(fn, iters: int = 20) -> float:
 def ffn_phase(ops, caught: dict, caught_f: dict, smi: str) -> dict:
     """``[ffn]``: the FFN half of each main-path call of rows 1 (stages 2, 3:
     the f32 y from the block's own q, ctx, y launches, its residual) and 8
-    (stages 1, 4 of the fused-FFN path: bf16 x), as one launch
-    (``ffn_fused``) against the three launches it replaced (fc1 with LN,
-    dwconv, fc2 with the residual; the train forward keeps them), in the
-    order new, old, old, new: device µs, the bound of the half's own work
-    (inputs and weights read once, out written once; fc1 and fc2 on the
-    tensor cores) and its share; the launch held against the plain steps at
-    ``FFN_REL`` and two runs bitwise equal; for row 1 also the whole block on
-    both routes (its q, ctx and y launches, then the FFN half), in the same
-    order. Returns {row: [per shape]}."""
+    (stages 1, 4 of the fused-FFN path: bf16 x), and row 9 (``mixffn_fused``
+    at LN2 of the same stage 1, 4 blocks: no LayerNorm, no residual), as one
+    launch (``ffn_fused``) against the three launches it replaced (fc1 with
+    or without LN, dwconv, fc2 with or without the residual; the composed
+    path keeps them), in the order new, old, old, new: device µs, the bound
+    of the half's own work (inputs and weights read once, out written once;
+    fc1 and fc2 on the tensor cores) and its share; the launch held against
+    the plain steps at ``FFN_REL`` and two runs bitwise equal; for row 1 also
+    the whole block on both routes (its q, ctx and y launches, then the FFN
+    half), in the same order. Returns {row: [per shape]}."""
     sb, ff = ops.stage_block, ops.ffn_fused
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = []
@@ -621,6 +625,10 @@ def ffn_phase(ops, caught: dict, caught_f: dict, smi: str) -> dict:
     for args, eps in caught_f["block_ffn_fused"]:
         x = args[0].contiguous()
         cases.append(("block_ffn_fused", x, x.view(-1, x.shape[-1]), args[1:9], eps, None))
+    for mix in caught_f["mixffn_fused"]:  # no gamma, beta: the launch without its LayerNorm
+        cases.append(("mixffn_fused", mix[0].contiguous(), None, (None, None, *mix[1:]), 0.0,
+                      None))
+    names = {"mit_block_fused": "row 1", "block_ffn_fused": "row 8", "mixffn_fused": "row 9"}
     out = {}
     for name, x, res, ffn, eps, attn in cases:
         b, h, w, c = x.shape
@@ -637,10 +645,11 @@ def ffn_phase(ops, caught: dict, caught_f: dict, smi: str) -> dict:
         tol = FFN_REL * want.float().abs().max().item()
         bitwise = torch.equal(got, again)
         ts = [_queued_us(new), _queued_us(old), _queued_us(old), _queued_us(new)]
+        ln = ffn[0] is not None  # LayerNorm and residual: m c 20 more f32 operations
         bound_ms, by = _bound_ms(_nbytes(x, *ffn) + m * c * 2, 2 * m * c * ch * 2,
-                                 m * ch * (18 + 1 + 5) + m * c * 20)
+                                 m * ch * (18 + 1 + 5) + ln * m * c * 20)
         us, old_us = (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
-        row = "row 1" if name == "mit_block_fused" else "row 8"
+        row = names[name]
         block = ""
         if attn is not None:
             def block_new(attn=attn):
@@ -1252,7 +1261,8 @@ OHEM_KERNELS = {
         replaces="vss_cffm_tpu/ops/ce_upsampled.py:106",  # _fwd_kernel, called at :171
         case=_ce_nll_case),
     "ce_upsampled_nll_bwd": dict(
-        sources=["vss_cffm_tpu_torch/csrc/ce_upsampled.cu"],
+        # a kernel of its own: a warp a pixel, the g = 0 pixels skipped
+        sources=["vss_cffm_tpu_torch/csrc/ce_nll_bwd.cu"],
         replaces="vss_cffm_tpu/ops/ce_upsampled.py:192",  # _bwd_kernel, called at :337
         # bf16 dlogits, one rounding of f32 sums in other orders: one ulp
         rel_tol=2.0 ** -7, case=_ce_nll_bwd_case),
@@ -4225,6 +4235,14 @@ def attention_resources(build) -> None:
                   f"{nseg} segments, {ce.CE_BWD_WARPS * 2 * tw * cs * 4} B dynamic smem, "
                   f"{lib.ce_bwd_blocks_per_sm(NUM_CLASSES, tw, cs, layout)} blocks per SM",
                   flush=True)
+        # the per-pixel backward (row 13), its own kernel and plan
+        tw, nseg = ce.ce_nll_bwd_plan(n, 120, 120, NUM_CLASSES, 4, torch.cuda
+                                      .get_device_properties(0).multi_processor_count)
+        nll = build.library("ce_nll_bwd")
+        print(f"[occupancy] ce_nll_bwd (row 13) N={n} C={NUM_CLASSES} s=4: strips of at most "
+              f"{tw}, {nseg} segments, {nll.ce_nll_bwd_smem_bytes(NUM_CLASSES, 4, tw)} B dynamic "
+              f"smem, {nll.ce_nll_bwd_blocks_per_sm(NUM_CLASSES, 4, tw)} blocks per SM",
+              flush=True)
     sra = build.library("sra_attention_bwd")
     for n, hd in ((225, 64), (225, 32)):  # the MiT stages at 480² (B1: heads of 64; B0: 32)
         print(f"[occupancy] sra_attention_bwd S={n} hd={hd}: "
@@ -4496,7 +4514,7 @@ def main() -> int:
             row["eval_480x864"] = eval_stats[f"{name} (480x864)"]
         if name in image_stats:  # rows 1 and 3 at SegFormer-B0's widths there
             row["image_b0_480x864"] = image_stats[name]
-        if name in ffn_half:  # rows 1 and 8: the FFN half alone against the old route
+        if name in ffn_half:  # rows 1, 8, 9: the FFN launch alone against the old route
             row["ffn_half"] = ffn_half[name]
         # rows 6, 7, 10 and 11: the train pairs' FFN half against the old route
         ffn_form = {"mit_block_train": "train", "mit_block_train_bwd": "train",

@@ -13,7 +13,11 @@ microbench's phase-layout backwards and forwards on those two templates
 (rows 15, 19 and 16, 18), pinned to rows 17 and 14 bit for bit; the
 inference FFN launch of rows 1 and 8 (``ops/ffn_fused.py``) at the main
 path's, eval's, TTA's and B0's shapes, with the f32 and the bf16 residual,
-with and without its split, two runs bitwise equal, and its launch count.
+with and without its split, two runs bitwise equal, and its launch count;
+the per-pixel CE backward's own kernel (row 13, ``csrc/ce_nll_bwd.cu``) with
+cotangents zero on whole units, on a scattered half and nowhere; and
+``mixffn_fused`` (row 9) on the FFN launch without its LayerNorm at B1's
+four widths.
 
 Marked ``cuda`` and skipped where no CUDA device is present. On a machine
 with one, from the repository root::
@@ -374,7 +378,7 @@ FFN_SHAPES = [((2, 9, 11, 32), 128), ((1, 7, 13, 160), 640), ((2, 4, 4, 256), 10
 def test_inference_ffn_kernels_match_plain(dev, shape, ch):
     """``block_ffn_fused``: its launch against the plain steps, alone and with
     the residual (``block_ffn_fused_step_errors``), and the three launches it
-    replaced, which ``mixffn_fused`` and the train forward keep, against
+    replaced, which the composed path keeps, against
     theirs (``block_ffn_train_step_errors`` without a scale); then the whole
     output held as out − x; ``mixffn_fused`` whole, 2^-6 of its largest value
     (bf16 a and out rounded at the same points, one ulp carried through
@@ -1047,6 +1051,7 @@ def test_ce_bwd_redesign_matches_plain(dev, monkeypatch, n, h, w, c, s, ldt, pla
     if plan is not None:
         g_, cpl = ce.ce_bwd_groups(c)
         monkeypatch.setattr(ce, "ce_bwd_plan", lambda *a: (plan[0], plan[1], g_ * cpl + 1))
+        monkeypatch.setattr(ce, "ce_nll_bwd_plan", lambda *a: plan)
     rng = np.random.RandomState(50 + c)
     x = _rand(rng, n, h, w, c, scale=2.0, dev=dev)
     lab = _labels(rng, n, h * s, w * s, c, ldt, dev)
@@ -1066,6 +1071,75 @@ def test_ce_bwd_redesign_matches_plain(dev, monkeypatch, n, h, w, c, s, ldt, pla
         again = run("kernel")
         torch.cuda.synchronize()
         assert torch.equal(got, again), row
+
+
+# (N, h, w, C, s, label dtype, forced (tw, nseg) or None): the "ohem" step's
+# two branches, ragged maps at s 2 / 4 / 8, C 19 / 124 / 150 / 256, and
+# forced plans (strips of 3 and 1 column, segments of 1 and 2 rows)
+CE_NLL_BWD_CASES = [
+    (8, 120, 120, 124, 4, torch.uint8, None), (2, 120, 120, 124, 4, torch.int32, None),
+    (2, 37, 53, 124, 2, torch.uint8, None), (1, 37, 53, 150, 8, torch.int32, None),
+    (2, 37, 53, 19, 2, torch.uint8, None), (1, 21, 19, 256, 4, torch.uint8, None),
+    (3, 13, 7, 124, 4, torch.uint8, (3, 6)), (2, 9, 10, 40, 2, torch.int32, (1, 9)),
+    (1, 11, 13, 123, 3, torch.uint8, (2, 5)),
+]
+
+
+def _nll_cotangent(rng, lab, c, pattern, dev):
+    """A per-pixel cotangent: 0 on ignored labels and on the pixels of
+    ``pattern`` — "units": whole bands of output rows and columns, so that
+    every pixel of some units is 0; "half": a scattered half; "none": 0
+    nowhere (not even on the ignored labels, whose safe class is 0)."""
+    n, hh, ww = lab.shape
+    g = _rand(rng, n, hh, ww, dtype=torch.float32, dev=dev)
+    if pattern == "none":
+        return g
+    g = g * (lab.long() < c)
+    if pattern == "units":
+        g[:, : hh // 2] = 0.0
+        g[:, :, ww // 3: 2 * ww // 3] = 0.0
+    else:
+        g = g * torch.from_numpy(rng.rand(n, hh, ww) < 0.5).to(dev)
+    return g
+
+
+@pytest.mark.parametrize("n,h,w,c,s,ldt,plan", CE_NLL_BWD_CASES)
+def test_ce_nll_bwd_kernel_matches_plain(dev, monkeypatch, n, h, w, c, s, ldt, plan):
+    """Row 13's kernel against its plain version for each cotangent pattern
+    (``_nll_cotangent``), bf16 dlogits to 2^-7 of the largest (one rounding of
+    f32 sums in other orders), labels with 255 and ≥ C; two runs bitwise
+    equal; one launch a call."""
+    ce = ops.ce_upsampled
+    if plan is not None:
+        monkeypatch.setattr(ce, "ce_nll_bwd_plan", lambda *a: plan)
+    rng = np.random.RandomState(60 + c + s)
+    x = _rand(rng, n, h, w, c, scale=2.0, dev=dev)
+    lab = _labels(rng, n, h * s, w * s, c, ldt, dev)
+    lse = ops.ce_upsampled_nll(x, lab, s, force="torch")[2].contiguous()
+    for pattern in ("units", "half", "none"):
+        g = _nll_cotangent(rng, lab, c, pattern, dev)
+        before = ops.ce_upsampled_nll_bwd.launches
+        got = ops.ce_upsampled_nll_bwd(x, lab, lse, g, s, force="kernel")
+        again = ops.ce_upsampled_nll_bwd(x, lab, lse, g, s, force="kernel")
+        assert ops.ce_upsampled_nll_bwd.launches == before + 2
+        _close(got, ops.ce_upsampled_nll_bwd(x, lab, lse, g, s, force="torch"), 2.0 ** -7)
+        assert torch.equal(got, again), pattern
+
+
+def test_ce_nll_bwd_smem_is_the_kernels(dev):
+    """``ce_nll_bwd_smem`` equals the kernel's layout, and the step's plan
+    holds at least 3 blocks an SM."""
+    from vss_cffm_tpu_torch.ops import _build
+
+    ce = ops.ce_upsampled
+    lib = _build.library("ce_nll_bwd")
+    for c in (19, 40, 123, 124, 150, 256):
+        for s in (1, 2, 3, 4, 8):
+            for tw in range(1, ce.ce_nll_bwd_strip_max(c) + 1):
+                assert lib.ce_nll_bwd_smem_bytes(c, s, tw) == ce.ce_nll_bwd_smem(c, s, tw)
+    for n in (8, 2):
+        tw, _ = ce.ce_nll_bwd_plan(n, 120, 120, 124, 4, 132)
+        assert lib.ce_nll_bwd_blocks_per_sm(124, 4, tw) >= 3
 
 
 # (N, h, w, C, s, label dtype, forced strip width): the train step's two
@@ -1778,6 +1852,40 @@ def test_ffn_fused_launch_matches_plain(dev, b, h, w, c, ch, xdt, forced):
         again = ff.ffn_fused_launch(x, *args[1:], 1e-6, r, "t", plan=plan)
         _close(got, _plain_ffn(args, res), 2.0 ** -6)
         assert torch.equal(got, again)
+
+
+# (B, H, W, C, Ch, forced (rows, cols, hc, splits) or None): B1's four widths
+# at their 480x480 maps, clips of 4 frames, and ragged maps with forced
+# splits
+MIXFFN_CASES = [
+    (4, 120, 120, 64, 256, None), (4, 60, 60, 128, 512, None), (4, 30, 30, 320, 1280, None),
+    (4, 15, 15, 512, 2048, None), (2, 9, 11, 64, 256, (2, 5, 32, 3)),
+    (1, 7, 13, 320, 1280, (4, 4, 64, 2)), (1, 5, 3, 512, 2048, (2, 2, 64, 4)),
+]
+
+
+@pytest.mark.parametrize("b,h,w,c,ch,forced", MIXFFN_CASES)
+def test_mixffn_fused_launch_matches_plain(dev, monkeypatch, b, h, w, c, ch, forced):
+    """Row 9 as the FFN launch without the LayerNorm or a residual, against
+    ``mixffn_fused_torch`` at 2^-6 of the largest output (bf16 a and out at
+    the same points, one ulp carried through fc2), two runs bitwise equal,
+    one count a call."""
+    ff = ops.ffn_fused
+    if forced is not None:
+        rows, cols, hc, splits = forced
+        nch = -(-ch // hc)
+        per = -(-nch // splits)
+        plan = ff.FfnPlan(rows, cols, hc, -(-nch // per), per, ff.ffn_fused_smem(rows, cols, c, hc))
+        monkeypatch.setattr(ff, "ffn_fused_plan", lambda *a: plan)
+    rng = np.random.RandomState(23)
+    args = _ffn_inputs(rng, b, h, w, c, ch, BF16)
+    mix = (args[0], *args[3:])
+    before = ops.mixffn_fused.launches
+    got = ops.mixffn_fused(*mix, force="kernel")
+    again = ops.mixffn_fused(*mix, force="kernel")
+    assert ops.mixffn_fused.launches == before + 2
+    _close(got, ops.mixffn.mixffn_fused_torch(*mix), 2.0 ** -6)
+    assert torch.equal(got, again)
 
 
 def test_ffn_fused_smem_is_the_kernels(dev):

@@ -1,4 +1,4 @@
-"""PyTorch port, on the CPU: the inference FFN launch of rows 1 and 8
+"""PyTorch port, on the CPU: the inference FFN launch of rows 1, 8 and 9
 (``ops/ffn_fused.py``, ``csrc/ffn_fused.cu``). Its planner at every geometry
 the segmentor feeds the two rows (B1 at 480x480 and 480x864, test-time
 augmentation's scales, the B0, B2 and B5 widths, SegFormer-B0), its tiles
@@ -6,7 +6,9 @@ covering each output pixel once, and a plain-torch replay of the kernel's
 decomposition (tiles of rows x columns with their one-pixel halo, chunks of
 hidden channels, splits over blocks summed in split order) against the
 port's plain FFN and the JAX package's XLA twins ``block_ffn_xla`` and,
-through the port's plain attention steps, ``mit_block_xla``."""
+through the port's plain attention steps, ``mit_block_xla``; without the
+LayerNorm and the residual (row 9) against ``mixffn_fused_torch``, the JAX
+``mixffn_fused`` in interpret mode and ``mixffn_xla``."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from torch_port_common import few_threads  # noqa: F401  (fixture)
+from vss_cffm_tpu.ops import mixffn as jax_mixffn
 from vss_cffm_tpu.ops.mixffn import block_ffn_xla
 from vss_cffm_tpu.ops.stage_block import mit_block_xla
 from vss_cffm_tpu_torch import config as pcfg
@@ -68,6 +71,7 @@ def _path_geometries() -> list:
 PATH_GEOMETRIES = _path_geometries()
 _block_ffn_xla = jax.jit(block_ffn_xla, static_argnames=("eps",))
 _mit_block_xla = jax.jit(mit_block_xla, static_argnames=("num_heads", "eps"))
+_mixffn_xla = jax.jit(jax_mixffn.mixffn_xla)
 
 
 @pytest.mark.parametrize("b,h,w,c,ch", PATH_GEOMETRIES)
@@ -106,14 +110,15 @@ def _plan(rows, cols, c, ch, hc, splits):
 
 def replay(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps, res, plan, dt):
     """The kernel's decomposition in plain torch: per split and tile, the LN
-    of the tile and its halo in dt (zeros outside the image), per chunk of
+    of the tile and its halo in dt (without gamma x itself in dt; zeros
+    outside the image), per chunk of
     hidden channels fc1 of the halo in f32 + b1, zero outside the image, the
     taps in (di, dj) order + bdw, GELU, a in dt, fc2's f32 partial added into
     the tile's accumulator; the splits' partials summed in split order, then
     b2, then the residual, one cast to dt."""
     b, h, w, c = x.shape
     ch = w1.shape[1]
-    ln = sb._ln_f32(x.float(), gamma.float(), beta.float(), eps).to(dt)
+    ln = (x if gamma is None else sb._ln_f32(x.float(), gamma.float(), beta.float(), eps)).to(dt)
     w1d, w2d = w1.to(dt).float(), w2.to(dt).float()
     taps = kdw.reshape(9, ch).float()
     nch = -(-ch // plan.hc)
@@ -221,6 +226,42 @@ def test_block_replay_matches_mit_block_xla(shape, nh, forced):
     want = torch.from_numpy(np.array(_mit_block_xla(*map(_jax, args), num_heads=nh, eps=1e-6)))
     x = args[0]
     assert (got - want).abs().max().item() <= 1e-4 * (want - x).abs().max().item()
+
+
+# (b, h, w, c, ch, forced plan or None): B1's stage-1 and stage-4 widths at
+# ragged maps, with and without a split
+MIXFFN_REPLAY_CASES = [
+    ((1, 7, 9, 64, 256), (3, 4, 32, 1)),
+    ((2, 5, 6, 64, 256), (2, 3, 64, 3)),
+    ((1, 3, 5, 512, 2048), None),
+]
+
+
+@pytest.mark.parametrize("shape,forced", MIXFFN_REPLAY_CASES)
+def test_mixffn_tiling_replay_matches_plain_and_jax(shape, forced):
+    """Row 9 on the launch without the LayerNorm or a residual: the replay
+    (``replay`` with gamma None) against ``mixffn_fused_torch``, the JAX
+    ``mixffn_fused`` in interpret mode and ``mixffn_xla``, f32 within 1e-5 of
+    the largest output (sums in other orders: per chunk, per split); bf16
+    against ``mixffn_fused_torch`` within 2^-6 (the same rounding points: fc1
+    in bf16 with f32 sums, the hidden map in f32, a in bf16, fc2 in f32 + b2,
+    out in bf16; a rounding of a may flip one ulp and carry through fc2)."""
+    b, h, w, c, ch = shape
+    plan = ff.ffn_fused_plan(b, h, w, c, ch, H100_SMS) if forced is None else _plan(
+        forced[0], forced[1], c, ch, forced[2], forced[3])
+    rng = np.random.RandomState(5)
+    for dt, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -6)):
+        args = _inputs(rng, b, h, w, c, ch, dt)
+        mix = (args[0], *args[3:])
+        got = replay(args[0], None, None, *args[3:], 0.0, None, plan, dt)
+        want = mixffn.mixffn_fused_torch(*mix)
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= rel * scale
+        if dt == torch.float32:
+            for jax_out in (jax_mixffn.mixffn_fused(*map(_jax, mix), interpret=True),
+                            _mixffn_xla(*map(_jax, mix))):
+                assert (got - torch.from_numpy(np.array(jax_out))).abs().max().item() <= \
+                    rel * scale
 
 
 def test_launch_gates():

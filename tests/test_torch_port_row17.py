@@ -1,5 +1,6 @@
-"""PyTorch port, on the CPU: the plans of the redesigned upsampled-CE backward
-(rows 13 and 17) and MiT-block GEMM (``block_gemm``, rows 1 and 6-11).
+"""PyTorch port, on the CPU: the plans of the redesigned upsampled-CE backwards
+(row 17, and row 13's own kernel) and MiT-block GEMM (``block_gemm``, rows 1
+and 6-11).
 
 - ``ce_upsampled.ce_bwd_plan`` / ``ce_bwd_units``: at ragged maps (37×53,
   13×7, ...) and s 2, 4, 8, every output row belongs to one segment, every
@@ -11,10 +12,16 @@
   kernel's window arithmetic), so no share is lost to a race.
 - A plain-torch replay of that decomposition (units, column windows with the
   edge shares, rows written whole or as partials, the combine pass) against
-  the JAX ``_ce_bwd_loss_pallas5`` and ``_ce_bwd_pallas`` in interpret mode,
-  and against the port's plain backward at s 2 and 8: f32, 1e-5 of the
-  largest value (the same terms summed in another order).
-- The recompute factor at the train step's shapes is at most 1.2.
+  the JAX ``_ce_bwd_loss_pallas5`` in interpret mode, and against the port's
+  plain backward at s 2 and 8; row 13's (``ce_nll_bwd_units``: each unit
+  writes its own source pixels from its output rows and columns and their
+  halo) against the JAX ``_ce_bwd_pallas`` in interpret mode and the port's
+  plain backward at ragged maps, s 2 and 4 (s 8 in
+  ``test_torch_port_row13.py``), with cotangents zero on whole units, on a
+  scattered half and nowhere: f32, 1e-5 of the largest value (the same terms
+  summed in another order).
+- The recompute factor at the train step's shapes: at most 1.2 for row 17,
+  1.4 for row 13 (its halo rows and columns).
 - ``stage_block.block_gemm_plan`` at every launch shape of the B0 and B1
   inference and train paths: shared memory within the card's 227 KB, N
   covered by whole slabs, and no resident A deeper than its 512 columns (the
@@ -28,8 +35,9 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
-from torch_port_common import (ce_bwd_plans, ce_inputs, close_to_largest, col_shares,
-                               phase_coeff, replay, row_shares, unit_rows)
+from torch_port_common import (ce_bwd_plans, ce_inputs, ce_nll_bwd_plans, close_to_largest,
+                               col_shares, nll_replay_case, phase_coeff, replay, replay_nll,
+                               row_shares, unit_rows)
 
 from vss_cffm_tpu.ops import ce_upsampled as jax_ce
 from vss_cffm_tpu_torch.ops import ce_upsampled as ce
@@ -146,27 +154,17 @@ def test_replay_matches_the_loss_backward_pallas_interpret():
                       img_w=img_w), want)
 
 
-def test_replay_matches_the_per_pixel_backward_pallas_interpret():
-    """Row 13's decomposition against ``_ce_bwd_pallas`` (f32), both from the
-    same lse (the plain forward's), with a per-pixel cotangent that is 0 on a
-    share of the pixels."""
-    n, h, w, c, s = 1, 6, 10, 19, 4
-    logits, labels, rng = ce_inputs(n, h, w, c, s, 2)
-    g = (rng.randn(*labels.shape) * (rng.rand(*labels.shape) < 0.7)).astype(np.float32)
-    lse = ce.ce_upsampled_nll_torch(torch.from_numpy(logits), torch.from_numpy(labels), s)[2]
-    want = np.asarray(jax_ce._ce_bwd_pallas(
-        jnp.asarray(logits), jax_ce.labels_to_phase(jnp.asarray(labels), s),
-        jax_ce.labels_to_phase(jnp.asarray(lse.numpy()), s),
-        jax_ce.labels_to_phase(jnp.asarray(g), s), s, c, interpret=True))
-    for plan in ce_bwd_plans(n, h, w, c, s):
-        close_to_largest(replay(torch.from_numpy(logits), torch.from_numpy(labels), s, plan,
-                      g=torch.from_numpy(g), lse=lse), want)
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("pattern", ["units", "half", "none"])
+def test_replay_matches_the_per_pixel_backward_pallas_interpret(s, pattern):
+    """``nll_replay_case`` at s 2 and 4 (s 8: ``test_torch_port_row13.py``)."""
+    nll_replay_case(s, pattern)
 
 
 @pytest.mark.parametrize("s", [2, 8])
 def test_replay_matches_the_plain_backward_at_ragged_maps(s):
-    """At 13×11 (ragged strips and segments) and s 2, 8: the decomposition of
-    both rows against the port's plain backwards in f32."""
+    """At 13×11 (ragged strips and segments) and s 2, 8: the decompositions
+    of both rows against the port's plain backwards in f32."""
     n, h, w, c = 2, 13, 11, 23
     logits, labels, rng = ce_inputs(n, h, w, c, s, 3 + s)
     x, lab = torch.from_numpy(logits), torch.from_numpy(labels)
@@ -178,21 +176,25 @@ def test_replay_matches_the_plain_backward_at_ragged_maps(s):
     want13 = ce.ce_upsampled_nll_bwd_torch(x, lab, lse, g, s)
     for plan in ce_bwd_plans(n, h, w, c, s):
         close_to_largest(replay(x, lab, s, plan, g=0.9, img_w=img_w), want17)
-        close_to_largest(replay(x, lab, s, plan, g=g, lse=lse), want13)
+    for plan in ce_nll_bwd_plans(n, h, w, c, s):
+        close_to_largest(replay_nll(x, lab, s, plan, g=g, lse=lse), want13)
 
 
 def test_recompute_factor_at_the_train_step():
-    """Exps executed over C × the pixels that need them: ≤ 1.2 at N 8 and N 2
-    (row 17 counts every pixel of its lane groups' runs, ignored ones too)."""
+    """Exps executed over C × the pixels that need them at N 8 and N 2: row
+    17 ≤ 1.2 (it counts every pixel of its lane groups' runs, ignored ones
+    too), row 13 ≤ 1.4 (its units' halo rows and columns; pixels with g = 0
+    cost none)."""
     rng = np.random.RandomState(0)
     for n in (8, 2):
         lab = torch.from_numpy(rng.randint(0, 124, (n, 480, 480)).astype(np.uint8))
         lab[torch.from_numpy(rng.rand(n, 480, 480) < 0.05)] = 255
-        plan = ce.ce_bwd_plan(n, 120, 120, 124, 4, 132)
         valid = lab.long() < 124
-        f17 = ce.ce_bwd_exps(lab, 124, 4, plan, False) / (124 * int(valid.sum()))
-        f13 = ce.ce_bwd_exps(valid, 124, 4, plan, True) / (124 * int(valid.sum()))
-        assert 1.0 <= f13 <= f17 <= 1.2, (n, f13, f17)
+        f17 = ce.ce_bwd_exps(lab, 124, 4, ce.ce_bwd_plan(n, 120, 120, 124, 4, 132), False) / (
+            124 * int(valid.sum()))
+        f13 = ce.ce_bwd_exps(valid, 124, 4, ce.ce_nll_bwd_plan(n, 120, 120, 124, 4, 132),
+                             True) / (124 * int(valid.sum()))
+        assert 1.0 <= f17 <= 1.2 and 1.0 <= f13 <= 1.4, (n, f13, f17)
 
 
 def _gemm_launches(variant: str, frames: int, train: bool):

@@ -335,6 +335,80 @@ def replay(logits, labels, s, plan, **kw) -> torch.Tensor:
     return out
 
 
+def replay_nll(logits, labels, s, plan, g, lse) -> torch.Tensor:
+    """f32 dlogits of row 13 built unit by unit as its kernel builds them
+    (``ce_nll_bwd_units``): each unit's output rows and columns, their row
+    and column shares (``row_shares``, ``col_shares``) restricted to the
+    unit's own source rows and columns, each source pixel written once by
+    its unit; no partials. ``labels`` natural (N, H, W)."""
+    n, h, w, c = logits.shape
+    t = ce_terms(logits, labels, s, g=g, lse=lse)
+    out = torch.full((n, h, w, c), float("nan"))
+    seen = torch.zeros((n, h, w), dtype=torch.int32)
+    for f0, k_lo, k_hi, v0, v1, ya, yb, xa, xb in ce.ce_nll_bwd_units(n, h, w, s, plan):
+        mr = torch.zeros(yb - ya, k_hi - k_lo)
+        for i, y in enumerate(range(ya, yb)):
+            for r, wt in row_shares(y, s, h):
+                if k_lo <= r < k_hi:
+                    mr[i, r - k_lo] += float(wt)
+        mc = torch.zeros(xb - xa, v1 - v0)
+        for i, x in enumerate(range(xa, xb)):
+            for col, wt in col_shares(x, s, w):
+                if v0 <= col < v1:
+                    mc[i, col - v0] += float(wt)
+        out[f0, k_lo:k_hi, v0:v1] = torch.einsum("yr,yxc,xv->rvc", mr, t[f0, ya:yb, xa:xb], mc)
+        seen[f0, k_lo:k_hi, v0:v1] += 1
+    assert (seen == 1).all()
+    return out
+
+
+def nll_cotangent(rng, shape, pattern: str) -> np.ndarray:
+    """A per-pixel cotangent (N, H, W) f32: 0 on whole bands of output rows
+    and columns, so that every pixel of some units is 0 ("units"), on a
+    scattered half ("half"), or nowhere ("none")."""
+    g = rng.randn(*shape).astype(np.float32)
+    if pattern == "units":
+        g[:, : shape[1] // 2] = 0.0
+        g[:, :, shape[2] // 3: 2 * shape[2] // 3] = 0.0
+    elif pattern == "half":
+        g *= rng.rand(*shape) < 0.5
+    return g
+
+
+# (h, w) of the per-pixel replay by scale: ragged (odd w), and small where
+# the interpreted JAX kernel unrolls s² phases (s 8: ~18 s to trace)
+NLL_REPLAY_MAPS = {2: (6, 11), 4: (4, 7), 8: (2, 5)}
+
+
+def nll_replay_case(s: int, pattern: str) -> None:
+    """Row 13's decomposition (its own kernel's units) against
+    ``_ce_bwd_pallas`` (f32) and the port's plain backward, all from the same
+    lse (the plain forward's), at ``NLL_REPLAY_MAPS[s]`` with a per-pixel
+    cotangent of the pattern (``nll_cotangent``)."""
+    from vss_cffm_tpu.ops import ce_upsampled as jax_ce
+
+    (h, w), n, c = NLL_REPLAY_MAPS[s], 1, 19
+    logits, labels, rng = ce_inputs(n, h, w, c, s, 2 + s)
+    g = nll_cotangent(rng, labels.shape, pattern)
+    x, lab = torch.from_numpy(logits), torch.from_numpy(labels)
+    lse = ce.ce_upsampled_nll_torch(x, lab, s)[2]
+    want = np.asarray(jax_ce._ce_bwd_pallas(
+        jnp.asarray(logits), jax_ce.labels_to_phase(jnp.asarray(labels), s),
+        jax_ce.labels_to_phase(jnp.asarray(lse.numpy()), s),
+        jax_ce.labels_to_phase(jnp.asarray(g), s), s, c, interpret=True))
+    plain = ce.ce_upsampled_nll_bwd_torch(x, lab, lse, torch.from_numpy(g), s)
+    close_to_largest(plain, want)
+    for plan in ce_nll_bwd_plans(n, h, w, c, s):
+        close_to_largest(replay_nll(x, lab, s, plan, g=torch.from_numpy(g), lse=lse), want)
+
+
+def ce_nll_bwd_plans(n, h, w, c, s):
+    """Row 13's plan on the card, strips of 3 columns in segments of 2 rows,
+    and strips of one column in one-row segments (a halo row for every
+    row)."""
+    return [ce.ce_nll_bwd_plan(n, h, w, c, s, 132), (3, h // 2), (1, h)]
+
+
 def ce_bwd_plans(n, h, w, c, s):
     """The plan the card takes, strips of 3 columns in segments of 2 rows (a
     ragged last strip, partials at every boundary), and strips of one column."""

@@ -12,9 +12,6 @@
 //       up[safe label], pred = the first maximum (torch's tie order) and lse,
 //       f32 / int32 / f32 in natural (N, H, W) layout, for OHEM and class
 //       weights, whose per-pixel weights the caller applies;
-//   _ce_bwd_pallas (_bwd_kernel): dlogits = the adjoint of the upsample
-//       applied to g[p] * (exp(up - lse[p]) - onehot(safe label)) with a
-//       per-pixel cotangent g and the forward's lse;
 //   _ce_bwd_loss_pallas (_bwd_loss_kernel) and _ce_bwd_loss_pallas3
 //       (_bwd_loss_kernel3): the loss's backward with f32 dlogits and uint8
 //       labels in the TPU kernels' phase layouts, h-major (N, h, s*s, w) and
@@ -26,7 +23,8 @@
 //       loop (s 1..8, coefficients in f32 from the phase index).
 // In the loss pair a label is valid when 0 <= label < C; the per-pixel pair
 // picks class 0 for a label outside [0, C) (the safe label) and leaves its
-// weight to the caller's g, as the TPU kernels do. Output row Y = s*k + p of the
+// weight to the caller's g, as the TPU kernels do; its backward (row 13) is
+// csrc/ce_nll_bwd.cu. Output row Y = s*k + p of the
 // upsample reads source rows clamp(k + d_p) and clamp(k + d_p + 1) with
 // weights (1 - f_p, f_p), d_p = (p + 0.5)/s - 0.5 floored to -1 or 0 and
 // f_p = d_p - delta_p (ce_upsampled.py:57-64); columns likewise. Edge
@@ -37,9 +35,8 @@
 // but every output pixel takes C exps: 228.5 M exp per pass, which the
 // MUFU (16 per SM per clock) needs ~60 us for. So the kernels are bound by
 // operations, the exps and the warp reductions around them.
-// The per-pixel pair does the same exps and writes 12 B per output pixel
-// (nll, pred, lse; ~22 MB at the train step), reading lse and g back in the
-// backward: still bound by the exps.
+// The per-pixel forward does the same exps and writes 12 B per output pixel
+// (nll, pred, lse; ~22 MB at the train step): still bound by the exps.
 // Forward (rows 12 and 14; rows 16 and 18, the same kernel with w-major
 // labels): each output pixel's softmax is computed once, by G = 8 lanes of
 // 16 contiguous classes at C 124, in units of (frame, band of 32 / G output
@@ -51,8 +48,8 @@
 // the band's labels are read from as they are staged (phase_row, phase_col)
 // and, for row 18, in the phase coefficients' rule, so at s 2 and 4 they
 // give row 14's (wsum, corr) bit for bit on the same labels.
-// Backward (rows 13 and 17; rows 15 and 19, the same kernel with phase
-// labels and f32 out): each output pixel's softmax is computed once for its
+// Backward (row 17; rows 15 and 19, the same kernel with phase labels and
+// f32 out): each output pixel's softmax is computed once for its
 // strip of source columns (a recompute of s/2 output columns at each strip
 // edge only, ~1.06x at the train step), by G = 8 lanes (16 classes a lane at
 // C 124), so the max and the sum take 3 shuffles; the column adjoint stays
@@ -161,24 +158,19 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
 }
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 
-// PIXEL = false: the loss's backward, t = img_w * g[0] * (softmax(up) -
-// onehot) on the valid pixels. PIXEL = true: the per-pixel backward, t =
-// g[p] * (exp(up - lse[p]) - onehot(safe label)) on every pixel whose g is
-// not 0 (a zero g adds exactly 0: exp(up - lse) <= 1). Every exp runs for
-// all of a lane's classes, masked by a product with 0 or 1 past C, its
-// argument clamped to <= 0 (a no-op for a class in [0, C): up <= max <= lse):
-// written as `c < C ? expf(..) : 0` each exp sat in its own branch and the
-// 16 of a lane could not overlap. LAYOUT: the labels' layout (a phase layout
-// only for the loss); O: dlogits' type, bf16 (rows 13, 17) or f32 (rows 15,
-// 19). loop_coeffs: the phase coefficients in f32 from the phase index, as
-// the TPU's runtime phase loop takes them (row 19), else Coeffs.
-template <int G, int CPL, typename L, bool PIXEL, int LAYOUT, typename O>
+// The loss's backward, t = img_w * g[0] * (softmax(up) - onehot) on the
+// valid pixels. Every exp runs for all of a lane's classes, masked by a
+// product with 0 or 1 past C, its argument clamped to <= 0 (a no-op for a
+// class in [0, C): up <= max): written as `c < C ? expf(..) : 0` each exp
+// sat in its own branch and the 16 of a lane could not overlap. LAYOUT: the
+// labels' layout; O: dlogits' type, bf16 (row 17) or f32 (rows 15, 19).
+// loop_coeffs: the phase coefficients in f32 from the phase index, as the
+// TPU's runtime phase loop takes them (row 19), else Coeffs.
+template <int G, int CPL, typename L, int LAYOUT, typename O>
 __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
     const __nv_bfloat16* __restrict__ x, const L* __restrict__ labels,
-    const float* __restrict__ g, const float* __restrict__ lse, O* __restrict__ out,
-    float* __restrict__ part, int N, int h, int w, int C, int s, float img_w, int tw, int nseg,
-    int cs, int loop_coeffs) {
-  static_assert(LAYOUT == kNatural || !PIXEL, "phase labels: the loss's backward only");
+    const float* __restrict__ g, O* __restrict__ out, float* __restrict__ part, int N, int h,
+    int w, int C, int s, float img_w, int tw, int nseg, int cs, int loop_coeffs) {
   constexpr int NG = 32 / G;
   extern __shared__ float acc_all[];
   __shared__ float sf[kMaxScale];
@@ -216,7 +208,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
   float* A = acc_all + (size_t)warp * 2 * tw * cs;  // [row & 1][col - v0][class]
   for (int i = lane; i < 2 * tw * cs; i += 32) A[i] = 0.f;
   __syncwarp();
-  const float ct = PIXEL ? 0.f : g[0] * img_w;
+  const float ct = g[0] * img_w;
 
   // write source row r (all its strip columns) and clear its slot
   auto emit = [&](int r) {
@@ -273,7 +265,6 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
     for (int j = 0; j < CPL; ++j) acc0[j] = acc1[j] = 0.f;
     const int Xl = min(X, W - 1);
     int lab = (int)lrow[LAYOUT == kNatural ? Xl : phase_col<LAYOUT>(v, pw, w, s)];
-    float gp = PIXEL ? g[prow + Xl] : ct, ls = PIXEL ? lse[prow + Xl] : 0.f;
     for (int jx = 0; jx < run; ++jx, ++X) {
       // the next pixel's column phase and inputs, and the window's next
       // column when it slides after this pixel
@@ -286,7 +277,6 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
       const bool slide = more && vn + sd[pwn] > wc;
       const int Xn = more ? X + 1 : min(X, W - 1);
       const int lab_n = (int)lrow[LAYOUT == kNatural ? Xn : phase_col<LAYOUT>(vn, pwn, w, s)];
-      const float gp_n = PIXEL ? g[prow + Xn] : ct, ls_n = PIXEL ? lse[prow + Xn] : 0.f;
       if (slide) {
         const __nv_bfloat16* p0 = x0 + (long long)clampi(wc + 2, 0, w - 1) * C;
         const __nv_bfloat16* p1 = x1 + (long long)clampi(wc + 2, 0, w - 1) * C;
@@ -311,39 +301,25 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
         wa = wl + fw;
         wb = 0.f;
       }
-      if constexpr (PIXEL) {
-        const int label = lab < 0 || lab >= C ? 0 : lab;
-        if (live && gp != 0.f) {
+      float m = -3.402823466e38f;
 #pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            const int c = gl + G * j;
-            const float e = expf(fminf(up[j] - ls, 0.f)) * (c < C ? 1.f : 0.f);
-            const float t = gp * (e - (c == label ? 1.f : 0.f));
-            acc0[j] += wa * t;
-            acc1[j] += wb * t;
-          }
-        }
-      } else {
-        float m = -3.402823466e38f;
+      for (int j = 0; j < CPL; ++j) m = fmaxf(m, gl + G * j < C ? up[j] : -3.402823466e38f);
+      m = group_max<G>(m);
+      float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) m = fmaxf(m, gl + G * j < C ? up[j] : -3.402823466e38f);
-        m = group_max<G>(m);
-        float sum = 0.f;
+      for (int j = 0; j < CPL; ++j) {
+        up[j] = expf(fminf(up[j] - m, 0.f)) * (gl + G * j < C ? 1.f : 0.f);
+        sum += up[j];
+      }
+      sum = group_sum<G>(sum);
+      if (live && lab >= 0 && lab < C) {
+        const float rs = vss::recip(sum);
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
-          up[j] = expf(fminf(up[j] - m, 0.f)) * (gl + G * j < C ? 1.f : 0.f);
-          sum += up[j];
-        }
-        sum = group_sum<G>(sum);
-        if (live && lab >= 0 && lab < C) {
-          const float rs = vss::recip(sum);
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            const int c = gl + G * j;
-            const float t = gp * (vss::div_rn(up[j], sum, rs) - (c == lab ? 1.f : 0.f));
-            acc0[j] += wa * t;
-            acc1[j] += wb * t;
-          }
+          const int c = gl + G * j;
+          const float t = ct * (vss::div_rn(up[j], sum, rs) - (c == lab ? 1.f : 0.f));
+          acc0[j] += wa * t;
+          acc1[j] += wb * t;
         }
       }
       if (slide) {
@@ -360,8 +336,6 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 3) ce_bwd_kernel(
       v = vn;
       pw = pwn;
       lab = lab_n;
-      gp = gp_n;
-      ls = ls_n;
       __syncwarp();
     }
     // the window's last two columns, even groups first: a group whose run
@@ -396,26 +370,24 @@ __global__ void ce_bwd_combine_kernel(const float* __restrict__ part, O* __restr
   }
 }
 
-template <int G, int CPL, typename L, bool PIXEL, int LAYOUT, typename O>
-int launch_bwd_gc(const void* x, const void* labels, const void* g, const void* lse, void* out,
-                  void* part, int N, int h, int w, int C, int s, float img_w, int tw, int nseg,
+template <int G, int CPL, typename L, int LAYOUT, typename O>
+int launch_bwd_gc(const void* x, const void* labels, const void* g, void* out, void* part, int N, int h, int w, int C, int s, float img_w, int tw, int nseg,
                   int cs, int loop_coeffs, cudaStream_t st) {
   const long long units = (long long)N * nseg * ((w + tw - 1) / tw);
   const unsigned blocks = (unsigned)((units + kBwdWarps - 1) / kBwdWarps);
   const size_t bytes = (size_t)kBwdWarps * 2 * tw * cs * sizeof(float);
   static bool attr = false;  // one instance per template: set its limit once
   if (!attr) {
-    cudaError_t e = cudaFuncSetAttribute(ce_bwd_kernel<G, CPL, L, PIXEL, LAYOUT, O>,
+    cudaError_t e = cudaFuncSetAttribute(ce_bwd_kernel<G, CPL, L, LAYOUT, O>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
   auto* ob = static_cast<O*>(out);
   auto* pb = static_cast<float*>(part);
-  ce_bwd_kernel<G, CPL, L, PIXEL, LAYOUT, O><<<blocks, 32 * kBwdWarps, bytes, st>>>(
+  ce_bwd_kernel<G, CPL, L, LAYOUT, O><<<blocks, 32 * kBwdWarps, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const L*>(labels),
-      static_cast<const float*>(g), static_cast<const float*>(lse), ob, pb, N, h, w, C, s, img_w,
-      tw, nseg, cs, loop_coeffs);
+      static_cast<const float*>(g), ob, pb, N, h, w, C, s, img_w, tw, nseg, cs, loop_coeffs);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || nseg < 2) return (int)e;
   const long long total = (long long)N * (nseg - 1) * 2 * w * C;
@@ -427,13 +399,13 @@ int launch_bwd_gc(const void* x, const void* labels, const void* g, const void* 
 
 // classes: G lanes a pixel, CPL classes a lane (ops/ce_upsampled.py
 // ce_bwd_groups has the same table)
-template <typename L, bool PIXEL, int LAYOUT = kNatural, typename O = __nv_bfloat16>
-int launch_bwd(const void* x, const void* labels, const void* g, const void* lse, void* out,
-               void* part, int N, int h, int w, int C, int s, float img_w, int tw, int nseg,
-               int cs, cudaStream_t st, int loop_coeffs = 0) {
+template <typename L, int LAYOUT = kNatural, typename O = __nv_bfloat16>
+int launch_bwd(const void* x, const void* labels, const void* g, void* out, void* part, int N,
+               int h, int w, int C, int s, float img_w, int tw, int nseg, int cs, cudaStream_t st,
+               int loop_coeffs = 0) {
 #define VSS_CE_BWD(G, K) \
-  return launch_bwd_gc<G, K, L, PIXEL, LAYOUT, O>(x, labels, g, lse, out, part, N, h, w, C, s, \
-                                                  img_w, tw, nseg, cs, loop_coeffs, st)
+  return launch_bwd_gc<G, K, L, LAYOUT, O>(x, labels, g, out, part, N, h, w, C, s, img_w, tw, \
+                                           nseg, cs, loop_coeffs, st)
   if (C <= 32) VSS_CE_BWD(4, 8);
   if (C <= 64) VSS_CE_BWD(8, 8);
   if (C <= 128) VSS_CE_BWD(8, 16);
@@ -458,10 +430,10 @@ int bwd_blocks(Kernel kernel, size_t bytes) {
 template <int G, int CPL>
 int bwd_occupancy(size_t bytes, int layout) {
   if (layout == kHMajor)
-    return bwd_blocks(ce_bwd_kernel<G, CPL, unsigned char, false, kHMajor, float>, bytes);
+    return bwd_blocks(ce_bwd_kernel<G, CPL, unsigned char, kHMajor, float>, bytes);
   if (layout == kWMajor)
-    return bwd_blocks(ce_bwd_kernel<G, CPL, unsigned char, false, kWMajor, float>, bytes);
-  return bwd_blocks(ce_bwd_kernel<G, CPL, unsigned char, false, kNatural, __nv_bfloat16>, bytes);
+    return bwd_blocks(ce_bwd_kernel<G, CPL, unsigned char, kWMajor, float>, bytes);
+  return bwd_blocks(ce_bwd_kernel<G, CPL, unsigned char, kNatural, __nv_bfloat16>, bytes);
 }
 
 // the plan's checks: a strip of 1..64 columns, segments of at least 2 rows
@@ -1023,10 +995,10 @@ VSS_EXPORT int ce_bwd_loss(const void* logits, const void* labels, const void* g
   if (s < 1 || s > kMaxScale || C < 1 || !bwd_plan_ok(h, C, tw, nseg, cs, part))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return labels_i32 ? launch_bwd<int, false>(logits, labels, g, nullptr, out, part, N, h, w, C,
-                                             s, img_w, tw, nseg, cs, st)
-                    : launch_bwd<unsigned char, false>(logits, labels, g, nullptr, out, part, N,
-                                                       h, w, C, s, img_w, tw, nseg, cs, st);
+  return labels_i32 ? launch_bwd<int>(logits, labels, g, out, part, N, h, w, C, s, img_w, tw,
+                                      nseg, cs, st)
+                    : launch_bwd<unsigned char>(logits, labels, g, out, part, N, h, w, C, s, img_w,
+                                                tw, nseg, cs, st);
 }
 
 // dlogits (N, h, w, C) f32 of ce_bwd_loss's function with uint8 labels in a
@@ -1043,12 +1015,12 @@ VSS_EXPORT int ce_bwd_loss_phase(const void* logits, const void* labels, const v
   if (s < 1 || s > kMaxScale || C < 1 || !bwd_plan_ok(h, C, tw, nseg, cs, part))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return w_major ? launch_bwd<unsigned char, false, kWMajor, float>(
-                       logits, labels, g, nullptr, out, part, N, h, w, C, s, img_w, tw, nseg, cs,
-                       st, loop_coeffs)
-                 : launch_bwd<unsigned char, false, kHMajor, float>(
-                       logits, labels, g, nullptr, out, part, N, h, w, C, s, img_w, tw, nseg, cs,
-                       st, loop_coeffs);
+  return w_major ? launch_bwd<unsigned char, kWMajor, float>(logits, labels, g, out, part, N, h,
+                                                              w, C, s, img_w, tw, nseg, cs, st,
+                                                              loop_coeffs)
+                 : launch_bwd<unsigned char, kHMajor, float>(logits, labels, g, out, part, N, h,
+                                                              w, C, s, img_w, tw, nseg, cs, st,
+                                                              loop_coeffs);
 }
 
 // Blocks of the loss's backward one SM holds at C classes with the plan's
@@ -1081,22 +1053,4 @@ VSS_EXPORT int ce_fwd_nll(const void* logits, const void* labels, void* nll, voi
                                             0.f, 0, tw, st)
                     : launch_fwd<unsigned char, true>(logits, labels, nullptr, nll, pred, lse, N,
                                                       h, w, C, s, 0.f, 0, tw, st);
-}
-
-// dlogits (N, h, w, C) bf16 for the per-pixel cotangent g_nll (N, h*s, w*s)
-// f32 of ce_fwd_nll's nll, from its lse; the plan (tw, nseg, cs) and part
-// as for ce_bwd_loss.
-VSS_EXPORT int ce_bwd_nll(const void* logits, const void* labels, const void* lse,
-                          const void* g_nll, void* out, void* part, int N, int h, int w, int C,
-                          int s, int labels_i32, int tw, int nseg, int cs, int device,
-                          void* stream) {
-  vss::use_device(device);
-  if ((long long)N * h * w == 0) return 0;
-  if (s < 1 || s > kMaxScale || C < 1 || !bwd_plan_ok(h, C, tw, nseg, cs, part))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return labels_i32 ? launch_bwd<int, true>(logits, labels, g_nll, lse, out, part, N, h, w, C, s,
-                                            0.f, tw, nseg, cs, st)
-                    : launch_bwd<unsigned char, true>(logits, labels, g_nll, lse, out, part, N,
-                                                      h, w, C, s, 0.f, tw, nseg, cs, st);
 }

@@ -1,11 +1,12 @@
 // The FFN half of a MiT block at inference in one launch:
 //
-//     out = bf16( [res] + [s] · ( bf16( GELU( dw3x3( mask( LN(x)·W1 + b1 ) ) + bdw ) ) · W2 + b2 ) )
+//     out = bf16( [res] + [s] · ( bf16( GELU( dw3x3( mask( [LN](x)·W1 + b1 ) ) + bdw ) ) · W2 + b2 ) )
 //
 // x (B, H, W, C) bf16 or f32, the FFN's input; res (B·H·W, C) bf16, f32 or
 // none; s (B,) f32, the per-frame branch scale of training (stochastic
 // depth), or none; W1 (C, Ch) and W2 (Ch, C) bf16 row-major; b1, bdw (Ch,),
-// the taps (9, Ch) and b2 (C,) f32.
+// the taps (9, Ch) and b2 (C,) f32; gamma and beta (C,) f32, or none: then
+// fc1 reads x itself (rounded to bf16), the MixFFN alone.
 //
 // Replaces the FFN half of the TPU kernels vss_cffm_tpu/ops/stage_block.py:
 // _kernel (:134-150: LN2 → fc1 → masked hidden map → 3x3 depthwise → GELU →
@@ -14,7 +15,9 @@
 // block_ffn_fused) and with it (row 10: _block_ffn_fwd_scaled, the forward
 // of the block-FFN train pair, and the FFN half of row 6, the whole block's
 // train forward, where the JAX kernels keep nothing for the backward and
-// neither does this launch). All keep the hidden map in VMEM. The port's earlier
+// neither does this launch), and vss_cffm_tpu/ops/mixffn.py:_kernel (:62,
+// row 9: mixffn_fused, no LayerNorm, no residual). All keep the hidden map
+// in VMEM. The port's earlier
 // route wrote it to device memory in f32 (block_gemm), read it back for the
 // depthwise pass (dwconv.cu), wrote a in bf16 and read a again for fc2: at
 // B1 stage 2 ~107 MB a clip's pair of blocks, for ~11 MB of inputs and
@@ -30,9 +33,10 @@
 //    band and strip of a frame shorter). It computes the LayerNorm of the
 //    tile and its one-pixel halo (f32 statistics, two passes as
 //    block_gemm.cu; a pixel's channels on a power-of-two group of lanes, 4
-//    passes of a warp's pixels with their loads in flight) and keeps it in
-//    shared memory in bf16, 64-column chunks, XOR-swizzled; halo pixels
-//    outside the image are zeros and flagged.
+//    passes of a warp's pixels with their loads in flight), or without gamma
+//    takes x as it is, and keeps it in shared memory in bf16, 64-column
+//    chunks, XOR-swizzled; halo pixels outside the image are zeros and
+//    flagged.
 //  - The block walks the hidden channels in chunks of hc (64 or 32; a split
 //    walks its own run of chunks). For each chunk: fc1 over the halo tile
 //    on wgmma m64n{hc}k16 (A, the LN rows, by ldmatrix into registers; B,
@@ -268,8 +272,10 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_fused_kernel(const Args p) {
   // ---- LayerNorm of the halo tile → bf16 in shared memory ----------------
   // A pixel's C / 8 chunks of 8 lie on lpr lanes (at most two a lane), so a
   // warp normalises 32 / lpr pixels a pass, LN_PASSES passes with their loads
-  // in flight; the statistics are reduced over the lpr lanes
+  // in flight; the statistics are reduced over the lpr lanes. Without gamma
+  // the tile is x itself (no statistics)
   {
+    const bool ln = p.gamma != nullptr;
     const int c8 = C / 8;
     int lpr = 1;
     while (lpr < 32 && lpr * 2 < c8) lpr *= 2;
@@ -283,7 +289,7 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_fused_kernel(const Args p) {
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int ck = sl + lpr * q;
-      if (ck < c8) {
+      if (ln && ck < c8) {
         vss::load8(p.gamma + ck * 8, gm[q]);
         vss::load8(p.beta + ck * 8, bt[q]);
       } else {
@@ -318,26 +324,29 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_fused_kernel(const Args p) {
 #pragma unroll
       for (int u = 0; u < LN_PASSES; ++u) {
         const int pp = p0 + u * ppw + sub;
-        float sum = 0.f;
+        float mean = 0.f, rstd = 1.f;
+        if (ln) {  // the same for every lane of the block
+          float sum = 0.f;
 #pragma unroll
-        for (int q = 0; q < 2; ++q)
+          for (int q = 0; q < 2; ++q)
 #pragma unroll
-          for (int i = 0; i < 8; ++i) sum += v[u][q][i];
-        for (int o = lpr / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        const float mean = sum / C;
-        float sq = 0.f;
+            for (int i = 0; i < 8; ++i) sum += v[u][q][i];
+          for (int o = lpr / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+          mean = sum / C;
+          float sq = 0.f;
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          if (sl + lpr * q < c8) {
+          for (int q = 0; q < 2; ++q) {
+            if (sl + lpr * q < c8) {
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const float d = v[u][q][i] - mean;
-              sq += d * d;
+              for (int i = 0; i < 8; ++i) {
+                const float d = v[u][q][i] - mean;
+                sq += d * d;
+              }
             }
           }
+          for (int o = lpr / 2; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+          rstd = rsqrtf(sq / C + p.eps);
         }
-        for (int o = lpr / 2; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-        const float rstd = rsqrtf(sq / C + p.eps);
         if (pp < prow) {
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
@@ -346,7 +355,9 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_fused_kernel(const Args p) {
               float o[8];
 #pragma unroll
               for (int i = 0; i < 8; ++i)
-                o[i] = ok[u] ? (v[u][q][i] - mean) * rstd * gm[q][i] + bt[q][i] : 0.f;
+                o[i] = !ok[u] ? 0.f
+                       : ln   ? (v[u][q][i] - mean) * rstd * gm[q][i] + bt[q][i]
+                              : v[u][q][i];
               const int k = ck * 8;
               vss::store8(lns + (k >> 6) * prow * 64 + vss::swz<64>(pp, k & 63), o);
             }
@@ -665,7 +676,8 @@ VSS_EXPORT int ffn_fused_smem_bytes(int rows, int cols, int c, int hc) {
   return smem_of(rows, cols, c, hc);
 }
 
-// x (B, H, W, C) bf16 or f32 (x_f32); gamma, beta (C,) f32; w1 (C, Ch) bf16;
+// x (B, H, W, C) bf16 or f32 (x_f32); gamma, beta (C,) f32, or both null (no
+// LayerNorm: fc1 reads x rounded to bf16); w1 (C, Ch) bf16;
 // b1 (Ch,), kdw (9, Ch), bdw (Ch,) f32; w2 (Ch, C) bf16; b2 (C,) f32; scale
 // (B,) f32, the branch's per-frame factor, or null; res
 // (B·H·W, C): none (res_kind 0), bf16 (1) or f32 (2); out (B·H·W, C) bf16;

@@ -30,8 +30,8 @@ __all__ = ["library", "build_all", "check", "ptxas_usage", "SOURCES", "BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("dwconv", "attention", "block_gemm", "attention_bwd", "ce_upsampled", "gemm_tn",
-           "block_bwd", "sra_attention_bwd", "ffn_fused", "ffn_bwd")
+SOURCES = ("dwconv", "attention", "block_gemm", "attention_bwd", "ce_upsampled", "ce_nll_bwd",
+           "gemm_tn", "block_bwd", "sra_attention_bwd", "ffn_fused", "ffn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -75,7 +75,11 @@ _SIGNATURES = {
         "ce_fwd_smem_bytes": "iiii",
         "ce_fwd_blocks_per_sm": "iiii",
         "ce_fwd_phase_blocks_per_sm": "iii",
-        "ce_bwd_nll": "ppppppiiiiiiiiiip",
+    },
+    "ce_nll_bwd": {
+        "ce_nll_bwd": "ppppp" + "i" * 9 + "p",
+        "ce_nll_bwd_smem_bytes": "iii",
+        "ce_nll_bwd_blocks_per_sm": "iii",
     },
     "gemm_tn": {
         "gemm_tn": "ppppiiiiiip",

@@ -21,11 +21,11 @@ layouts, which answered TPU tiling questions; the port takes natural labels.
 The forward (and the per-pixel one below) runs on a plan of strips of source
 columns and bands of output rows (``ce_fwd_plan``, its units
 ``ce_fwd_units``): each output pixel's softmax is computed exactly once.
-The backward (and the per-pixel one below) runs on a plan of strips of
-source columns and segments of source rows (``ce_bwd_plan``, its units
-``ce_bwd_units``, the exps they execute ``ce_bwd_exps``): each output
-pixel's softmax is computed once for its strip, and the two source rows at
-each segment boundary meet as f32 partials added in a fixed order.
+The backward runs on a plan of strips of source columns and segments of
+source rows (``ce_bwd_plan``, its units ``ce_bwd_units``, the exps they
+execute ``ce_bwd_exps``): each output pixel's softmax is computed once for
+its strip, and the two source rows at each segment boundary meet as f32
+partials added in a fixed order.
 
 ``ce_upsampled_loss_torch`` / ``ce_upsampled_loss_bwd_torch`` are the plain
 versions: an f32 ``F.interpolate``, ``logsumexp − picked``; the backward
@@ -43,9 +43,15 @@ respect to ``logits``: the backward ``ce_upsampled_nll_bwd(logits, labels,
 lse, g_nll, s)`` applies the adjoint of the upsample to ``g_nll·(exp(up −
 lse) − onehot(safe))`` with the forward's lse. Its CUDA kernels replace the
 TPU kernels ``_ce_fwd_pallas`` (``_fwd_kernel``), which writes the same three
-maps in a phase layout, and ``_ce_bwd_pallas`` (``_bwd_kernel``);
-``ce_upsampled_nll_torch`` / ``ce_upsampled_nll_bwd_torch`` are the plain
-versions.
+maps in a phase layout (the forward's kernel and plan above), and
+``_ce_bwd_pallas`` (``_bwd_kernel``) with a kernel of its own
+(``csrc/ce_nll_bwd.cu``): a warp a unit of (frame, segment of source rows,
+strip of source columns) from ``ce_nll_bwd_plan`` / ``ce_nll_bwd_units``,
+one output pixel at a time across the warp's lanes, so that a pixel whose
+cotangent is 0 costs no exp; each unit computes the s//2 output rows and
+columns beyond its own on each side and writes only its own source pixels,
+so no partial sums meet. ``ce_upsampled_nll_torch`` /
+``ce_upsampled_nll_bwd_torch`` are the plain versions.
 
 The CE microbench's variants (``tools/bench_ce.py``) take the labels in the
 TPU kernels' phase layouts, h-major (N, h, s², w) (``labels_to_phase``) or
@@ -95,7 +101,8 @@ __all__ = ["ce_upsampled_loss", "ce_upsampled_loss_bwd", "ce_upsampled_loss_torc
            "labels_to_phase", "labels_to_phase_w", "phase_to_natural", "ce_bwd_loss_v2",
            "ce_fwd_loss_v5", "ce_fwd_loss_v3", "ce_bwd_loss_v3", "phase_labels_u8",
            "ce_bwd_groups", "ce_bwd_plan", "ce_bwd_units", "ce_bwd_exps", "ce_bwd_coeffs",
-           "ce_label_index", "ce_fwd_plan", "ce_fwd_units", "ce_fwd_smem"]
+           "ce_label_index", "ce_fwd_plan", "ce_fwd_units", "ce_fwd_smem", "ce_nll_bwd_plan",
+           "ce_nll_bwd_units", "ce_nll_bwd_smem", "ce_nll_bwd_strip_max"]
 
 # classes one warp lane holds: a warp covers up to 32·CPL classes
 _MAX_CLASSES = 256
@@ -252,22 +259,29 @@ def ce_bwd_units(n: int, h: int, w: int, c: int, s: int, plan: tuple) -> list:
 
 
 def ce_bwd_exps(live: torch.Tensor, c: int, s: int, plan: tuple, pixel: bool) -> int:
-    """The exps the backward executes for its inputs, labels or g of shape
-    (N, H, W) → live (N, H, W) bool: with ``pixel`` (row 13) C at each live
-    pixel (g ≠ 0) of each unit that computes it; else (row 17) C at every
-    column of every lane group's run, idle and ignored pixels included (the
-    softmax's shuffles run in lockstep)."""
+    """The exps a backward executes for its inputs, labels or g of shape
+    (N, H, W) → live (N, H, W) bool: with ``pixel`` (row 13, ``plan`` from
+    ``ce_nll_bwd_plan``) C at each live pixel (g ≠ 0) of each unit that
+    computes it (a pixel with g = 0 is skipped by the whole warp); else (row
+    17, ``plan`` from ``ce_bwd_plan``) C at every column of every lane
+    group's run, idle and ignored pixels included (the softmax's shuffles run
+    in lockstep)."""
     n, hh, ww = live.shape
     h, w = hh // s, ww // s
-    units = ce_bwd_units(n, h, w, c, s, plan)
     if not pixel:
         return c * sum(s * (k1 - k0) * (32 // ce_bwd_groups(c)[0]) * run
-                       for _, k0, k1, _, _, _, _, run in units)
-    mult = torch.zeros(ww, dtype=torch.long)
-    for f, k0, _, _, _, xa, xb, _ in units:
-        if f == 0 and k0 == 0:            # one row of strips: every strip once
-            mult[xa:xb] += 1
-    return c * int((live.cpu().long().sum(dim=(0, 1)) * mult).sum())
+                       for _, k0, k1, _, _, _, _, run in ce_bwd_units(n, h, w, c, s, plan))
+    # units are segments x strips: a pixel's count is its row's segments
+    # times its column's strips
+    rows = torch.zeros(hh, dtype=torch.long)
+    cols = torch.zeros(ww, dtype=torch.long)
+    for f, k0, _, v0, _, ya, yb, xa, xb in ce_nll_bwd_units(n, h, w, s, plan):
+        if f == 0 and v0 == 0:
+            rows[ya:yb] += 1
+        if f == 0 and k0 == 0:
+            cols[xa:xb] += 1
+    per = live.cpu().long().sum(dim=0)
+    return c * int((per * rows[:, None] * cols[None, :]).sum())
 
 
 def ce_bwd_coeffs(s: int, loop: bool = False) -> list[tuple[int, float]]:
@@ -307,6 +321,81 @@ def ce_label_index(layout: str, n: int, h: int, w: int, s: int) -> torch.Tensor:
     if layout == "w-major":
         return (f * h + k) * w * s * s + ph * s + (v * s * s + pw)
     raise ValueError(f"label layout {layout!r} (natural, h-major or w-major)")
+
+
+# ---- the per-pixel backward's plan (csrc/ce_nll_bwd.cu, row 13) --------------
+#
+# A unit (one warp) owns the source rows [k_lo, k_hi) of a segment and the
+# source columns [v0, v1) of a strip of one frame. It computes every output
+# pixel whose bilinear weights reach them, output rows [s·k_lo − s//2,
+# s·k_hi + s//2) and columns [s·v0 − s//2, s·v1 + s//2) clipped to the map,
+# one pixel at a time across its lanes, keeps the shares of its own source
+# pixels and writes them once: the s//2 output rows and columns on each side
+# are computed again by the neighbouring units, and nothing is summed
+# across units.
+
+# units (warps) a block
+CE_NLL_BWD_WARPS = 4
+
+
+def ce_nll_bwd_strip_max(c: int) -> int:
+    """The widest strip the kernel takes at c classes (its instances' TW: the
+    row adjoint of two source rows at TW columns sits in 2·TW·CPL registers
+    a lane, CPL 4 at C ≤ 128, else 8)."""
+    return 7 if c <= 128 else 3
+
+
+def ce_nll_bwd_smem(c: int, s: int, tw: int) -> int:
+    """Bytes of dynamic shared memory a block of the per-pixel backward takes
+    (the kernel's ``warp_bytes``, four warps), for P = s·(tw + 1) output
+    columns: a ring of three source rows of tw + 2 columns of C bf16, each
+    from the 16-byte boundary at or before its first byte, ((tw + 2)·C·2 +
+    14) rounded up to 16; a finished source row on its way out, f32 [tw][128
+    at C ≤ 128, else 256: every lane's classes]; the columns' table, 16 B a
+    column; an output row's list of live pixels, 20 B a column rounded up to
+    16; the next row's g, lse and labels, 12·P + 16 B rounded up to 16."""
+    r16 = lambda b: -(-b // 16) * 16
+    p = s * (tw + 1)
+    ring = ((tw + 2) * c * 2 + 14 + 15) // 16 * 16
+    at = 3 * ring + tw * (128 if c <= 128 else 256) * 4 + 16 * p + r16(20 * p) + r16(12 * p + 16)
+    return CE_NLL_BWD_WARPS * at
+
+
+@functools.lru_cache(maxsize=None)
+def ce_nll_bwd_plan(n: int, h: int, w: int, c: int, s: int, sms: int) -> tuple[int, int]:
+    """(tw, nseg) of the per-pixel backward: strips of the widest tw the
+    kernel takes at c classes (``ce_nll_bwd_strip_max``: narrower strips
+    recompute more output columns, (tw + 1) / tw), and nseg segments of
+    source rows a frame: the count with the least estimated time, blocks an
+    SM (at least 2, the 8 warps that keep an SM's pipes fed) times a unit's
+    rows plus one (its recomputed halo rows); ties go to fewer segments."""
+    tw = min(ce_nll_bwd_strip_max(c), w)
+    nstrip = -(-w // tw)
+    best = None
+    for nseg in range(1, h + 1):
+        blocks = -(-n * nstrip * nseg // CE_NLL_BWD_WARPS)
+        cost = max(-(-blocks // sms), 2) * (-(-h // nseg) + 1)
+        if best is None or cost < best[0]:
+            best = (cost, nseg)
+    return tw, best[1]
+
+
+def ce_nll_bwd_units(n: int, h: int, w: int, s: int, plan: tuple) -> list:
+    """Each unit of the per-pixel backward in the kernel's order (strips
+    fastest): (frame, k_lo, k_hi, v0, v1, ya, yb, xa, xb), writing source
+    rows [k_lo, k_hi) at columns [v0, v1) from the output rows [ya, yb) and
+    columns [xa, xb). The ⌈w / tw⌉ strips and the nseg segments each split
+    their side evenly."""
+    tw, nseg = plan
+    nstrip, hs = -(-w // tw), s // 2
+    units = []
+    for u in range(n * nseg * nstrip):
+        strip, seg, f = u % nstrip, u // nstrip % nseg, u // nstrip // nseg
+        k_lo, k_hi = seg * h // nseg, (seg + 1) * h // nseg
+        v0, v1 = strip * w // nstrip, (strip + 1) * w // nstrip
+        units.append((f, k_lo, k_hi, v0, v1, max(0, s * k_lo - hs), min(h * s, s * k_hi + hs),
+                      max(0, s * v0 - hs), min(w * s, s * v1 + hs)))
+    return units
 
 
 # ---- the forward's plan (csrc/ce_upsampled.cu ce_fwd_kernel) ----------------
@@ -548,11 +637,11 @@ def ce_upsampled_nll_bwd(logits: torch.Tensor, labels: torch.Tensor, lse: torch.
     ls = lse.detach().to(torch.float32).contiguous()
     g = g_nll.detach().to(torch.float32).contiguous()
     out = torch.empty_like(logits)
-    (tw, nseg, cs), part = _bwd_plan(logits, s)
+    tw, nseg = ce_nll_bwd_plan(n, h, w, c, s, sm_count(logits))
     dev, stream = stream_of(logits)
-    rc = _build.library("ce_upsampled").ce_bwd_nll(
-        ptr(logits, op), ptr(labels, op), ptr(ls, op), ptr(g, op), ptr(out, op), ptr(part, op), n,
-        h, w, c, s, lbl32, tw, nseg, cs, dev, stream)
+    rc = _build.library("ce_nll_bwd").ce_nll_bwd(
+        ptr(logits, op), ptr(labels, op), ptr(ls, op), ptr(g, op), ptr(out, op), n, h, w, c, s,
+        lbl32, tw, nseg, dev, stream)
     _build.check(rc, op)
     ce_upsampled_nll_bwd.launches += 1
     return out

@@ -1,12 +1,13 @@
 """The FFN half of a MiT block at inference as one launch
 (``csrc/ffn_fused.cu``):
 
-    out = bf16([res] + [s]·(bf16(GELU(dw3×3(mask(LN(x)·W1 + b1)) + bdw))·W2 + b2))
+    out = bf16([res] + [s]·(bf16(GELU(dw3×3(mask([LN](x)·W1 + b1)) + bdw))·W2 + b2))
 
 x (B, H, W, C) is the FFN's input (f32 y in the whole block, bf16 x in
-``block_ffn_fused`` and ``block_ffn_train``); ``res`` the residual (the same
-tensor, or none); ``scale`` (B,) the per-frame branch scale of training
-(stochastic depth), or none at inference. The
+``block_ffn_fused``, ``block_ffn_train`` and ``mixffn_fused``); ``res`` the
+residual (the same tensor, or none); ``scale`` (B,) the per-frame branch
+scale of training (stochastic depth), or none at inference; gamma and beta
+none for the MixFFN alone (``mixffn_fused``: fc1 reads x as it is). The
 hidden map (f32) and the GELU output a (bf16) never reach device memory: a
 block owns a tile of ``rows`` x ``cols`` output pixels of one frame, keeps
 the LayerNorm of the tile and its one-pixel halo in shared memory in bf16,
@@ -23,7 +24,8 @@ It replaces the FFN half of the TPU kernels
 ``vss_cffm_tpu/ops/stage_block.py:_kernel`` (:134-150, row 1 of ``PERF.md``'s
 table) and of ``_train_fwd_kernel`` (row 6, with the scale), and
 ``vss_cffm_tpu/ops/mixffn.py:_kernel_ln`` without a scale (row 8) and with it
-(row 10), with their rounding points (``ops/stage_block.py:_ffn_fwd_steps``'s
+(row 10), and ``_kernel`` (row 9, no LayerNorm and no residual), with their
+rounding points (``ops/stage_block.py:_ffn_fwd_steps``'s
 plain steps): LN statistics in f32, the LN output rounded to bf16, the hidden
 map in f32, the nine taps in the plain version's (di, dj) order, exact erf
 GELU, a in bf16, fc2 summed in f32, then b2, then the scale, then the
@@ -214,10 +216,11 @@ def ffn_fused_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                      res: torch.Tensor | None, op: str,
                      plan: FfnPlan | None = None,
                      scale: torch.Tensor | None = None) -> torch.Tensor:
-    """out (M, C) bf16 = [res] + [scale]·FFN(LN(x)) on the card; x (B, H, W,
-    C) bf16 or f32, contiguous; res (M, C) bf16 or f32, or None; scale (B,)
-    per frame, or None. ``plan`` replaces ``ffn_fused_plan``'s (the card
-    tests force splits and ragged tiles)."""
+    """out (M, C) bf16 = [res] + [scale]·FFN([LN](x)) on the card; x (B, H,
+    W, C) bf16 or f32, contiguous; gamma and beta (C,), or both None (no
+    LayerNorm); res (M, C) bf16 or f32, or None; scale (B,) per frame, or
+    None. ``plan`` replaces ``ffn_fused_plan``'s (the card tests force splits
+    and ragged tiles)."""
     require(x.dim() == 4 and x.dtype in (_BF16, _F32) and x.is_cuda, op,
             lambda: f"FFN input {x.dtype} {tuple(x.shape)} on {x.device} (bf16 or f32 NHWC)")
     b, h, w, c = x.shape
@@ -235,7 +238,8 @@ def ffn_fused_launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         res_kind = {_BF16: 1, _F32: 2}[res.dtype]
     # the operands in the kernel's dtypes, held until the launch is queued: a
     # converted copy freed earlier could be handed to the next allocation
-    f32 = lambda t: t.to(device=dev, dtype=_F32).contiguous()
+    require((gamma is None) == (beta is None), op, "gamma and beta: both or neither")
+    f32 = lambda t: None if t is None else t.to(device=dev, dtype=_F32).contiguous()
     bf = lambda t: t.to(device=dev, dtype=_BF16).contiguous()
     held = (f32(gamma), f32(beta), bf(w1), f32(b1), f32(kdw.reshape(9, ch)), f32(bdw), bf(w2),
             f32(b2))

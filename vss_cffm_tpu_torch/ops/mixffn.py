@@ -44,9 +44,14 @@ grad.
   the residual; the port follows the kernel. The plain version runs the
   train forward's three steps without the scale.
 - ``mixffn_fused(x, w1, b1, kdw, bdw, w2, b2, force)`` = GELU(dw3×3(x·W1 +
-  b1) + bdw)·W2 + b2 replaces ``mixffn_fused`` (``_kernel``): three launches
-  (fc1 and fc2 on ``block_gemm``, the depthwise conv + GELU on ``dwconv``),
-  the hidden map in f32, the output in x's dtype.
+  b1) + bdw)·W2 + b2 replaces ``mixffn_fused`` (``_kernel``) with the same
+  launch (``ffn_fused_launch`` without the LayerNorm, the residual or a
+  scale: one launch, two where the plan splits the hidden channels). Its
+  rounding points are ``_kernel``'s: fc1 in bf16 with f32 sums, the hidden
+  map in f32, a in bf16, fc2 in f32 + b2, out in x's dtype (bf16 on the
+  card). The three launches it replaced (fc1 and fc2 on ``block_gemm``, the
+  depthwise conv + GELU on ``dwconv``) stay the composed and train paths'
+  steps (``stage_block._ffn_fwd_steps``).
 
 In the MiT block with ``dwconv_impl="fused"`` the FFN half of every block
 that ``block_impl`` does not fuse takes ``block_ffn_fused`` at inference, so
@@ -118,8 +123,8 @@ def _block_ffn_fused_op(x: Tensor, gamma: Tensor, beta: Tensor, w1: Tensor, b1: 
 
 def _ffn_launch(x, gamma, beta, w1, b1, kdw, bdw, w2, b2, eps: float, residual: bool,
                 op: str, scale=None) -> torch.Tensor:
-    """[x] + [scale]·FFN(LN(x)) in one launch (x bf16 NHWC, its own
-    residual)."""
+    """[x] + [scale]·FFN([LN](x)) in one launch (x bf16 NHWC, its own
+    residual; gamma None: no LayerNorm)."""
     require(x.dim() == 4 and x.dtype == torch.bfloat16, op,
             f"x {x.dtype} {tuple(x.shape)} (bf16 NHWC only)")
     x = x.contiguous()
@@ -150,11 +155,10 @@ def mixffn_fused_torch(x, w1, b1, kdw, bdw, w2, b2) -> torch.Tensor:
 def _mixffn_fused_op(x: Tensor, w1: Tensor, b1: Tensor, kdw: Tensor, bdw: Tensor, w2: Tensor,
                      b2: Tensor, force: Optional[str]) -> Tensor:
     op = "mixffn_fused"
-    kernel = use_kernel(force, x, op)
-    out = _forward(x, None, None, w1, b1, kdw, bdw, w2, b2, None, 0.0, kernel, op,
-                   residual=False)["out"]
-    if kernel:
-        mixffn_fused.launches += 1
+    if not use_kernel(force, x, op):
+        return mixffn_fused_torch(x, w1, b1, kdw, bdw, w2, b2)
+    out = _ffn_launch(x, None, None, w1, b1, kdw, bdw, w2, b2, 0.0, False, op)
+    mixffn_fused.launches += 1
     return out
 
 

@@ -227,10 +227,10 @@ def _ffn_fwd_steps(g2, be2, w1, b1, kdw, bdw, w2, b2, s_ffn, eps: float, shape, 
     and of the inference FFN ops in ``ops/mixffn.py``): y is the FFN's input
     and residual, (M, C) f32 or in x's dtype. Without g2 fc1 reads y as it
     is (no LayerNorm), and ``out(a, None)`` adds no residual. On the card
-    these are three launches (fc1 with LN, dwconv, fc2), which ``mixffn_fused``
-    runs; with g2 the kernel steps add ``ffn(y, res)``, the whole half as one
-    launch (``ffn_fused``, with the branch scale), which every block route
-    runs."""
+    these are three launches (fc1 with LN, dwconv, fc2); with g2 the kernel
+    steps add ``ffn(y, res)``, the whole half as one launch (``ffn_fused``,
+    with the branch scale), which every block route runs (``mixffn_fused``
+    runs that launch without the LayerNorm)."""
     b, h, w, c = shape
     ch = w1.shape[1]
     m = b * h * w

@@ -14,9 +14,10 @@ line each (``[row17]`` for rows 17 and 13, ``[row15]``, ``[row19]``): device
 µs per call (torch.profiler over ``--iters`` calls: the kernel and its
 boundary pass), the bound (C exps per valid pixel, or per pixel with g ≠ 0,
 at the MUFU rate of 16 a clock on 132 SMs at 1.98 GHz), and, where the
-tree's kernel runs on the strip plan (``ce_bwd_plan``; for rows 15 and 19
-the trees with ``ce_label_index``), the recompute factor: the exps the kernel
-executes over C × those pixels; and a digest of the row's dlogits (for rows
+tree's kernel runs on a strip plan (``ce_bwd_plan``; for row 13 its own
+``ce_nll_bwd_plan`` where the tree has it; for rows 15 and 19 the trees with
+``ce_label_index``), the recompute factor: the exps the kernel executes over
+C × those pixels; and a digest of the row's dlogits (for rows
 15 and 19 also of their bf16 rounding, which is row 17's result at these
 inputs), so that two trees' outputs compare bit for bit. Uses only what
 older trees of the port also have, so the same file times an older checkout
@@ -102,8 +103,9 @@ def measure(n: int, iters: int = 5) -> list[dict]:
     for row in ROWS:
         factor = None
         if planned[row]:
-            plan = ce.ce_bwd_plan(n, *HW, C, S, torch.cuda.get_device_properties(0)
-                                  .multi_processor_count)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            plan = (ce.ce_nll_bwd_plan if row == 13 and hasattr(ce, "ce_nll_bwd_plan")
+                    else ce.ce_bwd_plan)(n, *HW, C, S, sms)
             exps = ce.ce_bwd_exps(live[row] if row == 13 else lab, C, S, plan, row == 13)
             factor = exps / (C * int(live[row].sum()))
         out = calls[row]()
@@ -123,7 +125,7 @@ def format_row(r: dict) -> str:
             + (f", bf16 {r['bf16_digest']}" if r["bf16_digest"] else ""))
 
 
-# the line's tag: rows 17 and 13 share row 17's code and tag
+# the line's tag (row 13 keeps row 17's, so that older trees' lines match)
 TAGS = {17: 17, 13: 17, 15: 15, 19: 19}
 
 
